@@ -1,0 +1,208 @@
+"""Quantizable op entry points (port of ``repro/quant/qops.py``).
+
+Every linear operation the paper can quantize — linear layers (``L_lin``) and
+the batched GEMMs inside attention (``L_BGEMM``) — goes through
+:func:`qeinsum`. A :class:`QuantContext` selects the execution mode:
+
+* ``plain`` — high-precision (BF16) execution;
+* ``mp``    — operands of op ``name`` are fake-quantized to the assigned
+              format (``impl="simulate"``) or stored in it and dequantized at
+              use (``impl="native"``).
+
+Probe mode (sensitivity calibration) and ``impl="pallas"``'s counterpart, the
+fp8 GEMM kernels, belong to the calibration slice; asking for either raises.
+When ``ctx.registry`` is a list, every op records an :class:`OpInfo`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.quant import qtensor
+from repro_torch.quant.formats import get_format
+
+__all__ = ["QuantContext", "OpInfo", "qeinsum", "linear", "bgemm",
+           "einsum_f32acc"]
+
+KIND_LINEAR = "linear"   # rhs is a weight tensor (persistent)
+KIND_BGEMM = "bgemm"     # both operands are activations
+_IMPLS = ("simulate", "native")
+
+
+@dataclasses.dataclass(frozen=True)
+class OpInfo:
+    """Static description of one quantizable op occurrence."""
+
+    name: str
+    kind: str                 # linear | bgemm
+    spec: str                 # einsum spec
+    lhs_shape: tuple
+    rhs_shape: tuple
+    out_shape: tuple
+    macs: int                 # multiply-accumulates for one evaluation
+    weight_elems: int         # persistent parameter elements (0 for bgemm)
+
+
+@dataclasses.dataclass
+class QuantContext:
+    """Carries the execution mode through a model's apply function.
+
+    ``act_scale_token`` (the serving policy): each activation operand keeps
+    every batch/token einsum axis and reduces only feature/head axes, so a
+    token's quantization grid depends on that token's features alone —
+    greedy tokens then depend neither on which requests share a batch nor on
+    bucket padding. ``act_scale_axis`` keeps one scale per slice of that
+    axis instead. Weights keep per-tensor scales."""
+
+    mode: str = "plain"                       # plain | mp (probe: slice 2)
+    mp: Optional[dict] = None                 # op name -> format name
+    impl: str = "simulate"                    # simulate | native
+    probes: Optional[dict] = None
+    captures: Optional[dict] = None
+    registry: Optional[list] = None           # out: list[OpInfo]
+    scales: Optional[dict] = None             # op name -> (s_lhs, s_rhs)
+    default_format: str = "bf16"
+    act_scale_axis: Optional[int] = None
+    act_scale_token: bool = False
+
+    def format_for(self, name: str) -> str:
+        if self.mp is None:
+            return self.default_format
+        return self.mp.get(name, self.default_format)
+
+
+def _einsum_macs(spec: str, lhs_shape, rhs_shape) -> int:
+    """MAC count of an einsum: product of all distinct dimension sizes."""
+    a, b = spec.split("->")[0].split(",")
+    dims: dict[str, int] = {}
+    for labels, shape in ((a, lhs_shape), (b, rhs_shape)):
+        for ch, s in zip(labels, shape):
+            dims[ch] = int(s)
+    return int(math.prod(dims.values()))
+
+
+def _maybe_register(ctx: QuantContext, name: str, kind: str, spec: str,
+                    lhs, rhs, out) -> None:
+    if ctx.registry is None:
+        return
+    ctx.registry.append(OpInfo(
+        name=name, kind=kind, spec=spec, lhs_shape=tuple(lhs.shape),
+        rhs_shape=tuple(rhs.shape), out_shape=tuple(out.shape),
+        macs=_einsum_macs(spec, lhs.shape, rhs.shape),
+        weight_elems=(math.prod(rhs.shape) if kind == KIND_LINEAR else 0)))
+
+
+def _quantize_operand(x: torch.Tensor, fmt_name: str, impl: str, scale,
+                      axis=None) -> torch.Tensor:
+    """The operand as the MP matmul consumes it."""
+    fmt = get_format(fmt_name)
+    if not fmt.is_quantized:
+        return x
+    if impl == "native" and fmt.dtype is not None:
+        return qtensor.quantize(x, fmt_name, axis=axis,
+                                scale=scale).dequantize(x.dtype)
+    return qtensor.fake_quant(x, fmt_name, axis=axis, scale=scale)
+
+
+# Einsum labels that index batch or token positions in the op specs: B/T/S
+# (batch, q-tokens, k-tokens), E/N (expert, token-within-expert) and
+# lowercase b/c/q/k. Per-token quantization keeps these axes and reduces the
+# rest. CONTRACT: these letters are reserved for batch/token axes in every
+# qeinsum/bgemm spec.
+_TOKEN_LABELS = frozenset("BTSENbcqk")
+
+
+def _token_scale_axes(labels: str) -> tuple:
+    """Reduce axes for an activation operand's per-token scale (possibly
+    empty: a per-element scale — never a per-tensor fallback)."""
+    return tuple(i for i, ch in enumerate(labels) if ch not in _TOKEN_LABELS)
+
+
+def act_quant_axes(ctx: QuantContext, ndim: int) -> Optional[tuple]:
+    """Scale-reduction axes for an activation operand: everything except the
+    per-sequence axis (None -> per-tensor scale)."""
+    if ctx.act_scale_axis is None:
+        return None
+    keep = ctx.act_scale_axis % ndim
+    return tuple(a for a in range(ndim) if a != keep)
+
+
+def einsum_f32acc(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """``einsum`` with float32 accumulation and one rounding to
+    ``out_dtype`` — the reference's ``preferred_element_type=f32`` product.
+    On CUDA, when the result keeps the operand dtype, the operands stay as
+    they are: cuBLAS accumulates in f32 with reduced-precision reductions
+    off (see ``repro_torch.device``) and rounds once. Otherwise (and always
+    on the CPU) the operands are widened to f32 first, which is exact."""
+    if lhs.is_cuda and out_dtype == lhs.dtype:
+        return torch.einsum(spec, lhs, rhs.to(lhs.dtype))
+    return torch.einsum(spec, lhs.float(), rhs.float()).to(out_dtype)
+
+
+def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
+            rhs: torch.Tensor, kind: str = KIND_LINEAR) -> torch.Tensor:
+    """Quantizable einsum — the single entry point for L_lin and L_BGEMM."""
+    out_dtype = lhs.dtype
+    if ctx.mode == "probe":
+        raise NotImplementedError(
+            "probe mode (sensitivity calibration) lands with the core/ "
+            "calibration slice")
+    if ctx.mode == "mp":
+        if ctx.impl not in _IMPLS:
+            raise NotImplementedError(
+                f"QuantContext.impl={ctx.impl!r}: the fp8 GEMM kernels land "
+                f"with the calibration slice; use one of {_IMPLS}")
+        fmt_name = ctx.format_for(name)
+        if get_format(fmt_name).is_quantized:
+            s_lhs = s_rhs = None
+            if ctx.scales is not None and name in ctx.scales:
+                s_lhs, s_rhs = ctx.scales[name]
+            if ctx.act_scale_token:
+                a_l, b_l = spec.split("->")[0].split(",")
+                lhs_axes = _token_scale_axes(a_l)
+                rhs_axes = _token_scale_axes(b_l)
+            else:
+                lhs_axes = act_quant_axes(ctx, lhs.ndim)
+                rhs_axes = act_quant_axes(ctx, rhs.ndim)
+            lhs = _quantize_operand(lhs, fmt_name, ctx.impl, s_lhs, lhs_axes)
+            rhs = _quantize_operand(rhs, fmt_name, ctx.impl, s_rhs,
+                                    rhs_axes if kind == KIND_BGEMM else None)
+    elif ctx.mode != "plain":
+        raise ValueError(f"unknown QuantContext mode {ctx.mode!r}")
+    out = einsum_f32acc(spec, lhs, rhs, out_dtype)
+    _maybe_register(ctx, name, kind, spec, lhs, rhs, out)
+    return out
+
+
+def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ w^T (+ b); w: (K, C) per eq. (8). ``x`` may have any leading
+    dims; a 3-D ``w`` is an expert-grouped GEMM aligned with ``x``."""
+    if w.dtype != x.dtype and w.element_size() == 1:
+        w = w.to(x.dtype)            # fp8-stored weights: dequant at use
+    if w.ndim == 2:
+        xl = "BC" if x.ndim == 2 else "BSC" if x.ndim == 3 else None
+        if xl is None:                # flatten exotic ranks
+            lead = x.shape[:-1]
+            y = linear(ctx, name, x.reshape(-1, x.shape[-1]), w, b)
+            return y.reshape(*lead, w.shape[0])
+        spec = f"{xl},KC->{xl[:-1]}K"
+    elif w.ndim == 3 and x.ndim == 3:
+        spec = "ENC,EKC->ENK"
+    else:
+        raise ValueError(f"unsupported linear ranks x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)}")
+    y = qeinsum(ctx, name, spec, x, w, kind=KIND_LINEAR)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def bgemm(ctx: QuantContext, name: str, spec: str, a: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """Batched GEMM between two activations (qk_matmul / av_matmul)."""
+    return qeinsum(ctx, name, spec, a, b, kind=KIND_BGEMM)
