@@ -12,7 +12,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and scaled fp8-e4m3 KV, window None and 7, a vacant row (all -1 table,
    length 0), and NaN in blocks no live page references; then time kernel,
    plain version and ``scaled_dot_product_attention`` over gathered K/V;
-3. serve Llama-3.2-1B at full width (random weights from a seeded
+3. hold the fp8 kernels against their plain versions at the model's
+   shapes: ``amax`` and ``scale_cast`` bitwise on the activations (2048,
+   2048) and the weights (8192, 2048), (2048, 8192), (128256, 2048), plus
+   NaN, inf and values straddling the e4m3/e5m2 overflow midpoints;
+   ``fp8_matmul`` and ``fp8_linear`` within 2^-6 of the largest output at
+   the q/gate/down/lm_head shapes and at M=300; then time each kernel,
+   its plain version, the PyTorch call that computes the same function
+   (``torch.linalg.vector_norm(x, inf)``, ``torch._scaled_mm``) and the
+   bf16 ``torch.matmul`` of the same product;
+4. serve Llama-3.2-1B at full width (random weights from a seeded
    generator) through the launcher's code path — 8 requests, 4 slots,
    128-token prompts, 32 new tokens, one arrival every 2 steps — on the
    continuous engine with fused and with gather decode attention, and on
@@ -21,12 +30,28 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    divergence sits only at a near-tie of the reference's logits (the
    logits are read off the engines' step closures, which this script
    wraps; the engines compute no diagnostics);
-4. the same checks under an MP plan (fp8 on every linear op of layers
+5. the same checks under a fixed MP plan (fp8 on every linear op of layers
    8-15, plus the attention BGEMMs of layer 15, which then takes the
    gather path): the continuous gather drain against the one-shot engine,
    the fused drain against the gather drain;
-5. print the kernel table and the serving numbers as JSON lines;
-6. print ``{"ok": true, "device": {...}}`` as the last line.
+6. Algorithm 1 at full width and depth: ``calibrate`` over 4 synthetic
+   batches of (2, 256) tokens (sensitivities from probe gradients,
+   partition, roofline/theoretical/memory tables for the H100), with its
+   seconds and peak device memory; save the bundle as npz, reload it, and
+   check the reloaded bundle solves to the identical plan;
+7. the measured tier: ``tabulate_measured_gains`` times a full forward of
+   a (4, 512) prompt under ``impl="kernel"`` for every combo of every
+   group; the fp8 kernels' launch counters must rise by 2 amax + 2
+   scale_cast + 1 fp8_matmul per fp8 linear op per run;
+8. solve the measured ET plan (and TT, M), serve it through
+   ``python -m repro_torch.launch.serve --calibration`` at phase 4's cell,
+   and in process hold the MP continuous (gather) drain against the MP
+   one-shot engine under the ET and TT plans;
+9. paper Fig. 3a: the loss under each plan with ``impl="kernel"`` and with
+   ``impl="simulate"``, and the measured loss MSE against the plan's
+   predicted one;
+10. print the kernel table and the serving and calibration numbers as JSON
+    lines, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside this script.
@@ -36,8 +61,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -68,6 +95,17 @@ LOGIT_TOL_MP = 0.25
 MARGIN_BOUND_MP = 0.25
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                  # dense tensor-core bf16 peak
+FP8_FLOPS = 1979e12                  # dense tensor-core fp8 peak
+# fp8 GEMM vs its plain version: products of two fp8 values are exact in
+# f32, sums run in another order, one rounding to bf16 — two bf16 ulps of
+# the largest output
+MM_TOL = 2.0 ** -6
+# Algorithm 1 at full width: calibration batches, the measured tier's prompt
+# and the loss-MSE threshold of the served plan
+CAL_BATCHES, CAL_SHAPE = 4, (2, 256)
+TIER_PROMPT = (4, 512)
+TAU = 0.05
+DEVICE = "cuda"
 SERVE = dict(requests=8, n_slots=4, prompt_len=128, new_tokens=32,
              arrival_every=2, block_size=16)
 
@@ -268,7 +306,228 @@ def time_kernel(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: serving
+# phase 3: the fp8 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (tokens, d_model) activations and the linear weights of llama3_1b
+ACT = (2048, 2048)
+WEIGHTS = {"q_proj": (2048, 2048), "gate_proj": (8192, 2048),
+           "down_proj": (2048, 8192), "lm_head": (128256, 2048)}
+
+
+def hazard_values(torch):
+    """Values straddling e4m3fn's 448/464/480 and e5m2's 57344/61440,
+    +-inf, +-NaN, +-0 and subnormal magnitudes."""
+    return torch.tensor([0.0, -0.0, 1e-9, -3e-6, 447.9, 448.0, 455.0, 463.9,
+                         464.0, 464.1, 479.9, 480.0, -470.0, 57000.0, 61439.0,
+                         61440.0, -61440.0, 70000.0, float("inf"),
+                         -float("inf"), float("nan"), -float("nan"), 3.4e38,
+                         -1.0], device=DEVICE)
+
+
+def randn(torch, shape, seed: int, scale: float, dtype):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=DEVICE) * scale).to(dtype)
+
+
+def same_bits(torch, got, want) -> bool:
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    view = torch.int32 if got.element_size() == 4 else torch.uint8
+    return bool(torch.equal(got.view(view), want.view(view)))
+
+
+L2_BYTES = 50e6                      # H100 L2 cache
+
+
+def timed(torch, fn, *args, warm: bool = False) -> float:
+    """Device ms per call of ``fn(*args)`` from a CUDA graph
+    (``device_ms``). The graph's calls take turns over copies of ``args``
+    whose bytes together exceed twice the L2 cache, so each call reads its
+    inputs from device memory as a forward pass finds its weights, unless
+    ``warm``, which times one set of inputs resident in L2. The number of
+    captured calls and replays comes from one eager call, so a measurement
+    takes about 0.2 s whatever the call's size."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n = 1 if warm else int(min(16, max(1, math.ceil(2 * L2_BYTES /
+                                                     max(nbytes, 1)))))
+    copies = [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    turn = [0]
+
+    def call():
+        fn(*copies[turn[0] % n])
+        turn[0] += 1
+
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    t = max(time.perf_counter() - t0, 1e-6)
+    calls = n * max(1, int(min(20, max(1, 0.01 / t))) // n)
+    replays = int(min(25, max(2, 0.2 / (calls * t))))
+    return device_ms(torch, call, calls=calls, replays=replays)
+
+
+def fp8_check_phase(torch) -> dict:
+    """amax and scale_cast bitwise, fp8_matmul and fp8_linear within
+    MM_TOL of the largest output, at the model's shapes."""
+    from repro_torch.kernels import fp8_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_cast as qc
+    from repro_torch.kernels.ref import (amax_ref, fp8_matmul_ref,
+                                         scale_cast_ref)
+    fp8 = {"e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+    failures, n_bitwise = [], 0
+    shapes = {"act": ACT, **WEIGHTS}
+    for i, (name, shape) in enumerate(shapes.items()):
+        x = randn(torch, shape, 10 + i, 1.0 if name == "act" else 0.02,
+                  torch.bfloat16)
+        a = qc.amax(x)
+        n_bitwise += 1
+        if not same_bits(torch, a, amax_ref(x)):
+            failures.append(f"amax {name} {shape}")
+        scale = 448.0 / torch.clamp_min(a, 1e-12)
+        for fmt, dt in fp8.items():
+            n_bitwise += 1
+            if not same_bits(torch, qc.scale_cast(x, scale, dt),
+                             scale_cast_ref(x, scale, dt)):
+                failures.append(f"scale_cast {fmt} {name} {shape}")
+        del x
+    haz = hazard_values(torch)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(torch, ACT, 20, 60.0, dtype)
+        x.view(-1)[:4 * haz.numel()] = haz.repeat(4).to(dtype)
+        finite = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+        nan_one = finite.clone()
+        nan_one[ACT[0] // 2, 7] = float("nan")
+        for label, t in (("hazards", finite), ("nan", nan_one)):
+            n_bitwise += 1
+            if not same_bits(torch, qc.amax(t), amax_ref(t)):
+                failures.append(f"amax {label} {dtype}")
+        for fmt, dt in fp8.items():
+            for s in (1.0, 0.37, 4.0):
+                st = torch.tensor(s, device=DEVICE)
+                n_bitwise += 1
+                if not same_bits(torch, qc.scale_cast(x, st, dt),
+                                 scale_cast_ref(x, st, dt)):
+                    failures.append(f"scale_cast {fmt} {dtype} scale {s}")
+    torch.cuda.synchronize()
+    log(f"amax / scale_cast vs plain: {n_bitwise - len(failures)} of "
+        f"{n_bitwise} cases bitwise equal")
+
+    mm_err, mm_rel, lin_rel = 0.0, 0.0, 0.0
+    cases = [(name, ACT[0], shape) for name, shape in WEIGHTS.items()]
+    cases.append(("m300", 300, WEIGHTS["q_proj"]))
+    for j, (name, M, (N, K)) in enumerate(cases):
+        x = randn(torch, (M, K), 30 + j, 1.0, torch.bfloat16)
+        w = randn(torch, (N, K), 40 + j, 0.02, torch.bfloat16)
+        xq, sx = qc.quantize_fp8(x)
+        wq, sw = qc.quantize_fp8(w)
+        want = fp8_matmul_ref(xq, wq, sx, sw)
+        top = float(want.float().abs().max())
+        err = float((mm.fp8_matmul(xq, wq, sx, sw).float()
+                     - want.float()).abs().max())
+        y = ops.fp8_linear(x, w)
+        lin = float((y.float() - want.float()).abs().max())
+        mm_err, mm_rel = max(mm_err, err), max(mm_rel, err / top)
+        lin_rel = max(lin_rel, lin / top)
+        log(f"fp8_matmul {name} ({M}x{N}x{K}): max abs err {err:.3e} "
+            f"({err / top:.2e} of max|Y| {top:.3g}); fp8_linear "
+            f"{lin / top:.2e}")
+        if not (err <= MM_TOL * top and lin <= MM_TOL * top):
+            failures.append(f"fp8_matmul/fp8_linear {name}")
+        del x, w, xq, wq, want, y
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("fp8 kernels disagree with their plain "
+                             "versions: " + "; ".join(failures))
+    log(f"fp8 kernels vs plain: all cases pass (bitwise; GEMM within "
+        f"{MM_TOL:g} of max|Y|, worst {mm_rel:.2e})")
+    return {"fp8_bitwise_cases": n_bitwise, "fp8_matmul_max_abs_err": mm_err,
+            "fp8_matmul_max_rel_err": mm_rel, "fp8_linear_max_rel_err":
+            lin_rel}
+
+
+def fp8_time_phase(torch) -> dict:
+    """Device time per call of each fp8 kernel, its plain version and the
+    PyTorch call computing the same function, at every model shape; the
+    bound is the larger of the bytes each call must move at 3.35 TB/s and
+    its operations at the fp8 peak (a max or a multiply per element counts
+    as one operation, beside which bytes always bound)."""
+    from repro_torch.kernels import fp8_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_cast as qc
+    from repro_torch.kernels.ref import (amax_ref, fp8_matmul_ref,
+                                         scale_cast_ref)
+    n0 = dict(qc.launches), mm.launches
+    out = {"amax": {}, "scale_cast": {}, "fp8_matmul": {}, "fp8_linear": {}}
+
+    def bound(nbytes, ops_):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / FP8_FLOPS
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    for i, (name, shape) in enumerate({"act": ACT, **WEIGHTS}.items()):
+        x = randn(torch, shape, 50 + i, 0.02, torch.bfloat16)
+        n = x.numel()
+        s = 448.0 / torch.clamp_min(qc.amax(x), 1e-12)
+        b_ms, b_by = bound(2 * n + 4, n)
+        out["amax"][name] = {
+            "shape": list(shape), "ms": timed(torch, qc.amax, x),
+            "ms_l2_warm": timed(torch, qc.amax, x, warm=True),
+            "plain_ms": timed(torch, amax_ref, x),
+            "library_ms": timed(torch, lambda t: torch.linalg.vector_norm(
+                t, float("inf")), x),
+            "bound_ms": b_ms, "bound_by": b_by}
+        b_ms, b_by = bound(3 * n + 4, n)
+        out["scale_cast"][name] = {
+            "shape": list(shape), "ms": timed(torch, qc.scale_cast, x, s),
+            "ms_l2_warm": timed(torch, qc.scale_cast, x, s, warm=True),
+            "plain_ms": timed(torch, scale_cast_ref, x, s),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        del x
+    for j, (name, (N, K)) in enumerate(WEIGHTS.items()):
+        M = ACT[0]
+        x = randn(torch, (M, K), 60 + j, 1.0, torch.bfloat16)
+        w = randn(torch, (N, K), 70 + j, 0.02, torch.bfloat16)
+        xq, sx = qc.quantize_fp8(x)
+        wq, sw = qc.quantize_fp8(w)
+        q = (xq, wq, sx, sw)
+        b_ms, b_by = bound((M + N) * K + 2 * M * N + 8, 2 * M * N * K)
+        rec = {"shape": [M, N, K], "ms": timed(torch, mm.fp8_matmul, *q),
+               "plain_ms": timed(torch, fp8_matmul_ref, *q),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bf16_matmul_ms": timed(torch, lambda a, b: torch.matmul(
+                   a, b.t()), x, w)}
+        try:
+            rec["library_ms"] = timed(torch, lambda a, b, c, d: (
+                torch._scaled_mm(a, b.t(), scale_a=c, scale_b=d,
+                                 out_dtype=torch.bfloat16)), *q)
+        except RuntimeError as e:          # the yardstick only, never the port
+            rec["library_ms"], rec["library_error"] = None, str(e)[:200]
+        rec["tflops"] = 2 * M * N * K / (rec["ms"] * 1e-3) / 1e12
+        out["fp8_matmul"][name] = rec
+        out["fp8_linear"][name] = {
+            "shape": [M, N, K], "ms": timed(torch, ops.fp8_linear, x, w),
+            "bf16_matmul_ms": rec["bf16_matmul_ms"]}
+        del x, w, xq, wq, q
+    qc.launches.update(n0[0])            # timing launches are not path ones
+    mm.launches = n0[1]
+    for kern in ("amax", "scale_cast", "fp8_matmul", "fp8_linear"):
+        for name, r in out[kern].items():
+            extra = "".join(
+                f" | {label} {r[k] * 1e3:.2f} us" for k, label in (
+                    ("ms_l2_warm", "L2-warm"), ("plain_ms", "plain"),
+                    ("library_ms", "library"), ("bf16_matmul_ms",
+                                                "bf16 matmul"),
+                    ("bound_ms", "bound")) if r.get(k) is not None)
+            log(f"{kern} {name} {tuple(r['shape'])}: {r['ms'] * 1e3:.2f} us"
+                f"{extra}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: serving
 # ---------------------------------------------------------------------------
 
 
@@ -390,7 +649,7 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn):
     eng = ContinuousBatchingEngine(
         model, n_slots=SERVE["n_slots"],
         max_len=SERVE["prompt_len"] + SERVE["new_tokens"], mp=mp,
-        block_size=SERVE["block_size"], paged_attn=paged_attn, device="cuda")
+        block_size=SERVE["block_size"], paged_attn=paged_attn, device=DEVICE)
     eng.serve(params, reqs[:1])
     events = record_steps(eng, ("prefill_chunk_step", "decode_step"))
     torch.cuda.synchronize()
@@ -415,7 +674,7 @@ def run_oneshot(model, params, reqs, mp=None):
     """The one-shot engine on the same prompts, one batch. Returns (result,
     rid -> (tokens, logits))."""
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(model, mp=mp, device="cuda")
+    eng = ServeEngine(model, mp=mp, device=DEVICE)
     batch = {"tokens": np.stack([r.tokens for r in reqs])}
     eng.generate(params, batch, max_new_tokens=2)       # warm-up
     events = record_steps(eng, ("prefill_step", "bucketed_prefill_step",
@@ -434,15 +693,10 @@ def serving_numbers(out) -> dict:
             "peak_blocks_in_use": out.counters["peak_blocks_in_use"]}
 
 
-def serve_phase(torch) -> dict:
-    """Phases 3 and 4 at full width on the card."""
-    from repro_torch.launch.serve import make_model_and_params, make_requests
-    t0 = time.perf_counter()
-    model, params = make_model_and_params("llama3_1b", False, "cuda", seed=0)
-    torch.cuda.synchronize()
+def serve_phase(torch, model, params) -> dict:
+    """Phases 4 and 5 at full width on the card."""
+    from repro_torch.launch.serve import make_requests
     n_layers = model.cfg.n_layers
-    log(f"{model.cfg.name}: {model.n_params() / 1e9:.3f}B params, "
-        f"random init in {time.perf_counter() - t0:.1f} s")
     reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
                          SERVE["prompt_len"], SERVE["new_tokens"],
                          SERVE["arrival_every"])
@@ -467,7 +721,7 @@ def serve_phase(torch) -> dict:
     agree_fg = compare("fused vs gather", fused_tl, gather_tl, **plain)
     agree_go = compare("gather vs one-shot", gather_tl, one_tl, **plain)
 
-    # phase 4: the MP plan
+    # phase 5: a fixed MP plan
     from repro_torch.core.mpconfig import MPPlan
     assignment = {f"layers/{i}/{op}": "fp8_e4m3"
                   for i in range(n_layers // 2, n_layers)
@@ -518,6 +772,249 @@ def serve_phase(torch) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phases 6-9: Algorithm 1 at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def calibration_phase(torch, model, params, workdir: Path) -> tuple:
+    """Phase 6: sensitivities, partition and analytic gain tables over 4
+    synthetic batches; the bundle saved as npz, reloaded, solved alike."""
+    import dataclasses
+    from repro_torch.core.pipeline import AMPOptions, CalibrationBundle, \
+        calibrate
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.hw.profiles import H100_SXM
+    data = SyntheticLM(SyntheticConfig(vocab_size=model.cfg.vocab_size,
+                                       batch=CAL_SHAPE[0],
+                                       seq_len=CAL_SHAPE[1]), DEVICE)
+    batches = list(data.batches(0, CAL_BATCHES))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bundle = calibrate(model, params, batches, AMPOptions(hw=H100_SXM))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sens = np.array(sorted(bundle.sens.sensitivity.values()))
+    n_groups = len(bundle.objectives["ET"]["groups"])
+    log(f"calibrate: {len(bundle.sens.ops)} ops, {n_groups} groups, "
+        f"{CAL_BATCHES} batches of {CAL_SHAPE} in {seconds:.1f} s; peak "
+        f"device memory {peak / 1e9:.2f} GB (weights and batches "
+        f"{base_mem / 1e9:.2f} GB)")
+    log(f"calibrate: E[g] {bundle.sens.loss_mean:.4f} E[g^2] "
+        f"{bundle.sens.loss_sq_mean:.4f}; s_l min {sens[0]:.3e} median "
+        f"{np.median(sens):.3e} max {sens[-1]:.3e}")
+    if not (np.isfinite(sens).all() and (sens > 0).all()
+            and math.isfinite(bundle.sens.loss_mean)):
+        raise AssertionError("calibration gave a non-finite or zero "
+                             "sensitivity")
+    if n_groups != 4 * model.cfg.n_layers + 1:
+        raise AssertionError(f"{n_groups} groups, expected "
+                             f"{4 * model.cfg.n_layers + 1}")
+    path = workdir / "bundle.npz"
+    bundle.save(str(path))
+    loaded = CalibrationBundle.load(str(path))
+    for obj in ("ET", "TT", "M"):
+        a, b = bundle.solve(TAU, obj), loaded.solve(TAU, obj)
+        if dataclasses.asdict(a) != dataclasses.asdict(b):
+            raise AssertionError(f"reloaded bundle solves {obj} differently")
+    log(f"bundle saved ({path.stat().st_size / 1e3:.1f} kB npz), reloaded; "
+        f"ET/TT/M plans at tau {TAU} identical")
+    return bundle, batches, {
+        "seconds": seconds, "peak_gb": peak / 1e9,
+        "weights_and_batches_gb": base_mem / 1e9,
+        "n_ops": len(bundle.sens.ops), "n_groups": n_groups,
+        "loss_mean": bundle.sens.loss_mean,
+        "loss_sq_mean": bundle.sens.loss_sq_mean,
+        "s_min": float(sens[0]), "s_median": float(np.median(sens)),
+        "s_max": float(sens[-1])}
+
+
+def measured_phase(torch, model, params, bundle) -> dict:
+    """Phase 7: the measured wall-clock tier through the fp8 kernels. The
+    kernels' launch counters are set to 0 just before and read just
+    after."""
+    from repro_torch.core.pipeline import tabulate_measured_gains
+    from repro_torch.kernels import fp8_matmul as mm
+    from repro_torch.kernels import quant_cast as qc
+    from repro_torch.quant.qops import QuantContext
+    n_warmup, n_iters = 1, 3
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    prompt = torch.randint(0, model.cfg.vocab_size, TIER_PROMPT, generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    linear = {op.name for op in bundle.sens.ops if op.kind == "linear"}
+    times: dict = {}
+    fp8_linear_runs = [0]
+
+    def run_factory(assignment):
+        ctx = QuantContext(mode="mp", mp=dict(assignment), impl="kernel")
+        key = tuple(sorted(n for n, f in assignment.items() if f != "bf16"))
+        n_fp8 = sum(1 for n in key if n in linear)
+
+        def run():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                model.apply(params, prompt, ctx)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+            fp8_linear_runs[0] += n_fp8
+        return run
+
+    base = run_factory({})
+    for _ in range(3):
+        base()                                   # warm-up, not recorded
+    times.clear()
+    torch.cuda.synchronize()
+    qc.launches.update(amax=0, scale_cast=0)
+    mm.launches = 0
+    t0 = time.perf_counter()
+    key = tabulate_measured_gains(bundle, run_factory, objective="ET",
+                                  n_warmup=n_warmup, n_iters=n_iters)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {"amax": qc.launches["amax"],
+              "scale_cast": qc.launches["scale_cast"],
+              "fp8_matmul": mm.launches}
+    want = {"amax": 2 * fp8_linear_runs[0],
+            "scale_cast": 2 * fp8_linear_runs[0],
+            "fp8_matmul": fp8_linear_runs[0]}
+    n_runs = sum(len(v) for v in times.values())
+    log(f"measured tier: {len(times)} assignments, {n_runs} forwards of "
+        f"{TIER_PROMPT} in {seconds:.1f} s; launches {counts} (expected "
+        f"{want}: 2+2+1 per fp8 linear per run)")
+    if counts != want or counts["fp8_matmul"] == 0:
+        raise AssertionError(f"fp8 kernel launches {counts} != {want}")
+    base_s = np.array(times[()]) * 1e3          # the tier's own base runs
+    for _ in range(10):
+        base()
+    spread = np.array(times[()]) * 1e3
+    log(f"base forward (all bf16): tier median {np.median(base_s):.3f} ms; "
+        f"{spread.size} runs min {spread.min():.3f} median "
+        f"{np.median(spread):.3f} max {spread.max():.3f} ms (spread "
+        f"{spread.max() - spread.min():.3f} ms)")
+    groups = bundle.objectives[key]["groups"]
+    rows, lines = [], []
+    for gi, (group, gains) in enumerate(zip(groups, bundle.objectives[key][
+            "gains"])):
+        gains = np.asarray(gains) * 1e3
+        best = int(np.argmax(gains))
+        rows.append({"group": gi, "ops": group,
+                     "all_fp8_ms": float(gains[-1]),
+                     "best_ms": float(gains[best]), "best_combo": best})
+        short = ",".join(n.split("/")[-1].replace("_proj", "").replace(
+            "_matmul", "") for n in group)
+        lines.append(f"g{gi}[{short}] all-fp8 {gains[-1]:+.3f} best "
+                     f"{gains[best]:+.3f}")
+    for i in range(0, len(lines), 4):
+        log("gain ms: " + " | ".join(lines[i:i + 4]))
+    all_fp8 = np.array([r["all_fp8_ms"] for r in rows])
+    log(f"per-group gain of the all-fp8 combo: min {all_fp8.min():+.3f} "
+        f"median {np.median(all_fp8):+.3f} max {all_fp8.max():+.3f} ms; "
+        f"{int((all_fp8 > 0).sum())} of {len(rows)} groups positive")
+    return {"seconds": seconds, "launches": counts, "n_forwards": n_runs,
+            "base_ms_tier": float(np.median(base_s)),
+            "base_ms_runs": spread.tolist(), "groups": rows}
+
+
+def solve_and_serve_phase(torch, model, params, bundle, workdir: Path,
+                          failures: list) -> tuple:
+    """Phase 8: the measured ET plan served through the launcher, and the
+    MP continuous drain held against the MP one-shot engine in process."""
+    from repro_torch.launch.serve import make_requests
+    plans = {obj: bundle.solve(TAU, obj) for obj in ("ET", "TT", "M")}
+    for obj, plan in plans.items():
+        log(f"plan {obj} at tau {TAU}: {plan.n_quantized} ops fp8, "
+            f"predicted gain {plan.predicted_gain:.4e}, loss MSE "
+            f"{plan.predicted_loss_mse:.4e} <= {plan.budget:.4e} "
+            f"[{plan.meta['gain_tier']}]")
+    if plans["ET"].meta["gain_tier"] != "measured":
+        raise AssertionError("the ET plan was not priced by the measured "
+                             "table")
+    path = workdir / "bundle_measured.npz"
+    bundle.save(str(path))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "llama3_1b", "--continuous", "--calibration", str(path), "--tau",
+           str(TAU), "--objective", "ET",
+           "--n-slots", str(SERVE["n_slots"]),
+           "--requests", str(SERVE["requests"]),
+           "--arrival-every", str(SERVE["arrival_every"]),
+           "--prompt-len", str(SERVE["prompt_len"]),
+           "--new-tokens", str(SERVE["new_tokens"])]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       env=env, cwd=str(ROOT))
+    for line in r.stdout.strip().splitlines():
+        log(f"launcher: {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"launcher exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    served = f"continuous: {SERVE['requests']} reqs"
+    if "[measured]" not in r.stdout or served not in r.stdout:
+        raise AssertionError("launcher did not serve the measured plan")
+    log(f"launcher served the measured ET plan in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
+                         SERVE["prompt_len"], SERVE["new_tokens"],
+                         SERVE["arrival_every"])
+    agreement = {}
+    for obj in ("ET", "TT"):
+        _, _, cont = run_continuous(torch, model, params, reqs,
+                                    mp=plans[obj], paged_attn="gather")
+        _, one = run_oneshot(model, params, reqs, mp=plans[obj])
+        agreement[obj] = compare(f"{obj} plan: MP gather vs MP one-shot",
+                                 cont, one, tol=LOGIT_TOL,
+                                 bound=MARGIN_BOUND, failures=failures)
+    return plans, {"launcher_stdout": r.stdout[-4000:],
+                   "agreement": agreement,
+                   "plans": {o: {"n_fp8": p.n_quantized,
+                                 "predicted_gain": p.predicted_gain,
+                                 "predicted_loss_mse": p.predicted_loss_mse,
+                                 "budget": p.budget,
+                                 "gain_tier": p.meta["gain_tier"]}
+                             for o, p in plans.items()}}
+
+
+def fig3a_phase(torch, model, params, batches, plans) -> dict:
+    """Phase 9: the loss under each plan through the fp8 kernels and
+    through fake quantization, and the measured loss MSE (over the
+    calibration batches, against the bf16 loss) beside the predicted one."""
+    from repro_torch.quant.qops import QuantContext
+    out = {}
+    with torch.no_grad():
+        plain = np.array([float(model.loss(params, b, QuantContext()))
+                          for b in batches])
+        for obj in ("ET", "TT"):
+            plan = plans[obj]
+            rec = {"predicted_mse": plan.predicted_loss_mse,
+                   "n_fp8": plan.n_quantized}
+            for impl in ("kernel", "simulate"):
+                ctx = QuantContext(mode="mp", mp=plan.assignment, impl=impl)
+                losses = np.array([float(model.loss(params, b, ctx))
+                                   for b in batches])
+                if not np.isfinite(losses).all():
+                    raise AssertionError(f"{obj} plan, impl {impl}: "
+                                         f"non-finite loss")
+                rec[impl] = {"loss_mean": float(losses.mean()),
+                             "mse": float(np.mean((losses - plain) ** 2))}
+            rec["kernel_minus_simulate"] = (rec["kernel"]["loss_mean"]
+                                            - rec["simulate"]["loss_mean"])
+            log(f"Fig. 3a, {obj} plan ({plan.n_quantized} fp8 ops): loss "
+                f"kernel {rec['kernel']['loss_mean']:.5f} simulate "
+                f"{rec['simulate']['loss_mean']:.5f} (diff "
+                f"{rec['kernel_minus_simulate']:+.2e}) bf16 "
+                f"{plain.mean():.5f}; loss MSE measured kernel "
+                f"{rec['kernel']['mse']:.3e} simulate "
+                f"{rec['simulate']['mse']:.3e} predicted "
+                f"{plan.predicted_loss_mse:.3e}")
+            out[obj] = rec
+    out["bf16_loss_mean"] = float(plain.mean())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -547,9 +1044,18 @@ def main() -> int:
         for line in sorted(report_lines):
             log(f"ptxas {name}: {line}")
 
-    report = {"card": card}
-    report.update(kernel_phase(torch))
-    report.update(time_kernel(torch))
+    report = {"card": card, "phase_seconds": {}}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        torch.cuda.synchronize()
+        report["phase_seconds"][name] = time.perf_counter() - t
+        log(f"phase {name}: {report['phase_seconds'][name]:.1f} s")
+        return res
+
+    report.update(phase("paged kernel checks", kernel_phase, torch))
+    report.update(phase("paged kernel times", time_kernel, torch))
     log("paged_decode_attention device time (CUDA graph): kernel "
         f"{report['ms'] * 1e3:.2f} us | plain {report['plain_ms'] * 1e3:.2f} "
         f"us | SDPA {report['library_ms'] * 1e3:.2f} us | bound "
@@ -559,8 +1065,34 @@ def main() -> int:
         f"{report['plain_ms_eager'] * 1e3:.2f} us | SDPA "
         f"{report['library_ms_eager'] * 1e3:.2f} us | wrapper enqueue "
         f"{report['host_enqueue_ms'] * 1e3:.2f} us")
-    report.update(serve_phase(torch))
+    report.update(phase("fp8 kernel checks", fp8_check_phase, torch))
+    report["fp8_times"] = phase("fp8 kernel times", fp8_time_phase, torch)
 
+    from repro_torch.launch.serve import make_model_and_params
+    t0 = time.perf_counter()
+    model, params = make_model_and_params("llama3_1b", False, "cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"{model.cfg.name}: {model.n_params() / 1e9:.3f}B params, "
+        f"random init in {time.perf_counter() - t0:.1f} s")
+    report.update(phase("serving", serve_phase, torch, model, params))
+
+    failures: list = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        bundle, batches, report["calibration"] = phase(
+            "calibration", calibration_phase, torch, model, params,
+            Path(tmp))
+        report["measured_tier"] = phase("measured tier", measured_phase,
+                                        torch, model, params, bundle)
+        plans, report["plan_serving"] = phase(
+            "solve and serve", solve_and_serve_phase, torch, model, params,
+            bundle, Path(tmp), failures)
+    report["fig3a"] = phase("fig3a", fig3a_phase, torch, model, params,
+                            batches, plans)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    t = report["fp8_times"]
+    launches = report["measured_tier"]["launches"]
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -575,6 +1107,21 @@ def main() -> int:
         "bound_by": report["bound_by"],
         "library_ms": report["library_ms"],
     }]
+    # the fp8 kernels at the gate_proj weight / product, 2048 tokens
+    for name, src, line, err in (
+            ("amax", "quant_cast", "quant_cast.py:32", 0.0),
+            ("scale_cast", "quant_cast", "quant_cast.py:50", 0.0),
+            ("fp8_matmul", "fp8_matmul", "fp8_matmul.py:47",
+             report["fp8_matmul_max_abs_err"])):
+        r = t[name]["gate_proj"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{line}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     report["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -582,6 +1129,12 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": report["serving"],
                       "agreement": report["agreement"]}), flush=True)
+    print(json.dumps({"calibration": report["calibration"],
+                      "measured_tier_s": report["measured_tier"]["seconds"],
+                      "plans": report["plan_serving"]["plans"],
+                      "fig3a": report["fig3a"],
+                      "phase_seconds": report["phase_seconds"]}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

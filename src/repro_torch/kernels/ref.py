@@ -1,10 +1,21 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Port of ``repro/kernels/ref.py``'s paged-attention oracle: gather each row's
-blocks into logical order, mask by length and window, softmax in f32 with
-the reference path's intermediate casts. The CPU tests run it in place of
-the CUDA kernel, and ``chip_smoke.py`` holds the kernel against it on the
-card. Nothing on the serving path calls it when a card is present.
+Port of ``repro/kernels/ref.py``: the fp8 quantization pair (``amax_ref``,
+``scale_cast_ref``), the scaled fp8 GEMM (``fp8_matmul_ref``) and the
+paged-attention oracle (gather each row's blocks into logical order, mask by
+length and window, softmax in f32 with the reference path's intermediate
+casts). The CPU runs them in place of the CUDA kernels, and ``chip_smoke.py``
+holds each kernel against them on the card.
+
+fp8 special values. ``scale_cast_ref`` writes the reference framework's
+bytes for every value a plain PyTorch cast would not: an e4m3fn NaN or
+magnitude above the rounding midpoint 464 becomes NaN (``0x7f``, with the
+value's sign), an e5m2 NaN becomes ``0x7e`` with its sign, and an e5m2
+magnitude at or above its rounding midpoint 61440 becomes inf. Finite values
+in range go through :func:`~repro_torch.quant.formats.cast_to` (round to
+nearest even on both devices). ``amax_ref`` returns the canonical quiet NaN
+(``0x7fc00000``) when any element is NaN. The CUDA kernels produce the same
+bits, so kernel and plain version compare bitwise, NaN included.
 """
 from __future__ import annotations
 
@@ -12,10 +23,56 @@ from typing import Optional
 
 import torch
 
-from repro_torch.quant.formats import true_div
+import repro_torch.device  # noqa: F401  (full-f32 matmul policy on the card)
+from repro_torch.quant.formats import cast_to, true_div
 from repro_torch.quant.qops import einsum_f32acc
 
-__all__ = ["paged_deq", "paged_decode_attention_ref", "NEG"]
+__all__ = ["amax_ref", "scale_cast_ref", "fp8_matmul_ref", "paged_deq",
+           "paged_decode_attention_ref", "NEG", "FP8_DTYPES"]
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+# magnitudes from which the reference's round-to-nearest-even cast leaves
+# the format: e4m3fn has no inf (NaN past 464), e5m2 overflows to inf
+_E4M3_NAN_ABOVE = 464.0
+_E5M2_INF_FROM = 61440.0
+_CANONICAL_NAN = 0x7FC00000
+
+
+def amax_ref(x: torch.Tensor) -> torch.Tensor:
+    """max(|x|) in f32 as a 0-d tensor (NaN if any element is NaN)."""
+    a = x.float().abs().amax()
+    nan = torch.full((), _CANONICAL_NAN, dtype=torch.int32,
+                     device=a.device).view(torch.float32)
+    return torch.where(torch.isnan(a), nan, a)
+
+
+def scale_cast_ref(x: torch.Tensor, scale, dtype=torch.float8_e4m3fn
+                   ) -> torch.Tensor:
+    """``(x.f32 * scale)`` cast to an fp8 ``dtype`` with the reference's
+    bytes for special values (module docstring)."""
+    if dtype not in FP8_DTYPES:
+        raise TypeError(f"scale_cast_ref: {dtype} is not an fp8 dtype")
+    y = x.float() * torch.as_tensor(scale, dtype=torch.float32,
+                                    device=x.device)
+    bits = cast_to(y, dtype).view(torch.uint8)
+    sign = (y.view(torch.int32) < 0).to(torch.uint8) << 7
+    nan = torch.isnan(y)
+    if dtype == torch.float8_e4m3fn:
+        special = nan | (y.abs() > _E4M3_NAN_ABOVE)
+        bits = torch.where(special, sign | 0x7F, bits)
+    else:
+        bits = torch.where(nan, sign | 0x7E, bits)
+        bits = torch.where(~nan & (y.abs() >= _E5M2_INF_FROM), sign | 0x7C,
+                           bits)
+    return bits.view(dtype)
+
+
+def fp8_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, sx_inv, sw_inv,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``(Xq @ Wq^T) * sx_inv * sw_inv`` with exact f32 products and f32
+    sums; ``xq`` (M, K), ``wq`` (N, K) in fp8, scales f32 scalars."""
+    y = torch.matmul(xq.float(), wq.float().t())
+    return (y * sx_inv * sw_inv).to(out_dtype)
 
 # the reference path's mask fill (finfo(f32).min, not -inf: a fully masked
 # row softmaxes to uniform garbage instead of NaN)

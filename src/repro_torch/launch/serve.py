@@ -1,10 +1,15 @@
 """Serving launcher: one-shot batch or continuous batching on the paged KV
-pool, plain or under an MP plan.
+pool, plain, under an MP plan, or under a plan solved at serve time from a
+calibration bundle.
 
     # continuous batching, staggered arrivals, full-width llama3_1b on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_1b \
         --continuous --n-slots 4 --requests 8 --arrival-every 2 \
         --prompt-len 128 --new-tokens 32 [--mp-plan plan.json]
+
+    # solve per serving SLA from a calibrate() artifact — no recalibration
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_1b \
+        --continuous --calibration bundle.npz --tau 0.01 --objective ET
 
     # the same at smoke size on the CPU (plain PyTorch paths)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
@@ -13,9 +18,11 @@ pool, plain or under an MP plan.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (no
 checkpoint is in the repository); prompts come from numpy seeded with 1, as
 in the reference launcher. An ``--mp-plan`` JSON saved by either package's
-``MPPlan.save`` flows into either engine. Reports TTFT and decode
-throughput; continuous mode also reports the paged pool and the kernel
-launches.
+``MPPlan.save`` flows into either engine; ``--calibration`` loads a
+``CalibrationBundle`` saved by either package, and ``--registry`` picks the
+freshest bundle filed for this arch and these weights; both run the cheap IP
+for ``--tau`` / ``--objective`` here. Reports TTFT and decode throughput;
+continuous mode also reports the paged pool and the kernel launches.
 """
 from __future__ import annotations
 
@@ -24,13 +31,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.mpconfig import MPPlan
+from repro_torch.core.pipeline import CalibrationBundle
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import get_model
 from repro_torch.nn.spec import default_generator
 from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
 
 __all__ = ["build_parser", "make_model_and_params", "make_requests",
-           "load_plan", "report_continuous", "profile_drain", "main"]
+           "load_plan", "check_bundle_ops", "solve_from_bundle",
+           "registry_bundle", "report_continuous", "profile_drain", "main"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,6 +50,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--mp-plan", default=None, help="MPPlan json path")
+    ap.add_argument("--calibration", default=None,
+                    help="CalibrationBundle path (json/npz): solve the IP at "
+                         "serve time instead of loading a fixed plan")
+    ap.add_argument("--tau", type=float, default=None,
+                    help="loss-MSE threshold for --calibration solves "
+                         "(default: the bundle's calibration-time tau)")
+    ap.add_argument("--objective", default=None, choices=("ET", "TT", "M"),
+                    help="IP objective for --calibration solves")
+    ap.add_argument("--registry", default=None,
+                    help="bundle registry root: pick the freshest "
+                         "calibration bundle compatible with this arch and "
+                         "these weights' fingerprint, instead of trusting a "
+                         "hand-passed --calibration path")
     ap.add_argument("--batch", type=int, default=4,
                     help="one-shot batch size")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -99,6 +121,45 @@ def load_plan(path: str, model) -> MPPlan:
     return plan
 
 
+def check_bundle_ops(model, bundle: CalibrationBundle, src: str) -> None:
+    """Refuse a bundle calibrated on another model's op namespace."""
+    unknown = bundle.unknown_ops(model.serving_op_names())
+    if unknown:
+        raise SystemExit(
+            f"[serve] calibration bundle ({src}) has {len(unknown)} ops not "
+            f"in this model (e.g. {sorted(unknown)[:3]}); was it calibrated "
+            f"for a different arch?")
+
+
+def solve_from_bundle(bundle: CalibrationBundle, tau, objective,
+                      src: str) -> MPPlan:
+    """Serve-time solve: run the cheap IP for the requested SLA."""
+    plan = bundle.solve(tau=tau, objective=objective)
+    tier = plan.meta.get("gain_tier", "analytic")
+    print(f"[serve] solved from {src}: tau {plan.tau} objective "
+          f"{plan.objective} -> {plan.n_quantized} ops quantized (predicted "
+          f"gain {plan.predicted_gain:.3e} [{tier}], MSE "
+          f"{plan.predicted_loss_mse:.3e} <= {plan.budget:.3e})")
+    if tier == "roofline_fallback":
+        print("[serve] note: no measured wall-clock gain table in this "
+              "bundle — the solve used roofline gains (run "
+              "tabulate_measured_gains + re-save to upgrade)")
+    return plan
+
+
+def registry_bundle(model, params, path: str) -> tuple:
+    """Serve-time registry lookup: the freshest bundle compatible with the
+    arch and the fingerprint of the weights actually served."""
+    from repro_torch.core.pipeline import _params_fingerprint
+    from repro_torch.core.registry import BundleRegistry
+    arch = model.cfg.name
+    fp = _params_fingerprint(params)
+    bundle = BundleRegistry(path).find(arch, fp)
+    print(f"[serve] registry match: arch {arch} fingerprint {fp} "
+          f"(calib_hash {bundle.meta.get('calib_hash')})")
+    return bundle, f"{path}:{arch}/{fp}"
+
+
 def report_continuous(out, n_requests: int, n_slots: int) -> None:
     c = out.counters
     print(f"[serve] continuous: {n_requests} reqs via {n_slots} slots | "
@@ -155,7 +216,24 @@ def main(argv=None) -> None:
     model, params = make_model_and_params(args.arch, args.smoke, device)
     print(f"[serve] {model.cfg.name} on {device}: random-init params "
           f"({model.n_params() / 1e6:.1f}M)")
-    plan = load_plan(args.mp_plan, model) if args.mp_plan else None
+    if sum(map(bool, (args.mp_plan, args.calibration, args.registry))) > 1:
+        raise SystemExit("--mp-plan, --calibration and --registry are "
+                         "mutually exclusive")
+    if (args.tau is not None or args.objective is not None) \
+            and not (args.calibration or args.registry):
+        raise SystemExit("--tau/--objective select a serve-time solve and "
+                         "require --calibration or --registry")
+    plan = bundle = None
+    if args.calibration:
+        bundle, src = CalibrationBundle.load(args.calibration), \
+            args.calibration
+    elif args.registry:
+        bundle, src = registry_bundle(model, params, args.registry)
+    if bundle is not None:
+        check_bundle_ops(model, bundle, src)
+        plan = solve_from_bundle(bundle, args.tau, args.objective, src)
+    elif args.mp_plan:
+        plan = load_plan(args.mp_plan, model)
     if args.continuous:
         eng = ContinuousBatchingEngine(
             model, n_slots=args.n_slots,

@@ -295,9 +295,16 @@ class LM:
         from repro_torch.nn.losses import chunked_ce_loss
         h, positions = self._embed(params, batch["tokens"])
         h = self._backbone(params, ctx, h, positions)
+        # probe mode runs the head once over the whole sequence, so each op
+        # is captured and probed once (as in the reference); so does an op
+        # inventory trace, so its head operands have the probes' shapes (the
+        # reference records one chunk there, and its calibration then fails
+        # on a sequence longer than loss_chunk)
         return chunked_ce_loss(lambda hi: self._head(params, ctx, hi), h,
                                batch["labels"], batch.get("weights"),
-                               self.cfg.loss_chunk)
+                               self.cfg.loss_chunk,
+                               no_scan=(ctx.mode == "probe"
+                                        or ctx.registry is not None))
 
     # ------------------------------------------------------------------
     # serving

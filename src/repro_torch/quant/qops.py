@@ -6,11 +6,30 @@ the batched GEMMs inside attention (``L_BGEMM``) — goes through
 
 * ``plain`` — high-precision (BF16) execution;
 * ``mp``    — operands of op ``name`` are fake-quantized to the assigned
-              format (``impl="simulate"``) or stored in it and dequantized at
-              use (``impl="native"``).
+              format (``impl="simulate"``), stored in it and dequantized at
+              use (``impl="native"``), or, for a linear op, run through the
+              fp8 CUDA kernels (``impl="kernel"``, below);
+* ``probe`` — sensitivity calibration (Sec. 2.2): operands receive additive
+              zero probes ``z + p`` and the unperturbed operands are captured
+              (references, not copies) so the caller can evaluate
+              ``s_l = ||z (.) dg/dz||^2`` (eq. 19).
 
-Probe mode (sensitivity calibration) and ``impl="pallas"``'s counterpart, the
-fp8 GEMM kernels, belong to the calibration slice; asking for either raises.
+``impl="kernel"`` is the port's counterpart of the reference's
+``impl="pallas"`` (which the port refuses by name). A quantized linear op
+goes through :func:`repro_torch.kernels.ops.fp8_linear` — per-tensor amax
+scales, an fp8 GEMM with f32 accumulation — and returns before the registry
+records it, as in the reference. On a CUDA tensor that launches the
+hand-written kernels; on a CPU tensor it runs their plain versions. The
+reference takes that branch only for a 2-D ``lhs``, which no model path
+produces (every linear of ``LM`` sees ``(B, S, C)``). One departure: when the
+context asks for per-tensor activation scales (``act_scale_axis`` None and
+``act_scale_token`` False), an ``lhs`` of higher rank is flattened to
+``(-1, C)``, sent through the kernel and reshaped back. Its quantization grid
+is the one the reference's per-tensor fake-quant of the same tensor uses
+(``max / max(amax, 1e-12)`` in both); only the products differ, by the bf16
+rounding of the dequantized operands. Per-token and per-sequence contexts
+(serving) keep the fake-quant branch unchanged.
+
 When ``ctx.registry`` is a list, every op records an :class:`OpInfo`.
 """
 from __future__ import annotations
@@ -29,7 +48,7 @@ __all__ = ["QuantContext", "OpInfo", "qeinsum", "linear", "bgemm",
 
 KIND_LINEAR = "linear"   # rhs is a weight tensor (persistent)
 KIND_BGEMM = "bgemm"     # both operands are activations
-_IMPLS = ("simulate", "native")
+_IMPLS = ("simulate", "native", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +76,11 @@ class QuantContext:
     bucket padding. ``act_scale_axis`` keeps one scale per slice of that
     axis instead. Weights keep per-tensor scales."""
 
-    mode: str = "plain"                       # plain | mp (probe: slice 2)
+    mode: str = "plain"                       # plain | mp | probe
     mp: Optional[dict] = None                 # op name -> format name
-    impl: str = "simulate"                    # simulate | native
-    probes: Optional[dict] = None
-    captures: Optional[dict] = None
+    impl: str = "simulate"                    # simulate | native | kernel
+    probes: Optional[dict] = None             # op name -> (p_lhs, p_rhs)
+    captures: Optional[dict] = None           # out: op name -> (lhs, rhs)
     registry: Optional[list] = None           # out: list[OpInfo]
     scales: Optional[dict] = None             # op name -> (s_lhs, s_rhs)
     default_format: str = "bf16"
@@ -143,24 +162,48 @@ def einsum_f32acc(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
     return torch.einsum(spec, lhs.float(), rhs.float()).to(out_dtype)
 
 
+def _kernel_route(ctx: QuantContext, kind: str, lhs: torch.Tensor,
+                  rhs: torch.Tensor) -> bool:
+    """Whether a quantized op takes the fp8 kernels (module docstring)."""
+    if ctx.impl != "kernel" or kind != KIND_LINEAR or rhs.ndim != 2:
+        return False
+    return lhs.ndim == 2 or (ctx.act_scale_axis is None
+                             and not ctx.act_scale_token)
+
+
+def _kernel_linear(lhs: torch.Tensor, rhs: torch.Tensor, fmt_name: str,
+                   out_dtype) -> torch.Tensor:
+    from repro_torch.kernels import ops as kops   # kernels import qops
+    lead = lhs.shape[:-1]
+    y = kops.fp8_linear(lhs.reshape(-1, lhs.shape[-1]), rhs,
+                        fmt_name=fmt_name, out_dtype=out_dtype)
+    return y.reshape(*lead, rhs.shape[0])
+
+
 def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
             rhs: torch.Tensor, kind: str = KIND_LINEAR) -> torch.Tensor:
     """Quantizable einsum — the single entry point for L_lin and L_BGEMM."""
     out_dtype = lhs.dtype
     if ctx.mode == "probe":
-        raise NotImplementedError(
-            "probe mode (sensitivity calibration) lands with the core/ "
-            "calibration slice")
-    if ctx.mode == "mp":
+        if ctx.probes is not None and name in ctx.probes:
+            p_lhs, p_rhs = ctx.probes[name]
+            if ctx.captures is not None:
+                ctx.captures[name] = (lhs, rhs)
+            lhs = lhs + p_lhs.to(lhs.dtype)
+            rhs = rhs + p_rhs.to(rhs.dtype)
+    elif ctx.mode == "mp":
         if ctx.impl not in _IMPLS:
-            raise NotImplementedError(
-                f"QuantContext.impl={ctx.impl!r}: the fp8 GEMM kernels land "
-                f"with the calibration slice; use one of {_IMPLS}")
+            hint = (" — the port's fp8 kernels are impl='kernel'"
+                    if ctx.impl == "pallas" else "")
+            raise ValueError(f"QuantContext.impl={ctx.impl!r}: use one of "
+                             f"{_IMPLS}{hint}")
         fmt_name = ctx.format_for(name)
         if get_format(fmt_name).is_quantized:
             s_lhs = s_rhs = None
             if ctx.scales is not None and name in ctx.scales:
                 s_lhs, s_rhs = ctx.scales[name]
+            if _kernel_route(ctx, kind, lhs, rhs):
+                return _kernel_linear(lhs, rhs, fmt_name, out_dtype)
             if ctx.act_scale_token:
                 a_l, b_l = spec.split("->")[0].split(",")
                 lhs_axes = _token_scale_axes(a_l)

@@ -149,8 +149,18 @@ def test_qops_registry_and_refusals():
     assert y.shape == (2, 3, 5)
     assert reg[0].name == "lin" and reg[0].macs == 2 * 3 * 4 * 5
     assert reg[0].weight_elems == 20
-    with pytest.raises(NotImplementedError, match="probe"):
-        tqops.linear(tqops.QuantContext(mode="probe"), "lin", x, w)
-    with pytest.raises(NotImplementedError, match="fp8 GEMM"):
+    # probe mode: zero probes leave the output unchanged, the unperturbed
+    # operands are captured by reference, and the probes receive dg/dz
+    probes = {"lin": (torch.zeros((2, 3, 4), requires_grad=True),
+                      torch.zeros((5, 4), requires_grad=True))}
+    ctx = tqops.QuantContext(mode="probe", probes=probes, captures={})
+    yp = tqops.linear(ctx, "lin", x, w)
+    assert torch.equal(yp.detach(), y)
+    assert ctx.captures["lin"][0] is x and ctx.captures["lin"][1] is w
+    g_x, g_w = torch.autograd.grad(yp.sum(), probes["lin"])
+    assert torch.equal(g_x, torch.full((2, 3, 4), 5.0))
+    assert torch.equal(g_w, torch.full((5, 4), 6.0))
+    # the reference's impl="pallas" is the port's impl="kernel"
+    with pytest.raises(ValueError, match="'kernel'"):
         tqops.linear(tqops.QuantContext(mode="mp", mp={"lin": "fp8_e4m3"},
                                         impl="pallas"), "lin", x, w)
