@@ -50,7 +50,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 9. paper Fig. 3a: the loss under each plan with ``impl="kernel"`` and with
    ``impl="simulate"``, and the measured loss MSE against the plan's
    predicted one;
-10. print the kernel table and the serving and calibration numbers as JSON
+10. kernel 4, ``mp_flash_attention``: its entry point
+    ``flash_attention_mp`` once in bf16 and once with ``fmt_name=
+    "fp8_e4m3"`` at the llama3_1b width (B=1, H=32, T=S=4096, D=64; the
+    launch counters set to 0 just before and read just after: no model
+    path calls it), then the kernel against its plain version there, at
+    DeepSeek-V3's width (H=128, D=192, Dv=128) and at a small T != S case,
+    and timed beside ``scaled_dot_product_attention(is_causal=True)``;
+11. the MLA form of the paged kernel (B=4, 128 heads on one latent head,
+    latents 512 + 64, block 16) against its plain version, timed beside
+    SDPA over the gathered latents;
+12. a long prompt: llama3_1b at its flash threshold (4096) with one
+    8192-token prompt through the one-shot engine (blocked flash
+    attention) against the same prompt at a threshold of 2^30 (reference
+    attention): prefill logits, first tokens and TTFT;
+13. DeepSeek-V3's dense prefix at full width (three MLA layers, random
+    weights): phase 4's cell through the absorbed decode, fused and gather,
+    the one-shot engine and the expanded decode, then under a fixed MP plan
+    (fused, gather, one-shot); the MLA kernel's launches equal decode steps
+    x fused layers; then a 4096-token prompt as in phase 12;
+14. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero without a result when no CUDA device is visible or the
@@ -93,9 +112,17 @@ MARGIN_BOUND = 0.125
 # allows twice as much
 LOGIT_TOL_MP = 0.25
 MARGIN_BOUND_MP = 0.25
+# DeepSeek's dense prefix under its MP plan: 16 fp8 linear ops at widths of
+# 1536 to 18432 in 2 of its 3 layers, with f32 latent attention whose cuBLAS
+# sums differ in order between the one-shot and continuous batch shapes;
+# measured 0.2402 (gather vs one-shot) and 0.2852 (fused vs gather) on an
+# H100 against the llama bounds above, so 16 bf16 ulps at |logit| in [4, 8)
+LOGIT_TOL_MLA_MP = 0.5
+MARGIN_BOUND_MLA_MP = 0.5
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                  # dense tensor-core bf16 peak
 FP8_FLOPS = 1979e12                  # dense tensor-core fp8 peak
+F32_FLOPS = 67e12                    # float32 outside the tensor cores
 # fp8 GEMM vs its plain version: products of two fp8 values are exact in
 # f32, sums run in another order, one rounding to bf16 — two bf16 ulps of
 # the largest output
@@ -1015,6 +1042,440 @@ def fig3a_phase(torch, model, params, batches, plans) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: kernel 4, mixed-precision flash attention
+# ---------------------------------------------------------------------------
+
+# (B, H, T, S, D, Dv): llama3_1b's attention width and DeepSeek-V3's MLA
+# prefill width at 4096 tokens, and one small T != S case
+FLASH_SHAPES = {"llama3_1b": (1, 32, 4096, 4096, 64, 64),
+                "deepseek_v3": (1, 128, 4096, 4096, 192, 128),
+                "t_ne_s": (2, 4, 300, 700, 64, 64)}
+
+
+def flash_agrees(torch, got, want, quant_probs: bool) -> tuple:
+    """(ok, max abs err). Without quant_probs: two bf16 ulps at |o| ~ 1
+    (KERNEL_TOL, absolute and relative). With it, a probability that the
+    two f32 sum orders put on either side of an e4m3 rounding boundary
+    moves by one e4m3 step (at most p/8), so an output by at most max|v|/8
+    over a denominator of at least 1: max error 2^-3, and at most one
+    output in 1000 beyond KERNEL_TOL."""
+    err = (got.float() - want.float()).abs()
+    beyond = err > KERNEL_TOL * (1 + want.float().abs())
+    e = float(err.max())
+    if not quant_probs:
+        return not bool(beyond.any()), e
+    return e <= 0.125 and float(beyond.float().mean()) <= 1e-3, e
+
+
+def causal_pairs(T: int, S: int) -> int:
+    """Live (query, key) pairs under the top-left causal mask."""
+    return sum(min(i + 1, S) for i in range(T))
+
+
+def flash_phase(torch) -> dict:
+    """Kernel 4 against its plain version at the model widths, bf16 and
+    through ``flash_attention_mp(fmt_name="fp8_e4m3")``; its launches are
+    those of its entry point (no model path of either package calls it):
+    one bf16 and one fp8 call at the llama3_1b width, counters set to 0
+    just before and read just after. Then kernel, plain version and
+    ``scaled_dot_product_attention(is_causal=True)`` (also top-left) timed
+    at each width."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mp_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_cast as qc
+    from repro_torch.kernels.ref import mp_flash_attention_plain
+
+    def qkv(shape, seed):
+        B_, H_, T_, S_, D_, Dv_ = shape
+        return [randn(torch, s, seed + i, 1.0, torch.bfloat16)
+                for i, s in enumerate(((B_, H_, T_, D_), (B_, H_, S_, D_),
+                                       (B_, H_, S_, Dv_)))]
+
+    # the entry point's run
+    q, k, v = qkv(FLASH_SHAPES["llama3_1b"], 100)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    qc.launches.update(amax=0, scale_cast=0)
+    bf16_out = ops.flash_attention_mp(q, k, v)
+    fp8_out = ops.flash_attention_mp(q, k, v, fmt_name="fp8_e4m3")
+    torch.cuda.synchronize()
+    launches = fa.launches
+    q_launches = dict(qc.launches)
+    log(f"flash_attention_mp entry point: {launches} flash launches, "
+        f"quantization launches {q_launches}")
+    if launches != 2 or q_launches != {"amax": 3, "scale_cast": 3}:
+        raise AssertionError(f"flash_attention_mp launches {launches} / "
+                             f"{q_launches}, expected 2 / 3 amax + 3 "
+                             f"scale_cast")
+    failures, max_err, rec = [], 0.0, {}
+    qs = [qc.quantize_fp8(x.reshape(-1, x.shape[-1])) for x in (q, k, v)]
+    fp8_args = [a.reshape(x.shape) for (a, _), x in zip(qs, (q, k, v))] + [
+        s for _, s in qs]
+    checks = [("llama3_1b bf16", bf16_out, mp_flash_attention_plain(q, k, v),
+               False),
+              ("llama3_1b fp8", fp8_out, mp_flash_attention_plain(
+                  *fp8_args, quant_probs=True), True)]
+    for name in ("deepseek_v3", "t_ne_s"):
+        qq, kk, vv = qkv(FLASH_SHAPES[name], 110)
+        for causal in (True, False) if name == "t_ne_s" else (True,):
+            checks.append((f"{name} causal={causal}",
+                           fa.mp_flash_attention(qq, kk, vv, causal=causal),
+                           mp_flash_attention_plain(qq, kk, vv,
+                                                    causal=causal), False))
+    for name, got, want, quant_probs in checks:
+        ok, e = flash_agrees(torch, got, want, quant_probs)
+        max_err = max(max_err, e)
+        log(f"mp_flash_attention vs plain: {name}: max abs err {e:.3e}")
+        if not ok:
+            failures.append(name)
+    del checks, bf16_out, fp8_out
+    if failures:
+        raise AssertionError("mp_flash_attention disagrees with its plain "
+                             "version: " + ", ".join(failures))
+    n0 = fa.launches
+    for name in ("llama3_1b", "deepseek_v3"):
+        B_, H_, T_, S_, D_, Dv_ = FLASH_SHAPES[name]
+        qq, kk, vv = qkv(FLASH_SHAPES[name], 120)
+        nbytes = 2 * (qq.numel() + kk.numel() + vv.numel() + B_ * H_ * T_ * Dv_)
+        ops_ = 2 * B_ * H_ * causal_pairs(T_, S_) * (D_ + Dv_)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / BF16_FLOPS
+        r = {"shape": list(FLASH_SHAPES[name]),
+             "ms": timed(torch, fa.mp_flash_attention, qq, kk, vv),
+             "plain_ms": timed(torch, mp_flash_attention_plain, qq, kk, vv),
+             "bound_ms": max(t_b, t_o) * 1e3,
+             "bound_by": "bytes" if t_b >= t_o else "operations",
+             "bound_ops": ops_}
+        try:
+            r["library_ms"] = timed(torch, lambda a, b, c:
+                                    F.scaled_dot_product_attention(
+                                        a, b, c, is_causal=True), qq, kk, vv)
+        except RuntimeError as e:      # the yardstick only, never the port
+            r["library_ms"], r["library_error"] = None, str(e)[:200]
+        r["tflops"] = ops_ / (r["ms"] * 1e-3) / 1e12
+        if name == "llama3_1b":
+            qz = [qc.quantize_fp8(x.reshape(-1, x.shape[-1]))
+                  for x in (qq, kk, vv)]
+            fq = [a.reshape(x.shape) for (a, _), x in zip(qz, (qq, kk, vv))]
+            sc = [s for _, s in qz]
+            r["fp8_ms"] = timed(torch, lambda a, b, c: fa.mp_flash_attention(
+                a, b, c, *sc, quant_probs=True), *fq)
+            r["fp8_bound_ms"] = max(nbytes / 2 / HBM_BYTES_PER_S,
+                                    ops_ / FP8_FLOPS) * 1e3
+        rec[name] = r
+        lib = (f"{r['library_ms'] * 1e3:.1f} us" if r["library_ms"]
+               else "n/a")
+        log(f"mp_flash_attention {name} {tuple(r['shape'])}: "
+            f"{r['ms'] * 1e3:.1f} us ({r['tflops']:.1f} TFLOP/s) | plain "
+            f"{r['plain_ms'] * 1e3:.1f} us | SDPA {lib} | bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})"
+            + (f" | fp8 operands {r['fp8_ms'] * 1e3:.1f} us"
+               if "fp8_ms" in r else ""))
+    fa.launches = n0                  # timing launches are not path ones
+    return {"flash_launches": launches, "flash_max_abs_err": max_err,
+            "flash_times": rec}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the MLA form of the paged kernel
+# ---------------------------------------------------------------------------
+
+# DeepSeek-V3's absorbed decode at the serving cell: 4 rows, 128 query heads
+# on one latent KV head, latents 512 + 64, block 16
+MLA_H, MLA_R, MLA_DR, MLA_SCALE_DIM = 128, 512, 64, 128 + 64
+# f32 scores, probabilities and output: summation order only
+MLA_TOL = 1e-4
+
+
+def mla_case(torch, seed: int, lengths, poison_value: float):
+    """As ``paged_case`` with ckv/kr pages and f32 queries."""
+    rng = np.random.default_rng(seed)
+    n_pages = MAX_LEN // BS
+    n_live = B * n_pages
+    n_blocks = 1 + n_live + 4
+    poison = np.arange(1 + n_live, n_blocks)
+    perm = rng.permutation(np.arange(1, 1 + n_live))
+    lengths = np.asarray(lengths, np.int32)
+    tables = np.full((B, n_pages), -1, np.int32)
+    c = 0
+    for b in range(B):
+        if lengths[b] == 0:
+            continue
+        used = -(-int(lengths[b]) // BS)
+        tables[b, :used] = perm[c:c + used]
+        c += used
+        tables[b, used:] = rng.choice(poison, size=n_pages - used)
+
+    def pages(width):
+        x = rng.normal(size=(n_blocks, BS, 1, width)).astype(np.float32)
+        x[poison] = poison_value
+        return torch.from_numpy(x).cuda().to(torch.bfloat16)
+
+    ckv, kr = pages(MLA_R), pages(MLA_DR)
+    q1 = torch.from_numpy(rng.normal(size=(B, 1, MLA_H, MLA_R)).astype(
+        np.float32)).cuda()
+    q2 = torch.from_numpy(rng.normal(size=(B, 1, MLA_H, MLA_DR)).astype(
+        np.float32)).cuda()
+    args = (q1, ckv, None, torch.from_numpy(tables).cuda(),
+            torch.from_numpy(lengths).cuda())
+    kw = dict(q2=q2, k2=kr, scale=1.0 / math.sqrt(MLA_SCALE_DIM),
+              scale_mode="mul", out_dtype=torch.float32)
+    return args, kw
+
+
+def mla_kernel_phase(torch) -> dict:
+    """The MLA form against its plain version (a vacant row, stale entries
+    on poisoned blocks, NaN in unreferenced blocks), then timed at a
+    mid-drain decode step with SDPA over the gathered latents (keys
+    ckv||kr, values ckv) as the yardstick."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.ref import paged_decode_attention_ref, paged_deq
+    max_err = 0.0
+    for lengths in ((MAX_LEN, 100, BS, 0), (160, 152, 144, 136)):
+        args, kw = mla_case(torch, 3, lengths, 224.0)
+        got = pa.paged_decode_attention(*args, **kw)
+        want = paged_decode_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        log(f"MLA form vs plain: lengths {lengths}: max abs err {err:.3e} "
+            f"(rtol/atol {MLA_TOL:g})")
+        if not torch.allclose(got, want, rtol=MLA_TOL, atol=MLA_TOL):
+            raise AssertionError(f"the MLA form disagrees with its plain "
+                                 f"version at lengths {lengths}")
+        nan_args, _ = mla_case(torch, 3, lengths, float("nan"))
+        got_nan = pa.paged_decode_attention(*nan_args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got_nan, got):
+            raise AssertionError("the MLA form read a block no live page "
+                                 "references")
+    lengths = (160, 152, 144, 136)
+    args, kw = mla_case(torch, 4, lengths, 0.0)
+    n0 = pa.launches
+
+    def kernel():
+        return pa.paged_decode_attention(*args, **kw)
+
+    def plain():
+        return paged_decode_attention_ref(*args, **kw)
+
+    q1, ckv, _, bt, ln = args
+    kg = paged_deq(ckv, bt, torch.float32, 1.0)            # (B, S, 1, r)
+    krg = paged_deq(kw["k2"], bt, torch.float32, 1.0)
+    keys = torch.cat([kg, krg], -1).permute(0, 2, 1, 3).contiguous()
+    vals = kg.permute(0, 2, 1, 3).contiguous()
+    qs = torch.cat([q1, kw["q2"]], -1)                     # (B, 1, H, 576)
+    qs = qs.permute(0, 2, 1, 3).contiguous()               # (B, H, 1, 576)
+    S = keys.shape[2]
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < ln[:, None]).reshape(B, 1, 1, S)
+    keys_h = keys.expand(B, MLA_H, S, keys.shape[-1])
+    vals_h = vals.expand(B, MLA_H, S, vals.shape[-1])
+
+    def library():
+        return F.scaled_dot_product_attention(qs, keys_h, vals_h,
+                                              attn_mask=mask,
+                                              scale=kw["scale"])
+
+    want = plain()
+    got_lib = library().permute(0, 2, 1, 3)
+    lib_err = float((got_lib - want).abs().max())
+    rec = {"ms": device_ms(torch, kernel), "plain_ms": device_ms(torch, plain),
+           "library_ms": device_ms(torch, library),
+           "ms_eager": eager_ms(torch, kernel, 200),
+           "library_max_abs_err": lib_err}
+    pa.launches = n0
+    live = sum(lengths)
+    nbytes = (live * (MLA_R + MLA_DR) * 2 + B * MLA_H * (MLA_R + MLA_DR) * 4
+              + B * MLA_H * MLA_R * 4 + bt.numel() * 4 + ln.numel() * 4)
+    ops_ = 2 * live * MLA_H * ((MLA_R + MLA_DR) + MLA_R)
+    # f32 queries: operations at the f32 rate outside the tensor cores
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / F32_FLOPS
+    rec.update(bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations",
+               bound_bytes=nbytes, bound_ops=ops_)
+    log(f"paged_decode_attention MLA form (B={B}, H={MLA_H}, "
+        f"{MLA_R}+{MLA_DR}, keys {lengths}): {rec['ms'] * 1e3:.2f} us | plain "
+        f"{rec['plain_ms'] * 1e3:.2f} us | SDPA {rec['library_ms'] * 1e3:.2f}"
+        f" us (max abs err vs plain {lib_err:.2e}) | bound "
+        f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}) | eager "
+        f"{rec['ms_eager'] * 1e3:.2f} us")
+    return {"mla_max_abs_err": max_err, "mla_times": rec}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: DeepSeek-V3's dense MLA prefix served at full width
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek_v3_671b"
+
+
+def deepseek_models(torch):
+    """The dense prefix (three MLA layers at the published widths), its
+    absorbed-decode model and its expanded-decode model over one set of
+    random weights."""
+    from repro_torch.launch.serve import make_model_and_params
+    from repro_torch.models.registry import dense_prefix_overrides, get_model
+    ov = dense_prefix_overrides(DEEPSEEK)
+    t0 = time.perf_counter()
+    absorbed, params = make_model_and_params(DEEPSEEK, False, DEVICE, seed=0,
+                                             mla_absorb_decode=True, **ov)
+    torch.cuda.synchronize()
+    log(f"{DEEPSEEK} dense prefix ({absorbed.cfg.n_layers} MLA layers, "
+        f"d_model {absorbed.cfg.d_model}, {absorbed.cfg.n_heads} heads, "
+        f"vocab {absorbed.cfg.vocab_size}): {absorbed.n_params() / 1e9:.3f}B "
+        f"params, random init in {time.perf_counter() - t0:.1f} s")
+    return absorbed, get_model(DEEPSEEK, **ov), params
+
+
+def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
+    """Phase 4's cell on the dense MLA prefix: the absorbed decode through
+    the MLA form of the paged kernel (fused) and through the gather path,
+    the one-shot engine, the expanded decode (which always gathers) against
+    its own one-shot engine; then under a fixed MP plan (fp8 on every
+    linear op of layers 1-2 and on layer 2's attention BGEMMs, which then
+    gathers): fused and gather drains and the one-shot engine. The kernel's
+    launches must equal decode steps x fused layers."""
+    from repro_torch.core.mpconfig import MPPlan
+    from repro_torch.launch.serve import make_requests
+    n_layers = absorbed.cfg.n_layers
+    reqs = make_requests(absorbed.cfg.vocab_size, SERVE["requests"],
+                         SERVE["prompt_len"], SERVE["new_tokens"],
+                         SERVE["arrival_every"])
+    fused, n_fused, fused_tl = run_continuous(torch, absorbed, params, reqs,
+                                              paged_attn="fused")
+    log(f"MLA fused: {fused.n_steps} decode steps, {n_fused} kernel "
+        f"launches")
+    if n_fused != fused.n_steps * n_layers or n_fused == 0:
+        raise AssertionError(f"MLA fused launches {n_fused} != "
+                             f"{fused.n_steps} steps x {n_layers} layers")
+    gather, n_gather, gather_tl = run_continuous(torch, absorbed, params,
+                                                 reqs, paged_attn="gather")
+    expd, n_exp, exp_tl = run_continuous(torch, expanded, params, reqs,
+                                         paged_attn="fused")
+    if n_gather or n_exp:
+        raise AssertionError(f"gather / expanded drains launched the kernel "
+                             f"{n_gather} / {n_exp} times")
+    oneshot, one_tl = run_oneshot(absorbed, params, reqs)
+    exp_one, exp_one_tl = run_oneshot(expanded, params, reqs)
+    failures = []
+    plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
+    agree = {"fused_vs_gather": compare("MLA fused vs gather", fused_tl,
+                                        gather_tl, **plain),
+             "gather_vs_oneshot": compare("MLA gather vs one-shot",
+                                          gather_tl, one_tl, **plain),
+             "expanded_vs_oneshot": compare("MLA expanded vs its one-shot",
+                                            exp_tl, exp_one_tl, **plain)}
+    assignment = {f"layers/{i}/{op}": "fp8_e4m3"
+                  for i in range(1, n_layers)
+                  for op in ("attn/q_a_proj", "attn/q_b_proj",
+                             "attn/kv_a_proj", "attn/kv_b_proj",
+                             "attn/o_proj", "mlp/gate_proj", "mlp/up_proj",
+                             "mlp/down_proj")}
+    for op in ("qk_matmul", "av_matmul"):
+        assignment[f"layers/{n_layers - 1}/attn/{op}"] = "fp8_e4m3"
+    plan = MPPlan(assignment=assignment, groups=[], objective="ET", tau=0.0,
+                  budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
+    mp_f, n_mp, mp_f_tl = run_continuous(torch, absorbed, params, reqs,
+                                         mp=plan, paged_attn="fused")
+    if n_mp != mp_f.n_steps * (n_layers - 1):
+        raise AssertionError(f"MLA MP launches {n_mp} != {mp_f.n_steps} "
+                             f"steps x {n_layers - 1} fused layers")
+    mp_g, _, mp_g_tl = run_continuous(torch, absorbed, params, reqs,
+                                      mp=plan, paged_attn="gather")
+    _, mp_one_tl = run_oneshot(absorbed, params, reqs, mp=plan)
+    mp_tol = dict(tol=LOGIT_TOL_MLA_MP, bound=MARGIN_BOUND_MLA_MP,
+                  failures=failures)
+    agree["mp_gather_vs_mp_oneshot"] = compare(
+        "MLA MP gather vs MP one-shot", mp_g_tl, mp_one_tl, **mp_tol)
+    agree["mp_fused_vs_mp_gather"] = compare(
+        "MLA MP fused vs MP gather", mp_f_tl, mp_g_tl, **mp_tol)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    log(f"MLA serving: {len(fused.results)} of {len(reqs)} requests served "
+        f"by each drain; fused {fused.tokens_per_s:.1f} tok/s, gather "
+        f"{gather.tokens_per_s:.1f}, expanded {expd.tokens_per_s:.1f}, MP "
+        f"fused {mp_f.tokens_per_s:.1f} ({n_mp} launches)")
+    return {"mla_kernel_launches_main_path": n_fused,
+            "mla_agreement": agree,
+            "mla_serving": {
+                "fused": serving_numbers(fused),
+                "gather": serving_numbers(gather),
+                "expanded": serving_numbers(expd),
+                "oneshot": {"tokens_per_s": oneshot.tokens_per_s,
+                            "ttft_ms": oneshot.ttft_s * 1e3},
+                "expanded_oneshot": {"tokens_per_s": exp_one.tokens_per_s,
+                                     "ttft_ms": exp_one.ttft_s * 1e3},
+                "mp_fused": serving_numbers(mp_f),
+                "mp_gather": serving_numbers(mp_g)}}
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 13: long prompts through the blocked flash attention
+# ---------------------------------------------------------------------------
+
+LONG_PROMPTS = {"llama3_1b": 8192, DEEPSEEK: 4096}
+
+
+def long_prompt(torch, flash_model, ref_model, params, T: int,
+                name: str) -> dict:
+    """One T-token prompt through the one-shot engine twice: the model's
+    own flash threshold (T >= flash_min_seq: blocked flash attention) and
+    a threshold of 2^30 (the materialized reference attention). The
+    prefill logits must agree within LOGIT_TOL; the first tokens must be
+    equal unless the reference's top-two gap is a near-tie."""
+    from repro_torch.serve import ServeEngine
+    g = torch.Generator().manual_seed(T)
+    tokens = torch.randint(0, flash_model.cfg.vocab_size, (1, T),
+                           generator=g, dtype=torch.int32).numpy()
+    if not T >= flash_model.cfg.flash_min_seq > 0:
+        raise AssertionError(f"{name}: {T} tokens do not reach "
+                             f"flash_min_seq {flash_model.cfg.flash_min_seq}")
+    out = {}
+    for path, model in (("flash", flash_model), ("reference", ref_model)):
+        eng = ServeEngine(model, device=DEVICE)
+        events = record_steps(eng, ("prefill_step", "bucketed_prefill_step"))
+        eng.generate(params, {"tokens": tokens}, max_new_tokens=1)  # warm-up
+        events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        res = eng.generate(params, {"tokens": tokens}, max_new_tokens=1)
+        (step, logits, *_), = events
+        want_step = "prefill_step" if path == "flash" else \
+            "bucketed_prefill_step"
+        if step != want_step:
+            raise AssertionError(f"{name} {path}: prefill went through "
+                                 f"{step}, expected {want_step}")
+        out[path] = {"ttft_ms": res.ttft_s * 1e3,
+                     "first_token": int(res.tokens[0, 0]),
+                     "logits": logits[0, -1].float(),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del eng, events
+    err = float((out["flash"]["logits"] - out["reference"]["logits"]).abs()
+                .max())
+    gap = float(top2_gaps(out["reference"]["logits"][None])[0])
+    same = out["flash"]["first_token"] == out["reference"]["first_token"]
+    rec = {"tokens": T, "max_logit_err": err, "ref_top2_gap": gap,
+           "first_token_equal": same}
+    for path in ("flash", "reference"):
+        rec[path] = {k: v for k, v in out[path].items() if k != "logits"}
+    log(f"long prompt {name} ({T} tokens): first token flash "
+        f"{out['flash']['first_token']} reference "
+        f"{out['reference']['first_token']} (top-2 gap {gap:.4f}); logits max"
+        f" abs err {err:.4f} (tol {LOGIT_TOL}); TTFT flash "
+        f"{out['flash']['ttft_ms']:.1f} ms (peak {out['flash']['peak_gb']:.1f}"
+        f" GB) reference {out['reference']['ttft_ms']:.1f} ms (peak "
+        f"{out['reference']['peak_gb']:.1f} GB)")
+    if not err <= LOGIT_TOL:
+        raise AssertionError(f"{name}: long-prompt logits differ by {err:.4f}"
+                             f" > {LOGIT_TOL}")
+    if not (same or gap < MARGIN_BOUND):
+        raise AssertionError(f"{name}: first tokens differ at a top-2 gap of "
+                             f"{gap:.4f}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1091,6 +1552,24 @@ def main() -> int:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    report.update(phase("flash kernel", flash_phase, torch))
+    report.update(phase("MLA kernel", mla_kernel_phase, torch))
+    from repro_torch.models.registry import dense_prefix_overrides, get_model
+    report["long_prompt"] = {"llama3_1b": phase(
+        "long prompt llama3_1b", long_prompt, torch, model,
+        get_model("llama3_1b", flash_min_seq=1 << 30), params,
+        LONG_PROMPTS["llama3_1b"], "llama3_1b")}
+    del model, params, bundle, batches
+    torch.cuda.empty_cache()
+    absorbed, expanded, ds_params = deepseek_models(torch)
+    report.update(phase("MLA serving", mla_serve_phase, torch, absorbed,
+                        expanded, ds_params))
+    report["long_prompt"][DEEPSEEK] = phase(
+        f"long prompt {DEEPSEEK}", long_prompt, torch, absorbed,
+        get_model(DEEPSEEK, flash_min_seq=1 << 30, mla_absorb_decode=True,
+                  **dense_prefix_overrides(DEEPSEEK)), ds_params,
+        LONG_PROMPTS[DEEPSEEK], DEEPSEEK)
+
     t = report["fp8_times"]
     launches = report["measured_tier"]["launches"]
     kernels = [{
@@ -1122,6 +1601,24 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    f = report["flash_times"]["llama3_1b"]
+    kernels.append({
+        "name": "mp_flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mp_attention.cu",
+        "replaces": "src/repro/kernels/mp_attention.py:76",
+        "launches": report["flash_launches"],
+        "max_abs_err": report["flash_max_abs_err"],
+        "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+        "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+    m = report["mla_times"]
+    kernels.append({
+        "name": "paged_decode_attention_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention.py:204",
+        "launches": report["mla_kernel_launches_main_path"],
+        "max_abs_err": report["mla_max_abs_err"],
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
     report["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -1129,6 +1626,11 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": report["serving"],
                       "agreement": report["agreement"]}), flush=True)
+    print(json.dumps({"mla_serving": report["mla_serving"],
+                      "mla_agreement": report["mla_agreement"],
+                      "long_prompt": report["long_prompt"],
+                      "flash_times": report["flash_times"],
+                      "mla_times": report["mla_times"]}), flush=True)
     print(json.dumps({"calibration": report["calibration"],
                       "measured_tier_s": report["measured_tier"]["seconds"],
                       "plans": report["plan_serving"]["plans"],

@@ -9,9 +9,10 @@ single-entry/single-exit structure.
 
 Residual adds are recorded as *residual edges* so the partitioner can drop
 them (paper Fig. 6 note). The graph mirrors the *serving* (prefill)
-computation. The port's ``LM`` builds dense attention-only models, so the
-graph covers exactly those; an MLA, mamba, hybrid or MoE configuration and
-the encoder-decoder family raise with the slice that ports them.
+computation. The port's ``LM`` builds attention and MLA blocks with dense
+MLPs, so the graph covers exactly those; a mamba, hybrid or MoE
+configuration and the encoder-decoder family raise with the slice that ports
+them.
 """
 from __future__ import annotations
 
@@ -41,6 +42,27 @@ def _attn_subgraph(g: GraphSpec, s: str, entry: str) -> str:
     return o
 
 
+def _mla_subgraph(g: GraphSpec, s: str, entry: str) -> str:
+    """DeepSeek-V3 latent attention: returns exit node name."""
+    norm = g.add(f"{s}/attn_norm")
+    g.edge(entry, norm)
+    g.chain(norm, g.add(f"{s}/attn/q_a_proj", True), g.add(f"{s}/attn/q_norm"),
+            g.add(f"{s}/attn/q_b_proj", True))
+    g.chain(norm, g.add(f"{s}/attn/kv_a_proj", True),
+            g.add(f"{s}/attn/kv_norm"), g.add(f"{s}/attn/kv_b_proj", True))
+    qk = g.add(f"{s}/attn/qk_matmul", True)
+    g.edge(f"{s}/attn/q_b_proj", qk)
+    g.edge(f"{s}/attn/kv_b_proj", qk)
+    sm = g.add(f"{s}/attn/softmax")
+    g.edge(qk, sm)
+    av = g.add(f"{s}/attn/av_matmul", True)
+    g.edge(sm, av)
+    g.edge(f"{s}/attn/kv_b_proj", av)
+    o = g.add(f"{s}/attn/o_proj", True)
+    g.edge(av, o)
+    return o
+
+
 def _mlp_subgraph(g: GraphSpec, s: str, entry: str, activation: str) -> str:
     norm = g.add(f"{s}/mlp_norm")
     g.edge(entry, norm)
@@ -65,20 +87,22 @@ def _mlp_subgraph(g: GraphSpec, s: str, entry: str, activation: str) -> str:
 
 
 def build_lm_graph(cfg: LMConfig) -> GraphSpec:
-    """The DAG of a dense attention-only decoder (no weights needed)."""
-    other = sorted(set(cfg.block_types) - {"attn"})
-    if other or cfg.moe_layers or cfg.moe is not None or cfg.scan_layers:
+    """The DAG of a decoder of attention and MLA blocks with dense MLPs (no
+    weights needed)."""
+    other = sorted(set(cfg.block_types) - {"attn", "mla"})
+    if other or cfg.moe_layers or cfg.scan_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the graph of block types {other or ['attn']} with "
-            f"MoE={bool(cfg.moe_layers)} scan_layers={cfg.scan_layers} lands "
-            f"with the slice that ports them (MLA: slice 6; mamba, hybrid, "
-            f"MoE, scan_layers: slice 9)")
+            f"{cfg.name}: the graph of block types {other or ['attn/mla']} "
+            f"with MoE={bool(cfg.moe_layers)} scan_layers={cfg.scan_layers} "
+            f"lands with the slice that ports them (mamba, hybrid, MoE, "
+            f"scan_layers: slice 9)")
     g = GraphSpec()
     prev = g.add("embed")
     for i in range(cfg.n_layers):
         s = f"layers/{i}"
         block_in = prev
-        mix_out = _attn_subgraph(g, s, prev)
+        mix_out = (_mla_subgraph(g, s, prev) if cfg.block_types[i] == "mla"
+                   else _attn_subgraph(g, s, prev))
         add1 = g.add(f"{s}/residual_1")
         g.edge(mix_out, add1)
         g.edge(block_in, add1, residual=True)

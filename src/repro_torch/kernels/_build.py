@@ -24,7 +24,7 @@ __all__ = ["build", "load", "build_log", "nvcc_path", "SOURCES", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("paged_attention", "quant_cast", "fp8_matmul")
+SOURCES = ("paged_attention", "quant_cast", "fp8_matmul", "mp_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,5 +1,5 @@
-"""High-level wrappers around the fp8 kernels (port of
-``repro/kernels/ops.py``'s ``fp8_linear`` and ``quantize_fp8``).
+"""High-level wrappers around the kernels (port of ``repro/kernels/ops.py``:
+``fp8_linear``, ``quantize_fp8`` and ``flash_attention_mp``).
 
 Shapes are padded to block multiples here, as in the reference, never
 inside a kernel. The reference needs that padding (its blocks must divide
@@ -14,10 +14,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import fp8_matmul as _mm
+from repro_torch.kernels import mp_attention as _attn
 from repro_torch.kernels import quant_cast as _qc
 from repro_torch.quant.formats import get_format
 
-__all__ = ["fp8_linear", "quantize_fp8"]
+__all__ = ["fp8_linear", "quantize_fp8", "flash_attention_mp"]
 
 _BLOCK = 128                    # the reference wrapper's padding multiple
 
@@ -52,3 +53,25 @@ def quantize_fp8(x: torch.Tensor, fmt_name: str = "fp8_e4m3") -> tuple:
     """``(xq, scale_inv)`` of ``x`` in the format's fp8 dtype."""
     fmt = get_format(fmt_name)
     return _qc.quantize_fp8(x, fmt.max_value, fmt.dtype)
+
+
+def flash_attention_mp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, fmt_name=None, quant_probs=None,
+                       block: int = 256) -> torch.Tensor:
+    """(B, H, T, D) attention through the flash kernel. ``fmt_name=None``
+    passes q/k/v through as they are (bf16); a format quantizes each of them
+    per tensor over ``reshape(-1, D)`` with the amax and scale_cast kernels
+    and then rounds the probabilities to e4m3 unless ``quant_probs`` says
+    otherwise."""
+    sq = sk = sv = 1.0
+    if fmt_name is not None:
+        D = q.shape[-1]
+        qq, sq = quantize_fp8(q.reshape(-1, D), fmt_name)
+        kq, sk = quantize_fp8(k.reshape(-1, D), fmt_name)
+        vq, sv = quantize_fp8(v.reshape(-1, v.shape[-1]), fmt_name)
+        q, k, v = qq.reshape(q.shape), kq.reshape(k.shape), vq.reshape(v.shape)
+        if quant_probs is None:
+            quant_probs = True
+    return _attn.mp_flash_attention(q, k, v, sq, sk, sv, causal=causal,
+                                    block_q=block, block_k=block,
+                                    quant_probs=bool(quant_probs))

@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 Port of ``repro/kernels/ref.py``: the fp8 quantization pair (``amax_ref``,
-``scale_cast_ref``), the scaled fp8 GEMM (``fp8_matmul_ref``) and the
+``scale_cast_ref``), the scaled fp8 GEMM (``fp8_matmul_ref``), the
 paged-attention oracle (gather each row's blocks into logical order, mask by
 length and window, softmax in f32 with the reference path's intermediate
-casts). The CPU runs them in place of the CUDA kernels, and ``chip_smoke.py``
-holds each kernel against them on the card.
+casts) and the mixed-precision flash attention, both as the kernel computes
+it (``mp_flash_attention_plain``, key block by key block) and as the
+reference's materialized oracle (``mp_flash_attention_ref``). The CPU runs
+them in place of the CUDA kernels, and ``chip_smoke.py`` holds each kernel
+against them on the card.
 
 fp8 special values. ``scale_cast_ref`` writes the reference framework's
 bytes for every value a plain PyTorch cast would not: an e4m3fn NaN or
@@ -19,6 +22,7 @@ bits, so kernel and plain version compare bitwise, NaN included.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -28,7 +32,8 @@ from repro_torch.quant.formats import cast_to, true_div
 from repro_torch.quant.qops import einsum_f32acc
 
 __all__ = ["amax_ref", "scale_cast_ref", "fp8_matmul_ref", "paged_deq",
-           "paged_decode_attention_ref", "NEG", "FP8_DTYPES"]
+           "paged_decode_attention_ref", "mp_flash_attention_plain",
+           "mp_flash_attention_ref", "NEG", "FLASH_NEG", "FP8_DTYPES"]
 
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 # magnitudes from which the reference's round-to-nearest-even cast leaves
@@ -127,4 +132,88 @@ def paged_decode_attention_ref(q, k, v, block_tables, lengths, *,
     # rows with length 0 attend nothing in the kernel; zero them here too
     o = torch.where((lengths > 0)[:, None, None, None], o,
                     torch.zeros_like(o))
+    return o.to(out_dtype)
+
+
+# the flash kernel's mask fill: finite, so a masked score still enters the
+# running max (reference ``mp_attention.py`` ``NEG_INF``)
+FLASH_NEG = -1e30
+
+
+def _dequant_f32(x: torch.Tensor, s) -> torch.Tensor:
+    """``x.astype(f32) * s`` with ``s`` an f32 scalar (a number, multiplied
+    in f32, or a tensor on ``x``'s device)."""
+    if isinstance(s, torch.Tensor):
+        return x.float() * s.float()
+    return x.float() * float(s)
+
+
+def mp_flash_attention_plain(q, k, v, sq=1.0, sk=1.0, sv=1.0, *,
+                             causal: bool = True, block_k: int = 256,
+                             quant_probs: bool = False,
+                             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """What the flash kernel computes, key block by key block.
+
+    q (B, H, T, D), k (B, H, S, D), v (B, H, S, Dv); scales are dequant
+    multipliers. Keys are walked in blocks of ``min(block_k, S)`` with an
+    online softmax in f32: per block ``m_new = max(m, rowmax(s))``,
+    ``p = exp(s - m_new)``, ``l = l * corr + sum(p)`` over the unrounded
+    ``p``, and — with ``quant_probs`` — ``p`` rounded to e4m3 against that
+    running max before ``p @ v``. The result therefore depends on
+    ``block_k``. The causal mask is aligned top-left (key ``j`` is live for
+    query ``i`` when ``j <= i``), as in the kernel, at any T and S; masked
+    scores are the finite ``-1e30``. Returns (B, H, T, Dv) in ``out_dtype``.
+    """
+    B, H, T, D = q.shape
+    S = k.shape[2]
+    bk = min(block_k, S)
+    scale = 1.0 / math.sqrt(D)
+    qf = _dequant_f32(q, sq)
+    kf = _dequant_f32(k, sk)
+    vf = _dequant_f32(v, sv)
+    m = torch.full((B, H, T, 1), FLASH_NEG, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, T, v.shape[3]), dtype=torch.float32,
+                      device=q.device)
+    qi = torch.arange(T, device=q.device)[:, None]
+    for j0 in range(0, S, bk):
+        s = torch.matmul(qf, kf[:, :, j0:j0 + bk].transpose(-1, -2)) * scale
+        if causal:
+            ki = torch.arange(j0, j0 + s.shape[-1], device=q.device)[None]
+            s = torch.where(ki <= qi, s, torch.full_like(s, FLASH_NEG))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if quant_probs:
+            p = p.to(torch.float8_e4m3fn).float()
+        acc = acc * corr + torch.matmul(p, vf[:, :, j0:j0 + bk])
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(out_dtype)
+
+
+def mp_flash_attention_ref(q, k, v, sq=1.0, sk=1.0, sv=1.0, *,
+                           causal: bool = True, quant_probs: bool = False,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The reference's materialized-softmax oracle, as it stands: its causal
+    mask is aligned bottom-right (``tril(k=S-T)``), so it agrees with the
+    kernel only at T == S, and its probabilities are rounded against the
+    final row max rather than the running one."""
+    T, S = q.shape[2], k.shape[2]
+    qf = _dequant_f32(q, sq)
+    kf = _dequant_f32(k, sk)
+    vf = _dequant_f32(v, sv)
+    s = true_div(torch.matmul(qf, kf.transpose(-1, -2)),
+                 math.sqrt(q.shape[3]))
+    if causal:
+        mask = torch.ones((T, S), dtype=torch.bool,
+                          device=q.device).tril(diagonal=S - T)
+        s = torch.where(mask, s, torch.full_like(s, float("-inf")))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if quant_probs:
+        p = p.to(torch.float8_e4m3fn).float()
+    o = torch.matmul(p, vf) / torch.clamp_min(l, 1e-30)
     return o.to(out_dtype)

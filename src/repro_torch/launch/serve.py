@@ -15,6 +15,16 @@ calibration bundle.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
         --device cpu
 
+    # DeepSeek-V3's dense MLA prefix, absorbed decode through the MLA form
+    # of the paged kernel; a one-shot prompt past --flash-min-seq prefills
+    # through the blocked flash attention
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek_v3_671b --dense-prefix --mla-absorb-decode \
+        --continuous
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --arch deepseek_v3_671b --dense-prefix --flash-min-seq 64 \
+        --prompt-len 96 --batch 1
+
 Weights are random, drawn from a ``torch.Generator`` seeded with 0 (no
 checkpoint is in the repository); prompts come from numpy seeded with 1, as
 in the reference launcher. An ``--mp-plan`` JSON saved by either package's
@@ -33,7 +43,7 @@ import torch
 from repro_torch.core.mpconfig import MPPlan
 from repro_torch.core.pipeline import CalibrationBundle
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import dense_prefix_overrides, get_model
 from repro_torch.nn.spec import default_generator
 from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
 
@@ -49,6 +59,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the arch's reduced smoke configuration")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--dense-prefix", action="store_true",
+                    help="keep only the layers before the first MoE layer "
+                         "and drop multi-token prediction (DeepSeek-V3: its "
+                         "three dense MLA layers)")
+    ap.add_argument("--mla-absorb-decode", action="store_true",
+                    help="MLA decode in the latent space (the fused paged "
+                         "kernel's MLA form)")
+    ap.add_argument("--flash-min-seq", type=int, default=None,
+                    help="prompt length from which prefill takes the "
+                         "blocked flash attention (default: the config's)")
     ap.add_argument("--mp-plan", default=None, help="MPPlan json path")
     ap.add_argument("--calibration", default=None,
                     help="CalibrationBundle path (json/npz): solve the IP at "
@@ -91,10 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_model_and_params(arch: str, smoke: bool, device: DeviceLike,
-                          seed: int = 0):
-    """The model and its random params drawn on ``device``."""
+                          seed: int = 0, **overrides):
+    """The model (config ``overrides`` applied) and its random params drawn
+    on ``device``."""
     device = resolve_device(device)
-    model = get_model(arch, smoke=smoke)
+    model = get_model(arch, smoke=smoke, **overrides)
     params = model.init(default_generator(seed, device), device)
     return model, params
 
@@ -213,7 +234,14 @@ def profile_drain(eng, params, reqs, trace_path: str,
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    model, params = make_model_and_params(args.arch, args.smoke, device)
+    ov = dense_prefix_overrides(args.arch, args.smoke) \
+        if args.dense_prefix else {}
+    if args.mla_absorb_decode:
+        ov["mla_absorb_decode"] = True
+    if args.flash_min_seq is not None:
+        ov["flash_min_seq"] = args.flash_min_seq
+    model, params = make_model_and_params(args.arch, args.smoke, device,
+                                          **ov)
     print(f"[serve] {model.cfg.name} on {device}: random-init params "
           f"({model.n_params() / 1e6:.1f}M)")
     if sum(map(bool, (args.mp_plan, args.calibration, args.registry))) > 1:

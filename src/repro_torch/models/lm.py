@@ -1,17 +1,19 @@
-"""Decoder-only LM, dense attention-only configs (port of
+"""Decoder-only LM with dense attention or MLA blocks (port of
 ``repro/models/lm.py``).
 
-``LMConfig`` keeps every field of the reference so that every configuration
-loads; the features this slice does not port — MLA, MoE, mamba/hybrid
-blocks, ``scan_layers``, ``prefix_embed`` and ``mtp_depth`` — raise
-``NotImplementedError`` when the model is built, and a prompt at or beyond
-``flash_min_seq`` raises in attention. Layers run unrolled in a Python loop,
-each with its own params and op names (``layers/3/attn/q_proj``), so
-per-layer MP plans apply unchanged.
+Block types: ``attn`` (GQA, the llama family) and ``mla`` (DeepSeek-V3's
+multi-head latent attention), each followed by a dense MLP. ``LMConfig``
+keeps every field of the reference so that every configuration loads; the
+features the port does not have yet — MoE layers, mamba/hybrid blocks,
+``scan_layers``, ``prefix_embed`` and ``mtp_depth`` — raise
+``NotImplementedError`` when the model is built. Layers run unrolled in a
+Python loop, each with its own params and op names
+(``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged.
 
 Params are the nested dict of tensors that :meth:`LM.init` returns (or
 ``repro_torch.bridge.params_from_flat`` builds from reference weights);
-caches are nested dicts ``{"layers/i": {"k", "v"[, "pos"]}}``.
+caches are nested dicts ``{"layers/i": {"k", "v"[, "pos"]}}`` for attention
+layers and ``{"layers/i": {"ckv", "kr"[, "pos"]}}`` for MLA layers.
 """
 from __future__ import annotations
 
@@ -31,6 +33,21 @@ BIG_WINDOW = 1 << 30
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The reference's MoE configuration (``repro/nn/moe.py``), kept so that
+    MoE configurations load; a model with MoE layers is not built yet."""
+    n_experts: int
+    top_k: int
+    d_expert_ff: int
+    n_shared_experts: int = 0
+    d_shared_ff: int = 0
+    capacity_factor: float = 1.25
+    token_chunk: int = 1024
+    router_dtype: str = "float32"
+    aux_loss_weight: float = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +146,19 @@ class LMConfig:
                             flash_block=self.flash_block,
                             kv_dequant_scales=self.kv_scales_for(i))
 
+    @property
+    def mla_cfg(self) -> L.MLAConfig:
+        return self.mla_cfg_for(None)
+
+    def mla_cfg_for(self, i: Optional[int]) -> L.MLAConfig:
+        return L.MLAConfig(self.d_model, self.n_heads, self.q_lora_rank,
+                           self.kv_lora_rank, self.qk_nope_dim,
+                           self.qk_rope_dim, self.v_head_dim, self.rope_theta,
+                           flash_min_seq=self.flash_min_seq,
+                           flash_block=self.flash_block,
+                           absorb_decode=self.mla_absorb_decode,
+                           kv_dequant_scales=self.kv_scales_for(i))
+
     def window_for(self, i: int) -> Optional[int]:
         if self.sliding_window is None or i in self.global_attn_layers:
             return None
@@ -137,10 +167,10 @@ class LMConfig:
 
 def _unsupported(cfg: LMConfig) -> list:
     out = []
-    if any(b != "attn" for b in cfg.block_types):
-        out.append(f"block types {sorted(set(cfg.block_types) - {'attn'})} "
-                   f"(MLA / mamba / hybrid)")
-    if cfg.moe_layers or cfg.moe is not None:
+    other = sorted(set(cfg.block_types) - {"attn", "mla"})
+    if other:
+        out.append(f"block types {other} (mamba / hybrid)")
+    if cfg.moe_layers:
         out.append("MoE layers")
     for flag in ("scan_layers", "prefix_embed", "mtp_depth"):
         if getattr(cfg, flag):
@@ -164,12 +194,15 @@ class LM:
     # ------------------------------------------------------------------
     # specs
     # ------------------------------------------------------------------
-    def _layer_specs(self, prefix: str) -> dict:
+    def _layer_specs(self, block: str, prefix: str) -> dict:
         cfg = self.cfg
         specs: dict = {}
         specs.update(L.norm_specs(f"{prefix}/attn_norm", cfg.d_model,
                                   cfg.norm))
-        specs.update(L.attn_specs(f"{prefix}/attn", cfg.attn_cfg))
+        if block == "mla":
+            specs.update(L.mla_specs(f"{prefix}/attn", cfg.mla_cfg))
+        else:
+            specs.update(L.attn_specs(f"{prefix}/attn", cfg.attn_cfg))
         if cfg.d_ff > 0:
             specs.update(L.norm_specs(f"{prefix}/mlp_norm", cfg.d_model,
                                       cfg.norm))
@@ -201,7 +234,8 @@ class LM:
                                            ("vocab", "embed"),
                                            init="scaled_normal")
         for i in range(cfg.n_layers):
-            specs.update(self._layer_specs(f"layers/{i}"))
+            specs.update(self._layer_specs(cfg.block_types[i],
+                                           f"layers/{i}"))
         return self._apply_param_dtype(specs)
 
     def init(self, generator: torch.Generator,
@@ -219,10 +253,13 @@ class LM:
         mlp = (("gate_proj", "up_proj", "down_proj")
                if self.cfg.activation == "swiglu" else ("up_proj",
                                                         "down_proj"))
+        attn_ops = {"attn": ("q_proj", "k_proj", "v_proj", "o_proj",
+                             "qk_matmul", "av_matmul"),
+                    "mla": ("q_a_proj", "q_b_proj", "kv_a_proj", "kv_b_proj",
+                            "o_proj", "qk_matmul", "av_matmul")}
         for i in range(self.cfg.n_layers):
-            ops.update(f"layers/{i}/attn/{n}" for n in (
-                "q_proj", "k_proj", "v_proj", "o_proj", "qk_matmul",
-                "av_matmul"))
+            ops.update(f"layers/{i}/attn/{n}"
+                       for n in attn_ops[self.cfg.block_types[i]])
             if self.cfg.d_ff > 0:
                 ops.update(f"layers/{i}/mlp/{n}" for n in mlp)
         return ops
@@ -239,13 +276,24 @@ class LM:
                layer_idx: Optional[int] = None, paged_attn: str = "fused"):
         cfg = self.cfg
         hn = L.apply_norm(p["attn_norm"], h, cfg.norm)
-        y, cache = L.attention(p["attn"], ctx, f"{scope}/attn",
-                               cfg.attn_cfg_for(layer_idx), hn, positions,
-                               cache=cache, cache_pos=cache_pos,
-                               block_tables=block_tables,
-                               chunk_valid=chunk_valid,
-                               chunk_start=chunk_start, window=window,
-                               paged_attn=paged_attn)
+        if cfg.block_types[layer_idx] == "mla":
+            y, cache = L.mla_attention(p["attn"], ctx, f"{scope}/attn",
+                                       cfg.mla_cfg_for(layer_idx), hn,
+                                       positions, cache=cache,
+                                       cache_pos=cache_pos,
+                                       block_tables=block_tables,
+                                       chunk_valid=chunk_valid,
+                                       chunk_start=chunk_start,
+                                       paged_attn=paged_attn)
+        else:
+            y, cache = L.attention(p["attn"], ctx, f"{scope}/attn",
+                                   cfg.attn_cfg_for(layer_idx), hn,
+                                   positions, cache=cache,
+                                   cache_pos=cache_pos,
+                                   block_tables=block_tables,
+                                   chunk_valid=chunk_valid,
+                                   chunk_start=chunk_start, window=window,
+                                   paged_attn=paged_attn)
         h = h + y
         if cfg.d_ff > 0:
             hn2 = L.apply_norm(p["mlp_norm"], h, cfg.norm)
@@ -315,22 +363,34 @@ class LM:
                 else self.dtype)
 
     def cache_specs(self, batch: int, max_len: int) -> dict:
-        """Flat ``layers/i@attn/<leaf>`` specs of the dense KV rings."""
+        """Flat ``layers/i@attn/<leaf>`` specs of the dense caches: KV rings
+        for attention layers, full-length latents for MLA layers."""
+        cfg = self.cfg
         specs = {}
-        for i in range(self.cfg.n_layers):
-            for leaf, ps in L.kv_cache_spec(self.cfg.attn_cfg, batch, max_len,
-                                            self.kv_dtype).items():
+        for i in range(cfg.n_layers):
+            leaves = (L.mla_cache_spec(cfg.mla_cfg, batch, max_len,
+                                       self.kv_dtype)
+                      if cfg.block_types[i] == "mla" else
+                      L.kv_cache_spec(cfg.attn_cfg, batch, max_len,
+                                      self.kv_dtype))
+            for leaf, ps in leaves.items():
                 specs[f"layers/{i}@attn/{leaf}"] = ps
         return specs
 
     def paged_cache_specs(self, n_slots: int, n_blocks: int,
                           block_size: int) -> dict:
-        """Flat specs of the block-major paged KV store (attention-only
-        models keep nothing slot-major, so ``n_slots`` does not enter)."""
+        """Flat specs of the block-major paged store: K/V for attention
+        layers, latents for MLA layers (neither keeps anything slot-major,
+        so ``n_slots`` does not enter)."""
+        cfg = self.cfg
         specs = {}
-        for i in range(self.cfg.n_layers):
-            for leaf, ps in L.kv_page_spec(self.cfg.attn_cfg, n_blocks,
-                                           block_size, self.kv_dtype).items():
+        for i in range(cfg.n_layers):
+            leaves = (L.mla_page_spec(cfg.mla_cfg, n_blocks, block_size,
+                                      self.kv_dtype)
+                      if cfg.block_types[i] == "mla" else
+                      L.kv_page_spec(cfg.attn_cfg, n_blocks, block_size,
+                                     self.kv_dtype))
+            for leaf, ps in leaves.items():
                 specs[f"layers/{i}@attn/{leaf}"] = ps
         return specs
 

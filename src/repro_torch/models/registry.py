@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.models.lm import LM, LMConfig
 
-ARCH_IDS = ["llama3_1b"]
+ARCH_IDS = ["llama3_1b", "deepseek_v3_671b"]
 
 
 def canonical(arch: str) -> str:
@@ -36,6 +36,18 @@ def build_model(cfg: LMConfig) -> LM:
     if not isinstance(cfg, LMConfig):
         raise TypeError(type(cfg))
     return LM(cfg)
+
+
+def dense_prefix_overrides(arch: str, smoke: bool = False) -> dict:
+    """Overrides that keep the layers before an MoE configuration's first
+    MoE layer and drop multi-token prediction: DeepSeek-V3's three dense MLA
+    layers at its published widths (``{}`` for a dense configuration)."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if not cfg.moe_layers and not cfg.mtp_depth:
+        return {}
+    n = min(cfg.moe_layers) if cfg.moe_layers else cfg.n_layers
+    return dict(n_layers=n, block_types=tuple(cfg.block_types[:n]),
+                moe_layers=(), mtp_depth=0)
 
 
 def get_model(arch: str, smoke: bool = False, **overrides) -> LM:

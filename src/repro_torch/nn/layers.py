@@ -1,4 +1,5 @@
-"""Functional NN layers for the llama path (port of ``repro/nn/layers.py``).
+"""Functional NN layers for the llama and DeepSeek-V3 paths (port of
+``repro/nn/layers.py``).
 
 Conventions (as in the reference):
 
@@ -23,8 +24,14 @@ Unlike the reference's pure functions, cache writes here update the cache
 tensors in place (``index_put_``) and return the same dict: a decode step
 then never copies the whole KV store.
 
-Not ported in this slice: MLA, cross-attention, the blocked flash attention
-for long prompts, and the mesh branch of the paged kernel call.
+Prompts at or beyond ``flash_min_seq`` attend through the blocked flash
+attention of :mod:`repro_torch.nn.flash` (outside probe mode, as in the
+reference). MLA (DeepSeek-V3's multi-head latent attention) keeps a latent
+cache ``{"ckv", "kr"[, "pos"]}``; its absorbed paged decode runs the MLA form
+of the paged-decode CUDA kernel.
+
+Not ported: cross-attention, the dense chunked-prefill ring continuation
+(``chunk_ring``), and the mesh branch of the paged kernel call.
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ __all__ = ["norm_specs", "apply_norm", "rope_table", "apply_rope",
            "mlp_specs", "apply_mlp", "AttnConfig", "attn_specs",
            "kv_cache_spec", "kv_page_spec", "paged_write", "paged_write_chunk",
            "paged_gather", "use_fused_paged", "paged_update_attend",
-           "attention"]
+           "attention", "MLAConfig", "mla_specs", "mla_cache_spec",
+           "mla_page_spec", "mla_attention"]
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -451,12 +459,6 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if isinstance(window, str) and window == "cfg":
         window = cfg.window
-    if (T >= cfg.flash_min_seq and cache_pos is None and block_tables is None
-            and chunk_valid is None):
-        raise NotImplementedError(
-            f"{scope}: a {T}-token prompt reaches flash_min_seq="
-            f"{cfg.flash_min_seq}; blocked flash attention is not ported yet")
-
     q = _split_heads(qops.linear(ctx, f"{scope}/q_proj", x, p["q_proj"]["w"],
                                  p["q_proj"].get("b")), H, D)
     k = _split_heads(qops.linear(ctx, f"{scope}/k_proj", x, p["k_proj"]["w"],
@@ -501,8 +503,20 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
     else:
         kp = positions
 
+    # flash for self-attention prefill and training; bucketed prefill never
+    # flashes (bucket padding must not move a prompt across flash_min_seq:
+    # the engines route such prompts to the per-length prefill instead)
+    use_flash = (y_fused is None and cache_pos is None
+                 and T >= cfg.flash_min_seq and ctx.mode != "probe"
+                 and block_tables is None and chunk_valid is None
+                 and T == k.shape[1])
     if y_fused is not None:
         y = y_fused
+    elif use_flash:
+        from repro_torch.nn.flash import flash_attention
+        y = flash_attention(ctx, scope, q, k, v, positions,
+                            causal=cfg.causal, window=window,
+                            block=cfg.flash_block)
     else:
         mask = _mask_from_pos(positions, kp, cfg.causal, window, None)
         y = _reference_attention(ctx, scope, q, k, v, mask)
@@ -528,3 +542,247 @@ def _reference_attention(ctx, scope, q, k, v, mask):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     y = qops.bgemm(ctx, f"{scope}/av_matmul", "BKGTS,BSKD->BTKGD", probs, v)
     return y.reshape(B, T, H, Dv)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    flash_min_seq: int = 4096
+    flash_block: int = 1024
+    # decode-time weight absorption (DeepSeek's own serving optimization):
+    # score and attend in the latent space instead of re-expanding per-head
+    # K/V over the whole cache every step
+    absorb_decode: bool = False
+    # paged KV-read dequant multipliers (entries "ckv", "kr"), as in
+    # AttnConfig.kv_dequant_scales; non-unit scales take the gather path
+    kv_dequant_scales: Optional[tuple] = None
+
+
+def mla_specs(prefix: str, cfg: MLAConfig) -> dict:
+    dm, H = cfg.d_model, cfg.n_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        f"{prefix}/q_a_proj/w": ParamSpec((r_q, dm), (None, "embed"),
+                                          init="scaled_normal"),
+        f"{prefix}/q_norm/scale": ParamSpec((r_q,), (None,), torch.float32,
+                                            "ones"),
+        f"{prefix}/q_b_proj/w": ParamSpec((H * (dn + dr), r_q),
+                                          ("heads", None),
+                                          init="scaled_normal"),
+        f"{prefix}/kv_a_proj/w": ParamSpec((r_kv + dr, dm), (None, "embed"),
+                                           init="scaled_normal"),
+        f"{prefix}/kv_norm/scale": ParamSpec((r_kv,), (None,), torch.float32,
+                                             "ones"),
+        f"{prefix}/kv_b_proj/w": ParamSpec((H * (dn + dv), r_kv),
+                                           ("heads", None),
+                                           init="scaled_normal"),
+        f"{prefix}/o_proj/w": ParamSpec((dm, H * dv), ("embed", "heads"),
+                                        init="scaled_normal"),
+    }
+
+
+def mla_cache_spec(cfg: MLAConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> dict:
+    """Dense latent cache: full length (MLA layers have no window)."""
+    return {
+        "ckv": ParamSpec((batch, max_len, cfg.kv_lora_rank),
+                         ("act_batch", "kv_seq", "kv_lora"), dtype, "zeros"),
+        "kr": ParamSpec((batch, max_len, cfg.qk_rope_dim),
+                        ("act_batch", "kv_seq", None), dtype, "zeros"),
+        "pos": ParamSpec((batch, max_len), ("act_batch", "kv_seq"),
+                         torch.int32, "zeros"),
+    }
+
+
+def mla_page_spec(cfg: MLAConfig, n_blocks: int, block_size: int,
+                  dtype=torch.bfloat16) -> dict:
+    """Paged latent storage (see :func:`kv_page_spec`): (512 + 64) values a
+    token and layer at DeepSeek-V3's widths."""
+    return {
+        "ckv": ParamSpec((n_blocks, block_size, cfg.kv_lora_rank),
+                         ("kv_blocks", None, "kv_lora"), dtype, "zeros"),
+        "kr": ParamSpec((n_blocks, block_size, cfg.qk_rope_dim),
+                        ("kv_blocks", None, None), dtype, "zeros"),
+    }
+
+
+def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
+                  x: torch.Tensor, positions: torch.Tensor, *,
+                  cache: Optional[dict] = None,
+                  cache_pos: Optional[torch.Tensor] = None,
+                  block_tables: Optional[torch.Tensor] = None,
+                  chunk_valid: Optional[torch.Tensor] = None,
+                  chunk_start: Optional[torch.Tensor] = None,
+                  paged_attn: str = "fused"):
+    """MLA over a latent cache ``{"ckv", "kr"[, "pos"]}``; returns (y,
+    cache). Branches as :func:`attention`. Chunk attention always takes the
+    expanded (non-absorbed) path, as one-shot prefill does. Paged *absorbed*
+    decode takes the MLA form of the paged kernel by default
+    (``paged_attn="fused"``), scoring and attending the block-major latents
+    in place; the expanded decode re-expands per-head K/V over the whole
+    cache and therefore always gathers."""
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    qa = qops.linear(ctx, f"{scope}/q_a_proj", x, p["q_a_proj"]["w"])
+    qa = apply_norm(p["q_norm"], qa)
+    q = qops.linear(ctx, f"{scope}/q_b_proj", qa, p["q_b_proj"]["w"])
+    q = q.reshape(B, T, H, dn + dr)
+    qn, qr = q[..., :dn], q[..., dn:]
+
+    kva = qops.linear(ctx, f"{scope}/kv_a_proj", x, p["kv_a_proj"]["w"])
+    ckv, kr = kva[..., :cfg.kv_lora_rank], kva[..., cfg.kv_lora_rank:]
+    ckv = apply_norm(p["kv_norm"], ckv)
+
+    sin, cos = rope_table(positions, dr, cfg.rope_theta)
+    qr = apply_rope(qr, sin, cos)
+    kr = apply_rope(kr[:, :, None, :], sin, cos)[:, :, 0, :]
+
+    if cache is not None and block_tables is not None:
+        # non-unit dequant scales take the gather path: the kernel's f32
+        # dequant point cannot reproduce the gather path's bf16 rounding
+        kv_scales = dict(cfg.kv_dequant_scales or ())
+        unit_scales = all(float(kv_scales.get(n, 1.0)) == 1.0
+                          for n in ("ckv", "kr"))
+        fused = (chunk_valid is None and cfg.absorb_decode and unit_scales
+                 and use_fused_paged(ctx, scope, paged_attn))
+        cache, g, kp = paged_update_attend(
+            cache, {"ckv": ckv, "kr": kr}, block_tables, positions,
+            cache_pos, chunk_valid, x.dtype, fused=fused, scales=kv_scales)
+        if g is None:
+            return _mla_decode_absorbed_paged(p, ctx, scope, cfg, qn, qr,
+                                              cache, block_tables, positions,
+                                              scales=kv_scales)
+        ckv, kr = g["ckv"], g["kr"]
+        if chunk_valid is None and cfg.absorb_decode:
+            return _mla_decode_absorbed(p, ctx, scope, cfg, qn, qr, ckv, kr,
+                                        positions, kp, cache)
+    elif cache is not None and chunk_valid is not None:
+        cache = _cache_write_chunk(cache, {"ckv": ckv, "kr": kr}, positions,
+                                   chunk_valid, chunk_start)
+        ckv = _cache_roundtrip(ckv, cache["ckv"], x.dtype)
+        kr = _cache_roundtrip(kr, cache["kr"], x.dtype)
+        kp = positions
+    elif cache is not None:
+        cache = _cache_write(cache, {"ckv": ckv, "kr": kr}, positions,
+                             cache_pos)
+        if cache_pos is not None:
+            ckv = cache["ckv"].to(x.dtype)
+            kr = cache["kr"].to(x.dtype)
+            kp = cache["pos"]
+            if cfg.absorb_decode:
+                return _mla_decode_absorbed(p, ctx, scope, cfg, qn, qr, ckv,
+                                            kr, positions, kp, cache)
+        else:
+            ckv = _cache_roundtrip(ckv, cache["ckv"], x.dtype)
+            kr = _cache_roundtrip(kr, cache["kr"], x.dtype)
+            kp = positions
+    else:
+        kp = positions
+
+    # expand the latents to per-head K (nope part) and V
+    kvb = qops.linear(ctx, f"{scope}/kv_b_proj", ckv, p["kv_b_proj"]["w"])
+    S = ckv.shape[1]
+    kvb = kvb.reshape(B, S, H, dn + dv)
+    kn, v = kvb[..., :dn], kvb[..., dn:]
+    qf = torch.cat([qn, qr], dim=-1)
+    kf = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    use_flash = (cache_pos is None and T >= cfg.flash_min_seq and T == S
+                 and block_tables is None and chunk_valid is None)
+    if use_flash:
+        from repro_torch.nn.flash import flash_attention
+        y = flash_attention(ctx, scope, qf, kf, v, positions, causal=True,
+                            window=None, block=cfg.flash_block)
+    else:
+        mask = _mask_from_pos(positions, kp, True, None, None)
+        y = _reference_attention(ctx, scope, qf, kf, v, mask)
+    y = y.reshape(B, T, H * dv)
+    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    return y, cache
+
+
+def _absorb_weights(p: dict, cfg: MLAConfig) -> tuple:
+    """W_uk (H, dn, r) and W_uv (H, dv, r) in f32 from ``kv_b_proj``."""
+    H, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    wkv = p["kv_b_proj"]["w"].reshape(H, dn + dv,
+                                      cfg.kv_lora_rank).float()
+    return wkv[:, :dn, :], wkv[:, dn:, :]
+
+
+def _mla_decode_absorbed(p, ctx, scope, cfg: MLAConfig, qn, qr, ckv, kr,
+                         positions, kp, cache):
+    """Latent-space MLA decode: W_uk absorbed into q, W_uv into the output.
+    scores = (qn W_uk) . ckv + qr . kr over the latent cache directly, in
+    f32 (the reference's operand casts)."""
+    B, T, H, dn = qn.shape
+    w_uk, w_uv = _absorb_weights(p, cfg)
+    q_lat = qops.qeinsum(ctx, f"{scope}/q_absorb", "BTHh,Hhr->BTHr",
+                         qn.float(), w_uk, kind="linear")
+    s_lat = qops.bgemm(ctx, f"{scope}/qk_matmul", "BTHr,BSr->BHTS", q_lat,
+                       ckv)
+    s_rope = torch.einsum("BTHd,BSd->BHTS", qr.float(), kr.float())
+    scale = 1.0 / math.sqrt(dn + cfg.qk_rope_dim)
+    s = (s_lat.float() + s_rope) * scale
+    mask = _mask_from_pos(positions, kp, True, None, None)
+    s = torch.where(mask[:, None], s,
+                    torch.full_like(s, torch.finfo(torch.float32).min))
+    probs = torch.softmax(s, dim=-1)
+    ctx_lat = qops.bgemm(ctx, f"{scope}/av_matmul", "BHTS,BSr->BTHr", probs,
+                         ckv.float())
+    y = qops.qeinsum(ctx, f"{scope}/v_absorb", "BTHr,Hvr->BTHv", ctx_lat,
+                     w_uv, kind="linear")
+    y = y.reshape(B, T, H * cfg.v_head_dim).to(qn.dtype)
+    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    return y, cache
+
+
+def _mla_decode_absorbed_paged(p, ctx, scope, cfg: MLAConfig, qn, qr, cache,
+                               block_tables, positions,
+                               scales: Optional[dict] = None):
+    """The kernel twin of :func:`_mla_decode_absorbed`: the latent scores
+    (``q_lat . ckv + qr . kr``) and the latent context run in the MLA form
+    of the paged kernel against the block-major latents — one shared KV
+    "head", H query heads, values read from the same ``ckv`` blocks as the
+    keys. The absorb products stay on ``qops``."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    B, T, H, dn = qn.shape
+    if T != 1:
+        raise ValueError("fused paged MLA is single-query decode")
+    sc = scales or {}
+    if any(float(sc.get(n, 1.0)) != 1.0 for n in ("ckv", "kr")):
+        raise ValueError(
+            f"{scope}: fused absorbed MLA decode does not support non-unit "
+            f"kv_dequant_scales (got {sc}); use paged_attn='gather'")
+    r = cfg.kv_lora_rank
+    w_uk, w_uv = _absorb_weights(p, cfg)
+    q_lat = qops.qeinsum(ctx, f"{scope}/q_absorb", "BTHh,Hhr->BTHr",
+                         qn.float(), w_uk, kind="linear")
+    lengths = (positions[:, 0] + 1).to(torch.int32)
+    ctx_lat = paged_decode_attention(
+        q_lat.reshape(B, 1, H, r).contiguous(),          # (B, Hkv=1, G=H, r)
+        cache["ckv"][:, :, None, :], None,               # v = ckv
+        block_tables.to(torch.int32), lengths,
+        q2=qr.float().reshape(B, 1, H, cfg.qk_rope_dim).contiguous(),
+        k2=cache["kr"][:, :, None, :],
+        scale=1.0 / math.sqrt(dn + cfg.qk_rope_dim), scale_mode="mul",
+        out_dtype=torch.float32)
+    ctx_lat = ctx_lat.reshape(B, T, H, r)
+    y = qops.qeinsum(ctx, f"{scope}/v_absorb", "BTHr,Hvr->BTHv", ctx_lat,
+                     w_uv, kind="linear")
+    y = y.reshape(B, T, H * cfg.v_head_dim).to(qn.dtype)
+    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    return y, cache

@@ -2,7 +2,7 @@
 ``PagedCachePool`` in ``repro/serve/cache_pool.py``).
 
 Attention K/V lives in block-major tensors ``(n_blocks, block_size, Hkv,
-D)``; each slot maps its logical pages to physical blocks through a host-side
+D)`` (MLA latents in ``(n_blocks, block_size, r)``); each slot maps its logical pages to physical blocks through a host-side
 block table, and blocks are allocated as prefill and decode cross block
 boundaries, so memory scales with live tokens. Admission reserves a request's
 worst-case block count (prompt + ``max_new_tokens - 1`` writes), which makes

@@ -134,20 +134,20 @@ class ServeEngine:
 # options of the reference engine that later slices port
 _LATER = {
     "paged=False": "dense-ring continuous serving lands with chunked "
-                   "prefill, port slice 5",
+                   "prefill, port slice 6",
     "prefix_cache": "prefix caching with copy-on-write lands in port "
-                    "slice 3",
+                    "slice 4",
     "preemption": "priority preemption (resumed through the prefix cache) "
-                  "lands in port slice 3",
-    "chunk_len": "chunked prefill lands in port slice 5",
+                  "lands in port slice 4",
+    "chunk_len": "chunked prefill lands in port slice 6",
     "adaptive": "load-adaptive MP lands with serving robustness, port "
-                "slice 8",
+                "slice 7",
     "faults": "fault injection and containment land with serving "
-              "robustness, port slice 8",
+              "robustness, port slice 7",
     "guardrail": "the numerical guardrail lands with serving robustness, "
-                 "port slice 8",
+                 "port slice 7",
     "mesh": "mesh-sharded serving lands with the multi-GPU slice",
-    "sync=False": "the pipelined drain lands in port slice 4",
+    "sync=False": "the pipelined drain lands in port slice 5",
 }
 
 

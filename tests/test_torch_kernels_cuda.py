@@ -91,11 +91,11 @@ def test_kernel_matches_plain_version(cuda, kv, window):
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
     q, k, v, bt, ln = _case(torch.bfloat16, 0.0)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tpa.paged_decode_attention(q, k, None, bt, ln, scale=8.0)
-    with pytest.raises(NotImplementedError, match="MLA"):
+    with pytest.raises(ValueError, match="q2 and k2"):
+        tpa.paged_decode_attention(q, k, v, bt, ln, scale=8.0, q2=q)
+    with pytest.raises(ValueError, match="scale_mode"):
         tpa.paged_decode_attention(q, k, v, bt, ln, scale=0.125,
-                                   scale_mode="mul")
+                                   scale_mode="pow")
     with pytest.raises(TypeError, match="int32"):
         tpa.paged_decode_attention(q, k, v, bt.long(), ln, scale=8.0)
     with pytest.raises(ValueError, match="contiguous"):
@@ -238,3 +238,135 @@ def test_fp8_linear_on_card_counts_and_matches_plain(cuda):
         tqc.amax(x.t())
     with pytest.raises(TypeError, match="fp8"):
         tmm.fp8_matmul(x, w, sx, sw)
+
+
+# ---------------------------------------------------------------------------
+# the MLA form of the paged kernel (csrc/paged_attention.cu)
+# ---------------------------------------------------------------------------
+
+
+def _mla_case(n_pages, lengths, *, B=4, H=128, r=512, dr=64, bs=16, seed=0):
+    """DeepSeek-V3's absorbed decode shapes: one latent KV head, H query
+    heads, ckv (r) and kr (dr) pages in bf16, f32 queries."""
+    rng = np.random.default_rng(seed)
+    n_blocks = 1 + B * n_pages
+    bt = np.full((B, n_pages), -1, np.int32)
+    for b in range(B):
+        used = -(-int(lengths[b]) // bs)
+        bt[b, :used] = 1 + b * n_pages + np.arange(used)
+    ckv = torch.from_numpy(rng.normal(size=(n_blocks, bs, 1, r)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    kr = torch.from_numpy(rng.normal(size=(n_blocks, bs, 1, dr)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    q1 = torch.from_numpy(rng.normal(size=(B, 1, H, r)).astype(
+        np.float32)).cuda()
+    q2 = torch.from_numpy(rng.normal(size=(B, 1, H, dr)).astype(
+        np.float32)).cuda()
+    args = (q1, ckv, None, torch.from_numpy(bt).cuda(),
+            torch.from_numpy(np.asarray(lengths, np.int32)).cuda())
+    kw = dict(q2=q2, k2=kr, scale=1.0 / math.sqrt(128 + dr),
+              scale_mode="mul", out_dtype=torch.float32)
+    return args, kw
+
+
+# f32 scores, probabilities and output: summation order only
+MLA_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def test_mla_form_matches_plain_version(cuda):
+    """The serving cell's decode step: 4 rows of 160/152/144/136 keys."""
+    args, kw = _mla_case(10, [160, 152, 144, 136])
+    n0 = tpa.launches
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches == n0 + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **MLA_TOL)
+
+
+def test_mla_form_at_its_context_limit(cuda):
+    """At the largest table width one head's scores fit (54,144 keys at
+    block 16) the kernel runs and agrees; one page more raises."""
+    n_pages = tpa.max_context(512, 64, 16) // 16
+    args, kw = _mla_case(n_pages, [40, 17, 1, 0], B=4)
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **MLA_TOL)
+    assert (got[3] == 0).all()
+    args, kw = _mla_case(n_pages + 1, [40, 17, 1, 0], B=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.paged_decode_attention(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: mixed-precision flash attention (csrc/mp_attention.cu)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import mp_attention as tmpa  # noqa: E402
+
+
+def _flash_agrees(got, want, quant_probs: bool) -> None:
+    """Without quant_probs: two bf16 ulps (2^-6). With it, a probability the
+    two sum orders put on either side of an e4m3 rounding boundary moves by
+    one e4m3 step (at most p/8), so an output by at most max|v|/8 over a
+    denominator of at least 1: max error 2^-3, and at most one output in
+    1000 beyond 2^-6."""
+    err = (got.float() - want.float()).abs()
+    lim = TOL * (1 + want.float().abs())
+    if not quant_probs:
+        assert bool((err <= lim).all()), float(err.max())
+        return
+    assert float(err.max()) <= 0.125
+    assert float((err > lim).float().mean()) <= 1e-3
+
+
+def _qkv(B, H, T, S, D, Dv, seed=0, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).cuda()
+            for shape in ((B, H, T, D), (B, H, S, D), (B, H, S, Dv))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,T,S,D,Dv", [
+    (1, 4, 512, 512, 64, 64), (1, 2, 512, 512, 192, 128),
+    (2, 3, 200, 333, 64, 64), (1, 2, 333, 200, 32, 48)],
+    ids=["llama", "deepseek", "t_lt_s", "t_gt_s"])
+def test_mp_flash_kernel_matches_plain_version(cuda, causal, B, H, T, S, D,
+                                               Dv):
+    q, k, v = _qkv(B, H, T, S, D, Dv)
+    n0 = tmpa.launches
+    got = tmpa.mp_flash_attention(q, k, v, causal=causal)
+    want = tref.mp_flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tmpa.launches == n0 + 1 and got.shape == (B, H, T, Dv)
+    _flash_agrees(got, want, False)
+
+
+@pytest.mark.parametrize("block", [64, 256])
+def test_flash_attention_mp_fp8_on_card(cuda, block):
+    """q/k/v through the amax and scale_cast kernels, e4m3 probabilities
+    against the running max of each key block."""
+    q, k, v = _qkv(1, 4, 512, 512, 64, 64, seed=1)
+    n0 = tmpa.launches, dict(tqc.launches)
+    got = tops.flash_attention_mp(q, k, v, fmt_name="fp8_e4m3", block=block)
+    torch.cuda.synchronize()
+    assert tmpa.launches == n0[0] + 1
+    assert tqc.launches["amax"] == n0[1]["amax"] + 3
+    qs = [tqc.quantize_fp8(x.reshape(-1, x.shape[-1])) for x in (q, k, v)]
+    want = tref.mp_flash_attention_plain(
+        *(a.reshape(x.shape) for (a, _), x in zip(qs, (q, k, v))),
+        *(s for _, s in qs), block_k=block, quant_probs=True)
+    _flash_agrees(got, want, True)
+
+
+def test_mp_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(1, 2, 64, 64, 32, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        tmpa.mp_flash_attention(q.transpose(2, 3).contiguous().transpose(
+            2, 3), k, v)
+    with pytest.raises(TypeError, match="dtypes"):
+        tmpa.mp_flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="shared memory"):
+        q, k, v = _qkv(1, 1, 1024, 1024, 32, 32)
+        tmpa.mp_flash_attention(q, k, v, block_k=1024)

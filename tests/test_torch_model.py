@@ -154,18 +154,20 @@ def test_prefill_and_decode_logits_match_reference(pair, mp):
 def test_unported_features_raise():
     from repro_torch.configs import llama3_1b as tc
     from repro_torch.models.lm import LM
-    for ov in ({"block_types": ("mla", "attn")}, {"scan_layers": True},
+    for ov in ({"block_types": ("mamba", "attn")}, {"scan_layers": True},
                {"moe_layers": (1,)}, {"mtp_depth": 1},
                {"prefix_embed": True}):
         with pytest.raises(NotImplementedError):
             LM(tc.smoke_config(**ov))
+    # MLA blocks and prompts at or beyond flash_min_seq are ported
+    LM(tc.smoke_config(block_types=("mla", "attn")))
     m = LM(tc.smoke_config(flash_min_seq=8))
     p = m.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        m.apply(p, torch.zeros((1, 8), dtype=torch.int32), TCtx())
+    assert m.apply(p, torch.zeros((1, 8), dtype=torch.int32),
+                   TCtx()).shape == (1, 8, m.cfg.vocab_size)
     with pytest.raises(KeyError, match="llama3_1b"):
         tget("qwen2p5_3b")
-    assert ARCH_IDS == ["llama3_1b"]
+    assert ARCH_IDS == ["llama3_1b", "deepseek_v3_671b"]
 
 
 def test_serving_op_names_match_a_registry_trace():
