@@ -6,7 +6,9 @@
 Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. print the card's name and power limit, build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
+   and log the paged kernel's registers, shared memory and spills as
+   ``nvcc -Xptxas -v`` reported them (phases 3 and 10 log the others);
 2. hold the paged-decode kernel against its plain PyTorch version at the
    serving shapes (B=4, Hkv=8, G=4, D=64, block 16, up to 160 keys): bf16
    and scaled fp8-e4m3 KV, window None and 7, a vacant row (all -1 table,
@@ -17,7 +19,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    2048) and the weights (8192, 2048), (2048, 8192), (128256, 2048), plus
    NaN, inf and values straddling the e4m3/e5m2 overflow midpoints;
    ``fp8_matmul`` and ``fp8_linear`` within 2^-6 of the largest output at
-   the q/gate/down/lm_head shapes and at M=300; then time each kernel,
+   the q/gate/down/lm_head shapes and at M=300; log the kernels'
+   registers, shared memory and spills; then time each kernel,
    its plain version, the PyTorch call that computes the same function
    (``torch.linalg.vector_norm(x, inf)``, ``torch._scaled_mm``) and the
    bf16 ``torch.matmul`` of the same product;
@@ -55,8 +58,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     "fp8_e4m3"`` at the llama3_1b width (B=1, H=32, T=S=4096, D=64; the
     launch counters set to 0 just before and read just after: no model
     path calls it), then the kernel against its plain version there, at
-    DeepSeek-V3's width (H=128, D=192, Dv=128) and at a small T != S case,
-    and timed beside ``scaled_dot_product_attention(is_causal=True)``;
+    DeepSeek-V3's width (H=128, D=192, Dv=128) and at a small T != S case
+    (bf16 both masks; fp8 with e4m3 probabilities at key blocks of 256 and
+    96; f32 operands, which take the CUDA-core kernel), its registers and
+    spills logged, and timed beside
+    ``scaled_dot_product_attention(is_causal=True)``;
 11. the MLA form of the paged kernel (B=4, 128 heads on one latent head,
     latents 512 + 64, block 16) against its plain version, timed beside
     SDPA over the gathered latents;
@@ -396,6 +402,49 @@ def timed(torch, fn, *args, warm: bool = False) -> float:
     return device_ms(torch, call, calls=calls, replays=replays)
 
 
+def ptxas_report(name: str) -> list:
+    """Each kernel of ``csrc/<name>.cu`` as ``nvcc -Xptxas -v`` reported it
+    at this run's build: registers, static shared memory and spill bytes."""
+    import re
+    from repro_torch.kernels import _build
+    out, cur = [], None
+    for line in _build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "smem_bytes": None,
+                   "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    for r in out:
+        # a short label from the mangled name (identifiers are prefixed by
+        # their length): the one ending in "kernel", then its int arguments
+        k, label = r["kernel"], r["kernel"]
+        for m in re.finditer(r"\d+", k):
+            # a hash before the prefix may end in digits: try each suffix
+            for j in range(len(m.group())):
+                ident = k[m.end():m.end() + int(m.group()[j:])]
+                if ident.endswith("kernel"):
+                    rest = k[m.end() + len(ident):]
+                    label = ident + "<" + ",".join(
+                        re.findall(r"Li(\d+)E", rest)
+                        + (["bf16"] if "bfloat16" in rest else [])) + ">"
+        log(f"ptxas {name}: {label}: {r['registers']} registers, "
+            f"{r['smem_bytes']} bytes static smem, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} bytes (stores/loads)")
+    return out
+
+
 def fp8_check_phase(torch) -> dict:
     """amax and scale_cast bitwise, fp8_matmul and fp8_linear within
     MM_TOL of the largest output, at the model's shapes."""
@@ -470,10 +519,12 @@ def fp8_check_phase(torch) -> dict:
         raise AssertionError("fp8 kernels disagree with their plain "
                              "versions: " + "; ".join(failures))
     log(f"fp8 kernels vs plain: all cases pass (bitwise; GEMM within "
-        f"{MM_TOL:g} of max|Y|, worst {mm_rel:.2e})")
+        f"{MM_TOL:g} of max|Y|, worst {mm_rel:.2e}, promotion every 128 "
+        f"products)")
     return {"fp8_bitwise_cases": n_bitwise, "fp8_matmul_max_abs_err": mm_err,
             "fp8_matmul_max_rel_err": mm_rel, "fp8_linear_max_rel_err":
-            lin_rel}
+            lin_rel, "fp8_ptxas": {n: ptxas_report(n) for n in (
+                "quant_cast", "fp8_matmul")}}
 
 
 def fp8_time_phase(torch) -> dict:
@@ -1124,13 +1175,28 @@ def flash_phase(torch) -> dict:
                            fa.mp_flash_attention(qq, kk, vv, causal=causal),
                            mp_flash_attention_plain(qq, kk, vv,
                                                     causal=causal), False))
+    # t_ne_s: fp8 operands with e4m3 probabilities at a ragged last key
+    # block (700 keys: 256, 256, 188 and 96 x 7 + 28), two passes a block;
+    # f32 operands through the CUDA-core kernel
+    qz = [qc.quantize_fp8(x.reshape(-1, x.shape[-1])) for x in (qq, kk, vv)]
+    fq = [a.reshape(x.shape) for (a, _), x in zip(qz, (qq, kk, vv))]
+    sc = [s for _, s in qz]
+    for bk in (256, 96):
+        checks.append((f"t_ne_s fp8 quant_probs block_k={bk}",
+                       fa.mp_flash_attention(*fq, *sc, block_k=bk,
+                                             quant_probs=True),
+                       mp_flash_attention_plain(*fq, *sc, block_k=bk,
+                                                quant_probs=True), True))
+    f32 = [x.float() for x in (qq, kk, vv)]
+    checks.append(("t_ne_s f32 operands", fa.mp_flash_attention(*f32),
+                   mp_flash_attention_plain(*f32), False))
     for name, got, want, quant_probs in checks:
         ok, e = flash_agrees(torch, got, want, quant_probs)
         max_err = max(max_err, e)
         log(f"mp_flash_attention vs plain: {name}: max abs err {e:.3e}")
         if not ok:
             failures.append(name)
-    del checks, bf16_out, fp8_out
+    del checks, bf16_out, fp8_out, fq, f32
     if failures:
         raise AssertionError("mp_flash_attention disagrees with its plain "
                              "version: " + ", ".join(failures))
@@ -1161,6 +1227,11 @@ def flash_phase(torch) -> dict:
             sc = [s for _, s in qz]
             r["fp8_ms"] = timed(torch, lambda a, b, c: fa.mp_flash_attention(
                 a, b, c, *sc, quant_probs=True), *fq)
+            # without quant_probs: one pass a key tile, so the widening of
+            # the fp8 operands is the only work beyond the bf16 run's
+            r["fp8_no_quant_probs_ms"] = timed(
+                torch, lambda a, b, c: fa.mp_flash_attention(a, b, c, *sc),
+                *fq)
             r["fp8_bound_ms"] = max(nbytes / 2 / HBM_BYTES_PER_S,
                                     ops_ / FP8_FLOPS) * 1e3
         rec[name] = r
@@ -1170,11 +1241,12 @@ def flash_phase(torch) -> dict:
             f"{r['ms'] * 1e3:.1f} us ({r['tflops']:.1f} TFLOP/s) | plain "
             f"{r['plain_ms'] * 1e3:.1f} us | SDPA {lib} | bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})"
-            + (f" | fp8 operands {r['fp8_ms'] * 1e3:.1f} us"
+            + (f" | fp8 operands {r['fp8_ms'] * 1e3:.1f} us (quant_probs), "
+               f"{r['fp8_no_quant_probs_ms'] * 1e3:.1f} us (without)"
                if "fp8_ms" in r else ""))
     fa.launches = n0                  # timing launches are not path ones
     return {"flash_launches": launches, "flash_max_abs_err": max_err,
-            "flash_times": rec}
+            "flash_times": rec, "flash_ptxas": ptxas_report("mp_attention")}
 
 
 # ---------------------------------------------------------------------------
@@ -1498,12 +1570,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        report_lines = {line.strip() for line in
-                        _build.build_log(name).splitlines()
-                        if "registers" in line or "spill" in line}
-        for line in sorted(report_lines):
-            log(f"ptxas {name}: {line}")
+    ptxas_report("paged_attention")      # phases 3 and 10 report the rest
 
     report = {"card": card, "phase_seconds": {}}
 

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded through ``ctypes`` — no PyTorch
 headers, so a build takes seconds. Builds run at first use, into
 ``kernels/build/`` beside this file (listed in ``.gitignore``), named by a
-digest of the source and the flags so an edited source rebuilds. All sources
+digest of the source, the ``csrc`` headers it includes (``#include
+"x.cuh"``, followed transitively) and the flags, so an edited source or
+header rebuilds. All sources
 asked for at once compile in parallel, one ``nvcc`` process each. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside each library as ``<lib>.log``.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,10 +52,30 @@ def nvcc_path() -> str:
                        "the CUDA kernels build only where the toolkit is")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources_of(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with quotes,
+    transitively, in a fixed order."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sources_of(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> dict:

@@ -1,9 +1,19 @@
 """Mixed-precision flash attention: the CUDA kernel's wrapper.
 
 Port of ``repro/kernels/mp_attention.py`` (the Pallas TPU kernel
-``mp_flash_attention``). The kernel is ``csrc/mp_attention.cu`` — CUDA C++
-for ``sm_90a``, built with ``nvcc`` into a plain C library and called through
-``ctypes`` — and its source says what it computes, what bounds it, and how.
+``mp_flash_attention``). The kernels are in ``csrc/mp_attention.cu`` — CUDA
+C++ for ``sm_90a``, built with ``nvcc`` into a plain C library and called
+through ``ctypes`` — and the source says what they compute, what bounds
+them, and how. Two routes, chosen by the operands' dtype (:func:`route`):
+
+* bf16, e4m3 and e5m2 operands take the tensor-core kernel (wgmma fed by a
+  TMA ring; fp8 is widened to bf16 in shared memory, exactly). TMA needs
+  rows of a multiple of 16 bytes, so the wrapper zero-pads D and Dv to
+  multiples of 16 (:func:`~repro_torch.kernels.fp8_matmul.pad_last`) and
+  keeps ``scale = 1/sqrt(D)`` of the unpadded D; zero columns change no
+  score, and the padded output columns are never written.
+* f32 operands, which have no exact tensor-core route, take the CUDA-core
+  kernel; its shared memory bounds ``block_k`` (:func:`smem_bytes`).
 
 Numerics kept from the reference (``kernels/ref.py``
 ``mp_flash_attention_plain`` repeats them step for step):
@@ -35,37 +45,59 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fp8_matmul import pad_last
 from repro_torch.kernels.ref import mp_flash_attention_plain
 
-__all__ = ["mp_flash_attention", "smem_bytes", "launches"]
+__all__ = ["mp_flash_attention", "route", "smem_bytes", "launches"]
 
 launches = 0                    # kernel launches in this process
 
-_IN_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float8_e4m3fn: 2,
-             torch.float8_e5m2: 3}
+# the tensor-core kernel's operand codes (fp8 widened to bf16 inside it)
+_TC_CODES = {torch.bfloat16: 0, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 _OUT_CODES = {torch.bfloat16: 1, torch.float32: 0}
 _MAX_D = 256
 _MAX_SMEM = 227 * 1024          # dynamic shared memory a block may use
-_BQ, _BT = 64, 64               # the kernel's query tile and key tile
-_fn = None
+_BQ, _BT = 64, 64               # the f32 kernel's query tile and key tile
+_ROW_ALIGN = 16                 # elements: D and Dv padded for TMA
+# each route's C entry point in csrc/mp_attention.cu
+_ENTRY = {"tensor_cores": "mp_flash_attention_launch",
+          "f32_cuda_cores": "mp_flash_attention_f32_launch"}
+_ARGTYPES = {"tensor_cores": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                              + [ctypes.c_float] + [ctypes.c_int] * 2
+                              + [ctypes.c_void_p]),
+             "f32_cuda_cores": ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                                + [ctypes.c_float] + [ctypes.c_int] * 2
+                                + [ctypes.c_void_p])}
+_fns: dict = {}
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.load("mp_attention").mp_flash_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                       + [ctypes.c_float] + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p])
+def route(dtype) -> str:
+    """The kernel that operands of ``dtype`` launch: ``"tensor_cores"``
+    (bf16, e4m3, e5m2) or ``"f32_cuda_cores"`` (f32). Raises for any other
+    dtype."""
+    if dtype == torch.float32:
+        return "f32_cuda_cores"
+    if dtype in _TC_CODES:
+        return "tensor_cores"
+    raise TypeError(f"mp_flash_attention: operand dtype {dtype} not in "
+                    f"{[*_TC_CODES, torch.float32]}")
+
+
+def _kernel_fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("mp_attention"), _ENTRY[name])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def smem_bytes(D: int, Dv: int, bk: int) -> int:
-    """Dynamic shared memory of one block: the query tile, one key or value
-    tile, the key block's scores (rows padded by one float), and three
-    floats per row (``csrc/mp_attention.cu`` computes the same)."""
+    """Dynamic shared memory of one block of the f32 kernel: the query
+    tile, one key or value tile, the key block's scores (rows padded by one
+    float), and three floats per row (``csrc/mp_attention.cu`` computes the
+    same). The tensor-core kernel fits any D, Dv <= 256 and any block_k."""
     return 4 * (_BQ * (D + 1) + _BT * (max(D, Dv) + 1) + _BQ * (bk + 1)
                 + 3 * _BQ)
 
@@ -116,36 +148,48 @@ def mp_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _IN_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in (*_TC_CODES, torch.float32) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: all "
-                        f"must be one of {list(_IN_CODES)}")
+                        f"must be one of {[*_TC_CODES, torch.float32]}")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"out_dtype {out_dtype} not in {list(_OUT_CODES)}")
     if D > _MAX_D or Dv > _MAX_D:
         raise ValueError(f"head dims {D}/{Dv} > {_MAX_D}")
+    kind = route(q.dtype)
     bk = min(block_k, S) if S else 1
-    smem = smem_bytes(D, Dv, bk)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"key blocks of {bk} need {smem} bytes of shared "
-                         f"memory, more than the {_MAX_SMEM} a block may "
-                         f"use; lower block_k")
-    if H > 65535 or B > 65535:
-        raise ValueError(f"grid ({H}, {B}) too large")
+    if kind == "f32_cuda_cores":
+        smem = smem_bytes(D, Dv, bk)
+        if smem > _MAX_SMEM:
+            raise ValueError(f"key blocks of {bk} need {smem} bytes of "
+                             f"shared memory, more than the {_MAX_SMEM} a "
+                             f"block may use; lower block_k")
+    if H > 65535 or B > 65535 or (kind == "tensor_cores" and B * H > 65535):
+        raise ValueError(f"grid ({B}, {H}) too large")
     out = torch.empty((B, H, T, Dv), dtype=out_dtype, device=q.device)
     if out.numel() == 0 or S == 0:
         return out.zero_()
     scales = [_scalar(n, s, q.device) for n, s in
               (("sq", sq), ("sk", sk), ("sv", sv))]
-    fn = _kernel_fn()
+    scale = 1.0 / math.sqrt(D)          # of the unpadded D
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        if kind == "tensor_cores":
+            q, k, v = (pad_last(t, _ROW_ALIGN) for t in (q, k, v))
+            rc = _kernel_fn(kind)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 *(s.data_ptr() for s in scales), out.data_ptr(),
-                _OUT_CODES[out_dtype], _IN_CODES[q.dtype], B, H, T, S, D, Dv,
-                bk, 1.0 / math.sqrt(D), int(causal), int(quant_probs),
-                stream)
+                _OUT_CODES[out_dtype], _TC_CODES[q.dtype], B, H, T, S,
+                q.shape[3], v.shape[3], Dv, bk, scale, int(causal),
+                int(quant_probs), stream)
+        else:
+            rc = _kernel_fn(kind)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                *(s.data_ptr() for s in scales), out.data_ptr(),
+                _OUT_CODES[out_dtype], B, H, T, S, D, Dv, bk, scale,
+                int(causal), int(quant_probs), stream)
     if rc != 0:
-        raise RuntimeError(f"mp_flash_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"mp_flash_attention kernel launch failed "
+                           f"({kind}): cudaError {rc}")
     launches += 1
     return out

@@ -151,7 +151,8 @@ def _dequant_f32(x: torch.Tensor, s) -> torch.Tensor:
 def mp_flash_attention_plain(q, k, v, sq=1.0, sk=1.0, sv=1.0, *,
                              causal: bool = True, block_k: int = 256,
                              quant_probs: bool = False,
-                             out_dtype=torch.bfloat16) -> torch.Tensor:
+                             out_dtype=torch.bfloat16,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """What the flash kernel computes, key block by key block.
 
     q (B, H, T, D), k (B, H, S, D), v (B, H, S, Dv); scales are dequant
@@ -162,12 +163,15 @@ def mp_flash_attention_plain(q, k, v, sq=1.0, sk=1.0, sv=1.0, *,
     running max before ``p @ v``. The result therefore depends on
     ``block_k``. The causal mask is aligned top-left (key ``j`` is live for
     query ``i`` when ``j <= i``), as in the kernel, at any T and S; masked
-    scores are the finite ``-1e30``. Returns (B, H, T, Dv) in ``out_dtype``.
+    scores are the finite ``-1e30``. ``scale`` defaults to ``1/sqrt(D)``; a
+    caller that zero-pads D passes the unpadded D's. Returns (B, H, T, Dv)
+    in ``out_dtype``.
     """
     B, H, T, D = q.shape
     S = k.shape[2]
     bk = min(block_k, S)
-    scale = 1.0 / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
     qf = _dequant_f32(q, sq)
     kf = _dequant_f32(k, sk)
     vf = _dequant_f32(v, sv)

@@ -35,6 +35,7 @@ from repro.quant.qops import QuantContext as JCtx  # noqa: E402
 from repro.serve import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.bridge import params_from_flat  # noqa: E402
 from repro_torch.kernels import mp_attention as tmpa  # noqa: E402
+from repro_torch.kernels.fp8_matmul import pad_last as tpad  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quant_cast as tqc  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -140,6 +141,49 @@ def test_flash_attention_mp_matches_reference(fmt):
         *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
         fmt_name=fmt, block=64)
     np.testing.assert_allclose(_np(got), _np(want), **KTOL)
+
+
+# zero columns add exact zeros to every score and context sum, so only the
+# f32 summation order of the padded matmuls may move an output: 1e-6
+# relative and absolute on f32 outputs of magnitude <= 4
+PAD_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("quant_probs,bk", [(False, 256), (True, 96)])
+@pytest.mark.parametrize("D,Dv", [(40, 24), (8, 100)])
+def test_head_dim_padding_leaves_the_plain_version_unchanged(D, Dv,
+                                                             quant_probs, bk):
+    """The kernel's wrapper zero-pads D and Dv to multiples of 16 for TMA and
+    passes the unpadded D's scale: the plain version on the padded operands
+    with that scale, its padded output columns sliced off, is the plain
+    version on the unpadded ones (the padded columns are exact zeros)."""
+    q, k, v = (torch.from_numpy(x) for x in _normal(
+        13, (1, 2, 70, D), (1, 2, 150, D), (1, 2, 150, Dv)))
+    kw = dict(causal=True, block_k=bk, quant_probs=quant_probs,
+              out_dtype=torch.float32)
+    want = tref.mp_flash_attention_plain(q, k, v, **kw)
+    qp, kp, vp = (tpad(x, 16) for x in (q, k, v))
+    assert qp.shape[-1] % 16 == 0 and vp.shape[-1] % 16 == 0
+    got = tref.mp_flash_attention_plain(qp, kp, vp, scale=1.0 / np.sqrt(D),
+                                        **kw)
+    assert torch.equal(got[..., Dv:], torch.zeros_like(got[..., Dv:]))
+    np.testing.assert_allclose(got[..., :Dv].numpy(), want.numpy(),
+                               **PAD_TOL)
+
+
+@pytest.mark.parametrize("dtype,kind,entry", [
+    (torch.float32, "f32_cuda_cores", "mp_flash_attention_f32_launch"),
+    (torch.bfloat16, "tensor_cores", "mp_flash_attention_launch"),
+    (torch.float8_e4m3fn, "tensor_cores", "mp_flash_attention_launch"),
+    (torch.float8_e5m2, "tensor_cores", "mp_flash_attention_launch")])
+def test_operand_dtype_chooses_the_kernel(dtype, kind, entry):
+    """f32 operands have no exact tensor-core route and go to the CUDA-core
+    kernel's entry; bf16 and fp8 (widened to bf16 in shared memory) to the
+    wgmma kernel's. Other dtypes are refused by name."""
+    assert tmpa.route(dtype) == kind
+    assert tmpa._ENTRY[tmpa.route(dtype)] == entry
+    with pytest.raises(TypeError, match="float16"):
+        tmpa.route(torch.float16)
 
 
 def test_oracle_matches_reference_oracle():

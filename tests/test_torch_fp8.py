@@ -219,6 +219,42 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
         tref.scale_cast_ref(x, 1.0, torch.bfloat16)
 
 
+@pytest.mark.parametrize("fx,fw", [("fp8_e4m3", "fp8_e4m3"),
+                                   ("fp8_e5m2", "fp8_e5m2")])
+@pytest.mark.parametrize("K", [1, 100, 130])
+def test_k_padding_leaves_the_plain_version_bitwise_unchanged(fx, fw, K):
+    """The GEMM wrapper zero-pads K to a multiple of 16 for TMA: zero bytes
+    are +0.0 in both formats and their products add exact zeros, so the
+    plain version on the padded operands is bitwise the unpadded one (and
+    matches the reference kernel on the unpadded ones)."""
+    rng = np.random.default_rng(17)
+    xq = torch.from_numpy((rng.normal(size=(96, K)) * 40).astype(
+        np.float32)).to(FP8[fx][0])
+    wq = torch.from_numpy((rng.normal(size=(72, K)) * 40).astype(
+        np.float32)).to(FP8[fw][0])
+    xp, wp = tmm.pad_last(xq, 16), tmm.pad_last(wq, 16)
+    assert xp.shape == (96, -(-K // 16) * 16) and xp.dtype == xq.dtype
+    assert not _bytes(xp)[:, K:].any() and not _bytes(wp)[:, K:].any()
+    assert np.array_equal(_bytes(xp)[:, :K], _bytes(xq))
+    for out in (torch.bfloat16, torch.float32):
+        want = tref.fp8_matmul_ref(xq, wq, 0.013, 0.21, out)
+        got = tref.fp8_matmul_ref(xp, wp, 0.013, 0.21, out)
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_pad_last_keeps_aligned_rows_and_realigns_others():
+    """No copy when the rows are already a multiple of 16 bytes and the
+    base is 16-byte aligned; a view starting mid-buffer is copied to an
+    aligned one with the same values."""
+    x = torch.zeros(8, 32, dtype=torch.float8_e4m3fn)
+    assert tmm.pad_last(x, 16) is x
+    buf = torch.arange(8 * 33, dtype=torch.float32).to(torch.float8_e4m3fn)
+    v = buf[1:1 + 8 * 32].view(8, 32)
+    got = tmm.pad_last(v, 16)
+    assert got.data_ptr() % 16 == 0
+    assert np.array_equal(_bytes(got), _bytes(v.contiguous()))
+
+
 # ---------------------------------------------------------------------------
 # qeinsum impl="kernel"
 # ---------------------------------------------------------------------------

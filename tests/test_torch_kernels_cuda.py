@@ -218,6 +218,35 @@ def test_fp8_matmul_kernel_matches_plain(cuda, M, N, K, fx, fw, out):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("M,N,K", [(2048, 2048, 8192), (2048, 128256, 2048)],
+                         ids=["down_proj", "lm_head"])
+def test_fp8_matmul_kernel_e5m2_at_the_widest_shapes(cuda, M, N, K):
+    """e5m2 x e5m2 at the longest K (8192: 64 promotions of 128 products)
+    and the widest N (1002 column tiles)."""
+    xq = (_input((M, K), torch.float32, 7) / 8).to(FP8["e5m2"])
+    wq = (_input((N, K), torch.float32, 8) / 8).to(FP8["e5m2"])
+    sx = torch.tensor(0.02, device="cuda")
+    sw = torch.tensor(0.003, device="cuda")
+    got = tmm.fp8_matmul(xq, wq, sx, sw)
+    want = tref.fp8_matmul_ref(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    tol = MM_TOL * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_fp8_matmul_kernel_pads_k_and_realigns(cuda):
+    """K = 100 (rows of 100 bytes: padded to 112 for TMA) and an operand
+    starting 3 bytes into its buffer (copied to an aligned one)."""
+    buf = (_input((77 * 100 + 3,), torch.float32, 9) / 8).to(FP8["e4m3"])
+    xq = buf[3:].view(77, 100)
+    wq = (_input((130, 100), torch.float32, 10) / 8).to(FP8["e4m3"])
+    got = tmm.fp8_matmul(xq, wq, 0.5, 0.25)
+    want = tref.fp8_matmul_ref(xq, wq, 0.5, 0.25)
+    torch.cuda.synchronize()
+    tol = MM_TOL * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
 def test_fp8_linear_on_card_counts_and_matches_plain(cuda):
     """2 amax + 2 scale_cast + 1 GEMM launches per call; the result equals
     the plain pipeline within the GEMM tolerance, M=300 included."""
@@ -367,6 +396,76 @@ def test_mp_flash_kernel_refuses_what_it_cannot_take(cuda):
             2, 3), k, v)
     with pytest.raises(TypeError, match="dtypes"):
         tmpa.mp_flash_attention(q, k.float(), v)
+    # the f32 kernel stages a key block's scores in shared memory; the
+    # tensor-core kernel takes any block_k
+    q, k, v = _qkv(1, 1, 1024, 1024, 32, 32, dtype=torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
-        q, k, v = _qkv(1, 1, 1024, 1024, 32, 32)
         tmpa.mp_flash_attention(q, k, v, block_k=1024)
+    got = tmpa.mp_flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                  block_k=1024)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1, 1024, 32)
+
+
+def _fp8_qkv(B, H, T, S, D, Dv, seed):
+    """q/k/v quantized per tensor by the amax and scale_cast kernels, and
+    their dequant scales."""
+    qs = [tqc.quantize_fp8(x.reshape(-1, x.shape[-1]))
+          for x in _qkv(B, H, T, S, D, Dv, seed=seed)]
+    shapes = ((B, H, T, D), (B, H, S, D), (B, H, S, Dv))
+    return ([a.reshape(s) for (a, _), s in zip(qs, shapes)],
+            [sc for _, sc in qs])
+
+
+@pytest.mark.parametrize("block", [256, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_mp_flash_kernel_quant_probs_at_a_ragged_last_block(cuda, block,
+                                                            causal):
+    """T 300, S 700: key blocks of 256, 256, 188 (or 96 x 7 + 28), each
+    walked twice (max, then probabilities) by the tensor-core kernel; keys
+    past a block's end are absent from it."""
+    (q, k, v), sc = _fp8_qkv(2, 4, 300, 700, 64, 64, seed=2)
+    got = tmpa.mp_flash_attention(q, k, v, *sc, causal=causal,
+                                  block_k=block, quant_probs=True)
+    want = tref.mp_flash_attention_plain(q, k, v, *sc, causal=causal,
+                                         block_k=block, quant_probs=True)
+    torch.cuda.synchronize()
+    _flash_agrees(got, want, True)
+
+
+def test_mp_flash_kernel_deepseek_width_quant_probs(cuda):
+    """D 192 (three 64-column slabs of Q and K), Dv 128, fp8 operands with
+    e4m3 probabilities."""
+    (q, k, v), sc = _fp8_qkv(1, 2, 512, 512, 192, 128, seed=3)
+    got = tmpa.mp_flash_attention(q, k, v, *sc, quant_probs=True)
+    want = tref.mp_flash_attention_plain(q, k, v, *sc, quant_probs=True)
+    torch.cuda.synchronize()
+    _flash_agrees(got, want, True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mp_flash_kernel_f32_operands(cuda, causal):
+    """f32 operands take the CUDA-core kernel (no exact tensor-core route),
+    f32 output: f32 summation order only."""
+    q, k, v = _qkv(2, 3, 200, 333, 64, 48, seed=4, dtype=torch.float32)
+    n0 = tmpa.launches
+    got = tmpa.mp_flash_attention(q, k, v, causal=causal,
+                                  out_dtype=torch.float32)
+    want = tref.mp_flash_attention_plain(q, k, v, causal=causal,
+                                         out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tmpa.launches == n0 + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_mp_flash_kernel_pads_head_dims(cuda, fmt):
+    """D 40 and Dv 24 (not multiples of 16 bytes in fp8): the wrapper pads
+    both and keeps the scale of D 40."""
+    q, k, v = _qkv(1, 2, 130, 150, 40, 24, seed=5)
+    q, k, v = (x.to(FP8[fmt]) for x in (q, k, v))
+    got = tmpa.mp_flash_attention(q, k, v, 0.5, 0.5, 2.0)
+    want = tref.mp_flash_attention_plain(q, k, v, 0.5, 0.5, 2.0)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 2, 130, 24)
+    _flash_agrees(got, want, False)
