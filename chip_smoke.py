@@ -7,13 +7,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. print the card's name and power limit, build every CUDA kernel from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel)
-   and log the paged kernel's registers, shared memory and spills as
+   and log the paged kernels' registers, shared memory and spills as
    ``nvcc -Xptxas -v`` reported them (phases 3 and 10 log the others);
-2. hold the paged-decode kernel against its plain PyTorch version at the
-   serving shapes (B=4, Hkv=8, G=4, D=64, block 16, up to 160 keys): bf16
-   and scaled fp8-e4m3 KV, window None and 7, a vacant row (all -1 table,
-   length 0), and NaN in blocks no live page references; then time kernel,
-   plain version and ``scaled_dot_product_attention`` over gathered K/V;
+2. hold the GQA form's tensor-core kernel (``csrc/paged_decode_gqa.cu``)
+   against its plain PyTorch version at the serving shape (B=4, Hkv=8, G=4,
+   D=64, block 16, up to 160 keys), at D=128 and at G 5 and 7: bf16 and
+   scaled fp8-e4m3 KV, window None and 7, a vacant row (all -1 table,
+   length 0), NaN in blocks no live page references and in the stale slots
+   of live pages (past the length, below the window), two calls bit-equal;
+   then time it, the CUDA-core kernel that served the form before, the
+   plain version and ``scaled_dot_product_attention`` over gathered K/V at
+   the serving shape, at D=128 and at a long table (2048 keys a row);
 3. hold the fp8 kernels against their plain versions at the model's
    shapes: ``amax`` and ``scale_cast`` bitwise on the activations (2048,
    2048) and the weights (8192, 2048), (2048, 8192), (128256, 2048), plus
@@ -28,7 +32,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    generator) through the launcher's code path — 8 requests, 4 slots,
    128-token prompts, 32 new tokens, one arrival every 2 steps — on the
    continuous engine with fused and with gather decode attention, and on
-   the one-shot engine; check launch counts, that the logits behind every
+   the one-shot engine; check launch counts (every fused launch through
+   the GQA kernel, route ``gqa_mma``), that the logits behind every
    token agree up to each request's first divergence, and that a
    divergence sits only at a near-tie of the reference's logits (the
    logits are read off the engines' step closures, which this script
@@ -73,7 +78,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 13. DeepSeek-V3's dense prefix at full width (three MLA layers, random
     weights): phase 4's cell through the absorbed decode, fused and gather,
     the one-shot engine and the expanded decode, then under a fixed MP plan
-    (fused, gather, one-shot); the MLA kernel's launches equal decode steps
+    (fused, gather, one-shot); the MLA kernel's launches (route
+    ``cuda_core``) equal decode steps
     x fused layers; then a 4096-token prompt as in phase 12;
 14. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -203,21 +209,23 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 25) -> float:
 
 
 def paged_case(torch, seed: int, kv_dtype, poison_value: float,
-               lengths=(MAX_LEN, 100, BS, 0)):
+               lengths=(MAX_LEN, 100, BS, 0), d: int = D, g: int = G):
     """Block tables with every hazard the pool produces: rows of several
     lengths (a page boundary, mid-page, one page), a vacant row (all -1,
-    length 0) and dead entries pointing at poisoned blocks."""
+    length 0) and dead entries pointing at poisoned blocks. One decode row
+    per entry of ``lengths``."""
     from repro_torch.quant.formats import cast_to
     rng = np.random.default_rng(seed)
-    n_pages = MAX_LEN // BS
-    n_live = B * n_pages
+    n_pages = -(-max(max(lengths), MAX_LEN) // BS)
+    rows = len(lengths)
+    n_live = rows * n_pages
     n_blocks = 1 + n_live + 4
     poison = np.arange(1 + n_live, n_blocks)
     perm = rng.permutation(np.arange(1, 1 + n_live))
     lengths = np.asarray(lengths, np.int32)
-    tables = np.full((B, n_pages), -1, np.int32)
+    tables = np.full((rows, n_pages), -1, np.int32)
     c = 0
-    for b in range(B):
+    for b in range(rows):
         if lengths[b] == 0:
             continue                          # vacant row: all entries -1
         used = -(-int(lengths[b]) // BS)
@@ -232,110 +240,193 @@ def paged_case(torch, seed: int, kv_dtype, poison_value: float,
         x[poison] = poison_value
         return cast_to(torch.from_numpy(x).cuda(), kv_dtype)
 
-    k = fill((n_blocks, BS, HKV, D))
-    v = fill((n_blocks, BS, HKV, D))
-    q = torch.from_numpy(rng.normal(size=(B, HKV, G, D)).astype(
+    k = fill((n_blocks, BS, HKV, d))
+    v = fill((n_blocks, BS, HKV, d))
+    q = torch.from_numpy(rng.normal(size=(rows, HKV, g, d)).astype(
         np.float32)).cuda().to(torch.bfloat16)
     return (q, k, v, torch.from_numpy(tables).cuda(),
             torch.from_numpy(lengths).cuda())
 
 
+def poison_stale(torch, k, v, tables, lengths, window) -> int:
+    """NaN (byte 0xFF: NaN in bf16 and in e4m3fn) in every slot of a live
+    page that holds no live key — past the row's length and below its
+    window — in place; returns the number of slots poisoned."""
+    blocks, offs = [], []
+    for b, L in enumerate(lengths.tolist()):
+        lo = 0 if window is None else max(0, L - window)
+        for pos in range(-(-L // BS) * BS):
+            if pos >= L or pos < lo:
+                blocks.append(int(tables[b, pos // BS]))
+                offs.append(pos % BS)
+    if blocks:
+        for t in (k, v):
+            t.view(torch.uint8)[blocks, offs] = 0xFF
+    return len(blocks)
+
+
+# phase 2's shapes for the GQA kernel beside the serving one: llama3_8b's
+# d_head and the group sizes of the repo's GQA configs that do not divide 8
+GQA_CHECKS = {"serving": dict(d=D, g=G), "d128": dict(d=128, g=G),
+              "g5": dict(d=D, g=5), "g7": dict(d=D, g=7)}
+# the shapes the kernel is timed at: the serving cell's mid-drain decode
+# step, the same at llama3_8b's d_head, and a long table (2048 keys a row)
+GQA_TIMES = {"serving": dict(d=D, lengths=(160, 152, 144, 136)),
+             "d128": dict(d=128, lengths=(160, 152, 144, 136)),
+             "long": dict(d=D, lengths=(2048,) * 4)}
+
+
 def kernel_phase(torch) -> dict:
+    """The GQA kernel against its plain version at each ``GQA_CHECKS``
+    shape and hazard: bf16 and scaled fp8 K/V, window None and 7, a vacant
+    row, NaN in blocks no live page references, NaN in the stale slots of
+    live pages (past the length, below the window); repeated calls must be
+    bit-equal."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_decode_attention_ref
-    common = dict(scale=math.sqrt(D), scale_mode="div",
-                  score_dtype=torch.bfloat16, probs_dtype=torch.bfloat16,
-                  out_dtype=torch.bfloat16)
-    max_err = 0.0
-    for kv_name, kv_dtype, ks, vs in (("bf16", torch.bfloat16, 1.0, 1.0),
-                                      ("fp8_e4m3", torch.float8_e4m3fn,
-                                       0.5, 2.0)):
-        for window in (None, 7):
-            # finite poison, so the plain version (which multiplies zero
-            # probabilities into every gathered block) stays finite
-            args = paged_case(torch, 0, kv_dtype, 224.0)
-            kw = dict(common, window=window, k_scale=ks, v_scale=vs)
-            got = pa.paged_decode_attention(*args, **kw)
-            want = paged_decode_attention_ref(*args, **kw)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            max_err = max(max_err, err)
-            ok = torch.allclose(got.float(), want.float(), rtol=KERNEL_TOL,
-                                atol=KERNEL_TOL)
-            log(f"kernel vs plain: kv {kv_name} window {window}: max abs err "
-                f"{err:.3e} (tol {KERNEL_TOL:g})")
-            if not ok:
-                raise AssertionError(f"kernel disagrees with its plain "
-                                     f"version: kv {kv_name} window {window}")
-            if got[3].abs().max().item() != 0.0:
-                raise AssertionError("vacant row (length 0) is not zero")
-            # NaN in blocks only dead entries reference must never be read
-            nan_args = paged_case(torch, 0, kv_dtype, float("nan"))
-            got_nan = pa.paged_decode_attention(*nan_args, **kw)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got_nan.float()).all():
-                raise AssertionError("kernel read a block no live page "
-                                     "references")
-            if not torch.equal(got_nan, got):
-                raise AssertionError("NaN in unreferenced blocks changed the "
-                                     "kernel's output")
-    log(f"kernel vs plain: all cases within tolerance, max abs err "
-        f"{max_err:.3e}")
-    return {"max_abs_err": max_err}
+    max_err, cases, bitwise = 0.0, 0, 0
+    for shape, dims in GQA_CHECKS.items():
+        common = dict(scale=math.sqrt(dims["d"]), scale_mode="div",
+                      score_dtype=torch.bfloat16, probs_dtype=torch.bfloat16,
+                      out_dtype=torch.bfloat16)
+        for kv_name, kv_dtype, ks, vs in (("bf16", torch.bfloat16, 1.0, 1.0),
+                                          ("fp8_e4m3", torch.float8_e4m3fn,
+                                           0.5, 2.0)):
+            for window in (None, 7):
+                name = f"{shape} kv {kv_name} window {window}"
+                # finite poison, so the plain version (which multiplies zero
+                # probabilities into every gathered block) stays finite
+                args = paged_case(torch, 0, kv_dtype, 224.0, **dims)
+                kw = dict(common, window=window, k_scale=ks, v_scale=vs)
+                n0 = dict(pa.launches_by_route)
+                got = pa.paged_decode_attention(*args, **kw)
+                want = paged_decode_attention_ref(*args, **kw)
+                again = pa.paged_decode_attention(*args, **kw)
+                torch.cuda.synchronize()
+                if pa.launches_by_route["gqa_mma"] != n0["gqa_mma"] + 2:
+                    raise AssertionError(f"{name}: not launched through "
+                                         f"gqa_mma")
+                err = (got.float() - want.float()).abs().max().item()
+                max_err = max(max_err, err)
+                cases += 1
+                bitwise += int(torch.equal(got, want))
+                log(f"GQA kernel vs plain: {name}: max abs err {err:.3e} "
+                    f"(tol {KERNEL_TOL:g}), bitwise "
+                    f"{bool(torch.equal(got, want))}")
+                if not torch.allclose(got.float(), want.float(),
+                                      rtol=KERNEL_TOL, atol=KERNEL_TOL):
+                    raise AssertionError(f"kernel disagrees with its plain "
+                                         f"version: {name}")
+                if not torch.equal(again, got):
+                    raise AssertionError(f"{name}: two calls differ")
+                if got[3].abs().max().item() != 0.0:
+                    raise AssertionError("vacant row (length 0) is not zero")
+                # NaN in blocks only dead entries reference, then also in
+                # the stale slots of live pages, must never be read
+                q, k, v, bt, ln = paged_case(torch, 0, kv_dtype,
+                                             float("nan"), **dims)
+                got_nan = pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+                n_stale = poison_stale(torch, k, v, bt.cpu(), ln.cpu(),
+                                       window)
+                got_stale = pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+                torch.cuda.synchronize()
+                for what, t in (("a block no live page references", got_nan),
+                                (f"{n_stale} stale slots of live pages",
+                                 got_stale)):
+                    if not torch.isfinite(t.float()).all():
+                        raise AssertionError(f"{name}: NaN in {what} "
+                                             f"reached the output")
+                    if not torch.equal(t, got):
+                        raise AssertionError(f"{name}: NaN in {what} changed "
+                                             f"the output")
+    log(f"GQA kernel vs plain: {cases} cases within tolerance, max abs err "
+        f"{max_err:.3e}, bitwise equal in {bitwise} of {cases}")
+    return {"max_abs_err": max_err, "gqa_cases": cases,
+            "gqa_bitwise_cases": bitwise}
 
 
 def time_kernel(torch) -> dict:
-    """Kernel, plain version and the SDPA yardstick at a mid-drain decode
-    step (rows at 160, 152, 144, 136 keys), bound from this input."""
+    """At each ``GQA_TIMES`` shape: the GQA kernel (CUDA graph, L2-warm, and
+    with inputs rotated past L2), the CUDA-core kernel that served the form
+    before (route forced, as the baseline), the plain version and the SDPA
+    yardstick, with the bound from the shape's inputs. The serving shape's
+    numbers are also returned at the top level."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_decode_attention_ref, paged_deq
     import torch.nn.functional as F
-    lengths = (160, 152, 144, 136)
-    q, k, v, bt, ln = paged_case(torch, 1, torch.bfloat16, 0.0, lengths)
-    kw = dict(scale=math.sqrt(D), scale_mode="div",
-              score_dtype=torch.bfloat16, probs_dtype=torch.bfloat16,
-              out_dtype=torch.bfloat16)
-    n0 = pa.launches
+    out = {}
+    n0, n0_route = pa.launches, dict(pa.launches_by_route)
+    for shape, dims in GQA_TIMES.items():
+        d, lengths = dims["d"], dims["lengths"]
+        q, k, v, bt, ln = paged_case(torch, 1, torch.bfloat16, 0.0, lengths,
+                                     d=d)
+        kw = dict(scale=math.sqrt(d), scale_mode="div",
+                  score_dtype=torch.bfloat16, probs_dtype=torch.bfloat16,
+                  out_dtype=torch.bfloat16)
 
-    def kernel():
-        return pa.paged_decode_attention(q, k, v, bt, ln, **kw)
+        def kernel(*a):
+            return pa.paged_decode_attention(*(a or (q, k, v, bt, ln)), **kw)
 
-    def plain():
-        return paged_decode_attention_ref(q, k, v, bt, ln, **kw)
+        def plain():
+            return paged_decode_attention_ref(q, k, v, bt, ln, **kw)
 
-    ms, ms_eager = device_ms(torch, kernel), eager_ms(torch, kernel, 500)
-    t0 = time.perf_counter()
-    for _ in range(200):
-        kernel()
-    host_ms = (time.perf_counter() - t0) / 200 * 1e3   # enqueue only
-    torch.cuda.synchronize()
+        rec = {"ms": device_ms(torch, kernel),
+               "ms_cold": timed(torch, kernel, q, k, v, bt, ln),
+               "ms_eager": eager_ms(torch, kernel, 500)}
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kernel()
+        rec["host_enqueue_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        chosen = pa.route
+        pa.route = lambda *a, **k_: "cuda_core"
+        try:
+            rec["cuda_core_ms"] = device_ms(torch, kernel)
+        finally:
+            pa.route = chosen
+        rec["plain_ms"] = device_ms(torch, plain)
+        rec["plain_ms_eager"] = eager_ms(torch, plain, 50)
+        # SDPA over K/V gathered beforehand (not timed): (B, H, S, D)
+        kg = paged_deq(k, bt, torch.bfloat16, 1.0).permute(0, 2, 1, 3)
+        vg = paged_deq(v, bt, torch.bfloat16, 1.0).permute(0, 2, 1, 3)
+        kg = kg.repeat_interleave(G, dim=1).contiguous()
+        vg = vg.repeat_interleave(G, dim=1).contiguous()
+        qs = q.reshape(B, HKV * G, 1, d)
+        S = kg.shape[2]
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < ln[:, None]).reshape(B, 1, 1, S)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
+
+        rec["library_ms"] = device_ms(torch, library)
+        rec["library_ms_eager"] = eager_ms(torch, library, 500)
+        live = sum(lengths)
+        nbytes = (q.numel() * 2 + live * HKV * 2 * d * 2 + bt.numel() * 4
+                  + ln.numel() * 4 + B * HKV * G * d * 2)
+        ops = 2 * live * HKV * G * 2 * d
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+        rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bound_bytes=nbytes, bound_ops=ops, d=d,
+                   lengths=list(lengths),
+                   head_group=pa.head_group(G, d, 0, bt.shape[1], BS,
+                                            rows=B * HKV,
+                                            sms=pa._sm_count(q.device),
+                                            route="gqa_mma"))
+        log(f"paged_decode_attention GQA {shape} (D {d}, keys {lengths}, "
+            f"head group {rec['head_group']}): kernel {rec['ms'] * 1e3:.2f} "
+            f"us (inputs past L2 {rec['ms_cold'] * 1e3:.2f}) | CUDA-core "
+            f"kernel {rec['cuda_core_ms'] * 1e3:.2f} us | plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us | SDPA "
+            f"{rec['library_ms'] * 1e3:.2f} us | bound "
+            f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']})")
+        out[shape] = rec
     pa.launches = n0                  # timing launches are not path launches
-    plain_ms, plain_eager = device_ms(torch, plain), eager_ms(torch, plain, 50)
-    # SDPA over K/V gathered beforehand (not timed): (B, H, S, D) operands
-    kg = paged_deq(k, bt, torch.bfloat16, 1.0).permute(0, 2, 1, 3)
-    vg = paged_deq(v, bt, torch.bfloat16, 1.0).permute(0, 2, 1, 3)
-    kg = kg.repeat_interleave(G, dim=1).contiguous()
-    vg = vg.repeat_interleave(G, dim=1).contiguous()
-    qs = q.reshape(B, HKV * G, 1, D)
-    S = kg.shape[2]
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < ln[:, None]).reshape(B, 1, 1, S)
-    def library():
-        return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
-
-    lib_ms, lib_eager = device_ms(torch, library), eager_ms(torch, library,
-                                                           500)
-    live = sum(lengths)
-    nbytes = (q.numel() * 2 + live * HKV * 2 * D * 2 + bt.numel() * 4
-              + ln.numel() * 4 + B * HKV * G * D * 2)
-    ops = 2 * live * HKV * G * 2 * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "ms_eager": ms_eager, "plain_ms_eager": plain_eager,
-            "library_ms_eager": lib_eager, "host_enqueue_ms": host_ms,
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes": nbytes, "bound_ops": ops}
+    pa.launches_by_route.update(n0_route)
+    res = dict(out["serving"])
+    res["gqa_times"] = out
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +529,8 @@ def ptxas_report(name: str) -> list:
                     rest = k[m.end() + len(ident):]
                     label = ident + "<" + ",".join(
                         re.findall(r"Li(\d+)E", rest)
-                        + (["bf16"] if "bfloat16" in rest else [])) + ">"
+                        + (["fp8"] if "fp8" in rest else
+                           ["bf16"] if "bfloat16" in rest else [])) + ">"
         log(f"ptxas {name}: {label}: {r['registers']} registers, "
             f"{r['smem_bytes']} bytes static smem, spills "
             f"{r['spill_stores']}/{r['spill_loads']} bytes (stores/loads)")
@@ -718,10 +810,12 @@ def compare(name: str, got: dict, ref: dict, *, tol: float, bound: float,
     return out
 
 
-def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn):
+def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
+                   route=None):
     """Warm-up drain of one request, then the recorded drain of ``reqs``.
     Returns (summary, launches in the recorded drain, rid -> (tokens,
-    logits))."""
+    logits)). With ``route``, every launch of the drain must have gone
+    through that kernel (``paged_attention.route``)."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serve import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(
@@ -732,9 +826,14 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn):
     events = record_steps(eng, ("prefill_chunk_step", "decode_step"))
     torch.cuda.synchronize()
     pa.launches = 0
+    pa.launches_by_route.update(dict.fromkeys(pa.ROUTES, 0))
     out = eng.serve(params, reqs)
     torch.cuda.synchronize()
     launches = pa.launches
+    if route is not None and pa.launches_by_route[route] != launches:
+        raise AssertionError(f"{paged_attn}: launches by route "
+                             f"{pa.launches_by_route}, expected all {launches}"
+                             f" through {route}")
     for r in reqs:
         res = out.results.get(r.rid)
         if res is None or res.status != "ok" or len(res.tokens) != \
@@ -779,8 +878,10 @@ def serve_phase(torch, model, params) -> dict:
                          SERVE["prompt_len"], SERVE["new_tokens"],
                          SERVE["arrival_every"])
     fused, n_fused, fused_tl = run_continuous(torch, model, params, reqs,
-                                              paged_attn="fused")
-    log(f"fused: {fused.n_steps} decode steps, {n_fused} kernel launches")
+                                              paged_attn="fused",
+                                              route="gqa_mma")
+    log(f"fused: {fused.n_steps} decode steps, {n_fused} kernel launches, "
+        f"all through gqa_mma")
     if n_fused != fused.n_steps * n_layers or n_fused == 0:
         raise AssertionError(f"fused launches {n_fused} != "
                              f"{fused.n_steps} steps x {n_layers} layers")
@@ -812,7 +913,7 @@ def serve_phase(torch, model, params) -> dict:
     plan = MPPlan(assignment=assignment, groups=[], objective="ET", tau=0.0,
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
     mp_out, n_mp, mp_tl = run_continuous(torch, model, params, reqs, mp=plan,
-                                         paged_attn="fused")
+                                         paged_attn="fused", route="gqa_mma")
     log(f"MP plan ({plan.n_quantized} fp8 ops): {mp_out.n_steps} decode "
         f"steps, {n_mp} kernel launches")
     if n_mp != mp_out.n_steps * (n_layers - 1):
@@ -1417,7 +1518,8 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
                          SERVE["prompt_len"], SERVE["new_tokens"],
                          SERVE["arrival_every"])
     fused, n_fused, fused_tl = run_continuous(torch, absorbed, params, reqs,
-                                              paged_attn="fused")
+                                              paged_attn="fused",
+                                              route="cuda_core")
     log(f"MLA fused: {fused.n_steps} decode steps, {n_fused} kernel "
         f"launches")
     if n_fused != fused.n_steps * n_layers or n_fused == 0:
@@ -1451,7 +1553,8 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
     plan = MPPlan(assignment=assignment, groups=[], objective="ET", tau=0.0,
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
     mp_f, n_mp, mp_f_tl = run_continuous(torch, absorbed, params, reqs,
-                                         mp=plan, paged_attn="fused")
+                                         mp=plan, paged_attn="fused",
+                                         route="cuda_core")
     if n_mp != mp_f.n_steps * (n_layers - 1):
         raise AssertionError(f"MLA MP launches {n_mp} != {mp_f.n_steps} "
                              f"steps x {n_layers - 1} fused layers")
@@ -1570,9 +1673,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    ptxas_report("paged_attention")      # phases 3 and 10 report the rest
+    report_ptxas = {n: ptxas_report(n) for n in ("paged_decode_gqa",
+                                                  "paged_attention")}
+    # phases 3 and 10 report the rest
 
-    report = {"card": card, "phase_seconds": {}}
+    report = {"card": card, "phase_seconds": {}, "paged_ptxas": report_ptxas}
 
     def phase(name, fn, *a):
         t = time.perf_counter()
@@ -1584,7 +1689,8 @@ def main() -> int:
 
     report.update(phase("paged kernel checks", kernel_phase, torch))
     report.update(phase("paged kernel times", time_kernel, torch))
-    log("paged_decode_attention device time (CUDA graph): kernel "
+    log("paged_decode_attention GQA serving shape, device time (CUDA "
+        "graph): kernel "
         f"{report['ms'] * 1e3:.2f} us | plain {report['plain_ms'] * 1e3:.2f} "
         f"us | SDPA {report['library_ms'] * 1e3:.2f} us | bound "
         f"{report['bound_ms'] * 1e3:.3f} us ({report['bound_by']})")
@@ -1642,7 +1748,8 @@ def main() -> int:
     kernels = [{
         "name": "paged_decode_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "dispatch": "gqa_mma",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_gqa.cu",
         "replaces": "src/repro/kernels/paged_attention.py:204",
         "launches": report["kernel_launches_main_path"],
         "max_abs_err": report["max_abs_err"],
@@ -1680,6 +1787,7 @@ def main() -> int:
     m = report["mla_times"]
     kernels.append({
         "name": "paged_decode_attention_mla", "route": "cuda",
+        "dispatch": "cuda_core",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:204",
         "launches": report["mla_kernel_launches_main_path"],
@@ -1697,7 +1805,11 @@ def main() -> int:
                       "mla_agreement": report["mla_agreement"],
                       "long_prompt": report["long_prompt"],
                       "flash_times": report["flash_times"],
-                      "mla_times": report["mla_times"]}), flush=True)
+                      "mla_times": report["mla_times"],
+                      "gqa_times": report["gqa_times"],
+                      "gqa_bitwise_cases": [report["gqa_bitwise_cases"],
+                                            report["gqa_cases"]]}),
+          flush=True)
     print(json.dumps({"calibration": report["calibration"],
                       "measured_tier_s": report["measured_tier"]["seconds"],
                       "plans": report["plan_serving"]["plans"],

@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Where the paged-decode kernel's time goes, on one GPU.
+"""Where the paged-decode kernels' time goes, on one GPU.
 
     python3 paged_kernel_sweep.py
 
-Times ``csrc/paged_attention.cu`` at the serving cell's decode step (B=4,
-block 16) in both forms — GQA (8 KV heads x 4, D 64, bf16) and MLA (one
-latent head x 128, latents 512 + 64, f32 queries) — at 16 and at about 150
-live keys a row:
+Times the GQA form's tensor-core kernel (``csrc/paged_decode_gqa.cu``) at
+the serving cell's decode step (B=4, 8 KV heads x 4, block 16, bf16) at D 64
+and D 128 with 16 and about 150 live keys a row, at a long table (D 64,
+2048 keys a row), and at 8, 16 and 32 rows of about 150 keys (D 64; 16 rows
+at D 128 too), where the wrapper's rule picks groups of 2 and 4; and the
+MLA form (``csrc/paged_attention.cu``: one latent
+head x 128, latents 512 + 64, f32 queries) at 16 and about 150 keys:
 
-* with every head-group size the wrapper could pick (1, 2, 4, 8), to check
-  the group the wrapper does pick;
-* cut off after its set-up and after its phase 0 (the scores), built as
-  separate copies of the source with an early return, to see which phase
-  the time grows in.
+* with every head-group size the wrapper could pick (1, 2, 4; 8 for MLA),
+  to check the group the wrapper does pick; the GQA rows also time the
+  CUDA-core kernel that served the form before (route forced);
+* cut off at each phase boundary, built as separate copies of the source
+  with an early return (after waiting for the copies in flight): GQA after
+  the set-up (length, table row, queries), after the first ring of K/V
+  copies has landed, after the scores (phase 0) and after the softmax
+  (phase 1); MLA after its set-up and after its phase 0.
 
-Device times come from CUDA graphs of 20 calls (``chip_smoke.device_ms``).
-Prints the card's name and power limit first. Builds go to the kernels'
-git-ignored build directory.
+Device times come from CUDA graphs of 20 calls (``chip_smoke.device_ms``),
+L2-warm. Prints the card's name and power limit first. Builds go to the
+kernels' git-ignored build directory.
 """
 from __future__ import annotations
 
@@ -26,22 +32,35 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CUTS = {"set-up only": "  // phase 0: masked scores",
-        "to phase 0": "  // phase 1: the final row max"}
-LENGTHS = ((16, 16, 16, 16), (160, 152, 144, 136))
+STOP = "  cp_async_wait<0>();\n  return;\n"
+# source -> {cut: marker the early return goes in front of}
+CUTS = {
+    "paged_decode_gqa": {
+        "set-up only": "  for (int i = 0; i < n_slots; ++i) issue(i, i);",
+        "first ring landed": "  // phase 0: masked scores",
+        "to phase 0": "  // phase 1: the final row max",
+        "to phase 1": "  // phase 2: context",
+    },
+    "paged_attention": {
+        "set-up only": "  // phase 0: masked scores",
+        "to phase 0": "  // phase 1: the final row max",
+    },
+}
+SHORT, MID = (16, 16, 16, 16), (160, 152, 144, 136)
 
 
-def build_cuts(build) -> dict:
-    """Compile one copy of the kernel per cut, in parallel."""
-    src = (build.CSRC / "paged_attention.cu").read_text()
+def build_cuts(build, source: str) -> dict:
+    """Compile one copy of ``csrc/<source>.cu`` per cut, in parallel."""
+    src = (build.CSRC / f"{source}.cu").read_text()
+    stop = STOP if source == "paged_decode_gqa" else "  return;\n"
     out_dir = build.BUILD_DIR / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, marker in CUTS.items():
+    for name, marker in CUTS[source].items():
         if marker not in src:
-            raise SystemExit(f"marker for {name!r} not in the source")
-        cu = out_dir / f"{name.replace(' ', '_')}.cu"
-        cu.write_text(src.replace(marker, "  return;\n" + marker, 1))
+            raise SystemExit(f"marker for {name!r} not in {source}.cu")
+        cu = out_dir / f"{source}_{name.replace(' ', '_')}.cu"
+        cu.write_text(src.replace(marker, stop + marker, 1))
         lib = cu.with_suffix(".so")
         procs[name] = (subprocess.Popen(
             [build.nvcc_path(), *build.FLAGS, "-o", str(lib), str(cu)],
@@ -67,38 +86,53 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
     print(cs.card_line(), flush=True)
-    gqa_kw = dict(scale=8.0, score_dtype=torch.bfloat16,
+    _build.build(["paged_decode_gqa", "paged_attention"])
+    gqa = []
+    for d, lengths in ((64, SHORT), (64, MID), (128, SHORT), (128, MID),
+                       (64, (2048,) * 4), (64, MID * 2), (64, MID * 4),
+                       (128, MID * 4), (64, MID * 8)):
+        kw = dict(scale=d ** 0.5, score_dtype=torch.bfloat16,
                   probs_dtype=torch.bfloat16, out_dtype=torch.bfloat16)
-    cases = []
-    for lengths in LENGTHS:
-        cases.append(("GQA", lengths,
-                      cs.paged_case(torch, 1, torch.bfloat16, 0.0, lengths),
-                      gqa_kw))
+        gqa.append((f"GQA D {d} B {len(lengths)} keys {min(lengths)}-"
+                    f"{max(lengths)}",
+                    cs.paged_case(torch, 1, torch.bfloat16, 0.0, lengths,
+                                  d=d), kw))
+    mla = []
+    for lengths in (SHORT, MID):
         args, kw = cs.mla_case(torch, 4, lengths, 0.0)
-        cases.append(("MLA", lengths, args, kw))
+        mla.append((f"MLA keys {lengths}", args, kw))
 
     def time_case(args, kw) -> float:
         return cs.device_ms(torch, lambda: pa.paged_decode_attention(
             *args, **kw)) * 1e3
 
-    picked = pa.head_group
-    for form, lengths, args, kw in cases:
-        row = []
-        for hg in (1, 2, 4, 8):
-            pa.head_group = lambda *a, hg=hg, **k: hg
-            row.append(f"hg {hg} {time_case(args, kw):.2f} us")
-        pa.head_group = picked
-        print(f"{form} keys {lengths}: {' | '.join(row)} | picked "
-              f"{time_case(args, kw):.2f} us", flush=True)
-    full_fn = pa._kernel_fn()
-    for name, lib in build_cuts(_build).items():
-        fn = lib.paged_decode_attention_launch
-        fn.argtypes, fn.restype = full_fn.argtypes, full_fn.restype
-        pa._fn = fn
-        for form, lengths, args, kw in cases:
-            print(f"{form} keys {lengths}, {name}: "
-                  f"{time_case(args, kw):.2f} us", flush=True)
-    pa._fn = full_fn
+    picked, chosen = pa.head_group, pa.route
+    for cases, groups in ((gqa, (1, 2, 4)), (mla, (1, 2, 4, 8))):
+        for label, args, kw in cases:
+            row = []
+            for hg in groups:
+                pa.head_group = lambda *a, hg=hg, **k: hg
+                row.append(f"hg {hg} {time_case(args, kw):.2f} us")
+            pa.head_group = picked
+            row.append(f"picked {time_case(args, kw):.2f} us")
+            if cases is gqa:
+                pa.route = lambda *a, **k: "cuda_core"
+                row.append(f"CUDA-core kernel {time_case(args, kw):.2f} us")
+                pa.route = chosen
+            print(f"{label}: {' | '.join(row)}", flush=True)
+    for source, cases, attr in (("paged_decode_gqa", gqa, "_gqa_fn"),
+                                ("paged_attention", mla, "_fn")):
+        full_fn = (pa._gqa_kernel_fn() if source == "paged_decode_gqa"
+                   else pa._kernel_fn())
+        launch = full_fn.__name__
+        for name, lib in build_cuts(_build, source).items():
+            fn = getattr(lib, launch)
+            fn.argtypes, fn.restype = full_fn.argtypes, full_fn.restype
+            setattr(pa, attr, fn)
+            for label, args, kw in cases:
+                print(f"{label}, {name}: {time_case(args, kw):.2f} us",
+                      flush=True)
+        setattr(pa, attr, full_fn)
     return 0
 
 

@@ -1,5 +1,8 @@
-// Paged single-query decode attention for Hopper, sm_90a: the GQA form and
-// the MLA (absorbed latent) form.
+// Paged single-query decode attention for Hopper, sm_90a, on the CUDA
+// cores: the MLA (absorbed latent) form, f32 queries, and any GQA call
+// outside the tensor-core kernel's rule (kernels/paged_attention.py
+// route: unrounded scores, f32 K/V, head dims not a multiple of 16 or over
+// 256). The GQA serving form runs in csrc/paged_decode_gqa.cu.
 //
 // Replaces: src/repro/kernels/paged_attention.py, paged_decode_attention
 // (Pallas TPU kernel _kernel / _call) in both of its forms:

@@ -1,9 +1,18 @@
-"""Paged-attention decode: the CUDA kernel's wrapper.
+"""Paged-attention decode: the CUDA kernels' wrapper.
 
 Port of ``repro/kernels/paged_attention.py`` (the Pallas TPU kernel) in both
-of its forms. The kernel itself is ``csrc/paged_attention.cu`` — CUDA C++ for
-``sm_90a``, built with ``nvcc`` into a plain C library and called through
-``ctypes`` — and its source says what it computes, what bounds it, and how.
+of its forms. Two kernels — CUDA C++ for ``sm_90a``, built with ``nvcc`` into
+plain C libraries and called through ``ctypes`` — share the work, chosen by
+:func:`route` from the call's form and shape alone, before any launch:
+
+* ``"gqa_mma"``, ``csrc/paged_decode_gqa.cu``: the GQA serving form (bf16
+  queries, bf16 or fp8 K/V, Dk == Dv a multiple of 16 up to 256, scores and
+  probabilities rounded to bf16) on the tensor cores, pages staged by
+  ``cp.async``;
+* ``"cuda_core"``, ``csrc/paged_attention.cu``: everything else — the MLA
+  form, f32 queries, other head dims.
+
+Each source says what it computes, what bounds it, and how.
 
 Layout contract (as in the reference):
 
@@ -18,17 +27,21 @@ Layout contract (as in the reference):
 * ``lengths``: (B,) int32 live-token count; with ``window``, keys at or
   below ``lengths[b] - 1 - window`` are masked too.
 
-Each block of the kernel holds the scores of up to 8 query heads of one
+Each block of either kernel holds the scores of up to 8 query heads of one
 (row, KV head) over the whole block-table width in shared memory, so the
 table width a call may take is bounded (:func:`max_context`): the wrapper
 takes the largest head group (8, 4, 2, 1) that fits and still gives half
-the SMs of the card a block, and raises beyond a group of one. In the MLA form at block size 16 (576 f32 query values per
-head) that is 6,624 table positions with groups of 8 and 54,144 in all.
+the SMs of the card a block, and raises beyond a group of one. In the MLA
+form at block size 16 (576 f32 query values per head) that is 6,624 table
+positions with groups of 8 and 54,144 in all; the GQA kernel keeps its
+scores as bf16: 86,688 positions at D 64, 72,128 at D 128 and 43,008 at
+D 256, where :func:`route` sends a wider table to the CUDA-core kernel
+(54,448).
 
 A CPU tensor takes the plain version (``kernels/ref.py``). A CUDA tensor
-launches the kernel or raises — nothing falls back. ``launches`` counts the
+launches a kernel or raises — nothing falls back. ``launches`` counts the
 launches of this process, so a run can show the main path went through the
-kernel.
+kernels; ``launches_by_route`` splits them by kernel.
 """
 from __future__ import annotations
 
@@ -42,18 +55,28 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
-__all__ = ["paged_decode_attention", "launches", "BIG_WINDOW", "smem_bytes",
+__all__ = ["paged_decode_attention", "launches", "launches_by_route",
+           "route", "ROUTES", "BIG_WINDOW", "smem_bytes", "gqa_slots",
            "head_group", "max_context"]
 
 BIG_WINDOW = 1 << 30            # "no window" sentinel (fits int32)
 launches = 0                    # kernel launches in this process
+ROUTES = ("gqa_mma", "cuda_core")
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 _Q_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _KV_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float8_e4m3fn: 2}
 _MAX_DK, _MAX_D2, _MAX_DV = 512, 128, 512
 _MAX_HG = 8                     # query heads per block
 _MAX_SMEM = 227 * 1024          # dynamic shared memory a block may use
+# csrc/paged_decode_gqa.cu: keys of one ring slot (8 warps x 16-key tiles),
+# ring depth, the widest head, and its per-warp softmax partials
+_GQA_WARPS, _GQA_MAX_SLOTS, _GQA_MAX_D = 8, 12, 256
+_GQA_CHUNK = 16 * _GQA_WARPS
+_GQA_RED_BYTES = 2 * 4 * _GQA_WARPS * _MAX_HG
+_GQA_KV = {torch.bfloat16: 0, torch.float8_e4m3fn: 2}
 _fn = None
+_gqa_fn = None
 
 
 def _kernel_fn():
@@ -69,37 +92,108 @@ def _kernel_fn():
     return _fn
 
 
+def _gqa_kernel_fn():
+    global _gqa_fn
+    if _gqa_fn is None:
+        fn = _build.load("paged_decode_gqa").paged_decode_gqa_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _gqa_fn = fn
+    return _gqa_fn
+
+
+def route(q_dtype, kv_dtype, has_v: bool, D2: int, Dk: int, Dv: int,
+          rounded: bool = True, n_pages: int = 0, bs: int = 16) -> str:
+    """The kernel a call takes, by its form and shape alone (never after a
+    failure): ``"gqa_mma"`` (``csrc/paged_decode_gqa.cu``) for bf16 queries
+    over bf16 or fp8-e4m3 K/V with values of their own (``v`` given), no
+    second score operand (``D2 == 0``), ``Dk == Dv``, ``Dk % 16 == 0``,
+    ``Dk <= 256``, scores and probabilities rounded to bf16 (``rounded``)
+    and a table of ``n_pages`` pages of ``bs`` keys that one head's scores
+    fit in shared memory (:func:`max_context`); ``"cuda_core"``
+    (``csrc/paged_attention.cu``) for every other call: the MLA form, f32
+    queries or K/V, unrounded scores, other head dims, and wider tables —
+    at D 256 the CUDA-core kernel holds 54,448 keys to the GQA kernel's
+    43,008 (at D 64 and 128 it holds fewer, and such a table raises)."""
+    if (q_dtype == torch.bfloat16 and kv_dtype in _GQA_KV and has_v
+            and D2 == 0 and Dk == Dv and Dk % 16 == 0
+            and 16 <= Dk <= _GQA_MAX_D and rounded
+            and _gqa_smem(1, Dk, n_pages, bs, 2) <= _MAX_SMEM):
+        return "gqa_mma"
+    return "cuda_core"
+
+
+def _gqa_smem(hg: int, D: int, n_pages: int, bs: int, slots: int) -> int:
+    """Dynamic shared memory of the GQA kernel, which the wrapper passes to
+    its launcher: the ring of ``slots`` 128-key slots of padded bf16 rows
+    (D + 8), the group's bf16 scores over the table width (rounded up to 8),
+    the table row and the warps' softmax partials."""
+    sp = -(-(n_pages * bs) // 8) * 8
+    return (slots * _GQA_CHUNK * 2 * (D + 8) + 2 * hg * sp + 4 * n_pages
+            + _GQA_RED_BYTES)
+
+
+def gqa_slots(hg: int, D: int, n_pages: int, bs: int) -> int:
+    """Ring depth of the GQA kernel: one slot per load a row can need (K and
+    V chunks of 128 keys over the table width), at most 12, fewer where the
+    scores leave less room; 0 when not even 2 slots fit."""
+    want = min(_GQA_MAX_SLOTS, max(2, 2 * -(-(n_pages * bs) // _GQA_CHUNK)))
+    for slots in range(want, 1, -1):
+        if _gqa_smem(hg, D, n_pages, bs, slots) <= _MAX_SMEM:
+            return slots
+    return 0
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def smem_bytes(hg: int, Dk: int, D2: int, n_pages: int, bs: int) -> int:
-    """Dynamic shared memory of one block: the group's queries, its scores
-    over the table width, max and denominator per head, and the resolved
-    block ids."""
+def smem_bytes(hg: int, Dk: int, D2: int, n_pages: int, bs: int,
+               route: str = "cuda_core") -> int:
+    """Dynamic shared memory of one block. ``cuda_core``: the group's f32
+    queries, its f32 scores over the table width, max and denominator per
+    head, and the resolved block ids. ``gqa_mma``: the ring at the depth
+    :func:`gqa_slots` picks (2 when none fits), bf16 scores, the table row
+    and the softmax partials."""
+    if route == "gqa_mma":
+        slots = gqa_slots(hg, Dk, n_pages, bs) or 2
+        return _gqa_smem(hg, Dk, n_pages, bs, slots)
     return 4 * (hg * (Dk + D2) + hg * n_pages * bs + 2 * hg) + 4 * n_pages
 
 
 def head_group(G: int, Dk: int, D2: int, n_pages: int, bs: int,
-               rows: int = 1, sms: int = 0) -> int:
+               rows: int = 1, sms: int = 0, route: str = "cuda_core") -> int:
     """Query heads per block: the largest of min(G, 8), halved down to 1,
     whose shared memory fits and — given ``rows`` (decode rows x KV heads)
     and ``sms`` — whose grid gives at least half the SMs a block (smaller
-    groups read the keys again for more blocks; measured on an H100 at the
-    serving shapes, groups of 1 for GQA and of 4 for MLA were the fastest);
-    0 when not even one head fits."""
+    groups read the keys again for more blocks); 0 when not even one head
+    fits. Measured on an H100 (``paged_kernel_sweep.py``, G 4, 136-160
+    keys a row), the group this picks was the fastest of 1, 2 and 4, or
+    within 1% of it: in the GQA kernel at 4, 8, 16 and 32 decode rows
+    (groups of 1, 2, 4 and 4), in the MLA form at 4 rows (4)."""
+    def fits(n: int) -> bool:
+        return smem_bytes(n, Dk, D2, n_pages, bs, route) <= _MAX_SMEM
+
     hg = min(G, _MAX_HG)
-    while hg > 1 and (smem_bytes(hg, Dk, D2, n_pages, bs) > _MAX_SMEM
-                      or 2 * rows * -(-G // hg) < sms):
+    while hg > 1 and (not fits(hg) or 2 * rows * -(-G // hg) < sms):
         hg = (hg + 1) // 2
-    return hg if smem_bytes(hg, Dk, D2, n_pages, bs) <= _MAX_SMEM else 0
+    return hg if fits(hg) else 0
 
 
-def max_context(Dk: int, D2: int, bs: int, hg: int = 1) -> int:
+def max_context(Dk: int, D2: int, bs: int, hg: int = 1,
+                route: str = "cuda_core") -> int:
     """The largest table width in keys (pages x ``bs``) a block of ``hg``
-    heads holds."""
-    n_pages = (_MAX_SMEM - 4 * hg * (Dk + D2 + 2)) // (4 * hg * bs + 4)
+    heads holds (``gqa_mma``: with a ring of 2 slots)."""
+    if route == "gqa_mma":
+        n_pages = ((_MAX_SMEM - _gqa_smem(hg, Dk, 0, bs, 2))
+                   // (2 * hg * bs + 4))
+        while n_pages > 0 and _gqa_smem(hg, Dk, n_pages, bs, 2) > _MAX_SMEM:
+            n_pages -= 1
+    else:
+        n_pages = (_MAX_SMEM - 4 * hg * (Dk + D2 + 2)) // (4 * hg * bs + 4)
     return max(n_pages, 0) * bs
 
 
@@ -131,6 +225,7 @@ def _launch(q, k, v, block_tables, lengths, *, window, q2, k2, scale,
             scale_mode, score_dtype, probs_dtype, k_scale, v_scale,
             out_dtype) -> torch.Tensor:
     global launches
+    has_v = v is not None
     v = k if v is None else v
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-D: (B, Hkv, G, Dk) and "
@@ -193,25 +288,44 @@ def _launch(q, k, v, block_tables, lengths, *, window, q2, k2, scale,
     if Dk > _MAX_DK or D2 > _MAX_D2 or Dv > _MAX_DV:
         raise ValueError(f"head dims {Dk}/{D2}/{Dv} exceed "
                          f"{_MAX_DK}/{_MAX_D2}/{_MAX_DV}")
+    form = (q.dtype, k.dtype, has_v, D2, Dk, Dv,
+            score_dtype is not None and probs_dtype is not None)
+    rt = route(*form, n_pages=n_pages, bs=bs)
     hg = head_group(G, Dk, D2, n_pages, bs, rows=B * Hkv,
-                    sms=_sm_count(q.device))
+                    sms=_sm_count(q.device), route=rt)
     if hg == 0:
+        widest = max(max_context(Dk, D2, bs, 1, r)
+                     for r in {rt, route(*form, bs=bs)})
         raise ValueError(
             f"scores of one head x {n_pages * bs} keys need "
-            f"{smem_bytes(1, Dk, D2, n_pages, bs)} bytes of shared memory, "
-            f"more than the {_MAX_SMEM} a block may use (the largest table "
-            f"width at these dims is {max_context(Dk, D2, bs)} keys)")
+            f"{smem_bytes(1, Dk, D2, n_pages, bs, rt)} bytes of shared "
+            f"memory, more than the {_MAX_SMEM} a block may use (the largest "
+            f"table width at these dims is {widest} keys)")
     if B > 65535:
         raise ValueError(f"batch {B} too large for the grid")
+    if rt == "gqa_mma" and (k.data_ptr() % 16 or v.data_ptr() % 16
+                            or q.data_ptr() % 4):
+        raise ValueError("the GQA kernel copies K/V rows 16 bytes at a time: "
+                         "k and v must start 16-byte aligned, q 4-byte")
     out = torch.empty((B, Hkv, G, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if not math.isfinite(scale) or scale == 0.0:
         raise ValueError(f"scale must be finite and nonzero, got {scale}")
-    fn = _kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        if rt == "gqa_mma":
+            slots = gqa_slots(hg, Dk, n_pages, bs)
+            rc = _gqa_kernel_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                B, Hkv, G, hg, Dk, bs, n_pages, int(window), slots,
+                _gqa_smem(hg, Dk, n_pages, bs, slots), float(scale),
+                int(scale_mode == "mul"), float(k_scale), float(v_scale),
+                _GQA_KV[k.dtype], stream)
+        else:
+            rc = _kernel_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if q2 is None else q2.data_ptr(),
                 None if k2 is None else k2.data_ptr(),
                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
@@ -221,7 +335,8 @@ def _launch(q, k, v, block_tables, lengths, *, window, q2, k2, scale,
                 int(probs_dtype is not None), _Q_CODES[q.dtype],
                 _KV_CODES[k.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"paged_decode_attention kernel launch failed "
+                           f"({rt}): cudaError {rc}")
     launches += 1
+    launches_by_route[rt] += 1
     return out

@@ -120,6 +120,168 @@ def test_float32_query_and_window_edge(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the GQA form's tensor-core kernel (csrc/paged_decode_gqa.cu)
+# ---------------------------------------------------------------------------
+
+KV_DTYPES = {"bf16": torch.bfloat16, "fp8_e4m3": torch.float8_e4m3fn}
+
+
+def _poison_stale(k, v, bt, lengths, bs, window=None):
+    """NaN (byte 0xFF, NaN in bf16 and in e4m3fn) in every slot of a live
+    page that holds no live key: past the row's length and below its
+    window. In place."""
+    blocks, offs = [], []
+    for b, L in enumerate(lengths.tolist()):
+        lo = 0 if window is None else max(0, L - window)
+        for pos in range(-(-L // bs) * bs):
+            if pos >= L or pos < lo:
+                blocks.append(int(bt[b, pos // bs]))
+                offs.append(pos % bs)
+    if blocks:
+        for t in (k, v):
+            t.view(torch.uint8)[blocks, offs] = 0xFF
+
+
+@pytest.mark.parametrize("kv", sorted(KV_DTYPES))
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("window", [None, 7])
+def test_gqa_kernel_matches_plain_version(cuda, kv, G, D, window):
+    """Every head dim the route takes, single heads, the serving group and
+    a group that does not split evenly (G 7), with and without a window."""
+    scales = dict(k_scale=0.5, v_scale=2.0) if kv != "bf16" else {}
+    args = _case(KV_DTYPES[kv], 224.0, G=G, D=D)
+    assert tpa.route(args[0].dtype, args[1].dtype, True, 0, D, D) == \
+        "gqa_mma"
+    n0 = dict(tpa.launches_by_route)
+    kw = dict(KW, scale=math.sqrt(D), window=window, **scales)
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == dict(n0, gqa_mma=n0["gqa_mma"] + 1)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL, atol=TOL)
+    assert (got[3] == 0).all(), "a length-0 row must give zeros"
+    again = tpa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got), "two calls must give equal bits"
+
+
+@pytest.mark.parametrize("hg", [1, 3, 4, 7, 8])
+@pytest.mark.parametrize("scale,mode", [(8.0, "div"), (0.125, "mul"),
+                                        (-8.0, "div")])
+def test_gqa_kernel_at_every_head_group(cuda, monkeypatch, hg, scale, mode):
+    """Forced head groups, including ones that leave a last group short,
+    under both scale modes and a negative scale (the row max is then taken
+    from the smallest sum)."""
+    args = _case(torch.bfloat16, 224.0, G=8)
+    kw = dict(KW, scale=scale, scale_mode=mode)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    monkeypatch.setattr(tpa, "head_group", lambda *a, **k: hg)
+    got = tpa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("kv", sorted(KV_DTYPES))
+@pytest.mark.parametrize("window", [None, 7])
+def test_gqa_kernel_never_reads_stale_live_slots(cuda, kv, window):
+    """NaN in the slots of live pages past a row's length and below its
+    window leaves the output finite and bit-identical."""
+    scales = dict(k_scale=0.5, v_scale=2.0) if kv != "bf16" else {}
+    kw = dict(KW, window=window, **scales)
+    args = _case(KV_DTYPES[kv], float("nan"))
+    clean = tpa.paged_decode_attention(*args, **kw)
+    q, k, v, bt, ln = args
+    _poison_stale(k, v, bt.cpu(), ln.cpu(), 16, window)
+    got = tpa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, clean)
+
+
+def test_gqa_kernel_at_its_context_limit(cuda):
+    """At the largest table width the GQA kernel holds (one head a block)
+    it runs and agrees; one page more raises."""
+    bs, Hkv, G, D = 16, 2, 4, 64
+    n_pages = tpa.max_context(D, 0, bs, route="gqa_mma") // bs
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n_blocks = 2 * n_pages + 1
+    k, v = (torch.randn(n_blocks, bs, Hkv, D, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(2, Hkv, G, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    bt = torch.randperm(n_blocks - 1, generator=g, device="cuda")[
+        :2 * n_pages].view(2, n_pages).to(torch.int32) + 1
+    ln = torch.tensor([n_pages * bs, 3001], dtype=torch.int32, device="cuda")
+    assert tpa.head_group(G, D, 0, n_pages, bs, route="gqa_mma") == 1
+    got = tpa.paged_decode_attention(q, k, v, bt, ln, **KW)
+    want = tref.paged_decode_attention_ref(q, k, v, bt, ln, **KW)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL, atol=TOL)
+    wide = torch.cat([bt, bt[:, :1]], 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.paged_decode_attention(q, k, v, wide, ln, **KW)
+
+
+@pytest.mark.parametrize("case", ["unrounded", "D72", "v_from_k"])
+def test_cuda_core_kernel_with_bf16_queries(cuda, case):
+    """The GQA shapes outside the tensor-core kernel's rule stay on the
+    CUDA-core kernel: scores not rounded to bf16, a head dim that is not a
+    multiple of 16, and values read from the keys."""
+    D = 72 if case == "D72" else 64
+    q, k, v, bt, ln = _case(torch.bfloat16, 224.0, D=D)
+    kw = dict(KW, scale=math.sqrt(D))
+    if case == "unrounded":
+        kw.update(score_dtype=None, probs_dtype=None)
+    if case == "v_from_k":
+        v = None
+    n0 = dict(tpa.launches_by_route)
+    got = tpa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    want = tref.paged_decode_attention_ref(q, k, v, bt, ln, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == dict(n0, cuda_core=n0["cuda_core"] + 1)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL, atol=TOL)
+    assert (got[3] == 0).all(), "a length-0 row must give zeros"
+
+
+def test_wide_d256_table_takes_the_cuda_core_kernel(cuda):
+    """At D 256 a table one page wider than the GQA kernel holds still fits
+    the CUDA-core kernel's shared memory: the route sends it there, and it
+    agrees with the plain version."""
+    bs, Hkv, G, D = 16, 1, 2, 256
+    n_pages = tpa.max_context(D, 0, bs, route="gqa_mma") // bs + 1
+    assert n_pages * bs <= tpa.max_context(D, 0, bs)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    k, v = (torch.randn(n_pages + 1, bs, Hkv, D, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(1, Hkv, G, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    bt = (torch.randperm(n_pages, generator=g, device="cuda") + 1).view(
+        1, n_pages).to(torch.int32)
+    ln = torch.tensor([n_pages * bs - 5], dtype=torch.int32, device="cuda")
+    kw = dict(KW, scale=16.0)
+    n0 = dict(tpa.launches_by_route)
+    got = tpa.paged_decode_attention(q, k, v, bt, ln, **kw)
+    want = tref.paged_decode_attention_ref(q, k, v, bt, ln, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == dict(n0, cuda_core=n0["cuda_core"] + 1)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL, atol=TOL)
+
+
+def test_route_sends_each_form_to_its_kernel(cuda):
+    """The serving GQA call counts under gqa_mma, an f32 query and the MLA
+    form under cuda_core."""
+    args = _case(torch.bfloat16, 0.0)
+    n0 = dict(tpa.launches_by_route)
+    tpa.paged_decode_attention(*args, **KW)
+    q, *rest = args
+    tpa.paged_decode_attention(q.float(), *rest, scale=8.0)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == {"gqa_mma": n0["gqa_mma"] + 1,
+                                     "cuda_core": n0["cuda_core"] + 1}
+
+
+# ---------------------------------------------------------------------------
 # fp8 quantization and GEMM kernels (csrc/quant_cast.cu, csrc/fp8_matmul.cu)
 # ---------------------------------------------------------------------------
 
