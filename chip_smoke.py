@@ -68,9 +68,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     96; f32 operands, which take the CUDA-core kernel), its registers and
     spills logged, and timed beside
     ``scaled_dot_product_attention(is_causal=True)``;
-11. the MLA form of the paged kernel (B=4, 128 heads on one latent head,
-    latents 512 + 64, block 16) against its plain version, timed beside
-    SDPA over the gathered latents;
+11. the MLA form's tensor-core kernel (``csrc/paged_decode_mla.cu``, route
+    ``mla_mma``; B=4, 128 heads on one latent head, latents 512 + 64, block
+    16) against its plain version: page boundaries, mid-page, a vacant row,
+    16 keys, windows, two calls bit-equal, NaN in dead blocks and in stale
+    slots of live pages; the CUDA-core kernel (route forced) at the same
+    cases; then both kernels, the plain version and SDPA over the gathered
+    latents timed at the serving cell, 16 keys and 2048 keys a row, with
+    the exact route's bound and the f32 one;
 12. a long prompt: llama3_1b at its flash threshold (4096) with one
     8192-token prompt through the one-shot engine (blocked flash
     attention) against the same prompt at a threshold of 2^30 (reference
@@ -78,9 +83,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 13. DeepSeek-V3's dense prefix at full width (three MLA layers, random
     weights): phase 4's cell through the absorbed decode, fused and gather,
     the one-shot engine and the expanded decode, then under a fixed MP plan
-    (fused, gather, one-shot); the MLA kernel's launches (route
-    ``cuda_core``) equal decode steps
-    x fused layers; then a 4096-token prompt as in phase 12;
+    (fused, gather, one-shot); the MLA kernel's launches (all through
+    route ``mla_mma``) equal decode steps x fused layers; then a 4096-token
+    prompt as in phase 12;
 14. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -90,6 +95,7 @@ package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -201,6 +207,18 @@ def device_ms(torch, fn, calls: int = 20, replays: int = 25) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+@contextlib.contextmanager
+def forced_route(pa, rt: str):
+    """Every paged call inside takes route ``rt`` (``pa``: the module
+    ``repro_torch.kernels.paged_attention``)."""
+    chosen = pa.route
+    pa.route = lambda *a, **k_: rt
+    try:
+        yield
+    finally:
+        pa.route = chosen
 
 
 # ---------------------------------------------------------------------------
@@ -378,12 +396,8 @@ def time_kernel(torch) -> dict:
             kernel()
         rec["host_enqueue_ms"] = (time.perf_counter() - t0) / 200 * 1e3
         torch.cuda.synchronize()
-        chosen = pa.route
-        pa.route = lambda *a, **k_: "cuda_core"
-        try:
+        with forced_route(pa, "cuda_core"):
             rec["cuda_core_ms"] = device_ms(torch, kernel)
-        finally:
-            pa.route = chosen
         rec["plain_ms"] = device_ms(torch, plain)
         rec["plain_ms_eager"] = eager_ms(torch, plain, 50)
         # SDPA over K/V gathered beforehand (not timed): (B, H, S, D)
@@ -1359,12 +1373,21 @@ def flash_phase(torch) -> dict:
 MLA_H, MLA_R, MLA_DR, MLA_SCALE_DIM = 128, 512, 64, 128 + 64
 # f32 scores, probabilities and output: summation order only
 MLA_TOL = 1e-4
+# phase 11's checks (lengths, window): page boundaries, mid-page, one page,
+# a vacant row; the serving cell's mid-drain step; 16 keys; windows
+MLA_CHECKS = (((MAX_LEN, 100, BS, 0), None), ((160, 152, 144, 136), None),
+              ((16, 16, 16, 16), None), ((MAX_LEN, 100, BS, 0), 7),
+              ((160, 152, 37, 5), 40))
+# the shapes the MLA form is timed at: the serving cell, 16 keys a row and a
+# long table
+MLA_TIMES = {"serving": (160, 152, 144, 136), "keys16": (16, 16, 16, 16),
+             "long": (2048,) * 4}
 
 
 def mla_case(torch, seed: int, lengths, poison_value: float):
     """As ``paged_case`` with ckv/kr pages and f32 queries."""
     rng = np.random.default_rng(seed)
-    n_pages = MAX_LEN // BS
+    n_pages = -(-max(max(lengths), MAX_LEN) // BS)
     n_live = B * n_pages
     n_blocks = 1 + n_live + 4
     poison = np.arange(1 + n_live, n_blocks)
@@ -1398,84 +1421,148 @@ def mla_case(torch, seed: int, lengths, poison_value: float):
 
 
 def mla_kernel_phase(torch) -> dict:
-    """The MLA form against its plain version (a vacant row, stale entries
-    on poisoned blocks, NaN in unreferenced blocks), then timed at a
-    mid-drain decode step with SDPA over the gathered latents (keys
-    ckv||kr, values ckv) as the yardstick."""
+    """The MLA form's tensor-core kernel (route ``mla_mma``) against its
+    plain version at each ``MLA_CHECKS`` case — a vacant row, dead entries
+    on poisoned blocks, windows — with two calls bit-equal and NaN in blocks
+    no live page references and in the stale slots of live pages leaving
+    the output bit-identical; the CUDA-core kernel (route forced) against
+    the plain version at the same cases. Then, at each ``MLA_TIMES`` shape,
+    both kernels, the plain version and SDPA over the gathered latents, with
+    two bounds: the exact route's (the operations three times, on the bf16
+    tensor cores) and the f32 one (the operations on the CUDA cores)."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.ref import paged_decode_attention_ref, paged_deq
-    max_err = 0.0
-    for lengths in ((MAX_LEN, 100, BS, 0), (160, 152, 144, 136)):
+    max_err = core_err = 0.0
+    n0, n0_route = pa.launches, dict(pa.launches_by_route)
+    for lengths, window in MLA_CHECKS:
+        name = f"lengths {lengths} window {window}"
         args, kw = mla_case(torch, 3, lengths, 224.0)
+        kw["window"] = window
+        before = pa.launches_by_route["mla_mma"]
         got = pa.paged_decode_attention(*args, **kw)
+        again = pa.paged_decode_attention(*args, **kw)
         want = paged_decode_attention_ref(*args, **kw)
+        with forced_route(pa, "cuda_core"):
+            core = pa.paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
+        if pa.launches_by_route["mla_mma"] != before + 2:
+            raise AssertionError(f"MLA {name}: not launched through "
+                                 f"mla_mma")
         err = float((got - want).abs().max())
-        max_err = max(max_err, err)
-        log(f"MLA form vs plain: lengths {lengths}: max abs err {err:.3e} "
-            f"(rtol/atol {MLA_TOL:g})")
-        if not torch.allclose(got, want, rtol=MLA_TOL, atol=MLA_TOL):
-            raise AssertionError(f"the MLA form disagrees with its plain "
-                                 f"version at lengths {lengths}")
-        nan_args, _ = mla_case(torch, 3, lengths, float("nan"))
-        got_nan = pa.paged_decode_attention(*nan_args, **kw)
+        c_err = float((core - want).abs().max())
+        max_err, core_err = max(max_err, err), max(core_err, c_err)
+        log(f"MLA form vs plain: {name}: mla_mma max abs err {err:.3e}, "
+            f"cuda_core {c_err:.3e} (rtol/atol {MLA_TOL:g})")
+        for kernel, out in (("mla_mma", got), ("cuda_core", core)):
+            if not torch.allclose(out, want, rtol=MLA_TOL, atol=MLA_TOL):
+                raise AssertionError(f"the MLA form ({kernel}) disagrees "
+                                     f"with its plain version: {name}")
+        if not torch.equal(again, got):
+            raise AssertionError(f"MLA {name}: two calls differ")
+        if any(L == 0 for L in lengths) and \
+                got[list(lengths).index(0)].abs().max().item() != 0.0:
+            raise AssertionError("MLA: vacant row (length 0) is not zero")
+        # NaN in blocks only dead entries reference, then also in the stale
+        # slots of live pages, must never be read
+        nan_args, nan_kw = mla_case(torch, 3, lengths, float("nan"))
+        nan_kw["window"] = window
+        got_nan = pa.paged_decode_attention(*nan_args, **nan_kw)
+        _, ckv, _, bt, ln = nan_args
+        n_stale = poison_stale(torch, ckv, nan_kw["k2"], bt.cpu(), ln.cpu(),
+                               window)
+        got_stale = pa.paged_decode_attention(*nan_args, **nan_kw)
         torch.cuda.synchronize()
-        if not torch.equal(got_nan, got):
-            raise AssertionError("the MLA form read a block no live page "
-                                 "references")
-    lengths = (160, 152, 144, 136)
-    args, kw = mla_case(torch, 4, lengths, 0.0)
-    n0 = pa.launches
+        for what, t in (("a block no live page references", got_nan),
+                        (f"{n_stale} stale slots of live pages", got_stale)):
+            if not torch.isfinite(t).all() or not torch.equal(t, got):
+                raise AssertionError(f"MLA {name}: NaN in {what} changed "
+                                     f"the output")
+    log(f"MLA form vs plain: {len(MLA_CHECKS)} cases within tolerance, "
+        f"mla_mma max abs err {max_err:.3e}, cuda_core {core_err:.3e}")
 
-    def kernel():
-        return pa.paged_decode_attention(*args, **kw)
+    times = {}
+    for shape, lengths in MLA_TIMES.items():
+        args, kw = mla_case(torch, 4, lengths, 0.0)
 
-    def plain():
-        return paged_decode_attention_ref(*args, **kw)
+        def kernel():
+            return pa.paged_decode_attention(*args, **kw)
 
-    q1, ckv, _, bt, ln = args
-    kg = paged_deq(ckv, bt, torch.float32, 1.0)            # (B, S, 1, r)
-    krg = paged_deq(kw["k2"], bt, torch.float32, 1.0)
-    keys = torch.cat([kg, krg], -1).permute(0, 2, 1, 3).contiguous()
-    vals = kg.permute(0, 2, 1, 3).contiguous()
-    qs = torch.cat([q1, kw["q2"]], -1)                     # (B, 1, H, 576)
-    qs = qs.permute(0, 2, 1, 3).contiguous()               # (B, H, 1, 576)
-    S = keys.shape[2]
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < ln[:, None]).reshape(B, 1, 1, S)
-    keys_h = keys.expand(B, MLA_H, S, keys.shape[-1])
-    vals_h = vals.expand(B, MLA_H, S, vals.shape[-1])
+        def plain():
+            return paged_decode_attention_ref(*args, **kw)
 
-    def library():
-        return F.scaled_dot_product_attention(qs, keys_h, vals_h,
-                                              attn_mask=mask,
-                                              scale=kw["scale"])
+        q1, ckv, _, bt, ln = args
+        kg = paged_deq(ckv, bt, torch.float32, 1.0)            # (B, S, 1, r)
+        krg = paged_deq(kw["k2"], bt, torch.float32, 1.0)
+        keys = torch.cat([kg, krg], -1).permute(0, 2, 1, 3).contiguous()
+        vals = kg.permute(0, 2, 1, 3).contiguous()             # (B, 1, S, r)
+        qs = torch.cat([q1, kw["q2"]], -1)                     # (B, 1, H, 576)
+        S = keys.shape[2]
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < ln[:, None]).reshape(B, 1, 1, S)
 
-    want = plain()
-    got_lib = library().permute(0, 2, 1, 3)
-    lib_err = float((got_lib - want).abs().max())
-    rec = {"ms": device_ms(torch, kernel), "plain_ms": device_ms(torch, plain),
-           "library_ms": device_ms(torch, library),
-           "ms_eager": eager_ms(torch, kernel, 200),
-           "library_max_abs_err": lib_err}
-    pa.launches = n0
-    live = sum(lengths)
-    nbytes = (live * (MLA_R + MLA_DR) * 2 + B * MLA_H * (MLA_R + MLA_DR) * 4
-              + B * MLA_H * MLA_R * 4 + bt.numel() * 4 + ln.numel() * 4)
-    ops_ = 2 * live * MLA_H * ((MLA_R + MLA_DR) + MLA_R)
-    # f32 queries: operations at the f32 rate outside the tensor cores
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_ / F32_FLOPS
-    rec.update(bound_ms=max(t_b, t_o) * 1e3,
-               bound_by="bytes" if t_b >= t_o else "operations",
-               bound_bytes=nbytes, bound_ops=ops_)
-    log(f"paged_decode_attention MLA form (B={B}, H={MLA_H}, "
-        f"{MLA_R}+{MLA_DR}, keys {lengths}): {rec['ms'] * 1e3:.2f} us | plain "
-        f"{rec['plain_ms'] * 1e3:.2f} us | SDPA {rec['library_ms'] * 1e3:.2f}"
-        f" us (max abs err vs plain {lib_err:.2e}) | bound "
-        f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}) | eager "
-        f"{rec['ms_eager'] * 1e3:.2f} us")
-    return {"mla_max_abs_err": max_err, "mla_times": rec}
+        def library():
+            # the 128 heads share one latent head: they are its queries
+            return F.scaled_dot_product_attention(qs, keys, vals,
+                                                  attn_mask=mask,
+                                                  scale=kw["scale"])
+
+        want = plain()
+        lib_err = float((library() - want).abs().max())
+        rec = {"ms": device_ms(torch, kernel),
+               "ms_eager": eager_ms(torch, kernel, 200),
+               "plain_ms": device_ms(torch, plain),
+               "library_ms": device_ms(torch, library),
+               "library_max_abs_err": lib_err}
+        with forced_route(pa, "cuda_core"):
+            rec["cuda_core_ms"] = device_ms(torch, kernel)
+        if shape != "long":
+            # the earlier yardstick: SDPA over the latents expanded to 128 heads
+            qh = qs.permute(0, 2, 1, 3).contiguous()           # (B, H, 1, 576)
+            keys_h = keys.expand(B, MLA_H, S, keys.shape[-1])
+            vals_h = vals.expand(B, MLA_H, S, vals.shape[-1])
+            rec["library_expanded_ms"] = device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qh, keys_h, vals_h, attn_mask=mask, scale=kw["scale"]))
+        live = sum(lengths)
+        nbytes = (live * (MLA_R + MLA_DR) * 2
+                  + B * MLA_H * (MLA_R + MLA_DR) * 4
+                  + B * MLA_H * MLA_R * 4 + bt.numel() * 4 + ln.numel() * 4)
+        ops_ = 2 * live * MLA_H * ((MLA_R + MLA_DR) + MLA_R)
+        # exact route: each f32 operand as three bf16 planes, so three
+        # times the operations on the bf16 tensor cores; f32: the same
+        # operations on the CUDA cores
+        t_b = nbytes / HBM_BYTES_PER_S
+        t_x, t_f = 3 * ops_ / BF16_FLOPS, ops_ / F32_FLOPS
+        rec.update(bound_ms=max(t_b, t_x) * 1e3,
+                   bound_by="bytes" if t_b >= t_x else "operations",
+                   bound_ms_f32=max(t_b, t_f) * 1e3,
+                   bound_by_f32="bytes" if t_b >= t_f else "operations",
+                   bound_bytes=nbytes, bound_ops=ops_, lengths=list(lengths),
+                   head_group=pa.head_group(MLA_H, MLA_R, MLA_DR,
+                                            bt.shape[1], BS, rows=B,
+                                            sms=pa._sm_count(q1.device),
+                                            route="mla_mma"))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        log(f"paged_decode_attention MLA form {shape} (B={B}, H={MLA_H}, "
+            f"{MLA_R}+{MLA_DR}, keys {lengths}, head group "
+            f"{rec['head_group']}): mla_mma {rec['ms'] * 1e3:.2f} us | "
+            f"cuda_core {rec['cuda_core_ms'] * 1e3:.2f} us | plain "
+            f"{rec['plain_ms'] * 1e3:.2f} us | SDPA "
+            f"{rec['library_ms'] * 1e3:.2f} us (max abs err vs plain "
+            f"{lib_err:.2e}; over 128 expanded heads "
+            f"{rec.get('library_expanded_ms', float('nan')) * 1e3:.2f} us) | "
+            f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, "
+            f"{100 * rec['share_of_bound']:.1f}% of it), f32 bound "
+            f"{rec['bound_ms_f32'] * 1e3:.3f} us ({rec['bound_by_f32']}) | "
+            f"eager {rec['ms_eager'] * 1e3:.2f} us")
+        times[shape] = rec
+    pa.launches = n0                  # checks and timing are not the path
+    pa.launches_by_route.update(n0_route)
+    res = dict(times["serving"])
+    res["mla_shapes"] = times
+    return {"mla_max_abs_err": max_err, "mla_cuda_core_max_abs_err": core_err,
+            "mla_times": res}
 
 
 # ---------------------------------------------------------------------------
@@ -1519,9 +1606,9 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
                          SERVE["arrival_every"])
     fused, n_fused, fused_tl = run_continuous(torch, absorbed, params, reqs,
                                               paged_attn="fused",
-                                              route="cuda_core")
+                                              route="mla_mma")
     log(f"MLA fused: {fused.n_steps} decode steps, {n_fused} kernel "
-        f"launches")
+        f"launches, all through mla_mma")
     if n_fused != fused.n_steps * n_layers or n_fused == 0:
         raise AssertionError(f"MLA fused launches {n_fused} != "
                              f"{fused.n_steps} steps x {n_layers} layers")
@@ -1554,7 +1641,7 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
     mp_f, n_mp, mp_f_tl = run_continuous(torch, absorbed, params, reqs,
                                          mp=plan, paged_attn="fused",
-                                         route="cuda_core")
+                                         route="mla_mma")
     if n_mp != mp_f.n_steps * (n_layers - 1):
         raise AssertionError(f"MLA MP launches {n_mp} != {mp_f.n_steps} "
                              f"steps x {n_layers - 1} fused layers")
@@ -1674,6 +1761,7 @@ def main() -> int:
     libs = _build.build()
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     report_ptxas = {n: ptxas_report(n) for n in ("paged_decode_gqa",
+                                                  "paged_decode_mla",
                                                   "paged_attention")}
     # phases 3 and 10 report the rest
 
@@ -1787,13 +1875,15 @@ def main() -> int:
     m = report["mla_times"]
     kernels.append({
         "name": "paged_decode_attention_mla", "route": "cuda",
-        "dispatch": "cuda_core",
-        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "dispatch": "mla_mma",
+        "source": "src/repro_torch/kernels/csrc/paged_decode_mla.cu",
         "replaces": "src/repro/kernels/paged_attention.py:204",
         "launches": report["mla_kernel_launches_main_path"],
         "max_abs_err": report["mla_max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"]})
+        "bound_by": m["bound_by"], "bound_ms_f32": m["bound_ms_f32"],
+        "bound_by_f32": m["bound_by_f32"], "cuda_core_ms": m["cuda_core_ms"],
+        "library_ms": m["library_ms"]})
     report["kernels"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

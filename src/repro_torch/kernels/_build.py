@@ -27,8 +27,8 @@ __all__ = ["build", "load", "build_log", "nvcc_path", "SOURCES", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("paged_attention", "paged_decode_gqa", "quant_cast", "fp8_matmul",
-           "mp_attention")
+SOURCES = ("paged_attention", "paged_decode_gqa", "paged_decode_mla",
+           "quant_cast", "fp8_matmul", "mp_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -47,8 +47,8 @@ from repro_torch.quant import qops
 from repro_torch.quant.formats import cast_to, get_format, true_div
 from repro_torch.quant.qops import QuantContext
 
-__all__ = ["norm_specs", "apply_norm", "rope_table", "apply_rope",
-           "mlp_specs", "apply_mlp", "AttnConfig", "attn_specs",
+__all__ = ["norm_specs", "row_mean", "apply_norm", "rope_table",
+           "apply_rope", "mlp_specs", "apply_mlp", "AttnConfig", "attn_specs",
            "kv_cache_spec", "kv_page_spec", "paged_write", "paged_write_chunk",
            "paged_gather", "use_fused_paged", "paged_update_attend",
            "attention", "MLAConfig", "mla_specs", "mla_cache_spec",
@@ -68,15 +68,33 @@ def norm_specs(prefix: str, dim: int, kind: str = "rmsnorm") -> dict:
     return specs
 
 
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, keepdim, summed in one fixed order: the row
+    is zero-padded to a power of two and folded in halves, so each sum is
+    a tree of elementwise adds. A row's mean then depends on that row
+    alone. ``Tensor.mean`` picks its reduction order on the card from the
+    number of rows (4 and 8 rows of 2048 sum in another order than 1024
+    rows on an H100), so a token's norm, and through an fp8 rounding
+    downstream its logits, would depend on how many requests share the
+    batch."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    s = F.pad(x, (0, width - n)) if width != n else x
+    while s.shape[-1] > 1:
+        half = s.shape[-1] // 2
+        s = s[..., :half] + s[..., half:]
+    return s / n
+
+
 def apply_norm(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     if kind == "rmsnorm":
-        var = xf.square().mean(dim=-1, keepdim=True)
+        var = row_mean(xf.square())
         y = xf * torch.rsqrt(var + eps) * p["scale"]
     elif kind == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        mu = row_mean(xf)
+        var = row_mean((xf - mu).square())
         y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     else:
         raise ValueError(kind)

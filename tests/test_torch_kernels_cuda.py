@@ -269,15 +269,18 @@ def test_wide_d256_table_takes_the_cuda_core_kernel(cuda):
 
 
 def test_route_sends_each_form_to_its_kernel(cuda):
-    """The serving GQA call counts under gqa_mma, an f32 query and the MLA
-    form under cuda_core."""
+    """The serving GQA call counts under gqa_mma, the MLA serving form
+    under mla_mma, an f32 query over GQA K/V under cuda_core."""
     args = _case(torch.bfloat16, 0.0)
     n0 = dict(tpa.launches_by_route)
     tpa.paged_decode_attention(*args, **KW)
     q, *rest = args
     tpa.paged_decode_attention(q.float(), *rest, scale=8.0)
+    mla_args, mla_kw = _mla_case(10, [160, 152, 144, 136])
+    tpa.paged_decode_attention(*mla_args, **mla_kw)
     torch.cuda.synchronize()
     assert tpa.launches_by_route == {"gqa_mma": n0["gqa_mma"] + 1,
+                                     "mla_mma": n0["mla_mma"] + 1,
                                      "cuda_core": n0["cuda_core"] + 1}
 
 
@@ -432,7 +435,7 @@ def test_fp8_linear_on_card_counts_and_matches_plain(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the MLA form of the paged kernel (csrc/paged_attention.cu)
+# the MLA form of the paged kernel (route mla_mma, and cuda_core beyond it)
 # ---------------------------------------------------------------------------
 
 
@@ -465,7 +468,8 @@ MLA_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def test_mla_form_matches_plain_version(cuda):
-    """The serving cell's decode step: 4 rows of 160/152/144/136 keys."""
+    """The serving cell's decode step: 4 rows of 160/152/144/136 keys
+    (route mla_mma)."""
     args, kw = _mla_case(10, [160, 152, 144, 136])
     n0 = tpa.launches
     got = tpa.paged_decode_attention(*args, **kw)
@@ -475,9 +479,11 @@ def test_mla_form_matches_plain_version(cuda):
     torch.testing.assert_close(got, want, **MLA_TOL)
 
 
-def test_mla_form_at_its_context_limit(cuda):
-    """At the largest table width one head's scores fit (54,144 keys at
-    block 16) the kernel runs and agrees; one page more raises."""
+def test_mla_form_at_its_context_limit(cuda, monkeypatch):
+    """At the largest table width one head's scores fit in the CUDA-core
+    kernel (54,144 keys at block 16; route forced there) the kernel runs
+    and agrees; one page more raises."""
+    monkeypatch.setattr(tpa, "route", lambda *a, **k: "cuda_core")
     n_pages = tpa.max_context(512, 64, 16) // 16
     args, kw = _mla_case(n_pages, [40, 17, 1, 0], B=4)
     got = tpa.paged_decode_attention(*args, **kw)
@@ -488,6 +494,195 @@ def test_mla_form_at_its_context_limit(cuda):
     args, kw = _mla_case(n_pages + 1, [40, 17, 1, 0], B=4)
     with pytest.raises(ValueError, match="shared memory"):
         tpa.paged_decode_attention(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the MLA form's tensor-core kernel (csrc/paged_decode_mla.cu)
+# ---------------------------------------------------------------------------
+
+
+def _mla_hazards(lengths, poison_value, *, window=None, n_pages=None, H=128,
+                 r=512, dr=64, bs=16, seed=1):
+    """As ``_mla_case``, with every hazard of the pool: permuted blocks,
+    dead table entries on poisoned blocks that no live page references,
+    and ``poison_value`` in every slot of a live page that holds no live
+    key (past the row's length, below its window)."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    n_pages = n_pages or -(-max(lengths) // bs)
+    n_live = B * n_pages
+    poison = np.arange(1 + n_live, n_live + 5)
+    perm = rng.permutation(np.arange(1, 1 + n_live))
+    bt = np.full((B, n_pages), -1, np.int32)
+    c = 0
+    for b, L in enumerate(lengths):
+        used = -(-L // bs)
+        bt[b, :used] = perm[c:c + used]
+        c += used
+        if L:
+            bt[b, used:] = rng.choice(poison, size=n_pages - used)
+    ckv = rng.normal(size=(n_live + 5, bs, 1, r)).astype(np.float32)
+    kr = rng.normal(size=(n_live + 5, bs, 1, dr)).astype(np.float32)
+    for x in (ckv, kr):
+        x[poison] = poison_value
+        for b, L in enumerate(lengths):
+            lo = 0 if window is None else max(0, L - window)
+            for pos in range(-(-L // bs) * bs):
+                if pos >= L or pos < lo:
+                    x[bt[b, pos // bs], pos % bs] = poison_value
+    q1, q2 = (torch.from_numpy(rng.normal(size=(B, 1, H, d)).astype(
+        np.float32)).cuda() for d in (r, dr))
+    args = (q1, torch.from_numpy(ckv).cuda().to(torch.bfloat16), None,
+            torch.from_numpy(bt).cuda(),
+            torch.from_numpy(np.asarray(lengths, np.int32)).cuda())
+    kw = dict(q2=q2, k2=torch.from_numpy(kr).cuda().to(torch.bfloat16),
+              scale=1.0 / math.sqrt(128 + dr), scale_mode="mul",
+              out_dtype=torch.float32, window=window)
+    return args, kw
+
+
+MLA_SHAPES = {
+    "serving": dict(lengths=[160, 152, 144, 136]),
+    "keys16": dict(lengths=[16, 16, 16, 16]),
+    "boundaries": dict(lengths=[160, 100, 16, 0]),   # page ends, mid-page
+    "window": dict(lengths=[160, 100, 16, 0], window=7),
+    "window40": dict(lengths=[160, 152, 37, 5], window=40),
+    "one_key": dict(lengths=[1, 2, 17, 0]),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(MLA_SHAPES))
+def test_mla_kernel_matches_plain_version(cuda, shape):
+    """The MLA serving form through mla_mma at the serving cell, 16 keys,
+    page boundaries and mid-page rows, a vacant row and windows, with
+    finite garbage in dead blocks and stale live slots; repeated calls
+    give equal bits."""
+    args, kw = _mla_hazards(poison_value=224.0, **MLA_SHAPES[shape])
+    n0 = dict(tpa.launches_by_route)
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    again = tpa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == dict(n0, mla_mma=n0["mla_mma"] + 2)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **MLA_TOL)
+    assert torch.equal(again, got), "two calls must give equal bits"
+    for b, L in enumerate(MLA_SHAPES[shape]["lengths"]):
+        if L == 0:
+            assert (got[b] == 0).all(), "a length-0 row must give zeros"
+
+
+@pytest.mark.parametrize("shape", ["serving", "window", "one_key"])
+def test_mla_kernel_never_reads_stale_or_dead_slots(cuda, shape):
+    """NaN in blocks no live page references and in the stale slots of
+    live pages leaves the output finite and bit-identical to the run with
+    finite poison."""
+    args, kw = _mla_hazards(poison_value=224.0, **MLA_SHAPES[shape])
+    clean = tpa.paged_decode_attention(*args, **kw)
+    args, kw = _mla_hazards(poison_value=float("nan"), **MLA_SHAPES[shape])
+    got = tpa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("hg", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("scale,mode", [(1.0 / math.sqrt(192), "mul"),
+                                        (math.sqrt(192), "div"),
+                                        (-0.1, "mul")])
+def test_mla_kernel_at_every_head_group(cuda, monkeypatch, hg, scale, mode):
+    """Forced head groups (a short last group at 3), both scale modes and
+    a negative scale."""
+    args, kw = _mla_hazards([160, 100, 16, 0], 224.0, H=20)
+    kw.update(scale=scale, scale_mode=mode)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    monkeypatch.setattr(tpa, "head_group", lambda *a, **k: hg)
+    n0 = tpa.launches_by_route["mla_mma"]
+    got = tpa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route["mla_mma"] == n0 + 1
+    torch.testing.assert_close(got, want, **MLA_TOL)
+
+
+@pytest.mark.parametrize("r,dr", [(16, 0), (48, 16), (128, 128), (512, 0),
+                                  (256, 64)])
+def test_mla_kernel_at_other_latent_widths(cuda, r, dr):
+    """Latent widths that leave a slab part-filled, no rope part, and the
+    widest rope part."""
+    args, kw = _mla_hazards([160, 100, 16, 0], 224.0, H=8, r=r, dr=dr)
+    if dr == 0:
+        kw.update(q2=None, k2=None)
+    n0 = tpa.launches_by_route["mla_mma"]
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route["mla_mma"] == n0 + 1
+    torch.testing.assert_close(got, want, **MLA_TOL)
+
+
+def test_mla_kernel_at_its_widest_table(cuda):
+    """At the widest table mla_mma holds (71,616 keys, wider than the
+    CUDA-core kernel's 54,144) it runs and agrees; one page wider the route
+    is cuda_core, which holds it no more than the parent did, so the call
+    raises."""
+    n_pages = tpa.max_context(512, 64, 16, route="mla_mma") // 16
+    assert n_pages * 16 > tpa.max_context(512, 64, 16)
+    args, kw = _mla_hazards([n_pages * 16 - 3, 17, 1, 0], 224.0,
+                            n_pages=n_pages, H=8)
+    n0 = dict(tpa.launches_by_route)
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == dict(n0, mla_mma=n0["mla_mma"] + 1)
+    torch.testing.assert_close(got, want, **MLA_TOL)
+    del args, kw, got, want
+    args, kw = _mla_hazards([40, 17, 1, 0], 224.0, n_pages=n_pages + 1, H=8)
+    form = (torch.float32, torch.bfloat16, False, 64, 512, 512, False)
+    assert tpa.route(*form, n_pages=n_pages + 1, bs=16) == "cuda_core"
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa.paged_decode_attention(*args, **kw)
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("slots", [0, 2, 5])
+def test_mla_kernel_staging_and_split(cuda, monkeypatch, split, slots):
+    """Every way the kernel stages the latents (all resident, or rings of 2
+    and 5 slabs a warp) with the key tiles in one block or split over a
+    cluster of two: the same answer within tolerance."""
+    args, kw = _mla_hazards([160, 100, 37, 0], 224.0, window=None)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    monkeypatch.setattr(tpa, "mla_split", lambda *a: split)
+    monkeypatch.setattr(tpa, "mla_slots", lambda *a: slots)
+    monkeypatch.setattr(tpa, "head_group", lambda *a, **k: 4)
+    got = tpa.paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **MLA_TOL)
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["f32", "fp8", "k_scale", "rounded"])
+def test_mla_forms_outside_the_rule_take_cuda_core(cuda, case):
+    """f32 or scaled-fp8 latents, a non-unit scale and rounded scores stay
+    on the CUDA-core kernel, and agree with the plain version."""
+    args, kw = _mla_hazards([160, 100, 16, 0], 224.0, H=8)
+    q1, ckv, v, bt, ln = args
+    if case == "f32":
+        ckv, kw["k2"] = ckv.float(), kw["k2"].float()
+    if case == "fp8":
+        ckv = cast_to(ckv.float(), torch.float8_e4m3fn)
+        kw["k2"] = cast_to(kw["k2"].float(), torch.float8_e4m3fn)
+        kw.update(k_scale=0.5, v_scale=0.5)
+    if case == "k_scale":
+        kw.update(k_scale=0.5, v_scale=0.5)
+    if case == "rounded":
+        kw.update(score_dtype=torch.float32, probs_dtype=torch.float32)
+    args = (q1, ckv, v, bt, ln)
+    n0 = dict(tpa.launches_by_route)
+    got = tpa.paged_decode_attention(*args, **kw)
+    want = tref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert tpa.launches_by_route == dict(n0, cuda_core=n0["cuda_core"] + 1)
+    torch.testing.assert_close(got, want, **MLA_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -631,3 +826,17 @@ def test_mp_flash_kernel_pads_head_dims(cuda, fmt):
     torch.cuda.synchronize()
     assert got.shape == (1, 2, 130, 24)
     _flash_agrees(got, want, False)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 8, 512])
+def test_norm_of_a_row_does_not_depend_on_its_batch_on_the_card(cuda, rows):
+    """The serving engines batch 4 (continuous) or 8 (one-shot) decode rows;
+    a token's norm must not depend on which (``Tensor.mean`` on the card
+    sums 4 or 8 rows of 2048 in another order than 1024 rows)."""
+    from repro_torch.nn.layers import apply_norm
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(1024, 2048, device=cuda, generator=g).bfloat16()
+    p = {"scale": torch.rand(2048, device=cuda, generator=g) + 0.5}
+    full = apply_norm(p, x)
+    assert torch.equal(apply_norm(p, x[:rows]), full[:rows])
+    assert torch.equal(apply_norm(p, x[:rows, None]), full[:rows, None])

@@ -53,7 +53,7 @@ ROUTE_TABLE = [
     ((F32, BF16, True, 0, 64, 64, False), "cuda_core"),   # f32 queries
     ((BF16, F32, True, 0, 64, 64, True), "cuda_core"),    # f32 K/V
     ((BF16, BF16, True, 0, 64, 64, False), "cuda_core"),  # unrounded
-    ((F32, BF16, False, 64, 512, 512, False), "cuda_core"),  # MLA form
+    ((F32, BF16, False, 64, 512, 512, False), "mla_mma"),  # MLA form
     ((BF16, BF16, False, 0, 64, 64, True), "cuda_core"),  # v from k
     ((BF16, BF16, True, 64, 64, 64, True), "cuda_core"),  # a q2 . k2 part
 ]
