@@ -26,31 +26,40 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    the q/gate/down/lm_head shapes and at M=300; log the kernels'
    registers, shared memory and spills; then time each kernel,
    its plain version, the PyTorch call that computes the same function
-   (``torch.linalg.vector_norm(x, inf)``, ``torch._scaled_mm``) and the
-   bf16 ``torch.matmul`` of the same product;
+   (``torch.linalg.vector_norm(x, inf)``, ``torch._scaled_mm``), the
+   bf16 ``torch.matmul`` of the same product, and ``fp8_linear`` with its
+   weight quantized once (the weight cache) and per call;
 4. serve Llama-3.2-1B at full width (random weights from a seeded
    generator) through the launcher's code path — 8 requests, 4 slots,
    128-token prompts, 32 new tokens, one arrival every 2 steps — on the
    continuous engine with fused and with gather decode attention, and on
-   the one-shot engine; check launch counts (every fused launch through
-   the GQA kernel, route ``gqa_mma``), that the logits behind every
-   token agree up to each request's first divergence, and that a
-   divergence sits only at a near-tie of the reference's logits (the
-   logits are read off the engines' step closures, which this script
-   wraps; the engines compute no diagnostics);
+   the one-shot engine. The decode step is a CUDA graph, captured in each
+   engine's warm-up drain and only replayed in the timed drain (captures
+   and replays are checked and printed); every graphed drain is held bit
+   for bit, on every live row, against the same drain with the decode
+   step run eagerly. Check launch counts (every fused launch through the
+   GQA kernel, route ``gqa_mma``), that the logits behind every token
+   agree up to each request's first divergence, and that a divergence sits
+   only at a near-tie of the reference's logits (the logits are read off
+   the engines' step closures, which this script wraps; the engines
+   compute no diagnostics);
 5. the same checks under a fixed MP plan (fp8 on every linear op of layers
    8-15, plus the attention BGEMMs of layer 15, which then takes the
    gather path): the continuous gather drain against the one-shot engine,
-   the fused drain against the gather drain;
+   the fused drain against the gather drain, each graphed drain against
+   its eager twin;
 6. Algorithm 1 at full width and depth: ``calibrate`` over 4 synthetic
    batches of (2, 256) tokens (sensitivities from probe gradients,
    partition, roofline/theoretical/memory tables for the H100), with its
    seconds and peak device memory; save the bundle as npz, reload it, and
    check the reloaded bundle solves to the identical plan;
-7. the measured tier: ``tabulate_measured_gains`` times a full forward of
-   a (4, 512) prompt under ``impl="kernel"`` for every combo of every
-   group; the fp8 kernels' launch counters must rise by 2 amax + 2
-   scale_cast + 1 fp8_matmul per fp8 linear op per run;
+7. the measured tier at ``WallClockGainModel``'s own repeats (2 warm-up, 5
+   timed runs a combo): ``tabulate_measured_gains`` times a full forward
+   of a (4, 512) prompt under ``impl="kernel"`` for every combo of every
+   group; the fp8 kernels' launch counters must rise by 1 amax + 1
+   scale_cast + 1 fp8_matmul per fp8 linear op per run (the activation),
+   plus 1 amax + 1 scale_cast once for each weight set to fp8 (the weight
+   cache); prints how many groups gain beyond the base forward's spread;
 8. solve the measured ET plan (and TT, M), serve it through
    ``python -m repro_torch.launch.serve --calibration`` at phase 4's cell,
    and in process hold the MP continuous (gather) drain against the MP
@@ -80,14 +89,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     8192-token prompt through the one-shot engine (blocked flash
     attention) against the same prompt at a threshold of 2^30 (reference
     attention): prefill logits, first tokens and TTFT;
-13. DeepSeek-V3's dense prefix at full width (three MLA layers, random
-    weights): phase 4's cell through the absorbed decode, fused and gather,
-    the one-shot engine and the expanded decode, then under a fixed MP plan
-    (fused, gather, one-shot); the MLA kernel's launches (all through
-    route ``mla_mma``) equal decode steps x fused layers; then a 4096-token
-    prompt as in phase 12;
-14. print the kernel table and the serving and calibration numbers as JSON
-    lines, then ``{"ok": true, "device": {...}}`` as the last line.
+13. Llama-3.1-8B at its published widths (32 layers, d_head 128, untied
+    head; 8.03 B random parameters, 16 GB): phases 4 and 5 at phase 4's
+    cell (every fused launch through ``gqa_mma`` at D 128; the fixed plan
+    puts fp8 on the linear ops of layers 16-31 and the BGEMMs of layer
+    31), then ``calibrate`` over phase 6's batches at the largest depth
+    whose probes and backward fit in 85% of the card (the depth is printed
+    on a line of its own), with its seconds and peak memory;
+14. DeepSeek-V3's dense prefix at full width (three MLA layers, random
+    weights): phase 4's cell through the absorbed decode, fused and gather
+    (each graphed drain against its eager twin), the one-shot engine and
+    the expanded decode, then under a fixed MP plan (fused, gather,
+    one-shot); the MLA kernel's launches (all through route ``mla_mma``)
+    equal decode steps x fused layers; then a 4096-token prompt as in
+    phase 12;
+15. print the kernel table and the serving and calibration numbers as JSON
+    lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
+    phase's seconds are printed.
 
 Exits non-zero without a result when no CUDA device is visible or the
 package is not beside this script.
@@ -96,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -485,11 +504,14 @@ def timed(torch, fn, *args, warm: bool = False) -> float:
     inputs from device memory as a forward pass finds its weights, unless
     ``warm``, which times one set of inputs resident in L2. The number of
     captured calls and replays comes from one eager call, so a measurement
-    takes about 0.2 s whatever the call's size."""
+    takes about 0.2 s whatever the call's size. Each copy is called once
+    before the graph is captured."""
     nbytes = sum(a.numel() * a.element_size() for a in args)
     n = 1 if warm else int(min(16, max(1, math.ceil(2 * L2_BYTES /
                                                      max(nbytes, 1)))))
     copies = [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    for c in copies:            # every copy's first call (a weight operand
+        fn(*c)                  # kept by the weight cache is made here)
     turn = [0]
 
     def call():
@@ -633,6 +655,17 @@ def fp8_check_phase(torch) -> dict:
                 "quant_cast", "fp8_matmul")}}
 
 
+def fp8_linear_per_call(x, w):
+    """``ops.fp8_linear`` as it was before the weight cache: both operands
+    quantized on every call (the before number of its time)."""
+    from repro_torch.kernels import fp8_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_cast as qc
+    xq, sx = qc.quantize_fp8(ops._pad_to(x, 128))
+    wq, sw = qc.quantize_fp8(ops._pad_to(w, 128))
+    return mm.fp8_matmul(xq, wq, sx, sw)[:x.shape[0], :w.shape[0]]
+
+
 def fp8_time_phase(torch) -> dict:
     """Device time per call of each fp8 kernel, its plain version and the
     PyTorch call computing the same function, at every model shape; the
@@ -693,6 +726,7 @@ def fp8_time_phase(torch) -> dict:
         out["fp8_matmul"][name] = rec
         out["fp8_linear"][name] = {
             "shape": [M, N, K], "ms": timed(torch, ops.fp8_linear, x, w),
+            "per_call_ms": timed(torch, fp8_linear_per_call, x, w),
             "bf16_matmul_ms": rec["bf16_matmul_ms"]}
         del x, w, xq, wq, q
     qc.launches.update(n0[0])            # timing launches are not path ones
@@ -701,6 +735,7 @@ def fp8_time_phase(torch) -> dict:
         for name, r in out[kern].items():
             extra = "".join(
                 f" | {label} {r[k] * 1e3:.2f} us" for k, label in (
+                    ("per_call_ms", "weight quantized per call"),
                     ("ms_l2_warm", "L2-warm"), ("plain_ms", "plain"),
                     ("library_ms", "library"), ("bf16_matmul_ms",
                                                 "bf16 matmul"),
@@ -723,15 +758,23 @@ def first_divergence(a: np.ndarray, b: np.ndarray) -> int:
 def record_steps(eng, names) -> list:
     """Wrap the engine's step closures ``names`` (instance attributes; the
     engine itself computes no diagnostics) so every call appends ``(name,
-    logits, *inputs)`` to the returned list. Only references are kept: no
-    copy, no host sync, so the timed drain runs as it would unrecorded."""
+    logits, *inputs)`` to the returned list. Prefill logits and inputs are
+    new tensors each call and are kept by reference; a paged decode step's
+    are copied on the device, since its inputs are the engine's buffers,
+    refilled every step, and a CUDA graph's logits are overwritten by its
+    next replay. No host sync, so the timed drain runs as it would
+    unrecorded, plus four small copies a decode step."""
     events = []
 
     def wrap(name, step):
         def recorded(params, caches, *inputs):
-            logits, caches = step(params, caches, *inputs)
+            out = step(params, caches, *inputs)
+            logits = out[0]
+            if len(out) == 3:                  # the paged decode step
+                logits = logits.clone()
+                inputs = tuple(t.clone() for t in inputs)
             events.append((name, logits, *inputs))
-            return logits, caches
+            return out
         return recorded
 
     for name in names:
@@ -825,25 +868,46 @@ def compare(name: str, got: dict, ref: dict, *, tol: float, bound: float,
 
 
 def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
-                   route=None):
-    """Warm-up drain of one request, then the recorded drain of ``reqs``.
-    Returns (summary, launches in the recorded drain, rid -> (tokens,
-    logits)). With ``route``, every launch of the drain must have gone
-    through that kernel (``paged_attention.route``)."""
+                   route=None, eager=False):
+    """Warm-up drain of one request (on the card it captures the decode
+    step's CUDA graph), then the recorded drain of ``reqs``, which must
+    only replay it. Returns (summary, launches in the recorded drain, rid
+    -> (tokens, logits)). With ``route``, every launch of the drain must
+    have gone through that kernel (``paged_attention.route``). ``eager``
+    swaps in the closure the graph captures, run eagerly: the yardstick
+    the graphed drain is held to, bit for bit."""
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.steps import make_paged_decode_step
     from repro_torch.serve import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(
         model, n_slots=SERVE["n_slots"],
         max_len=SERVE["prompt_len"] + SERVE["new_tokens"], mp=mp,
         block_size=SERVE["block_size"], paged_attn=paged_attn, device=DEVICE)
-    eng.serve(params, reqs[:1])
+    if eager:
+        eng.decode_step = make_paged_decode_step(model, mp=eng.mp,
+                                                 paged_attn=paged_attn)
+    warm = eng.serve(params, reqs[:1])
     events = record_steps(eng, ("prefill_chunk_step", "decode_step"))
     torch.cuda.synchronize()
     pa.launches = 0
     pa.launches_by_route.update(dict.fromkeys(pa.ROUTES, 0))
+    torch.cuda.reset_peak_memory_stats()
     out = eng.serve(params, reqs)
     torch.cuda.synchronize()
+    out.counters["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = pa.launches
+    label = f"{model.cfg.name} {paged_attn}{' MP' if mp else ''}" \
+        f"{' eager' if eager else ''}"
+    caps = (warm.counters["graph_captures"], out.counters["graph_captures"],
+            out.counters["graph_replays"])
+    want = (0, 0, 0) if eager or DEVICE == "cpu" else (1, 0, out.n_steps)
+    if caps != want:
+        raise AssertionError(f"{label}: graph captures (warm-up, drain) and "
+                             f"replays {caps}, expected {want}")
+    log(f"{label}: {out.n_steps} decode steps; CUDA graph captures "
+        f"{caps[0]} in the warm-up drain, {caps[1]} in the drain, "
+        f"{caps[2]} replays; {launches} paged kernel launches; peak device "
+        f"memory {out.counters['peak_device_gb']:.2f} GB")
     if route is not None and pa.launches_by_route[route] != launches:
         raise AssertionError(f"{paged_attn}: launches by route "
                              f"{pa.launches_by_route}, expected all {launches}"
@@ -859,6 +923,27 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
     logits = continuous_logits(events, reqs)
     return out, launches, {rid: (out.results[rid].tokens, logits[rid])
                            for rid in logits}
+
+
+def graph_vs_eager(name: str, graphed: dict, eager: dict,
+                   failures: list) -> dict:
+    """The graphed drain against the same drain with the decode step run
+    eagerly: every token and every logit bit-equal."""
+    import torch
+    err, n_diff = 0.0, 0
+    for rid in sorted(eager):
+        (a, la), (r, lr) = graphed[rid], eager[rid]
+        same = np.array_equal(a, r) and la.shape == lr.shape
+        if la.shape == lr.shape:
+            err = max(err, (la.float() - lr.float()).abs().max().item())
+        n_diff += not (same and torch.equal(la, lr))
+    log(f"{name}: graphed vs eager drain: {len(eager) - n_diff} of "
+        f"{len(eager)} requests bit-equal (max logit diff {err:.4g})")
+    if n_diff:
+        failures.append(f"{name}: graphed drain differs from the eager one "
+                        f"in {n_diff} requests (max logit diff {err:.4g})")
+    return {"bit_equal_requests": len(eager) - n_diff,
+            "max_logit_diff": err}
 
 
 def run_oneshot(model, params, reqs, mp=None):
@@ -881,35 +966,51 @@ def serving_numbers(out) -> dict:
             "ttft_p50_ms": out.counters["ttft_p50_s"] * 1e3,
             "n_decode_steps": out.n_steps,
             "kernel_launches": out.counters["kernel_launches"],
+            "graph_captures": out.counters["graph_captures"],
+            "graph_replays": out.counters["graph_replays"],
+            "peak_device_gb": out.counters["peak_device_gb"],
             "peak_blocks_in_use": out.counters["peak_blocks_in_use"]}
 
 
 def serve_phase(torch, model, params) -> dict:
-    """Phases 4 and 5 at full width on the card."""
+    """Phases 4 and 5 at full width on the card (phase 13 runs them on
+    llama3_8b): every drain graphed, and held bit for bit against the same
+    drain with the decode step run eagerly."""
     from repro_torch.launch.serve import make_requests
     n_layers = model.cfg.n_layers
     reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
                          SERVE["prompt_len"], SERVE["new_tokens"],
                          SERVE["arrival_every"])
+    failures = []
     fused, n_fused, fused_tl = run_continuous(torch, model, params, reqs,
                                               paged_attn="fused",
                                               route="gqa_mma")
     log(f"fused: {fused.n_steps} decode steps, {n_fused} kernel launches, "
-        f"all through gqa_mma")
+        f"all through gqa_mma (D {model.cfg.d_head})")
     if n_fused != fused.n_steps * n_layers or n_fused == 0:
         raise AssertionError(f"fused launches {n_fused} != "
                              f"{fused.n_steps} steps x {n_layers} layers")
+    eager, n_eager, eager_tl = run_continuous(torch, model, params, reqs,
+                                              paged_attn="fused",
+                                              route="gqa_mma", eager=True)
+    if n_eager != n_fused:
+        raise AssertionError(f"eager fused launches {n_eager} != graphed "
+                             f"{n_fused}")
+    graphs = {"fused": graph_vs_eager("fused", fused_tl, eager_tl, failures)}
     gather, n_gather, gather_tl = run_continuous(torch, model, params, reqs,
                                                  paged_attn="gather")
     if n_gather != 0:
         raise AssertionError(f"gather path launched the kernel {n_gather} "
                              f"times")
+    _, _, gather_eager_tl = run_continuous(torch, model, params, reqs,
+                                           paged_attn="gather", eager=True)
+    graphs["gather"] = graph_vs_eager("gather", gather_tl, gather_eager_tl,
+                                      failures)
     oneshot, one_tl = run_oneshot(model, params, reqs)
     for rid in gather_tl:             # both run the same paged prefill
         if not torch.equal(fused_tl[rid][1][0], gather_tl[rid][1][0]):
             raise AssertionError(f"prefill logits of request {rid} differ "
                                  f"between fused and gather")
-    failures = []
     plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
     agree_fg = compare("fused vs gather", fused_tl, gather_tl, **plain)
     agree_go = compare("gather vs one-shot", gather_tl, one_tl, **plain)
@@ -928,11 +1029,20 @@ def serve_phase(torch, model, params) -> dict:
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
     mp_out, n_mp, mp_tl = run_continuous(torch, model, params, reqs, mp=plan,
                                          paged_attn="fused", route="gqa_mma")
-    log(f"MP plan ({plan.n_quantized} fp8 ops): {mp_out.n_steps} decode "
-        f"steps, {n_mp} kernel launches")
+    log(f"MP plan ({plan.n_quantized} fp8 ops, layers {n_layers // 2}-"
+        f"{last}): {mp_out.n_steps} decode steps, {n_mp} kernel launches")
     if n_mp != mp_out.n_steps * (n_layers - 1):
         raise AssertionError(f"MP launches {n_mp} != {mp_out.n_steps} steps "
                              f"x {n_layers - 1} fused layers")
+    from repro_torch.quant import weight_cache
+    kept, of = weight_cache.nbytes(torch.device(DEVICE))
+    log(f"weight cache after the MP drains: {kept / 1e9:.3f} GB of fp8 "
+        f"codes and scales for {of / 1e9:.3f} GB of bf16 weights "
+        f"({kept / max(of, 1):.3f}x)")
+    mp_eager, _, mp_eager_tl = run_continuous(
+        torch, model, params, reqs, mp=plan, paged_attn="fused", eager=True)
+    graphs["mp_fused"] = graph_vs_eager("MP fused", mp_tl, mp_eager_tl,
+                                        failures)
     # the plan's serving path against the one-shot engine, both on the
     # reference attention; then the kernel against it under the plan
     mp_gather, n_mp_gather, mp_gather_tl = run_continuous(
@@ -940,6 +1050,10 @@ def serve_phase(torch, model, params) -> dict:
     if n_mp_gather != 0:
         raise AssertionError(f"MP gather path launched the kernel "
                              f"{n_mp_gather} times")
+    _, _, mp_gather_eager_tl = run_continuous(
+        torch, model, params, reqs, mp=plan, paged_attn="gather", eager=True)
+    graphs["mp_gather"] = graph_vs_eager("MP gather", mp_gather_tl,
+                                         mp_gather_eager_tl, failures)
     _, mp_one_tl = run_oneshot(model, params, reqs, mp=plan)
     agree_mp_go = compare("MP gather vs MP one-shot", mp_gather_tl,
                           mp_one_tl, **plain)
@@ -948,18 +1062,25 @@ def serve_phase(torch, model, params) -> dict:
                           failures=failures)
     if failures:
         raise AssertionError("; ".join(failures))
+    log(f"{model.cfg.name} tokens/s graphed / eager: fused "
+        f"{fused.tokens_per_s:.1f} / {eager.tokens_per_s:.1f}, MP fused "
+        f"{mp_out.tokens_per_s:.1f} / {mp_eager.tokens_per_s:.1f}")
     return {
         "kernel_launches_main_path": n_fused,
+        "weight_cache_gb": kept / 1e9, "weight_cache_of_bf16_gb": of / 1e9,
+        "graph_vs_eager": graphs,
         "agreement": {"fused_vs_gather": agree_fg,
                       "gather_vs_oneshot": agree_go,
                       "mp_gather_vs_mp_oneshot": agree_mp_go,
                       "mp_fused_vs_mp_gather": agree_mp_fg},
         "serving": {
             "fused": serving_numbers(fused),
+            "fused_eager": serving_numbers(eager),
             "gather": serving_numbers(gather),
             "oneshot": {"tokens_per_s": oneshot.tokens_per_s,
                         "ttft_ms": oneshot.ttft_s * 1e3},
             "mp_fused": serving_numbers(mp_out),
+            "mp_fused_eager": serving_numbers(mp_eager),
             "mp_gather": serving_numbers(mp_gather),
         },
     }
@@ -1027,25 +1148,30 @@ def calibration_phase(torch, model, params, workdir: Path) -> tuple:
 
 
 def measured_phase(torch, model, params, bundle) -> dict:
-    """Phase 7: the measured wall-clock tier through the fp8 kernels. The
-    kernels' launch counters are set to 0 just before and read just
-    after."""
+    """Phase 7: the measured wall-clock tier through the fp8 kernels, at
+    ``WallClockGainModel``'s own repeats. The kernels' launch counters are
+    set to 0 just before and read just after."""
     from repro_torch.core.pipeline import tabulate_measured_gains
+    from repro_torch.core.timegain import WallClockGainModel
     from repro_torch.kernels import fp8_matmul as mm
     from repro_torch.kernels import quant_cast as qc
+    from repro_torch.quant import weight_cache
     from repro_torch.quant.qops import QuantContext
-    n_warmup, n_iters = 1, 3
+    n_warmup = WallClockGainModel.n_warmup
+    n_iters = WallClockGainModel.n_iters
     g = torch.Generator(device=DEVICE).manual_seed(7)
     prompt = torch.randint(0, model.cfg.vocab_size, TIER_PROMPT, generator=g,
                            device=DEVICE, dtype=torch.int32)
     linear = {op.name for op in bundle.sens.ops if op.kind == "linear"}
     times: dict = {}
     fp8_linear_runs = [0]
+    fp8_weights: set = set()
 
     def run_factory(assignment):
         ctx = QuantContext(mode="mp", mp=dict(assignment), impl="kernel")
         key = tuple(sorted(n for n, f in assignment.items() if f != "bf16"))
         n_fp8 = sum(1 for n in key if n in linear)
+        fp8_weights.update(n for n in key if n in linear)
 
         def run():
             t0 = time.perf_counter()
@@ -1063,6 +1189,7 @@ def measured_phase(torch, model, params, bundle) -> dict:
     torch.cuda.synchronize()
     qc.launches.update(amax=0, scale_cast=0)
     mm.launches = 0
+    wq0 = weight_cache.quantizations
     t0 = time.perf_counter()
     key = tabulate_measured_gains(bundle, run_factory, objective="ET",
                                   n_warmup=n_warmup, n_iters=n_iters)
@@ -1071,15 +1198,21 @@ def measured_phase(torch, model, params, bundle) -> dict:
     counts = {"amax": qc.launches["amax"],
               "scale_cast": qc.launches["scale_cast"],
               "fp8_matmul": mm.launches}
-    want = {"amax": 2 * fp8_linear_runs[0],
-            "scale_cast": 2 * fp8_linear_runs[0],
+    n_wq = weight_cache.quantizations - wq0
+    want = {"amax": fp8_linear_runs[0] + n_wq,
+            "scale_cast": fp8_linear_runs[0] + n_wq,
             "fp8_matmul": fp8_linear_runs[0]}
     n_runs = sum(len(v) for v in times.values())
-    log(f"measured tier: {len(times)} assignments, {n_runs} forwards of "
+    log(f"measured tier ({n_warmup} warm-up + {n_iters} timed runs a "
+        f"combo): {len(times)} assignments, {n_runs} forwards of "
         f"{TIER_PROMPT} in {seconds:.1f} s; launches {counts} (expected "
-        f"{want}: 2+2+1 per fp8 linear per run)")
+        f"{want}: 1+1+1 per fp8 linear per run, plus 1 amax + 1 scale_cast "
+        f"for each of the {n_wq} weights, quantized once)")
     if counts != want or counts["fp8_matmul"] == 0:
         raise AssertionError(f"fp8 kernel launches {counts} != {want}")
+    if n_wq != len(fp8_weights):
+        raise AssertionError(f"{n_wq} weight quantizations for "
+                             f"{len(fp8_weights)} weights set to fp8")
     base_s = np.array(times[()]) * 1e3          # the tier's own base runs
     for _ in range(10):
         base()
@@ -1107,7 +1240,16 @@ def measured_phase(torch, model, params, bundle) -> dict:
     log(f"per-group gain of the all-fp8 combo: min {all_fp8.min():+.3f} "
         f"median {np.median(all_fp8):+.3f} max {all_fp8.max():+.3f} ms; "
         f"{int((all_fp8 > 0).sum())} of {len(rows)} groups positive")
+    base_spread = float(spread.max() - spread.min())
+    best = np.array([r["best_ms"] for r in rows])
+    n_beyond = int((best > base_spread).sum())
+    log(f"{n_beyond} of {len(rows)} groups gain beyond the base forward's "
+        f"spread ({base_spread:.3f} ms) with their best combo; "
+        f"{int((all_fp8 > base_spread).sum())} with the all-fp8 combo")
     return {"seconds": seconds, "launches": counts, "n_forwards": n_runs,
+            "n_warmup": n_warmup, "n_iters": n_iters,
+            "weight_quantizations": n_wq, "base_spread_ms": base_spread,
+            "groups_beyond_spread": n_beyond,
             "base_ms_tier": float(np.median(base_s)),
             "base_ms_runs": spread.tolist(), "groups": rows}
 
@@ -1205,6 +1347,123 @@ def fig3a_phase(torch, model, params, batches, plans) -> dict:
                 f"{plan.predicted_loss_mse:.3e}")
             out[obj] = rec
     out["bf16_loss_mean"] = float(plain.mean())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: Llama-3.1-8B at full width
+# ---------------------------------------------------------------------------
+
+LLAMA8B = "llama3_8b"
+# of the card's memory a calibration may take: a linear fit of the peak
+# over depths 1 and 3 underestimates deeper ones (depth 22 needed more than
+# 81.8 GB where 1 -> 2 layers predicted 71.3 GB, on an H100)
+CAL_MEMORY_SHARE = 0.75
+
+
+def _bytes_of(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_bytes_of(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def llama8b_calibration(torch, cfg, params, batches) -> dict:
+    """Algorithm 1's ``calibrate`` on llama3_8b over phase 6's batches at
+    the largest depth whose probes and backward fit in
+    ``CAL_MEMORY_SHARE`` of the card: the peaks at depths 1 and 3 (every
+    layer's weights resident) give the per-layer cost of probes,
+    gradients and activations, and the depth counts each kept layer's
+    weights beside it; layers past the depth are freed first."""
+    import dataclasses
+    from repro_torch.core.pipeline import AMPOptions, calibrate
+    from repro_torch.hw.profiles import H100_SXM
+    from repro_torch.models.registry import build_model
+    n = len(params["layers"])
+
+    def run(depth):
+        model = build_model(dataclasses.replace(
+            cfg, n_layers=depth, block_types=cfg.block_types[:depth]))
+        cut = dict(params, layers={str(i): params["layers"][str(i)]
+                                   for i in range(depth)})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bundle = calibrate(model, cut, batches, AMPOptions(hw=H100_SXM))
+        torch.cuda.synchronize()
+        return model, bundle, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated()
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    w_layer = _bytes_of(params["layers"]["0"])
+    d3 = min(3, n)
+    p1, p3 = run(1)[3], run(d3)[3]
+    per_layer = (p3 - p1) / max(d3 - 1, 1)
+    fixed = p1 - per_layer
+    budget = CAL_MEMORY_SHARE * total
+    need = fixed + n * per_layer
+    depth = n if need <= budget else max(1, min(n, int(
+        (budget - fixed + n * w_layer) // (per_layer + w_layer))))
+    log(f"llama3_8b calibration depth: {depth} of {n} layers (peak at 1 / "
+        f"{d3} layers {p1 / 1e9:.2f} / {p3 / 1e9:.2f} GB, so all {n} would "
+        f"need about {need / 1e9:.1f} GB against {budget / 1e9:.1f} GB, "
+        f"{CAL_MEMORY_SHARE:.0%} of the card's {total / 1e9:.1f} GB)")
+    held = torch.cuda.memory_allocated()
+    for i in range(depth, n):
+        del params["layers"][str(i)]
+    gc.collect()
+    log(f"llama3_8b layers {depth}-{n - 1} freed: {held / 1e9:.2f} -> "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"({(n - depth) * w_layer / 1e9:.2f} GB of their weights)")
+    model, bundle, seconds, peak = run(depth)
+    sens = np.array(sorted(bundle.sens.sensitivity.values()))
+    n_groups = len(bundle.objectives["ET"]["groups"])
+    log(f"llama3_8b calibrate at depth {depth}: {len(bundle.sens.ops)} ops, "
+        f"{n_groups} groups, {CAL_BATCHES} batches of {CAL_SHAPE} in "
+        f"{seconds:.1f} s; peak device memory {peak / 1e9:.2f} GB")
+    if not (np.isfinite(sens).all() and (sens > 0).all()
+            and math.isfinite(bundle.sens.loss_mean)):
+        raise AssertionError("llama3_8b calibration gave a non-finite or "
+                             "zero sensitivity")
+    if n_groups != 4 * depth + 1:
+        raise AssertionError(f"{n_groups} groups, expected {4 * depth + 1}")
+    plan = bundle.solve(TAU, "ET")
+    log(f"llama3_8b ET plan at tau {TAU}: {plan.n_quantized} ops fp8 "
+        f"[{plan.meta['gain_tier']}]")
+    return {"depth": depth, "of_layers": n, "seconds": seconds,
+            "peak_gb": peak / 1e9, "peak_depth1_gb": p1 / 1e9,
+            "peak_depth3_gb": p3 / 1e9, "full_depth_need_gb": need / 1e9,
+            "n_ops": len(bundle.sens.ops), "n_groups": n_groups,
+            "loss_mean": bundle.sens.loss_mean,
+            "s_min": float(sens[0]), "s_max": float(sens[-1]),
+            "et_plan_n_fp8": plan.n_quantized}
+
+
+def llama8b_phase(torch) -> dict:
+    """Phase 13: Llama-3.1-8B-Instruct's published widths, random weights:
+    phases 4 and 5's checks at phase 4's cell (every fused launch through
+    ``gqa_mma`` at D 128; the fixed plan: fp8 on the linear ops of layers
+    16-31 and the BGEMMs of layer 31), then calibration."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.launch.serve import make_model_and_params
+    t0 = time.perf_counter()
+    model, params = make_model_and_params(LLAMA8B, False, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    log(f"{LLAMA8B}: {model.n_params() / 1e9:.3f}B params ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, d_head {cfg.d_head}, untied head), "
+        f"random init in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_phase(torch, model, params)
+    out["serving_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                       batch=CAL_SHAPE[0],
+                                       seq_len=CAL_SHAPE[1]), DEVICE)
+    batches = list(data.batches(0, CAL_BATCHES))
+    del model                 # its decode graphs hold the params they read
+    gc.collect()
+    out["calibration"] = llama8b_calibration(torch, cfg, params, batches)
     return out
 
 
@@ -1612,8 +1871,18 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
     if n_fused != fused.n_steps * n_layers or n_fused == 0:
         raise AssertionError(f"MLA fused launches {n_fused} != "
                              f"{fused.n_steps} steps x {n_layers} layers")
+    failures = []
+    eager, _, eager_tl = run_continuous(torch, absorbed, params, reqs,
+                                        paged_attn="fused", route="mla_mma",
+                                        eager=True)
+    graphs = {"fused": graph_vs_eager("MLA fused", fused_tl, eager_tl,
+                                      failures)}
     gather, n_gather, gather_tl = run_continuous(torch, absorbed, params,
                                                  reqs, paged_attn="gather")
+    _, _, gather_eager_tl = run_continuous(torch, absorbed, params, reqs,
+                                           paged_attn="gather", eager=True)
+    graphs["gather"] = graph_vs_eager("MLA gather", gather_tl,
+                                      gather_eager_tl, failures)
     expd, n_exp, exp_tl = run_continuous(torch, expanded, params, reqs,
                                          paged_attn="fused")
     if n_gather or n_exp:
@@ -1621,7 +1890,6 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
                              f"{n_gather} / {n_exp} times")
     oneshot, one_tl = run_oneshot(absorbed, params, reqs)
     exp_one, exp_one_tl = run_oneshot(expanded, params, reqs)
-    failures = []
     plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
     agree = {"fused_vs_gather": compare("MLA fused vs gather", fused_tl,
                                         gather_tl, **plain),
@@ -1645,6 +1913,11 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
     if n_mp != mp_f.n_steps * (n_layers - 1):
         raise AssertionError(f"MLA MP launches {n_mp} != {mp_f.n_steps} "
                              f"steps x {n_layers - 1} fused layers")
+    mp_eager, _, mp_eager_tl = run_continuous(
+        torch, absorbed, params, reqs, mp=plan, paged_attn="fused",
+        eager=True)
+    graphs["mp_fused"] = graph_vs_eager("MLA MP fused", mp_f_tl,
+                                        mp_eager_tl, failures)
     mp_g, _, mp_g_tl = run_continuous(torch, absorbed, params, reqs,
                                       mp=plan, paged_attn="gather")
     _, mp_one_tl = run_oneshot(absorbed, params, reqs, mp=plan)
@@ -1657,13 +1930,18 @@ def mla_serve_phase(torch, absorbed, expanded, params) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     log(f"MLA serving: {len(fused.results)} of {len(reqs)} requests served "
-        f"by each drain; fused {fused.tokens_per_s:.1f} tok/s, gather "
+        f"by each drain; tok/s graphed (eager): fused "
+        f"{fused.tokens_per_s:.1f} ({eager.tokens_per_s:.1f}), gather "
         f"{gather.tokens_per_s:.1f}, expanded {expd.tokens_per_s:.1f}, MP "
-        f"fused {mp_f.tokens_per_s:.1f} ({n_mp} launches)")
+        f"fused {mp_f.tokens_per_s:.1f} ({mp_eager.tokens_per_s:.1f}; "
+        f"{n_mp} launches)")
     return {"mla_kernel_launches_main_path": n_fused,
             "mla_agreement": agree,
+            "mla_graph_vs_eager": graphs,
             "mla_serving": {
                 "fused": serving_numbers(fused),
+                "fused_eager": serving_numbers(eager),
+                "mp_fused_eager": serving_numbers(mp_eager),
                 "gather": serving_numbers(gather),
                 "expanded": serving_numbers(expd),
                 "oneshot": {"tokens_per_s": oneshot.tokens_per_s,
@@ -1821,6 +2099,10 @@ def main() -> int:
         get_model("llama3_1b", flash_min_seq=1 << 30), params,
         LONG_PROMPTS["llama3_1b"], "llama3_1b")}
     del model, params, bundle, batches
+    gc.collect()                      # the model's decode graphs go with it
+    torch.cuda.empty_cache()
+    report["llama3_8b"] = phase("llama3_8b", llama8b_phase, torch)
+    gc.collect()
     torch.cuda.empty_cache()
     absorbed, expanded, ds_params = deepseek_models(torch)
     report.update(phase("MLA serving", mla_serve_phase, torch, absorbed,
@@ -1840,6 +2122,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/paged_decode_gqa.cu",
         "replaces": "src/repro/kernels/paged_attention.py:204",
         "launches": report["kernel_launches_main_path"],
+        "launches_llama3_8b": report["llama3_8b"][
+            "kernel_launches_main_path"],
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"],
         "kernel_ms": report["ms"],
@@ -1890,9 +2174,16 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(report, indent=2))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"serving": report["serving"],
-                      "agreement": report["agreement"]}), flush=True)
+                      "agreement": report["agreement"],
+                      "graph_vs_eager": report["graph_vs_eager"]}),
+          flush=True)
+    l8 = report["llama3_8b"]
+    print(json.dumps({"llama3_8b": {
+        k: l8[k] for k in ("serving", "agreement", "graph_vs_eager",
+                           "serving_peak_gb", "calibration")}}), flush=True)
     print(json.dumps({"mla_serving": report["mla_serving"],
                       "mla_agreement": report["mla_agreement"],
+                      "mla_graph_vs_eager": report["mla_graph_vs_eager"],
                       "long_prompt": report["long_prompt"],
                       "flash_times": report["flash_times"],
                       "mla_times": report["mla_times"],
@@ -1900,8 +2191,13 @@ def main() -> int:
                       "gqa_bitwise_cases": [report["gqa_bitwise_cases"],
                                             report["gqa_cases"]]}),
           flush=True)
+    mt = report["measured_tier"]
     print(json.dumps({"calibration": report["calibration"],
-                      "measured_tier_s": report["measured_tier"]["seconds"],
+                      "measured_tier": {k: mt[k] for k in (
+                          "seconds", "n_warmup", "n_iters", "n_forwards",
+                          "weight_quantizations", "base_ms_tier",
+                          "base_spread_ms", "groups_beyond_spread")},
+                      "fp8_linear": t["fp8_linear"],
                       "plans": report["plan_serving"]["plans"],
                       "fig3a": report["fig3a"],
                       "phase_seconds": report["phase_seconds"]}), flush=True)

@@ -65,8 +65,9 @@
 //   zero-filled by a 0-byte source, so NaN in a live page's stale slots, or
 //   in a block no live page references, never reaches a product.
 //   - Resident (mla_slots 0; the serving cell): every slab of the block's
-//     key tiles is copied once, the copies shared out over all warps, and
-//     read by both products; ckv is read from memory once.
+//     key tiles is copied once, the copies shared out over all warps (one
+//     commit group, waited for before a block barrier), and read by both
+//     products; ckv is read from memory once.
 //   - Ring (longer tables): each warp streams its own slabs through a ring
 //     of up to 12 slots (one commit group a slab; cp.async.wait_group and
 //     __syncwarp, no block barrier): its key tiles' Dk / 64 ckv and D2 / 64
@@ -372,6 +373,9 @@ paged_decode_mla_kernel(const float* __restrict__ q,
       find_rows(u);
       copy_slab(ring + n * kSlabBytes, n - u * nS);
     }
+    // one group: cp.async.wait_group waits only for committed groups, so
+    // uncommitted copies could still be landing when phase 0 reads them
+    cp_async_commit();
   } else {
     for (int i = 0; i < n_slots; ++i) issue(slot_at(i));
   }

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import fp8_matmul as _mm
 from repro_torch.kernels import mp_attention as _attn
 from repro_torch.kernels import quant_cast as _qc
+from repro_torch.quant import weight_cache
 from repro_torch.quant.formats import get_format
 
 __all__ = ["fp8_linear", "quantize_fp8", "flash_attention_mp"]
@@ -36,15 +37,19 @@ def fp8_linear(x: torch.Tensor, w: torch.Tensor, *,
                out_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ w^T with both operands quantized to fp8 (per-tensor scales).
 
-    x: (M, C); w: (K, C). The amax and scale_cast kernels quantize each
-    operand (two launches each), the fp8 GEMM kernel multiplies (one launch);
+    x: (M, C); w: (K, C), a weight. The amax and scale_cast kernels quantize
+    ``x`` on every call and ``w`` once per format (two launches each; the
+    padded ``(wq, sw_inv)`` is kept in :mod:`repro_torch.quant.weight_cache`
+    while ``w`` is unchanged), the fp8 GEMM kernel multiplies (one launch);
     the scales never leave the device."""
     fmt = get_format(fmt_name)
     dt = fmt.dtype or torch.float8_e4m3fn
     M, C = x.shape
     K = w.shape[0]
     xq, sx_inv = _qc.quantize_fp8(_pad_to(x, _BLOCK), fmt.max_value, dt)
-    wq, sw_inv = _qc.quantize_fp8(_pad_to(w, _BLOCK), fmt.max_value, dt)
+    wq, sw_inv = weight_cache.cached(
+        w, ("kernel", fmt_name),
+        lambda: _qc.quantize_fp8(_pad_to(w, _BLOCK), fmt.max_value, dt))
     y = _mm.fp8_matmul(xq, wq, sx_inv, sw_inv, out_dtype=out_dtype)
     return y[:M, :K]
 

@@ -2,7 +2,8 @@
 pool, plain, under an MP plan, or under a plan solved at serve time from a
 calibration bundle.
 
-    # continuous batching, staggered arrivals, full-width llama3_1b on the GPU
+    # continuous batching, staggered arrivals, full-width llama3_1b on the
+    # GPU (--arch llama3_8b: Llama-3.1-8B's widths, 16 GB of weights)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_1b \
         --continuous --n-slots 4 --requests 8 --arrival-every 2 \
         --prompt-len 128 --new-tokens 32 [--mp-plan plan.json]
@@ -32,11 +33,15 @@ in the reference launcher. An ``--mp-plan`` JSON saved by either package's
 ``CalibrationBundle`` saved by either package, and ``--registry`` picks the
 freshest bundle filed for this arch and these weights; both run the cheap IP
 for ``--tau`` / ``--objective`` here. Reports TTFT and decode throughput;
-continuous mode also reports the paged pool and the kernel launches.
+continuous mode also reports the paged pool, the kernel launches and the
+decode step's CUDA graph captures and replays (on the card the decode step
+is captured once, in the warm-up drain, and replayed after).
 """
 from __future__ import annotations
 
 import argparse
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -193,12 +198,16 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
     print(f"[serve] decode attention ({c['paged_attn']}): "
           f"{c['kernel_launches']} kernel launches over {out.n_steps} steps "
           f"| {c['prefill_chunks']} prefill steps")
+    print(f"[serve] decode step: {c['graph_captures']} CUDA graph captures, "
+          f"{c['graph_replays']} replays")
 
 
-def profile_drain(eng, params, reqs, trace_path: str,
+def profile_drain(eng, params, reqs, trace_path: Optional[str],
                   unprofiled_wall_s: float, top: int = 12) -> dict:
     """Serve ``reqs`` once under ``torch.profiler`` (CPU + CUDA activity),
-    write the chrome trace, and print the device time of the drain — the
+    write the chrome trace (unless ``trace_path`` is None: an eager drain's
+    trace takes tens of seconds to write), and print the device time of
+    the drain — the
     sum over device-side events (kernels, copies) — against the wall time of
     the same drain served without the profiler, which slows only the host,
     and the device events that took the most time."""
@@ -209,7 +218,8 @@ def profile_drain(eng, params, reqs, trace_path: str,
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
         out = eng.serve(params, reqs)
-    prof.export_chrome_trace(trace_path)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA

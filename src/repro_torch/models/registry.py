@@ -10,7 +10,7 @@ import importlib
 
 from repro_torch.models.lm import LM, LMConfig
 
-ARCH_IDS = ["llama3_1b", "deepseek_v3_671b"]
+ARCH_IDS = ["llama3_1b", "llama3_8b", "deepseek_v3_671b"]
 
 
 def canonical(arch: str) -> str:

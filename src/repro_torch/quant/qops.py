@@ -30,6 +30,12 @@ is the one the reference's per-tensor fake-quant of the same tensor uses
 rounding of the dequantized operands. Per-token and per-sequence contexts
 (serving) keep the fake-quant branch unchanged.
 
+A linear op's weight (``rhs``) is quantized once per format and kept
+(:mod:`repro_torch.quant.weight_cache`) on both branches: as fp8 codes plus
+a scale, dequantized at use, for fake quant; as the kernels' ``(wq,
+sw_inv)`` inside ``fp8_linear``. The result is bit-equal to quantizing per
+call. Activations and BGEMM operands are quantized per call.
+
 When ``ctx.registry`` is a list, every op records an :class:`OpInfo`.
 """
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.quant import qtensor
+from repro_torch.quant import qtensor, weight_cache
 from repro_torch.quant.formats import get_format
 
 __all__ = ["QuantContext", "OpInfo", "qeinsum", "linear", "bgemm",
@@ -124,6 +130,38 @@ def _quantize_operand(x: torch.Tensor, fmt_name: str, impl: str, scale,
         return qtensor.quantize(x, fmt_name, axis=axis,
                                 scale=scale).dequantize(x.dtype)
     return qtensor.fake_quant(x, fmt_name, axis=axis, scale=scale)
+
+
+def _stored(q: qtensor.QTensor) -> tuple:
+    """The kept form of a weight's ``QTensor``: an emulated format's codes
+    (bf16 values on the fp4 grid, every one of which e4m3 holds exactly)
+    at one byte each, beside the dequant scale as a host float (read once,
+    here, so no use syncs)."""
+    if q.data.dtype == torch.bfloat16:
+        q = qtensor.QTensor(q.data.to(torch.float8_e4m3fn), q.scale_inv,
+                            q.fmt_name)
+    return q, float(q.scale_inv)
+
+
+def _weight_operand(w: torch.Tensor, fmt_name: str, scale) -> torch.Tensor:
+    """A linear op's weight as the MP matmul consumes it: quantized once
+    per format (per-tensor scale), dequantized at each use — the bits of
+    :func:`_quantize_operand` on the same weight. One-byte codes widen
+    exactly to ``w.dtype`` (bf16 holds every e4m3 and e5m2 value) and are
+    multiplied by the host scale, which the kernel does in f32 and rounds
+    once to ``w.dtype``: the f32 product ``QTensor.dequantize`` rounds, in
+    two passes over 3 bytes an element instead of three over 11."""
+    if not get_format(fmt_name).is_quantized:
+        return w
+    if w.requires_grad:               # not a constant: quantized per call
+        return _quantize_operand(w, fmt_name, "simulate", scale)
+    q, s_inv = weight_cache.cached(
+        w, ("fake", fmt_name),
+        lambda: _stored(qtensor.quantize(w, fmt_name, scale=scale)),
+        scale=scale)
+    if q.data.element_size() == 1 or w.dtype == torch.float32:
+        return q.data.to(w.dtype).mul_(s_inv)
+    return q.dequantize(w.dtype)
 
 
 # Einsum labels that index batch or token positions in the op specs: B/T/S
@@ -212,8 +250,9 @@ def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
                 lhs_axes = act_quant_axes(ctx, lhs.ndim)
                 rhs_axes = act_quant_axes(ctx, rhs.ndim)
             lhs = _quantize_operand(lhs, fmt_name, ctx.impl, s_lhs, lhs_axes)
-            rhs = _quantize_operand(rhs, fmt_name, ctx.impl, s_rhs,
-                                    rhs_axes if kind == KIND_BGEMM else None)
+            rhs = (_weight_operand(rhs, fmt_name, s_rhs) if kind == KIND_LINEAR
+                   else _quantize_operand(rhs, fmt_name, ctx.impl, s_rhs,
+                                          rhs_axes))
     elif ctx.mode != "plain":
         raise ValueError(f"unknown QuantContext mode {ctx.mode!r}")
     out = einsum_f32acc(spec, lhs, rhs, out_dtype)

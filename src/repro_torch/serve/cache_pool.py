@@ -17,6 +17,8 @@ sharding of the pool.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -45,7 +47,7 @@ class PagedCachePool:
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, caches: Optional[dict] = None):
         if n_slots < 1 or max_len < 1 or block_size < 1:
             raise ValueError((n_slots, max_len, block_size))
         self.n_slots = n_slots
@@ -55,8 +57,12 @@ class PagedCachePool:
         self.n_blocks = self.plan_blocks(n_slots, max_len, block_size,
                                          n_blocks)
         self.device = resolve_device(device)
-        self.caches = model.init_paged_cache(n_slots, self.n_blocks,
-                                             block_size, self.device)
+        if caches is None:
+            caches = model.init_paged_cache(n_slots, self.n_blocks,
+                                            block_size, self.device)
+        else:
+            self._reuse(model, caches)
+        self.caches = caches
         # pop() yields block 1 and slot 0 first, as in the reference
         self._free_blocks = list(range(self.n_blocks - 1, 0, -1))
         self._free_slots = list(range(n_slots - 1, -1, -1))
@@ -64,6 +70,24 @@ class PagedCachePool:
         self._slot_reserve: dict = {}       # slot -> outstanding reservation
         self._slot_blocks: dict = {}        # slot -> [block ids]
         self.block_tables = np.full((n_slots, self.max_blocks), -1, np.int32)
+
+    def _reuse(self, model, caches: dict) -> None:
+        """Take another pool's cache tensors (the engine keeps them across
+        drains, so its decode step's CUDA graph stays bound to them),
+        zeroed: the drain then sees what a new pool holds."""
+        specs = model.paged_cache_specs(self.n_slots, self.n_blocks,
+                                        self.block_size)
+        for key, spec in specs.items():
+            layer, leaf = key.split("@attn/")
+            t = caches.get(layer, {}).get(leaf)
+            if (t is None or tuple(t.shape) != tuple(spec.shape)
+                    or t.dtype != spec.dtype
+                    or t.device.type != self.device.type):
+                raise ValueError(f"cache tensor {key} does not fit this "
+                                 f"pool ({spec.shape}, {spec.dtype})")
+        for layer in caches.values():
+            for t in layer.values():
+                t.zero_()
 
     @staticmethod
     def plan_blocks(n_slots: int, max_len: int, block_size: int,

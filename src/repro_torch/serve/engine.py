@@ -9,7 +9,12 @@
   prefilled straight into its slot's blocks, and one decode step advances
   every occupied slot at its own depth. Decode attention runs through the
   CUDA paged-attention kernel (``paged_attn="fused"``, the default) or the
-  reference gather path (``"gather"``).
+  reference gather path (``"gather"``). On CUDA the decode step is a CUDA
+  graph, captured once and replayed (``launch/steps.PagedDecodeStep``):
+  the engine keeps the pool's cache tensors and the step's input buffers
+  across drains (the caches zeroed at each drain's start), so the graph
+  stays bound to them, and fills the buffers with ``copy_`` before each
+  step. ``counters`` report the drain's captures and replays.
 
 This slice ports the lockstep drain only: every step's tokens are read back
 before the next step is dispatched. Prefix caching, preemption, chunked
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.core.mpconfig import as_assignment
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import paged_attention as _paged_kernel
+from repro_torch.launch import steps as _steps
 from repro_torch.launch.steps import (get_serving_step, greedy_next_token,
                                       merge_first_tokens)
 from repro_torch.serve.cache_pool import PagedCachePool, paged_block_bytes
@@ -206,6 +212,28 @@ class ContinuousBatchingEngine:
                                                    mp=self.mp)
         self.decode_step = get_serving_step(model, "paged_decode", mp=self.mp,
                                             paged_attn=paged_attn)
+        self._kept = None         # (caches, host and device decode inputs)
+
+    def _pool_and_inputs(self):
+        """This drain's pool, over the cache tensors of the engine's last
+        drain (zeroed), and the decode step's input buffers: pinned host
+        arrays for positions and block tables, and device buffers for
+        token, positions and block tables, filled with ``copy_`` each step.
+        Keeping them keeps the decode graph bound across drains."""
+        pool = PagedCachePool(self.model, self.n_slots, self.max_len,
+                              block_size=self.block_size,
+                              n_blocks=self.n_blocks, device=self.device,
+                              caches=None if self._kept is None
+                              else self._kept[0])
+        if self._kept is None:
+            dev, n, nb = self.device, self.n_slots, pool.max_blocks
+            pin = dev.type == "cuda"
+            host = (torch.zeros((n,), dtype=torch.int32, pin_memory=pin),
+                    torch.zeros((n, nb), dtype=torch.int32, pin_memory=pin))
+            inputs = tuple(torch.zeros(shape, dtype=torch.int32, device=dev)
+                           for shape in ((n, 1), (n,), (n, nb)))
+            self._kept = (pool.caches, host, inputs)
+        return pool, self._kept[1], self._kept[2]
 
     def _admit(self, pool: PagedCachePool, sched: Scheduler,
                now: int) -> None:
@@ -282,9 +310,8 @@ class ContinuousBatchingEngine:
         if not sync:
             _refuse("sync=False")
         _check_params(params, self.device)
-        pool = PagedCachePool(self.model, self.n_slots, self.max_len,
-                              block_size=self.block_size,
-                              n_blocks=self.n_blocks, device=self.device)
+        pool, (pos_host, bt_host), (tok_in, pos_in, bt_in) = \
+            self._pool_and_inputs()
         sched = Scheduler()
         for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
             sched.submit(r)
@@ -296,6 +323,7 @@ class ContinuousBatchingEngine:
         peak_queue = peak_live = peak_blocks = peak_slots = 0
         prefill_chunks = prefill_tokens = decode_stall_steps = 0
         launches0 = _paged_kernel.launches
+        graphs0 = _steps.graph_captures, _steps.graph_replays
 
         def deliver(nxt, deliveries):
             """Read one step's tokens back (this blocks on the step) and fill
@@ -337,9 +365,10 @@ class ContinuousBatchingEngine:
                                 pool.free_slot(slot)
                     self._admit(pool, sched, now)
                 if sched.running:
-                    pos_host = np.zeros((self.n_slots,), np.int32)
+                    pos = pos_host.numpy()
+                    pos[:] = 0
                     for slot, st in sched.running.items():
-                        pos_host[slot] = st.next_pos
+                        pos[slot] = st.next_pos
                         pool.ensure_block(slot, st.next_pos)
                     peak_live = max(peak_live, sum(
                         st.next_pos + 1 for st in sched.running.values()))
@@ -348,16 +377,20 @@ class ContinuousBatchingEngine:
                     # decode sees block tables only for running rows: a slot
                     # mid-prefill owns real blocks, and the vacant-row
                     # garbage write must go to the trash block
-                    bt_host = pool.block_tables.copy()
+                    bt = bt_host.numpy()
+                    bt[:] = pool.block_tables
                     for s in range(self.n_slots):
                         if s not in sched.running:
-                            bt_host[s] = -1
+                            bt[s] = -1
                     t0 = time.perf_counter()
-                    logits, pool.caches = self.decode_step(
-                        params, pool.caches, cur_tok,
-                        torch.from_numpy(pos_host).to(self.device),
-                        torch.from_numpy(bt_host).to(self.device))
-                    nxt = greedy_next_token(logits)
+                    # the host arrays are pinned and rewritten only after
+                    # the previous step's tokens were read back, so the
+                    # copies need not wait for the device
+                    tok_in.copy_(cur_tok)
+                    pos_in.copy_(pos_host, non_blocking=True)
+                    bt_in.copy_(bt_host, non_blocking=True)
+                    _, pool.caches, nxt = self.decode_step(
+                        params, pool.caches, tok_in, pos_in, bt_in)
                     cur_tok = nxt[:, None]
                     deliveries = []
                     for slot in list(sched.running):
@@ -390,6 +423,8 @@ class ContinuousBatchingEngine:
             "paged_attn": self.paged_attn,
             "n_decode_steps": n_steps,
             "kernel_launches": _paged_kernel.launches - launches0,
+            "graph_captures": _steps.graph_captures - graphs0[0],
+            "graph_replays": _steps.graph_replays - graphs0[1],
             "ttft_p50_s": ttfts[len(ttfts) // 2] if ttfts else 0.0,
             "wall_tokens_per_s": n_decoded / total_s if total_s > 0 else 0.0,
             "peak_queue_depth": peak_queue,
