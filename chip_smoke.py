@@ -103,7 +103,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     one-shot); the MLA kernel's launches (all through route ``mla_mma``)
     equal decode steps x fused layers; then a 4096-token prompt as in
     phase 12;
-15. print the kernel table and the serving and calibration numbers as JSON
+15. prefix caching, priority preemption and chunked prefill in the
+    continuous engine (phases 4, 5, 13 and 14 serve with the prefix cache
+    off). On llama3_1b at full width, each drain fused and gather, graphed
+    (the warm-up drain captures once; the drain, forks and preemptions
+    included, only replays) and held bit for bit against its eager twin:
+    8 requests sharing a 96-token system prompt plus 32 tokens of their
+    own, the last repeating the first's whole prompt (a copy-on-write
+    fork), with the prefix cache on and off; six priority-0 requests in a
+    pool that holds three, and a priority-1 request at step 10 that
+    preempts one (resumed through the prefix cache), against the drain
+    without preemption; three decoding requests and a 2048-token prompt at
+    step 8 in chunks of 256, one chunk step between decode steps, against
+    one chunk. Prefix hits, forks, prefill tokens, TTFT and tokens/s on
+    and off, preemptions and the priority-1 TTFT, chunks and decode
+    stalls are printed; the twins agree at the near-tie rule and the
+    number of bit-equal requests is printed. Then a short shared-prefix
+    drain on phase 14's DeepSeek dense prefix (forks of latent blocks,
+    ``mla_mma`` over borrowed pages);
+16. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -779,31 +797,58 @@ def record_steps(eng, names) -> list:
 
     for name in names:
         setattr(eng, name, wrap(name, getattr(eng, name)))
+    if "prefill_chunk_step" in names:
+        tick = eng._prefill_tick
+
+        def ticked(params, pool, sched, now):
+            # who owns each prefilling slot, and the length its prompt
+            # (after a preemption: prompt + tokens so far) has
+            events.append(("tick", {s: (st.request.rid,
+                                        st.effective_prompt_len)
+                                    for s, st in sched.prefilling.items()}))
+            return tick(params, pool, sched, now)
+        eng._prefill_tick = ticked
     return events
 
 
 def continuous_logits(events, reqs) -> dict:
     """rid -> (n_tokens, V) logits behind each greedy token of a continuous
-    drain. A prefill row belongs to the request whose prompt it carries
-    (one prefill per prompt: chunked prefill is not ported); a decode row
-    belongs to its slot's request while its block table is live (rows not
-    decoding get all -1)."""
+    drain. A prefill row belongs to the request that owned its slot when
+    the tick began, and gives a token only where its chunk ends the
+    (effective) prompt: a prompt may take several chunks, start past 0 on
+    a prefix hit, or come back longer after a preemption. A decode row
+    belongs to the slot's last prefilled request while its block table is
+    live (rows not decoding get all -1)."""
     import torch
-    by_prompt = {np.asarray(r.tokens, np.int32).tobytes(): r.rid
-                 for r in reqs}
-    slot_rid, rows = {}, {r.rid: [] for r in reqs}
-    for name, logits, *inputs in events:
+    owner, slot_rid, rows = {}, {}, {r.rid: [] for r in reqs}
+    for name, *rest in events:
+        if name == "tick":
+            owner = rest[0]
+            continue
+        logits, *inputs = rest
         if name == "prefill_chunk_step":
-            tok, _, valid, _ = inputs
-            tok, valid = tok.cpu().numpy(), valid.cpu().numpy()
-            live = np.nonzero(valid)[0]
-            for s in live:
-                slot_rid[s] = by_prompt[tok[s, :valid[s]].tobytes()]
+            _, start, valid, _ = inputs
+            start, valid = start.cpu().numpy(), valid.cpu().numpy()
+            live = []
+            for s in np.nonzero(valid)[0]:
+                rid, eff_len = owner[s]
+                slot_rid[s] = rid
+                if start[s] + valid[s] == eff_len:
+                    live.append(s)
         else:
             live = np.nonzero(inputs[2][:, 0].cpu().numpy() >= 0)[0]
         for s in live:
             rows[slot_rid[s]].append(logits[s, -1])
     return {rid: torch.stack(r) for rid, r in rows.items()}
+
+
+def resumed_rids(events, reqs) -> list:
+    """Requests that prefilled a prompt longer than their own: resumed
+    after a preemption."""
+    plen = {r.rid: r.prompt_len for r in reqs}
+    return sorted({rid for name, *rest in events if name == "tick"
+                   for rid, eff_len in rest[0].values()
+                   if eff_len > plen[rid]})
 
 
 def oneshot_logits(events, reqs) -> dict:
@@ -868,25 +913,31 @@ def compare(name: str, got: dict, ref: dict, *, tol: float, bound: float,
 
 
 def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
-                   route=None, eager=False):
-    """Warm-up drain of one request (on the card it captures the decode
-    step's CUDA graph), then the recorded drain of ``reqs``, which must
-    only replay it. Returns (summary, launches in the recorded drain, rid
-    -> (tokens, logits)). With ``route``, every launch of the drain must
-    have gone through that kernel (``paged_attention.route``). ``eager``
-    swaps in the closure the graph captures, run eagerly: the yardstick
-    the graphed drain is held to, bit for bit."""
+                   route=None, eager=False, warm=None, name="",
+                   events_out=None, **engine_kw):
+    """Warm-up drain of ``warm`` (default: the first request; on the card
+    it captures the decode step's CUDA graph), then the recorded drain of
+    ``reqs``, which must only replay it. Returns (summary, launches in the
+    recorded drain, rid -> (tokens, logits)). With ``route``, every launch
+    of the drain must have gone through that kernel
+    (``paged_attention.route``). ``eager`` swaps in the closure the graph
+    captures, run eagerly: the yardstick the graphed drain is held to, bit
+    for bit. ``engine_kw`` overrides phase 4's engine; the prefix cache is
+    off unless it turns it on, so phases 4, 5, 13 and 14 serve as they
+    did before the engine had one."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.steps import make_paged_decode_step
     from repro_torch.serve import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(
-        model, n_slots=SERVE["n_slots"],
-        max_len=SERVE["prompt_len"] + SERVE["new_tokens"], mp=mp,
-        block_size=SERVE["block_size"], paged_attn=paged_attn, device=DEVICE)
+    kw = dict(n_slots=SERVE["n_slots"],
+              max_len=SERVE["prompt_len"] + SERVE["new_tokens"],
+              block_size=SERVE["block_size"], prefix_cache=False)
+    kw.update(engine_kw)
+    eng = ContinuousBatchingEngine(model, mp=mp, paged_attn=paged_attn,
+                                   device=DEVICE, **kw)
     if eager:
         eng.decode_step = make_paged_decode_step(model, mp=eng.mp,
                                                  paged_attn=paged_attn)
-    warm = eng.serve(params, reqs[:1])
+    warm = eng.serve(params, reqs[:1] if warm is None else warm)
     events = record_steps(eng, ("prefill_chunk_step", "decode_step"))
     torch.cuda.synchronize()
     pa.launches = 0
@@ -896,10 +947,11 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
     torch.cuda.synchronize()
     out.counters["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = pa.launches
-    label = f"{model.cfg.name} {paged_attn}{' MP' if mp else ''}" \
-        f"{' eager' if eager else ''}"
+    label = f"{model.cfg.name} {name}{' ' if name else ''}{paged_attn}" \
+        f"{' MP' if mp else ''}{' eager' if eager else ''}"
     caps = (warm.counters["graph_captures"], out.counters["graph_captures"],
             out.counters["graph_replays"])
+    out.counters["warm_graph_captures"] = caps[0]
     want = (0, 0, 0) if eager or DEVICE == "cpu" else (1, 0, out.n_steps)
     if caps != want:
         raise AssertionError(f"{label}: graph captures (warm-up, drain) and "
@@ -909,18 +961,20 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
         f"{caps[2]} replays; {launches} paged kernel launches; peak device "
         f"memory {out.counters['peak_device_gb']:.2f} GB")
     if route is not None and pa.launches_by_route[route] != launches:
-        raise AssertionError(f"{paged_attn}: launches by route "
+        raise AssertionError(f"{label}: launches by route "
                              f"{pa.launches_by_route}, expected all {launches}"
                              f" through {route}")
     for r in reqs:
         res = out.results.get(r.rid)
         if res is None or res.status != "ok" or len(res.tokens) != \
                 r.max_new_tokens:
-            raise AssertionError(f"{paged_attn}: request {r.rid} did not "
+            raise AssertionError(f"{label}: request {r.rid} did not "
                                  f"complete")
         if not ((res.tokens >= 0) & (res.tokens < model.cfg.vocab_size)).all():
-            raise AssertionError(f"{paged_attn}: token out of range")
+            raise AssertionError(f"{label}: token out of range")
     logits = continuous_logits(events, reqs)
+    if events_out is not None:
+        events_out.extend(e for e in events if e[0] == "tick")
     return out, launches, {rid: (out.results[rid].tokens, logits[rid])
                            for rid in logits}
 
@@ -2016,6 +2070,282 @@ def long_prompt(torch, flash_model, ref_model, params, T: int,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: prefix caching, priority preemption and chunked prefill
+# ---------------------------------------------------------------------------
+
+# llama3_1b: a 96-token system prompt (6 blocks) shared by 8 requests with 32
+# tokens of their own; the last request repeats request 0's whole prompt (a
+# full-prompt hit, whose tail chunk forks the last shared block)
+SHARED = dict(requests=8, system=96, own=32, new_tokens=32, arrival_every=2)
+# six priority-0 requests at step 0 in a pool that holds three worst cases,
+# one priority-1 request at step 10
+PREEMPT = dict(low=6, fits=3, prompt_len=128, new_tokens=32, high_at=10)
+# three requests decode when a 2048-token prompt arrives at step 8
+CHUNKED = dict(short=3, prompt_len=128, long_len=2048, new_tokens=32,
+               long_at=8, chunk_len=256, chunk_budget=1)
+# DeepSeek-V3's dense MLA prefix: a short shared-prefix drain
+MLA_SHARED = dict(requests=6, system=64, own=32, new_tokens=16,
+                  arrival_every=2)
+
+
+def random_prompt(vocab: int, n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, vocab, size=n).astype(
+        np.int32)
+
+
+def shared_prefix_requests(vocab, requests, system, own, new_tokens,
+                           arrival_every, seed=15) -> list:
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, size=system).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, vocab, size=own)
+                               .astype(np.int32)])
+               for _ in range(requests - 1)]
+    prompts.append(prompts[0].copy())
+    return [Request(rid=i, tokens=p, max_new_tokens=new_tokens,
+                    arrival=arrival_every * i) for i, p in enumerate(prompts)]
+
+
+def warm_request(vocab: int, prompt_len: int, new_tokens: int) -> list:
+    """The warm-up drain's request (it captures the decode graph): a prompt
+    that shares no block with any measured one, so what it leaves in the
+    prefix cache matches nothing."""
+    from repro_torch.serve import Request
+    return [Request(rid=0, tokens=random_prompt(vocab, prompt_len, 1515),
+                    max_new_tokens=new_tokens)]
+
+
+def bit_equal(a: dict, b: dict) -> int:
+    """Requests whose tokens and logits are the same bits in both drains."""
+    import torch
+    return sum(int(np.array_equal(a[r][0], b[r][0])
+                   and a[r][1].shape == b[r][1].shape
+                   and torch.equal(a[r][1], b[r][1])) for r in b)
+
+
+def drain_set(torch, model, params, reqs, warm, route, failures, name,
+              **engine_kw) -> tuple:
+    """One drain fused and gather, each graphed and eager: each graphed
+    drain held bit for bit against its eager twin, the fused launches
+    against decode steps x layers (all through ``route``), fused against
+    gather at the near-tie rule. Returns (fused summary, its rid ->
+    (tokens, logits), its launches, the gather summary, its tick events,
+    the record)."""
+    n_layers = model.cfg.n_layers
+    events = []
+    kw = dict(warm=warm, **engine_kw)
+    f, n_f, f_tl = run_continuous(torch, model, params, reqs,
+                                  paged_attn="fused", route=route,
+                                  name=name, events_out=events, **kw)
+    if n_f != f.n_steps * n_layers or n_f == 0:
+        failures.append(f"{name}: fused launches {n_f} != {f.n_steps} "
+                        f"steps x {n_layers} layers")
+    _, _, fe_tl = run_continuous(torch, model, params, reqs,
+                                 paged_attn="fused", route=route, eager=True,
+                                 name=name, **kw)
+    g, n_g, g_tl = run_continuous(torch, model, params, reqs,
+                                  paged_attn="gather", name=name, **kw)
+    _, _, ge_tl = run_continuous(torch, model, params, reqs,
+                                 paged_attn="gather", eager=True, name=name,
+                                 **kw)
+    if n_g:
+        failures.append(f"{name}: gather launched the kernel {n_g} times")
+    rec = {"graph_vs_eager": {
+               "fused": graph_vs_eager(f"{name} fused", f_tl, fe_tl,
+                                       failures),
+               "gather": graph_vs_eager(f"{name} gather", g_tl, ge_tl,
+                                        failures)},
+           "fused_vs_gather": compare(f"{name} fused vs gather", f_tl, g_tl,
+                                      tol=LOGIT_TOL, bound=MARGIN_BOUND,
+                                      failures=failures),
+           "kernel_launches": n_f, "n_decode_steps": f.n_steps,
+           "warm_graph_captures": f.counters["warm_graph_captures"],
+           "graph_captures": f.counters["graph_captures"],
+           "graph_replays": f.counters["graph_replays"],
+           "tokens_per_s_fused": f.tokens_per_s,
+           "tokens_per_s_gather": g.tokens_per_s}
+    return f, f_tl, n_f, g, events, rec
+
+
+def shared_prefix_drains(torch, model, params, spec: dict, route: str,
+                         failures: list, name: str) -> dict:
+    """``spec``'s shared-prefix requests with the prefix cache on (fused
+    and gather, graphed and eager) and off (fused): every request after
+    the first hits, the last forks; on against off at the near-tie rule."""
+    reqs = shared_prefix_requests(model.cfg.vocab_size, **spec)
+    plen = spec["system"] + spec["own"]
+    warm = warm_request(model.cfg.vocab_size, plen, spec["new_tokens"])
+    kw = dict(max_len=plen + spec["new_tokens"])
+    on, on_tl, _, _, _, rec = drain_set(torch, model, params, reqs, warm,
+                                        route, failures, f"{name} on",
+                                        prefix_cache=True, **kw)
+    off, _, off_tl = run_continuous(torch, model, params, reqs,
+                                    paged_attn="fused", route=route,
+                                    warm=warm, name=f"{name} off",
+                                    prefix_cache=False, **kw)
+    c, hit = on.counters, [r.rid for r in reqs[1:]]
+    if c["prefix_hit_requests"] < len(hit) or c["cow_forks"] < 1:
+        failures.append(f"{name}: {c['prefix_hit_requests']} prefix hits and"
+                        f" {c['cow_forks']} forks, expected >= {len(hit)} "
+                        f"and >= 1")
+    rec["on_vs_off"] = compare(f"{name} on vs off", on_tl, off_tl,
+                               tol=LOGIT_TOL, bound=MARGIN_BOUND,
+                               failures=failures)
+    rec["on_vs_off"]["bit_equal_requests"] = bit_equal(on_tl, off_tl)
+
+    def ttft_ms(out):
+        return float(np.median([out.results[r].ttft_s for r in hit])) * 1e3
+    rec.update({
+        key: c[key] for key in ("prefix_hit_requests", "prefix_hit_tokens",
+                                "cow_forks", "reclaimed_cached_blocks")})
+    rec.update(prefill_tokens_on=c["prefill_tokens"],
+               prefill_tokens_off=off.counters["prefill_tokens"],
+               ttft_hit_p50_ms_on=ttft_ms(on), ttft_hit_p50_ms_off=ttft_ms(off),
+               tokens_per_s_on=on.tokens_per_s,
+               tokens_per_s_off=off.tokens_per_s)
+    log(f"{name}: {c['prefix_hit_requests']} hit requests, "
+        f"{c['prefix_hit_tokens']} prompt tokens skipped, {c['cow_forks']} "
+        f"forks; prefill tokens {c['prefill_tokens']} on / "
+        f"{off.counters['prefill_tokens']} off; TTFT p50 of the hitting "
+        f"requests {rec['ttft_hit_p50_ms_on']:.2f} ms on / "
+        f"{rec['ttft_hit_p50_ms_off']:.2f} ms off; decode "
+        f"{on.tokens_per_s:.1f} tok/s on / {off.tokens_per_s:.1f} off; "
+        f"{rec['on_vs_off']['bit_equal_requests']} of {len(reqs)} requests "
+        f"bit-equal on vs off; graph captures {rec['warm_graph_captures']} "
+        f"(warm-up) + {rec['graph_captures']}, {rec['graph_replays']} "
+        f"replays")
+    return rec
+
+
+def prefix_phase(torch, model, params) -> dict:
+    """Phase 15 on llama3_1b at full width (4 slots, block 16, graphed
+    decode): the shared-prefix, preemption and chunked-prefill drains,
+    each fused and gather, graphed and eager, against its twin without
+    the feature."""
+    from repro_torch.serve import Request
+    vocab = model.cfg.vocab_size
+    failures = []
+    plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
+    out = {"shared_prefix": shared_prefix_drains(
+        torch, model, params, SHARED, "gqa_mma", failures, "shared prefix")}
+
+    c = PREEMPT
+    reqs = [Request(rid=i, tokens=random_prompt(vocab, c["prompt_len"],
+                                                1600 + i),
+                    max_new_tokens=c["new_tokens"]) for i in range(c["low"])]
+    high = Request(rid=c["low"], tokens=random_prompt(vocab, c["prompt_len"],
+                                                      1700),
+                   max_new_tokens=c["new_tokens"], arrival=c["high_at"],
+                   priority=1)
+    reqs.append(high)
+    worst = -(-(c["prompt_len"] + c["new_tokens"] - 1) // SERVE["block_size"])
+    kw = dict(max_len=c["prompt_len"] + c["new_tokens"],
+              n_blocks=1 + c["fits"] * worst, prefix_cache=True,
+              warm=warm_request(vocab, c["prompt_len"], c["new_tokens"]))
+    pre, pre_tl, _, _, events, rec = drain_set(
+        torch, model, params, reqs, route="gqa_mma", failures=failures,
+        name="preemption", **kw)
+    kw.pop("warm")
+    unint, _, unint_tl = run_continuous(
+        torch, model, params, reqs, paged_attn="fused", route="gqa_mma",
+        warm=warm_request(vocab, c["prompt_len"], c["new_tokens"]),
+        name="uninterrupted", preemption=False, **kw)
+    resumed = resumed_rids(events, reqs)
+    if pre.counters["preemptions"] < 1 or not resumed:
+        failures.append(f"preemption: {pre.counters['preemptions']} "
+                        f"preemptions, resumed {resumed}")
+    rec["vs_uninterrupted"] = compare("preempted vs uninterrupted", pre_tl,
+                                      unint_tl, **plain)
+    rec["resumed"] = {str(rid): {
+        "bit_equal": bit_equal({rid: pre_tl[rid]}, {rid: unint_tl[rid]}) == 1,
+        "first_divergence": first_divergence(pre_tl[rid][0],
+                                             unint_tl[rid][0])}
+        for rid in resumed}
+    rec.update(preemptions=pre.counters["preemptions"],
+               blocked_admissions=pre.counters["blocked_admissions"],
+               reclaimed_cached_blocks=pre.counters["reclaimed_cached_blocks"],
+               bit_equal_requests=bit_equal(pre_tl, unint_tl),
+               # from admission, as the engine measures TTFT
+               high_ttft_ms=pre.results[high.rid].ttft_s * 1e3,
+               high_ttft_ms_uninterrupted=unint.results[high.rid].ttft_s
+               * 1e3,
+               # from arrival, in decode steps (the wait preemption cuts)
+               high_ttft_steps=pre.results[high.rid].first_token_step
+               - high.arrival,
+               high_ttft_steps_uninterrupted=unint.results[
+                   high.rid].first_token_step - high.arrival)
+    log(f"preemption: {rec['preemptions']} preemptions, resumed {resumed} "
+        f"({rec['resumed']}); {rec['bit_equal_requests']} of {len(reqs)} "
+        f"requests bit-equal to the uninterrupted drain; the priority-1 "
+        f"request's first token {rec['high_ttft_steps']} decode steps after "
+        f"its arrival (without preemption {rec['high_ttft_steps_uninterrupted']}"
+        f"), TTFT from admission {rec['high_ttft_ms']:.2f} ms (without "
+        f"preemption {rec['high_ttft_ms_uninterrupted']:.2f} ms)")
+    out["preemption"] = rec
+
+    c = CHUNKED
+    reqs = [Request(rid=i, tokens=random_prompt(vocab, c["prompt_len"],
+                                                1800 + i),
+                    max_new_tokens=c["new_tokens"]) for i in range(c["short"])]
+    reqs.append(Request(rid=c["short"], tokens=random_prompt(
+        vocab, c["long_len"], 1900), max_new_tokens=c["new_tokens"],
+        arrival=c["long_at"]))
+    kw = dict(max_len=c["long_len"] + c["new_tokens"],
+              warm=warm_request(vocab, c["prompt_len"], c["new_tokens"]))
+    ch, ch_tl, _, _, _, rec = drain_set(
+        torch, model, params, reqs, route="gqa_mma", failures=failures,
+        name="chunked", chunk_len=c["chunk_len"],
+        chunk_budget=c["chunk_budget"], **kw)
+    one, _, one_tl = run_continuous(torch, model, params, reqs,
+                                    paged_attn="fused", route="gqa_mma",
+                                    name="one chunk", **kw)
+    cc, oc = ch.counters, one.counters
+    if cc["max_decode_stall_run"] > c["chunk_budget"]:
+        failures.append(f"chunked: a decoding slot stalled "
+                        f"{cc['max_decode_stall_run']} chunk steps in a row")
+    rec["vs_one_chunk"] = compare("chunked vs one chunk", ch_tl, one_tl,
+                                  **plain)
+    long_rid = reqs[-1].rid
+    rec.update({k: cc[k] for k in ("prefill_chunks", "decode_stall_steps",
+                                   "max_decode_stall_run",
+                                   "decode_stall_p99_s")})
+    rec.update(one_chunk={k: oc[k] for k in (
+                   "prefill_chunks", "decode_stall_steps",
+                   "max_decode_stall_run", "decode_stall_p99_s")},
+               long_bit_equal=bit_equal({long_rid: ch_tl[long_rid]},
+                                        {long_rid: one_tl[long_rid]}) == 1,
+               bit_equal_requests=bit_equal(ch_tl, one_tl),
+               long_ttft_ms=ch.results[long_rid].ttft_s * 1e3,
+               long_ttft_ms_one_chunk=one.results[long_rid].ttft_s * 1e3,
+               tokens_per_s_one_chunk=one.tokens_per_s)
+    log(f"chunked: {cc['prefill_chunks']} prefill chunks, "
+        f"{cc['decode_stall_steps']} stalled decode steps, longest run "
+        f"{cc['max_decode_stall_run']}, stall p99 "
+        f"{cc['decode_stall_p99_s'] * 1e3:.2f} ms (one chunk: "
+        f"{oc['prefill_chunks']} chunks, p99 "
+        f"{oc['decode_stall_p99_s'] * 1e3:.2f} ms); the long request's "
+        f"tokens {'bit-equal' if rec['long_bit_equal'] else 'not bit-equal'}"
+        f" to one chunk; {rec['bit_equal_requests']} of {len(reqs)} "
+        f"requests bit-equal")
+    out["chunked"] = rec
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def mla_prefix_phase(torch, absorbed, params) -> dict:
+    """Phase 15 on DeepSeek-V3's dense prefix (absorbed decode): a short
+    shared-prefix drain, whose forks copy the latent leaves and whose
+    decode reads borrowed pages through ``mla_mma``."""
+    failures = []
+    rec = shared_prefix_drains(torch, absorbed, params, MLA_SHARED,
+                               "mla_mma", failures, "MLA shared prefix")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2098,6 +2428,8 @@ def main() -> int:
         "long prompt llama3_1b", long_prompt, torch, model,
         get_model("llama3_1b", flash_min_seq=1 << 30), params,
         LONG_PROMPTS["llama3_1b"], "llama3_1b")}
+    report["prefix"] = phase("prefix cache, preemption, chunked prefill",
+                             prefix_phase, torch, model, params)
     del model, params, bundle, batches
     gc.collect()                      # the model's decode graphs go with it
     torch.cuda.empty_cache()
@@ -2112,6 +2444,8 @@ def main() -> int:
         get_model(DEEPSEEK, flash_min_seq=1 << 30, mla_absorb_decode=True,
                   **dense_prefix_overrides(DEEPSEEK)), ds_params,
         LONG_PROMPTS[DEEPSEEK], DEEPSEEK)
+    report["prefix_mla"] = phase("MLA prefix cache", mla_prefix_phase, torch,
+                                 absorbed, ds_params)
 
     t = report["fp8_times"]
     launches = report["measured_tier"]["launches"]
@@ -2124,6 +2458,9 @@ def main() -> int:
         "launches": report["kernel_launches_main_path"],
         "launches_llama3_8b": report["llama3_8b"][
             "kernel_launches_main_path"],
+        "launches_phase15": {k: report["prefix"][k]["kernel_launches"]
+                             for k in ("shared_prefix", "preemption",
+                                       "chunked")},
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"],
         "kernel_ms": report["ms"],
@@ -2163,6 +2500,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/paged_decode_mla.cu",
         "replaces": "src/repro/kernels/paged_attention.py:204",
         "launches": report["mla_kernel_launches_main_path"],
+        "launches_phase15": {"shared_prefix":
+                             report["prefix_mla"]["kernel_launches"]},
         "max_abs_err": report["mla_max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "bound_ms_f32": m["bound_ms_f32"],
@@ -2191,6 +2530,8 @@ def main() -> int:
                       "gqa_bitwise_cases": [report["gqa_bitwise_cases"],
                                             report["gqa_cases"]]}),
           flush=True)
+    print(json.dumps({"prefix_cache": report["prefix"],
+                      "prefix_cache_mla": report["prefix_mla"]}), flush=True)
     mt = report["measured_tier"]
     print(json.dumps({"calibration": report["calibration"],
                       "measured_tier": {k: mt[k] for k in (

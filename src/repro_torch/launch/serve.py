@@ -33,9 +33,14 @@ in the reference launcher. An ``--mp-plan`` JSON saved by either package's
 ``CalibrationBundle`` saved by either package, and ``--registry`` picks the
 freshest bundle filed for this arch and these weights; both run the cheap IP
 for ``--tau`` / ``--objective`` here. Reports TTFT and decode throughput;
-continuous mode also reports the paged pool, the kernel launches and the
+continuous mode also reports the paged pool, the kernel launches, the
 decode step's CUDA graph captures and replays (on the card the decode step
-is captured once, in the warm-up drain, and replayed after).
+is captured once, in the warm-up drain, and replayed after), the prefill
+chunks and decode stalls, and the prefix cache's hits, copy-on-write forks
+and preemptions. As in the reference, the continuous engine shares prompt
+prefixes across requests (``--no-prefix-cache`` turns it off) and lets a
+higher-priority request preempt; ``--chunk-len`` / ``--chunk-budget`` split
+long prompts into chunks interleaved with decode steps.
 """
 from __future__ import annotations
 
@@ -104,6 +109,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-blocks", type=int, default=None,
                     help="paged KV pool size incl. the trash block (default: "
                          "the worst case, which never backpressures)")
+    ap.add_argument("--chunk-len", type=int, default=None,
+                    help="split prompts into prefill chunks of this many "
+                         "tokens, interleaved with decode steps (continuous "
+                         "paged mode; prompts are length-bucketed either way)")
+    ap.add_argument("--chunk-budget", type=int, default=1,
+                    help="max prefill chunk steps between decode steps "
+                         "(bounds per-request decode stall while a long "
+                         "prompt prefills)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-request prefix sharing (paged "
+                         "continuous engines content-hash admitted prompts "
+                         "against resident blocks by default and skip "
+                         "prefill for matched full blocks)")
     ap.add_argument("--paged-attn", default=None, choices=("fused", "gather"),
                     help="paged decode attention: 'fused' (default) runs the "
                          "CUDA kernel over block-major KV; 'gather' keeps "
@@ -200,6 +218,14 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
           f"| {c['prefill_chunks']} prefill steps")
     print(f"[serve] decode step: {c['graph_captures']} CUDA graph captures, "
           f"{c['graph_replays']} replays")
+    print(f"[serve] prefill: {c['prefill_chunks']} chunk steps | "
+          f"{c['decode_stall_steps']} decode-stall chunk steps "
+          f"(longest run {c['max_decode_stall_run']})")
+    if c["prefix_cache"]:
+        print(f"[serve] prefix cache: {c['prefix_hit_requests']} hit "
+              f"requests | {c['prefix_hit_tokens']} prompt tokens "
+              f"skipped | {c['cow_forks']} COW forks | "
+              f"{c['preemptions']} preemptions")
 
 
 def profile_drain(eng, params, reqs, trace_path: Optional[str],
@@ -277,6 +303,8 @@ def main(argv=None) -> None:
             model, n_slots=args.n_slots,
             max_len=args.prompt_len + args.new_tokens, mp=plan,
             block_size=args.block_size, n_blocks=args.n_blocks,
+            chunk_len=args.chunk_len, chunk_budget=args.chunk_budget,
+            prefix_cache=not args.no_prefix_cache,
             paged_attn=args.paged_attn, device=device)
         reqs = make_requests(model.cfg.vocab_size, args.requests,
                              args.prompt_len, args.new_tokens,

@@ -415,6 +415,23 @@ class LM:
             self.paged_cache_specs(n_slots, n_blocks, block_size),
             resolve_device(device))
 
+    def paged_copy_block(self, caches: dict, src: int, dst: int) -> dict:
+        """Copy physical block ``src`` into block ``dst`` on every page-major
+        cache leaf (attention K/V, MLA latents): the pool's copy-on-write
+        fork. In place, into the pool's own tensors: the paged decode step's
+        CUDA graph is bound to their identity, so a copy that returned new
+        tensors would force a capture on every fork. The copies run on the
+        current stream, ordered after every step queued before them."""
+        specs = self.paged_cache_specs(1, 1, 1)
+        for key, spec in specs.items():
+            if "kv_blocks" not in spec.logical_axes:
+                continue
+            layer, leaf = key.split("@attn/")
+            t = caches[layer][leaf]
+            ax = spec.logical_axes.index("kv_blocks")
+            t.select(ax, int(dst)).copy_(t.select(ax, int(src)))
+        return caches
+
     def prefill(self, params: dict, tokens: torch.Tensor, caches: dict,
                 ctx: QuantContext):
         """Process the prompt into dense caches; returns (last-token logits,

@@ -2,21 +2,36 @@
 ``PagedCachePool`` in ``repro/serve/cache_pool.py``).
 
 Attention K/V lives in block-major tensors ``(n_blocks, block_size, Hkv,
-D)`` (MLA latents in ``(n_blocks, block_size, r)``); each slot maps its logical pages to physical blocks through a host-side
-block table, and blocks are allocated as prefill and decode cross block
-boundaries, so memory scales with live tokens. Admission reserves a request's
-worst-case block count (prompt + ``max_new_tokens - 1`` writes), which makes
-mid-decode allocation infallible while materializing blocks lazily;
-:meth:`can_admit` returning False is the scheduler's backpressure signal.
-Physical block 0 is never allocated: it is the trash block that absorbs
-writes from vacant rows and prefill padding.
+D)`` (MLA latents in ``(n_blocks, block_size, r)``); each slot maps its
+logical pages to physical blocks through a host-side block table, and blocks
+are allocated as prefill and decode cross block boundaries, so memory scales
+with live tokens. Admission reserves a request's worst-case block count
+(prompt + ``max_new_tokens - 1`` writes), which makes mid-decode allocation
+infallible while materializing blocks lazily; :meth:`can_admit` returning
+False is the scheduler's backpressure signal. Physical block 0 is never
+allocated, indexed or cached: it is the trash block that absorbs writes from
+vacant rows and prefill padding.
 
-Not ported yet: the prefix index with copy-on-write forks and the cached-LRU
-(prefix caching), page quarantine and poisoning (fault tolerance), and mesh
-sharding of the pool.
+Blocks are refcounted and may be shared read-only between slots (prefix
+caching): prompts are hashed block by block with chained digests
+(``h_j = sha256(h_{j-1} || tokens_j)``, byte for byte the reference's), so
+one digest match implies the whole prefix up to that block matches. A
+request whose chain matches resident blocks claims them (refcount + 1), maps
+them into its table and skips their prefill. A write into a shared block
+forks it first (copy-on-write, :meth:`ensure_range`): the block is copied on
+the device (``LM.paged_copy_block``, in place into the pool's tensors), the
+slot's table points at the copy, and the parent chain is never mutated.
+Indexed blocks whose refcount drops to zero stay resident in an LRU of
+cached blocks, which :meth:`_alloc_block` reclaims (de-indexing each) only
+once the free list is empty; ``n_free_blocks`` counts free plus cached.
+
+Not ported: mesh sharding of the pool, and page quarantine and poisoning
+(fault tolerance).
 """
 from __future__ import annotations
 
+import hashlib
+from collections import Counter, OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -40,16 +55,27 @@ class PagedCachePool:
     decode rows through per-slot block tables.
 
     Invariants the attention kernel relies on: a block has one writer at a
-    time (block 0 none — it is the trash sink), and a slot's pages are
-    allocated in logical order and written contiguously, so the length mask
-    alone separates live keys from stale block contents and freed blocks need
-    no scrubbing before reuse."""
+    time (block 0 none — it is the trash sink) but may have many readers: a
+    refcounted prefix block sits in several slots' tables, and its contents
+    are what each sharer's own prefill would have written there (per-token
+    quant scales make K/V a function of the tokens at and before each
+    position). A slot never writes a shared block: the one write that could
+    land in one (the tail chunk of a fully matched prompt) forks it first,
+    and decode writes land past the matched prefix. A slot's pages are
+    written contiguously, so the length mask alone separates live keys from
+    stale block contents and freed blocks need no scrubbing before reuse.
+
+    Admission: :meth:`alloc_slot` reserves the request's worst-case block
+    count less the matched blocks (plus one for the fork a full-prompt hit
+    needs); :meth:`ensure_block` / :meth:`ensure_range` draw on the
+    reservation as prefill and decode cross block boundaries."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks=None,
                  device: DeviceLike = None, caches: Optional[dict] = None):
         if n_slots < 1 or max_len < 1 or block_size < 1:
             raise ValueError((n_slots, max_len, block_size))
+        self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
         self.block_size = block_size
@@ -68,13 +94,23 @@ class PagedCachePool:
         self._free_slots = list(range(n_slots - 1, -1, -1))
         self._reserved = 0
         self._slot_reserve: dict = {}       # slot -> outstanding reservation
-        self._slot_blocks: dict = {}        # slot -> [block ids]
+        self._slot_blocks: dict = {}        # slot -> [referenced block ids]
         self.block_tables = np.full((n_slots, self.max_blocks), -1, np.int32)
+        # ---- prefix sharing ----
+        self._ref: dict = {}                # block -> refcount (materialized)
+        self._index: dict = {}              # digest -> block
+        self._block_digest: dict = {}       # block -> digest
+        self._cached: OrderedDict = OrderedDict()   # refcount-0 indexed, LRU
+        self._slot_digests: dict = {}       # slot -> prompt block digests
+        self._slot_borrowed: dict = {}      # slot -> {shared page indices}
+        self._slot_matched: dict = {}       # slot -> matched prefix tokens
+        self._slot_registered: dict = {}    # slot -> pages indexed so far
+        self.reset_counters()
 
     def _reuse(self, model, caches: dict) -> None:
-        """Take another pool's cache tensors (the engine keeps them across
-        drains, so its decode step's CUDA graph stays bound to them),
-        zeroed: the drain then sees what a new pool holds."""
+        """Take another pool's cache tensors (the engine keeps them, so its
+        decode step's CUDA graph stays bound to them), zeroed: this pool's
+        index is empty, so nothing may point at what they held."""
         specs = model.paged_cache_specs(self.n_slots, self.n_blocks,
                                         self.block_size)
         for key, spec in specs.items():
@@ -88,6 +124,28 @@ class PagedCachePool:
         for layer in caches.values():
             for t in layer.values():
                 t.zero_()
+
+    def reset_counters(self) -> None:
+        """Zero the per-drain tallies (the engine keeps one pool, and its
+        prefix index, across drains)."""
+        self.prefix_hit_requests = 0
+        self.prefix_hit_blocks = 0
+        self.prefix_hit_tokens = 0
+        self.cow_forks = 0
+        self.reclaimed_cached_blocks = 0
+
+    def invalidate_prefix_index(self) -> None:
+        """Forget every indexed block: cached ones return to the free list,
+        ones still mapped by live slots are de-indexed (they rejoin the free
+        list on release) and live slots stop registering their pages."""
+        for blk in list(self._block_digest):
+            self._deindex(blk)
+            if blk in self._cached:
+                del self._cached[blk]
+                self._free_blocks.append(blk)
+        self._index.clear()
+        for slot in self._slot_digests:
+            self._slot_digests[slot] = []
 
     @staticmethod
     def plan_blocks(n_slots: int, max_len: int, block_size: int,
@@ -107,7 +165,13 @@ class PagedCachePool:
 
     @property
     def n_free_blocks(self) -> int:
-        return len(self._free_blocks)
+        """Allocatable blocks: free plus cached (refcount-0 indexed blocks
+        are resident prefix content, reclaimed on demand)."""
+        return len(self._free_blocks) + len(self._cached)
+
+    @property
+    def n_cached_blocks(self) -> int:
+        return len(self._cached)
 
     @property
     def blocks_in_use(self) -> int:
@@ -126,46 +190,193 @@ class PagedCachePool:
         write per decode step (the last generated token is never written)."""
         return self.blocks_for(prompt_len + max(max_new_tokens - 1, 0))
 
-    def can_admit(self, prompt_len: int, max_new_tokens: int) -> bool:
-        need = self.blocks_for_request(prompt_len, max_new_tokens)
-        return (bool(self._free_slots)
-                and need <= len(self._free_blocks) - self._reserved)
+    # ---- prefix hashing / matching ----
+    def prefix_digests(self, tokens) -> list:
+        """Chained digests of every full block of ``tokens``:
+        ``h_j = sha256(h_{j-1} || tokens[j*bs:(j+1)*bs])`` over int32 bytes,
+        so one hit at block j implies blocks 0..j all match."""
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        bs = self.block_size
+        out, h = [], b""
+        for j in range(toks.shape[0] // bs):
+            h = hashlib.sha256(h + toks[j * bs:(j + 1) * bs].tobytes()).digest()
+            out.append(h)
+        return out
+
+    def _match_blocks(self, digests) -> list:
+        """The longest resident chain: blocks for digests[0..m)."""
+        blks = []
+        for h in digests:
+            b = self._index.get(h)
+            if b is None:
+                break
+            blks.append(b)
+        return blks
+
+    def _plan_admission(self, prompt_len: int, max_new_tokens: int,
+                        digests=None) -> Optional[tuple]:
+        """``(matched blocks, matched tokens, net need)``, or None when the
+        request cannot be admitted now. The net need is the worst case less
+        the matched blocks, plus one for the fork a full-prompt hit's tail
+        chunk needs; it must fit the free + cached blocks less the ones this
+        request claims from the cache and less every reservation."""
+        if not self._free_slots:
+            return None
+        total = self.blocks_for_request(prompt_len, max_new_tokens)
+        blks = self._match_blocks(digests) if digests else []
+        m = len(blks)
+        matched = m * self.block_size
+        cow = 0
+        if m and matched >= prompt_len:
+            # full-prompt hit: the tail chunk still runs (it produces the
+            # first token) and must fork the last shared block
+            matched = prompt_len - 1
+            cow = 1
+        need = total - m + cow
+        claim_from_cached = sum(1 for b in blks if b in self._cached)
+        avail = (len(self._free_blocks) + len(self._cached)
+                 - claim_from_cached - self._reserved)
+        if need > avail:
+            return None
+        return blks, matched, need
+
+    def can_admit(self, prompt_len: int, max_new_tokens: int,
+                  digests=None) -> bool:
+        return self._plan_admission(prompt_len, max_new_tokens,
+                                    digests) is not None
+
+    def matched_tokens(self, slot: int) -> int:
+        """Prefix tokens ``slot`` inherited at admission: its prefill starts
+        there instead of 0."""
+        return self._slot_matched.get(slot, 0)
 
     # ---- slot lifecycle ----
-    def alloc_slot(self, prompt_len: int, max_new_tokens: int) -> int:
-        """Claim a slot and reserve the request's worst-case block budget."""
-        need = self.blocks_for_request(prompt_len, max_new_tokens)
-        if need > self.allocatable_blocks:
-            raise ValueError(f"request needs {need} blocks but the pool only "
+    def alloc_slot(self, prompt_len: int, max_new_tokens: int,
+                   digests=None) -> int:
+        """Claim a slot, map any matched prefix blocks into its table
+        (refcount + 1 each), and reserve the rest of the request's
+        worst-case block budget."""
+        total = self.blocks_for_request(prompt_len, max_new_tokens)
+        if total > self.allocatable_blocks:
+            raise ValueError(f"request needs {total} blocks but the pool only "
                              f"has {self.allocatable_blocks} allocatable "
                              f"blocks")
-        if not self.can_admit(prompt_len, max_new_tokens):
+        plan = self._plan_admission(prompt_len, max_new_tokens, digests)
+        if plan is None:
             raise RuntimeError("paged cache pool exhausted")
+        blks, matched, need = plan
         slot = self._free_slots.pop()
         self._reserved += need
         self._slot_reserve[slot] = need
         self._slot_blocks[slot] = []
+        self._slot_digests[slot] = list(digests) if digests else []
+        self._slot_borrowed[slot] = set()
+        self._slot_matched[slot] = matched
+        self._slot_registered[slot] = 0
+        for j, b in enumerate(blks):
+            self._claim(b)
+            self.block_tables[slot, j] = b
+            self._slot_blocks[slot].append(b)
+            self._slot_borrowed[slot].add(j)
+        if blks:
+            self.prefix_hit_requests += 1
+            self.prefix_hit_blocks += len(blks)
+            self.prefix_hit_tokens += matched
         return slot
 
     def free_slot(self, slot: int) -> None:
-        """Return the slot, its blocks and any unused reservation."""
+        """Return the slot and drop its block references (refcount-0 indexed
+        blocks stay cached, others rejoin the free list), with any unused
+        reservation."""
         if slot in self._free_slots or not 0 <= slot < self.n_slots:
             raise ValueError(f"slot {slot} is not in use")
         for b in reversed(self._slot_blocks.pop(slot, [])):
-            self._free_blocks.append(b)
+            self._release(b)
         self._reserved -= self._slot_reserve.pop(slot, 0)
+        for per_slot in (self._slot_digests, self._slot_borrowed,
+                         self._slot_matched, self._slot_registered):
+            per_slot.pop(slot, None)
         self.block_tables[slot] = -1
         self._free_slots.append(slot)
 
+    # ---- refcounted block lifecycle ----
+    def _claim(self, blk: int) -> None:
+        """Take a reference on a resident block (a prefix hit)."""
+        self._ref[blk] = self._ref.get(blk, 0) + 1
+        self._cached.pop(blk, None)                 # in use again
+
+    def _release(self, blk: int) -> None:
+        self._ref[blk] -= 1
+        if self._ref[blk] < 0:
+            raise RuntimeError(f"block {blk} released more than claimed")
+        if self._ref[blk] == 0:
+            del self._ref[blk]
+            if blk in self._block_digest:
+                self._cached[blk] = None    # resident until reclaimed
+            else:
+                self._free_blocks.append(blk)
+
+    def _deindex(self, blk: int) -> None:
+        h = self._block_digest.pop(blk)
+        if self._index.get(h) == blk:
+            del self._index[h]
+
     def _alloc_block(self, slot: int) -> int:
-        if not self._free_blocks:
+        if self._free_blocks:
+            blk = self._free_blocks.pop()
+        elif self._cached:
+            # reclaim the least recently released cached block; de-indexing
+            # it cuts every chain through it (a hit needs every link)
+            blk, _ = self._cached.popitem(last=False)
+            self._deindex(blk)
+            self.reclaimed_cached_blocks += 1
+        else:
             raise RuntimeError("paged cache pool out of blocks")
-        blk = self._free_blocks.pop()
         if self._slot_reserve.get(slot, 0) > 0:
             self._slot_reserve[slot] -= 1
             self._reserved -= 1
+        self._ref[blk] = 1
         self._slot_blocks[slot].append(blk)
         return blk
+
+    def register_prefix(self, slot: int, upto_tokens: int) -> None:
+        """Index ``slot``'s fully written prompt blocks (logical positions
+        ``[0, upto_tokens)``) under their chain digests. Incremental: call
+        after each prefill chunk with the cumulative length. The first
+        writer wins: a digest already indexed (a block this slot borrowed)
+        is skipped. Safe right after the chunk is queued: a later reader's
+        chunk is queued after it on the same stream."""
+        digests = self._slot_digests.get(slot)
+        if not digests:
+            return
+        done = self._slot_registered.get(slot, 0)
+        end = min(int(upto_tokens) // self.block_size, len(digests))
+        for j in range(done, end):
+            h = digests[j]
+            blk = int(self.block_tables[slot, j])
+            if blk < 1:
+                raise RuntimeError(f"slot {slot} page {j} is not allocated")
+            if h not in self._index:
+                self._index[h] = blk
+                self._block_digest[blk] = h
+        self._slot_registered[slot] = max(done, end)
+
+    def _cow_fork(self, slot: int, page: int) -> None:
+        """``slot`` is about to write its shared ``page``: copy the block on
+        the device, point the table at the copy and drop the shared
+        reference. The parent block, and the chain through it, stay as they
+        were."""
+        src = int(self.block_tables[slot, page])
+        dst = self._alloc_block(slot)       # before the release: the fork
+        self._copy_block_device(src, dst)   # must never reclaim its source
+        self.block_tables[slot, page] = dst
+        self._slot_blocks[slot].remove(src)
+        self._release(src)
+        self._slot_borrowed[slot].discard(page)
+        self.cow_forks += 1
+
+    def _copy_block_device(self, src: int, dst: int) -> None:
+        self.caches = self.model.paged_copy_block(self.caches, src, dst)
 
     def ensure_block(self, slot: int, pos: int) -> None:
         """Materialize the page for decode write position ``pos`` when it
@@ -173,15 +384,48 @@ class PagedCachePool:
         page, off = divmod(int(pos), self.block_size)
         if off == 0 and self.block_tables[slot, page] < 0:
             self.block_tables[slot, page] = self._alloc_block(slot)
+        elif page in self._slot_borrowed.get(slot, ()):
+            # matched prefixes end before the first decode position, and a
+            # fully matched prompt's last block was forked by its tail chunk
+            raise RuntimeError(f"decode would write slot {slot}'s shared "
+                               f"page {page}")
 
     def ensure_range(self, slot: int, start: int, end: int) -> None:
-        """Materialize every page covering logical positions [start, end)."""
+        """Materialize every page covering logical positions [start, end),
+        forking a borrowed page in the range before the chunk writes it
+        (only the tail chunk of a fully matched prompt has one)."""
         if not 0 <= start < end:
             raise ValueError((start, end))
+        borrowed = self._slot_borrowed.get(slot)
         for page in range(int(start) // self.block_size,
                           -(-int(end) // self.block_size)):
             if self.block_tables[slot, page] < 0:
                 self.block_tables[slot, page] = self._alloc_block(slot)
+            elif borrowed and page in borrowed:
+                self._cow_fork(slot, page)
+
+    def check_consistency(self) -> dict:
+        """Cross-check the books against the block tables: the multiset of
+        table entries equals the refcounts, free and cached blocks are
+        mapped by no table, and the trash block is nowhere. Returns a report
+        with ``ok`` and the mismatches."""
+        mat = Counter(int(b) for row in self.block_tables for b in row
+                      if b >= 0)
+        free, cached, mapped = (set(self._free_blocks), set(self._cached),
+                                set(mat))
+        report = {
+            "tables_vs_ref": mat == Counter(self._ref),
+            "free_mapped": sorted(free & mapped),
+            "cached_mapped": sorted(cached & mapped),
+            "free_cached": sorted(free & cached),
+            "trash_used": 0 in (mapped | free | cached
+                                | set(self._block_digest)),
+        }
+        report["ok"] = (report["tables_vs_ref"] and not report["free_mapped"]
+                        and not report["cached_mapped"]
+                        and not report["free_cached"]
+                        and not report["trash_used"])
+        return report
 
     def block_tables_device(self) -> torch.Tensor:
         # hand the device a private copy: torch.from_numpy aliases the host

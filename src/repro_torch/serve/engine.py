@@ -11,16 +11,21 @@
   CUDA paged-attention kernel (``paged_attn="fused"``, the default) or the
   reference gather path (``"gather"``). On CUDA the decode step is a CUDA
   graph, captured once and replayed (``launch/steps.PagedDecodeStep``):
-  the engine keeps the pool's cache tensors and the step's input buffers
-  across drains (the caches zeroed at each drain's start), so the graph
-  stays bound to them, and fills the buffers with ``copy_`` before each
-  step. ``counters`` report the drain's captures and replays.
+  the engine keeps one pool (its cache tensors and prefix index) and the
+  step's input buffers across drains, so the graph stays bound to them,
+  and fills the buffers with ``copy_`` before each step. ``counters``
+  report the drain's captures and replays.
 
-This slice ports the lockstep drain only: every step's tokens are read back
-before the next step is dispatched. Prefix caching, preemption, chunked
-prefill, the pipelined drain, load-adaptive MP, fault injection, the
-numerical guardrail, dense-ring continuous serving and mesh serving raise
-``NotImplementedError`` naming the slice that brings them (ROADMAP.md).
+As in the reference, the continuous engine shares KV blocks across requests
+by default (``prefix_cache``, copy-on-write, the index kept across drains),
+lets a strictly higher-priority waiter evict a live request under block
+pressure (``preemption``; the victim resumes by re-prefilling its prompt
+and the tokens it had), and splits long prompts into chunks interleaved
+with decode steps (``chunk_len``, ``chunk_budget``). Only the lockstep
+drain is ported: every step's tokens are read back before the next step is
+dispatched. The pipelined drain, dense-ring continuous serving,
+load-adaptive MP, fault injection, the numerical guardrail and mesh serving
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 
 Both engines accept ``mp`` as an op->format dict or an ``MPPlan``.
 """
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
@@ -47,12 +53,20 @@ __all__ = ["ServeEngine", "ContinuousBatchingEngine", "GenResult",
            "ServeSummary", "prefill_bucket"]
 
 
-def prefill_bucket(n: int, min_bucket: int = 8) -> int:
-    """Padded length for a prefill of ``n`` real tokens: the next power of
-    two, at least ``min_bucket``."""
+def prefill_bucket(n: int, chunk_len: Optional[int] = None,
+                   min_bucket: int = 8) -> int:
+    """Padded length for a prefill chunk of ``n`` real tokens: the next
+    power of two, at least ``min_bucket``, clamped to ``chunk_len`` when
+    chunking is on."""
     if n < 1:
         raise ValueError(n)
-    return max(min_bucket, 1 << (n - 1).bit_length())
+    b = max(min_bucket, 1 << (n - 1).bit_length())
+    if chunk_len is not None:
+        if n > chunk_len:
+            raise ValueError(f"chunk of {n} tokens exceeds chunk_len "
+                             f"{chunk_len}")
+        b = min(b, chunk_len)
+    return b
 
 
 def _sync(device: torch.device) -> None:
@@ -137,24 +151,42 @@ class ServeEngine:
                          tokens_per_s=B * max_new_tokens / max(dt, 1e-9))
 
 
-# options of the reference engine that later slices port
+# options of the reference engine that the port does not have yet, by the
+# ROADMAP.md item that brings them
 _LATER = {
-    "paged=False": "dense-ring continuous serving lands with chunked "
-                   "prefill, port slice 6",
-    "prefix_cache": "prefix caching with copy-on-write lands in port "
-                    "slice 4",
-    "preemption": "priority preemption (resumed through the prefix cache) "
-                  "lands in port slice 4",
-    "chunk_len": "chunked prefill lands in port slice 6",
-    "adaptive": "load-adaptive MP lands with serving robustness, port "
-                "slice 7",
+    "paged=False": "dense-ring continuous serving lands with the rest of "
+                   "ROADMAP item A4, a later port slice",
+    "adaptive": "load-adaptive MP lands with serving robustness, ROADMAP "
+                "item A5, a later port slice",
     "faults": "fault injection and containment land with serving "
-              "robustness, port slice 7",
+              "robustness, ROADMAP item A5, a later port slice",
     "guardrail": "the numerical guardrail lands with serving robustness, "
-                 "port slice 7",
-    "mesh": "mesh-sharded serving lands with the multi-GPU slice",
-    "sync=False": "the pipelined drain lands in port slice 5",
+                 "ROADMAP item A5, a later port slice",
+    "mesh": "mesh-sharded serving lands with ROADMAP item A9, the "
+            "multi-GPU port slice",
+    "sync=False": "the pipelined drain lands with ROADMAP item A3, the next "
+                  "serving slice of the port",
 }
+
+
+def _weights_of(params: dict) -> tuple:
+    """(weak reference, in-place version) of every tensor of ``params``."""
+    out = []
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                out.append((weakref.ref(v), v._version))
+    walk(params)
+    return tuple(out)
+
+
+def _same_weights(a: tuple, b: tuple) -> bool:
+    return len(a) == len(b) and all(
+        ra() is not None and ra() is rb() and va == vb
+        for (ra, va), (rb, vb) in zip(a, b))
 
 
 def _refuse(name: str):
@@ -165,12 +197,23 @@ class ContinuousBatchingEngine:
     """Continuous batching over a fixed pool of paged cache slots.
 
     Each clock tick: admit arrived requests while slots and blocks allow
-    (the block budget is the backpressure signal), run at most
-    ``chunk_budget`` prefill steps while anything decodes (every prefilling
-    slot's prompt co-batched, padded to the largest bucket), then one decode
-    step over all ``n_slots`` rows with per-row positions and block tables.
-    Vacant rows decode garbage whose K/V writes land in the trash block.
-    """
+    (the block budget is the backpressure signal; with ``preemption`` a
+    strictly higher-priority waiter gated on it evicts the lowest-priority,
+    latest-admitted live request, which re-queues with its prompt and the
+    tokens it had), run prefill chunk steps — freely while nothing decodes,
+    else at most ``chunk_budget`` — each co-batching the next chunk of every
+    prefilling slot (at most ``chunk_len`` tokens, padded to the largest
+    bucket; priority, then shortest remaining prefill, then slot), then one
+    decode step over all ``n_slots`` rows with per-row positions and block
+    tables. Vacant rows decode garbage whose K/V writes land in the trash
+    block.
+
+    ``prefix_cache`` (None: on, as for every paged pure-attention model the
+    port builds) hashes each admitted prompt block by block against the
+    pool's index, maps matched blocks into the slot's table and starts its
+    prefill at the first unmatched token; a shared page in a chunk's write
+    range is forked first (copy-on-write). The pool and its index outlive
+    the drain, so a later drain hits what an earlier one indexed."""
 
     def __init__(self, model, n_slots: int = 4, max_len: int = 512,
                  mp=None, paged: bool = True, block_size: int = 16,
@@ -178,24 +221,24 @@ class ContinuousBatchingEngine:
                  chunk_len: Optional[int] = None, chunk_budget: int = 1,
                  min_bucket: int = 8, paged_attn: Optional[str] = None,
                  mesh=None, prefix_cache: Optional[bool] = None,
-                 preemption: bool = False, adaptive=None, faults=None,
+                 preemption: bool = True, adaptive=None, faults=None,
                  guardrail=None, device: DeviceLike = None):
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache shares paged KV blocks; drop it "
+                             "or remove paged=False")
         if not paged:
             _refuse("paged=False")
-        for name, val in (("prefix_cache", prefix_cache),
-                          ("preemption", preemption),
-                          ("chunk_len", chunk_len is not None),
-                          ("adaptive", adaptive is not None),
-                          ("faults", faults is not None),
-                          ("guardrail", guardrail is not None),
-                          ("mesh", mesh is not None)):
-            if val:
+        for name, val in (("adaptive", adaptive), ("faults", faults),
+                          ("guardrail", guardrail), ("mesh", mesh)):
+            if val is not None:
                 _refuse(name)
         if paged_attn is None:
             paged_attn = "fused"
         if paged_attn not in ("fused", "gather"):
             raise ValueError(f"paged_attn must be 'fused' or 'gather', got "
                              f"{paged_attn!r}")
+        if chunk_len is not None and chunk_len < 1:
+            raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
         if chunk_budget < 1:
             raise ValueError(f"chunk_budget must be >= 1, got {chunk_budget}")
         self.model = model
@@ -204,41 +247,80 @@ class ContinuousBatchingEngine:
         self.mp = as_assignment(mp)
         self.block_size = block_size
         self.n_blocks = n_blocks
+        self.chunk_len = chunk_len
         self.chunk_budget = chunk_budget
         self.min_bucket = min_bucket
         self.paged_attn = paged_attn
+        # every model the port builds is pure attention (attn / mla blocks,
+        # no slot-major SSM state), so the prefix cache is on unless refused
+        self.prefix_cache = prefix_cache is None or bool(prefix_cache)
+        self.preemption = bool(preemption)
         self.device = resolve_device(device)
         self.prefill_chunk_step = get_serving_step(model, "chunked_prefill",
                                                    mp=self.mp)
         self.decode_step = get_serving_step(model, "paged_decode", mp=self.mp,
                                             paged_attn=paged_attn)
-        self._kept = None         # (caches, host and device decode inputs)
+        self._pool = None
+        self._weights = ()        # the weights the pool's index was built on
+        self._inputs = None       # (host, device) decode input buffers
 
-    def _pool_and_inputs(self):
-        """This drain's pool, over the cache tensors of the engine's last
-        drain (zeroed), and the decode step's input buffers: pinned host
+    def _make_pool(self, params) -> PagedCachePool:
+        """The engine's one pool, kept across drains with its prefix index
+        (a prefix indexed by one drain is a hit in the next) and its cache
+        tensors (the decode graph stays bound to them). The index is
+        dropped when the weights are not the last drain's (other tensors,
+        or one changed in place): its blocks hold K/V of those weights. A
+        drain that raised with slots in use leaves books that cannot be
+        trusted: the next one gets a new pool, with an empty index, over
+        the same tensors, zeroed."""
+        pool = self._pool
+        weights = _weights_of(params)
+        if pool is not None and pool.n_free_slots == self.n_slots:
+            pool.reset_counters()
+            if not _same_weights(self._weights, weights):
+                pool.invalidate_prefix_index()
+        else:
+            pool = PagedCachePool(self.model, self.n_slots, self.max_len,
+                                  block_size=self.block_size,
+                                  n_blocks=self.n_blocks, device=self.device,
+                                  caches=None if pool is None
+                                  else pool.caches)
+            self._pool = pool
+        self._weights = weights
+        return pool
+
+    def _decode_inputs(self, pool: PagedCachePool):
+        """The decode step's input buffers, kept across drains: pinned host
         arrays for positions and block tables, and device buffers for
-        token, positions and block tables, filled with ``copy_`` each step.
-        Keeping them keeps the decode graph bound across drains."""
-        pool = PagedCachePool(self.model, self.n_slots, self.max_len,
-                              block_size=self.block_size,
-                              n_blocks=self.n_blocks, device=self.device,
-                              caches=None if self._kept is None
-                              else self._kept[0])
-        if self._kept is None:
+        token, positions and block tables, filled with ``copy_`` each
+        step."""
+        if self._inputs is None:
             dev, n, nb = self.device, self.n_slots, pool.max_blocks
             pin = dev.type == "cuda"
             host = (torch.zeros((n,), dtype=torch.int32, pin_memory=pin),
                     torch.zeros((n, nb), dtype=torch.int32, pin_memory=pin))
             inputs = tuple(torch.zeros(shape, dtype=torch.int32, device=dev)
                            for shape in ((n, 1), (n,), (n, nb)))
-            self._kept = (pool.caches, host, inputs)
-        return pool, self._kept[1], self._kept[2]
+            self._inputs = (host, inputs)
+        return self._inputs
 
-    def _admit(self, pool: PagedCachePool, sched: Scheduler,
-               now: int) -> None:
-        """Claim slots for admissible requests (FCFS within priority); the
-        head of the queue waits while the block budget cannot cover it."""
+    def _digests(self, pool: PagedCachePool, st):
+        """Chained prefix digests of the request's effective prompt (after
+        a preemption the generated tokens extend the chain, so the resumed
+        request matches its own still-cached blocks)."""
+        if not self.prefix_cache:
+            return None
+        if st.digests is None:
+            st.digests = pool.prefix_digests(st.effective_tokens)
+        return st.digests
+
+    def _admit(self, pool: PagedCachePool, sched: Scheduler, now: int,
+               evict=None) -> None:
+        """Claim slots for admissible requests (priority, then FCFS); the
+        best waiter blocks the queue while the block budget cannot cover
+        it. With ``evict`` (preemption), a gated waiter that outranks a
+        live request evicts the scheduler's victim and admission retries;
+        each round removes one victim, and equal priority never evicts."""
         def gate(r):
             st = sched.states[r.rid]
             need = pool.blocks_for_request(st.effective_prompt_len,
@@ -249,36 +331,61 @@ class ContinuousBatchingEngine:
                     f"has only {pool.allocatable_blocks}; raise --n-blocks "
                     f"or shrink the request")
             return pool.can_admit(st.effective_prompt_len,
-                                  st.remaining_new_tokens)
+                                  st.remaining_new_tokens,
+                                  digests=self._digests(pool, st))
 
-        while pool.n_free_slots:
-            st = sched.pop_admissible(now, gate)
-            if st is None:
+        while True:
+            while pool.n_free_slots:
+                st = sched.pop_admissible(now, gate)
+                if st is None:
+                    break
+                req = st.request
+                if req.prompt_len + req.max_new_tokens > self.max_len:
+                    raise ValueError(
+                        f"request {req.rid}: {req.prompt_len}+"
+                        f"{req.max_new_tokens} exceeds max_len "
+                        f"{self.max_len}")
+                # matched prefix blocks are mapped in and skipped
+                slot = pool.alloc_slot(st.effective_prompt_len,
+                                       st.remaining_new_tokens,
+                                       digests=self._digests(pool, st))
+                sched.start_prefill(st, slot, now,
+                                    start_at=pool.matched_tokens(slot))
+                if st.wall_admitted == 0.0:   # resumed: keep first admission
+                    st.wall_admitted = time.perf_counter()
+            if evict is None:
                 return
-            req = st.request
-            if req.prompt_len + req.max_new_tokens > self.max_len:
-                raise ValueError(
-                    f"request {req.rid}: {req.prompt_len}+"
-                    f"{req.max_new_tokens} exceeds max_len {self.max_len}")
-            slot = pool.alloc_slot(st.effective_prompt_len,
-                                   st.remaining_new_tokens)
-            sched.start_prefill(st, slot, now)
-            st.wall_admitted = time.perf_counter()
+            cand = sched.peek_admissible(now)
+            if cand is None:
+                return
+            victim = sched.preempt_candidate(cand.request.priority)
+            if victim is None:
+                return
+            evict(victim)
 
     def _prefill_tick(self, params, pool: PagedCachePool, sched: Scheduler,
                       now: int):
-        """One prefill step co-batching every prefilling slot's prompt over
-        the full ``n_slots`` batch (inactive rows pass through with valid =
-        0). Returns (device tokens, finished (slot, state) pairs, prompt
-        tokens processed)."""
-        cands = sorted(
-            ((slot, st, st.prefill_pos,
-              st.effective_prompt_len - st.prefill_pos)
-             for slot, st in sched.prefilling.items()),
-            key=lambda c: (-c[1].request.priority, c[3], c[0]))
+        """One prefill step co-batching the next chunk (at most
+        ``chunk_len`` tokens) of every prefilling slot over the full
+        ``n_slots`` batch (inactive rows pass through with valid = 0); a
+        borrowed page in a chunk's write range is forked first. Returns
+        (the step's seconds, device tokens, finished (slot, state) pairs,
+        prompt tokens processed)."""
+        cands = []
+        for slot, st in sched.prefilling.items():
+            start = st.prefill_pos
+            take = st.effective_prompt_len - start
+            if self.chunk_len is not None:
+                take = min(take, self.chunk_len)
+            cands.append((slot, st, start, take))
+        # priority classes first, then the shortest remaining prefill (a
+        # mostly cached prompt has a tiny remainder and jumps the line)
+        cands.sort(key=lambda c: (-c[1].request.priority,
+                                  c[1].effective_prompt_len
+                                  - c[1].prefill_pos, c[0]))
         for slot, st, start, take in cands:
             pool.ensure_range(slot, start, start + take)
-        bucket = max(prefill_bucket(take, self.min_bucket)
+        bucket = max(prefill_bucket(take, self.chunk_len, self.min_bucket)
                      for *_, take in cands)
         tok = np.zeros((self.n_slots, bucket), np.int32)
         start_v = np.ones((self.n_slots,), np.int32)   # >0: leave row alone
@@ -295,13 +402,19 @@ class ContinuousBatchingEngine:
             torch.from_numpy(start_v).to(dev),
             torch.from_numpy(valid_v).to(dev), pool.block_tables_device())
         nxt = greedy_next_token(logits)
+        _sync(dev)          # the stall counters hold the chunk's device time
         dt = time.perf_counter() - t0
+        if self.prefix_cache:
+            # index the blocks this chunk filled: a later matcher's chunks
+            # are queued after these writes on the same stream
+            for slot, st, start, take in cands:
+                pool.register_prefix(slot, start + take)
         finished = []
         for slot, st, start, take in cands:
             st = sched.prefill_advance(slot, take, dt)
             if st.prefill_pos == st.effective_prompt_len:
                 finished.append((slot, sched.finish_prefill(slot, None, now)))
-        return nxt, finished, sum(c[3] for c in cands)
+        return dt, nxt, finished, sum(c[3] for c in cands)
 
     def serve(self, params, requests: Sequence[Request], *,
               sync: bool = True) -> ServeSummary:
@@ -310,8 +423,9 @@ class ContinuousBatchingEngine:
         if not sync:
             _refuse("sync=False")
         _check_params(params, self.device)
-        pool, (pos_host, bt_host), (tok_in, pos_in, bt_in) = \
-            self._pool_and_inputs()
+        pool = self._make_pool(params)
+        (pos_host, bt_host), (tok_in, pos_in, bt_in) = \
+            self._decode_inputs(pool)
         sched = Scheduler()
         for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
             sched.submit(r)
@@ -322,6 +436,9 @@ class ContinuousBatchingEngine:
         decode_s = 0.0
         peak_queue = peak_live = peak_blocks = peak_slots = 0
         prefill_chunks = prefill_tokens = decode_stall_steps = 0
+        stall_run = max_stall_run = 0
+        stall_s_run = 0.0
+        stall_s = []              # per decode step: prefill time before it
         launches0 = _paged_kernel.launches
         graphs0 = _steps.graph_captures, _steps.graph_replays
 
@@ -335,21 +452,32 @@ class ContinuousBatchingEngine:
                 if idx == 0:
                     st.ttft_s = t_now - st.wall_admitted
 
+        def evict(st):
+            # every token of the victim was read back by the lockstep drain;
+            # its blocks' next writer is a step queued after this
+            pool.free_slot(st.slot)
+            sched.preempt(st, now)
+
+        evict = evict if self.preemption else None
         t_start = time.perf_counter()
         with torch.no_grad():
             while sched.has_work():
-                self._admit(pool, sched, now)
+                self._admit(pool, sched, now, evict)
                 peak_queue = max(peak_queue, sched.queue_depth)
                 chunks = 0
                 while sched.prefilling and (not sched.running
                                             or chunks < self.chunk_budget):
-                    if sched.running:
-                        decode_stall_steps += 1
-                    nxt, finished, n_tok = self._prefill_tick(
+                    was_decoding = bool(sched.running)
+                    dt, nxt, finished, n_tok = self._prefill_tick(
                         params, pool, sched, now)
                     prefill_chunks += 1
                     prefill_tokens += n_tok
                     chunks += 1
+                    if was_decoding:
+                        decode_stall_steps += 1
+                        stall_run += 1
+                        max_stall_run = max(max_stall_run, stall_run)
+                        stall_s_run += dt
                     if finished:
                         mask = np.zeros((self.n_slots,), bool)
                         for slot, _ in finished:
@@ -357,13 +485,14 @@ class ContinuousBatchingEngine:
                         cur_tok = merge_first_tokens(
                             cur_tok, nxt, torch.from_numpy(mask).to(
                                 self.device))
+                        # a resumed request's placeholder is its last entry
                         deliver(nxt, [(st, len(st.out_tokens) - 1, slot)
                                       for slot, st in finished])
                         for slot, st in finished:
                             if st.done:              # max_new_tokens == 1
                                 retired.append(sched.retire(st, now))
                                 pool.free_slot(slot)
-                    self._admit(pool, sched, now)
+                    self._admit(pool, sched, now, evict)
                 if sched.running:
                     pos = pos_host.numpy()
                     pos[:] = 0
@@ -375,8 +504,8 @@ class ContinuousBatchingEngine:
                     peak_slots = max(peak_slots, len(sched.running))
                     peak_blocks = max(peak_blocks, pool.blocks_in_use)
                     # decode sees block tables only for running rows: a slot
-                    # mid-prefill owns real blocks, and the vacant-row
-                    # garbage write must go to the trash block
+                    # mid-prefill maps real (possibly shared) blocks, and the
+                    # vacant-row garbage write must go to the trash block
                     bt = bt_host.numpy()
                     bt[:] = pool.block_tables
                     for s in range(self.n_slots):
@@ -400,6 +529,8 @@ class ContinuousBatchingEngine:
                     deliver(nxt, deliveries)
                     decode_s += time.perf_counter() - t0
                     n_steps += 1
+                    stall_s.append(stall_s_run)
+                    stall_s_run, stall_run = 0.0, 0
                     for slot in list(sched.running):
                         st = sched.running[slot]
                         if st.done:
@@ -433,13 +564,30 @@ class ContinuousBatchingEngine:
             "peak_slots_in_use": peak_slots,
             "prefill_chunks": prefill_chunks,
             "prefill_tokens": prefill_tokens,
+            "preemptions": sched.preemptions,
             "decode_stall_steps": decode_stall_steps,
+            "max_decode_stall_run": max_stall_run,
             "block_size": pool.block_size,
             "n_blocks": pool.n_blocks,
             "peak_blocks_in_use": peak_blocks,
+            "free_blocks_final": pool.n_free_blocks,
             "kv_bytes_per_block": blk_bytes,
             "peak_kv_bytes": peak_blocks * blk_bytes,
+            # tokens whose prefill was skipped because a resident chain of
+            # blocks already held them
+            "prefix_cache": self.prefix_cache,
+            "prefix_hit_requests": pool.prefix_hit_requests,
+            "prefix_hit_blocks": pool.prefix_hit_blocks,
+            "prefix_hit_tokens": pool.prefix_hit_tokens,
+            "cow_forks": pool.cow_forks,
+            "cached_blocks_final": pool.n_cached_blocks,
+            "reclaimed_cached_blocks": pool.reclaimed_cached_blocks,
         }
+        if stall_s:
+            arr = np.sort(np.asarray(stall_s, np.float64))
+            counters["decode_stall_p50_s"] = float(arr[len(arr) // 2])
+            counters["decode_stall_p99_s"] = float(
+                arr[min(len(arr) - 1, int(0.99 * len(arr)))])
         return ServeSummary(
             results=results, n_steps=n_steps, decode_s=decode_s,
             total_s=total_s,

@@ -1,9 +1,10 @@
 """Continuous-batching request scheduler (priority admission + preemption).
 
 The port's own copy of ``repro/serve/scheduler.py`` (NumPy-only, unchanged
-in behaviour: the same request streams give the same admission order). The
-port's engine does not drive preemption or fault retries yet; the
-scheduler's support for them stays so the two copies do not drift.
+in behaviour: the same request streams give the same admission order and
+the same preemption victims). The port's engine drives preemption; it does
+not drive fault retries yet, whose support stays so the two copies do not
+drift.
 
 The scheduler is pure host-side bookkeeping: it owns the waiting queue and
 the per-request prefill/decode state, and decides *which* request may enter

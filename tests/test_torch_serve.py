@@ -279,8 +279,7 @@ def test_oneshot_matches_reference_serve_engine(prompts):
 
 
 @pytest.mark.parametrize("kw", [
-    {"paged": False}, {"prefix_cache": True}, {"preemption": True},
-    {"chunk_len": 8}, {"adaptive": object()}, {"faults": object()},
+    {"paged": False}, {"adaptive": object()}, {"faults": object()},
     {"guardrail": object()}, {"mesh": object()}])
 def test_later_slices_refuse(model, kw):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -336,3 +335,305 @@ def test_launcher_runs_on_the_host(tmp_path, capsys):
     main(["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "10",
           "--new-tokens", "3"])
     assert "TTFT" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# prefix caching, priority preemption and chunked prefill
+# ---------------------------------------------------------------------------
+
+DS = "deepseek_v3_671b"
+DENSE_MLA = dict(moe_layers=(), mtp_depth=0, mla_absorb_decode=True)
+MLA_MP = {"layers/0/attn/q_b_proj": "fp8_e4m3",
+          "layers/1/attn/kv_b_proj": "fp8_e4m3",
+          "layers/1/mlp/down_proj": "fp8_e4m3",
+          "layers/2/attn/qk_matmul": "fp8_e4m3",
+          "layers/2/attn/av_matmul": "fp8_e4m3", "lm_head": "fp8_e4m3"}
+# what the reference engine counts and the port must count alike
+SCHEDULE_COUNTERS = ("prefix_hit_requests", "prefix_hit_tokens", "cow_forks",
+                     "preemptions", "prefill_chunks", "decode_stall_steps",
+                     "max_decode_stall_run", "blocked_admissions",
+                     "reclaimed_cached_blocks")
+_PAIRS: dict = {}
+
+
+def _pair(arch: str):
+    """(reference model, its params, port model, the same params bridged)
+    for the smoke llama3_1b ("attn") or DeepSeek-V3's smoke dense MLA
+    prefix with absorbed decode ("mla")."""
+    if arch not in _PAIRS:
+        name, kw = ("llama3_1b", {}) if arch == "attn" else (DS, DENSE_MLA)
+        jm = jget(name, smoke=True, **kw)
+        jp = jm.init(jax.random.key(0))
+        tm = get_model(name, smoke=True, **kw)
+        tp = params_from_flat({k: np.asarray(v) for k, v in
+                               flatten_paths(jp).items()}, tm.cfg, "cpu")
+        _PAIRS[arch] = (jm, jp, tm, tp)
+    return _PAIRS[arch]
+
+
+def _scenario(name: str):
+    """(engine kwargs, [(rid, prompt, max_new, arrival, priority)]).
+
+    * share: three prompts on one 16-token base (4 blocks of 4) plus 4 own
+      tokens, then the first prompt again (a full-prompt hit: its tail
+      chunk forks the last shared block);
+    * preempt: each request's worst case takes all 5 allocatable blocks,
+      and a priority-1 request arrives while a priority-0 one decodes;
+    * chunked: prompts of 5 to 29 tokens in chunks of 8, one chunk step
+      between decode steps, arriving while others decode."""
+    rng = np.random.default_rng({"share": 31, "preempt": 29,
+                                 "chunked": 19}[name])
+    if name == "share":
+        base = rng.integers(0, 200, size=16).astype(np.int32)
+        ps = [np.concatenate([base, rng.integers(0, 200, size=4)
+                              .astype(np.int32)]) for _ in range(3)]
+        reqs = [(i, p, 4, i, 0) for i, p in enumerate(ps + ps[:1])]
+        return dict(n_slots=2, max_len=40, block_size=4), reqs
+    if name == "preempt":
+        ps = [rng.integers(0, 200, size=12).astype(np.int32)
+              for _ in range(3)]
+        reqs = [(0, ps[0], 8, 0, 0), (1, ps[1], 8, 1, 0), (2, ps[2], 8, 2, 1)]
+        return dict(n_slots=2, max_len=32, block_size=4, n_blocks=6), reqs
+    lens = (13, 29, 5, 21)
+    reqs = [(i, rng.integers(0, 200, size=n).astype(np.int32), 4, 2 * i, 0)
+            for i, n in enumerate(lens)]
+    return dict(n_slots=3, max_len=40, block_size=4, chunk_len=8,
+                chunk_budget=1), reqs
+
+
+def _drain(cls, req_cls, model, params, spec, **kw):
+    """The lockstep drain of ``spec`` on engine class ``cls``."""
+    ekw, reqs = spec
+    eng = cls(model, **dict(ekw, **kw))
+    rs = [req_cls(rid=rid, tokens=p, max_new_tokens=m, arrival=a,
+                  priority=pr) for rid, p, m, a, pr in reqs]
+    return eng.serve(params, rs, sync=True)
+
+
+@pytest.mark.parametrize("scenario", ["share", "preempt", "chunked"])
+@pytest.mark.parametrize("arch", ["attn", "mla"])
+def test_continuous_engine_matches_reference_engine(arch, scenario):
+    """The port's drain and the reference's lockstep drain of the same
+    requests on the same weights: equal schedule counters (prefix hits,
+    forks, preemptions, chunks, stalls) and decode steps; greedy tokens
+    agree with the port's one-shot engine (bit for bit in the port, up to
+    a near-tie in the reference)."""
+    from repro.serve import ContinuousBatchingEngine as JEngine
+    jm, jp, tm, tp = _pair(arch)
+    spec = _scenario(scenario)
+    want = _drain(JEngine, JRequest, jm, jp, spec)
+    got = _drain(ContinuousBatchingEngine, Request, tm, tp, spec,
+                 device="cpu")
+    for key in SCHEDULE_COUNTERS:
+        assert got.counters[key] == want.counters[key], key
+    assert got.n_steps == want.n_steps
+    c = got.counters
+    if scenario == "share":
+        assert c["prefix_hit_requests"] == 3 and c["cow_forks"] == 1
+    elif scenario == "preempt":
+        assert c["preemptions"] >= 1
+        assert got.results[2].finished_step < got.results[0].finished_step
+    else:
+        assert c["prefill_chunks"] > len(spec[1])
+        assert c["max_decode_stall_run"] == 1 and c["decode_stall_steps"] > 0
+    ref = _oneshot(tm, tp, [p for _, p, *_ in spec[1]], spec[1][0][2])
+    for (rid, *_), (tok, gaps) in zip(spec[1], ref):
+        assert got.results[rid].status == "ok"
+        np.testing.assert_array_equal(got.results[rid].tokens, tok)
+        assert_agree(np.asarray(want.results[rid].tokens), tok, gaps)
+
+
+# the twin each scenario is held to, bit for bit, inside the port
+_TWIN = {"share": dict(prefix_cache=False), "preempt": dict(preemption=False),
+         "chunked": dict(chunk_len=None)}
+
+
+@pytest.mark.parametrize("mp", [False, True], ids=["plain", "mp"])
+@pytest.mark.parametrize("scenario", ["share", "preempt", "chunked"])
+@pytest.mark.parametrize("arch", ["attn", "mla"])
+def test_port_drain_bit_equal_to_its_twin(arch, scenario, mp):
+    """On the CPU, within the port, plain and under an MP plan: sharing on
+    gives the tokens of sharing off, a preempted request those of its
+    uninterrupted run, chunked prefill those of one-chunk prefill — bit
+    for bit (K/V under the serving policy is a function of the tokens at
+    or before each position, and every CPU product here is an f32 sum over
+    the same operands)."""
+    _, _, tm, tp = _pair(arch)
+    plan = (MLA_MP if arch == "mla" else MP_ASSIGNMENT) if mp else None
+    spec = _scenario(scenario)
+    got = _drain(ContinuousBatchingEngine, Request, tm, tp, spec,
+                 device="cpu", mp=plan)
+    twin = _drain(ContinuousBatchingEngine, Request, tm, tp, spec,
+                  device="cpu", mp=plan, **_TWIN[scenario])
+    c, t = got.counters, twin.counters
+    if scenario == "share":
+        assert c["prefix_hit_tokens"] > 0 and c["cow_forks"] == 1
+        assert c["prefill_tokens"] == t["prefill_tokens"] - \
+            c["prefix_hit_tokens"]
+    elif scenario == "preempt":
+        assert c["preemptions"] >= 1 and t["preemptions"] == 0
+    else:
+        assert c["prefill_chunks"] > t["prefill_chunks"]
+    assert got.results.keys() == twin.results.keys()
+    for rid in twin.results:
+        np.testing.assert_array_equal(got.results[rid].tokens,
+                                      twin.results[rid].tokens)
+
+
+def test_uniform_priority_never_preempts(model, params, prompts):
+    """At uniform priority the preemption path is inert: block pressure
+    is head-of-line backpressure; with preemption off, priorities still
+    admit in class order and never evict."""
+    eng = ContinuousBatchingEngine(model, n_slots=4, max_len=32,
+                                   block_size=4, n_blocks=9, device="cpu")
+    assert eng.preemption
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    summ = eng.serve(params, reqs)
+    assert summ.counters["preemptions"] == 0
+    assert summ.counters["blocked_admissions"] > 0
+    eng2 = ContinuousBatchingEngine(model, n_slots=4, max_len=32,
+                                    block_size=4, n_blocks=9,
+                                    preemption=False, device="cpu")
+    reqs2 = [Request(rid=i, tokens=p, max_new_tokens=6, priority=i % 2)
+             for i, p in enumerate(prompts)]
+    summ2 = eng2.serve(params, reqs2)
+    assert summ2.counters["preemptions"] == 0
+    assert set(summ2.results) == set(range(len(prompts)))
+    for i in range(len(prompts)):
+        np.testing.assert_array_equal(summ.results[i].tokens,
+                                      summ2.results[i].tokens)
+
+
+def test_random_mix_respects_chunk_budget(model, params):
+    """A random prompt-length mix never stalls a decoding slot for more
+    than ``chunk_budget`` chunk steps in a row, and keeps the one-shot
+    tokens."""
+    rng = np.random.default_rng(19)
+    lens = rng.integers(1, 30, size=6)
+    ps = [rng.integers(0, 500, size=int(n)).astype(np.int32) for n in lens]
+    ref = _oneshot(model, params, ps, 3)
+    eng = ContinuousBatchingEngine(model, n_slots=3, max_len=40,
+                                   block_size=4, chunk_len=8, chunk_budget=2,
+                                   device="cpu")
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=3,
+                    arrival=int(rng.integers(0, 4)))
+            for i, p in enumerate(ps)]
+    summ = eng.serve(params, reqs)
+    for i, (tok, gaps) in enumerate(ref):
+        assert_agree(summ.results[i].tokens, tok, gaps)
+    assert summ.counters["max_decode_stall_run"] <= 2
+    assert summ.counters["prefill_chunks"] >= sum(
+        -(-int(n) // 8) for n in lens) / 3   # co-batching can merge, not skip
+    assert "decode_stall_p99_s" in summ.counters
+
+
+def test_second_drain_hits_the_prefix_cache(model, params):
+    """The pool and its index outlive the drain: the same prompts served
+    again hit every full block (and fork the tail), with the same tokens;
+    other weights drop the index."""
+    _, reqs = _scenario("share")
+    rs = [Request(rid=rid, tokens=p, max_new_tokens=m, arrival=a)
+          for rid, p, m, a, _ in reqs[:3]]
+    eng = ContinuousBatchingEngine(model, n_slots=2, max_len=40,
+                                   block_size=4, device="cpu")
+    first = eng.serve(params, rs)
+    pool = eng._pool
+    caches = {k: dict(d) for k, d in pool.caches.items()}
+    second = eng.serve(params, rs)
+    assert eng._pool is pool and all(
+        pool.caches[k][n] is t for k, d in caches.items()
+        for n, t in d.items())
+    assert first.counters["prefix_hit_requests"] == 2
+    assert second.counters["prefix_hit_requests"] == 3
+    assert second.counters["cow_forks"] == 3
+    assert second.counters["prefill_tokens"] == 3
+    for rid in first.results:
+        np.testing.assert_array_equal(second.results[rid].tokens,
+                                      first.results[rid].tokens)
+    other = model.init(default_generator(7, "cpu"), "cpu")
+    third = eng.serve(other, rs)
+    fresh = ContinuousBatchingEngine(model, n_slots=2, max_len=40,
+                                     block_size=4, device="cpu").serve(
+        other, rs)
+    assert third.counters["prefix_hit_requests"] == 2
+    for rid in fresh.results:
+        np.testing.assert_array_equal(third.results[rid].tokens,
+                                      fresh.results[rid].tokens)
+    # a weight changed in place drops the index too
+    other["layers"]["1"]["mlp"]["up_proj"]["w"].mul_(1.5)
+    assert eng.serve(other, rs).counters["prefix_hit_requests"] == 2
+
+
+def test_fork_leaves_the_parent_block_unchanged(model, params):
+    """A full-prompt hit reads borrowed pages and writes its tail into a
+    fresh fork: every block of the parent's prompt holds, after the drain,
+    the bytes a drain of the parent alone leaves there."""
+    p = np.random.default_rng(3).integers(0, 500, size=16).astype(np.int32)
+    pools = []
+    for n in (1, 2):
+        eng = ContinuousBatchingEngine(model, n_slots=2, max_len=32,
+                                       block_size=4, device="cpu")
+        summ = eng.serve(params, [Request(rid=i, tokens=p, max_new_tokens=4,
+                                          arrival=3 * i) for i in range(n)])
+        assert summ.counters["cow_forks"] == n - 1
+        pools.append(eng._pool)
+    blocks = pools[0]._match_blocks(pools[0].prefix_digests(p))
+    assert len(blocks) == 4
+    assert pools[1]._match_blocks(pools[1].prefix_digests(p)) == blocks
+    for layer, d in pools[0].caches.items():
+        for name, t in d.items():
+            assert torch.equal(pools[1].caches[layer][name][blocks],
+                               t[blocks]), (layer, name)
+
+
+def test_engine_defaults_and_refusals(model):
+    eng = ContinuousBatchingEngine(model, device="cpu")
+    assert eng.prefix_cache and eng.preemption and eng.chunk_len is None
+    assert eng.chunk_budget == 1
+    assert not ContinuousBatchingEngine(model, prefix_cache=False,
+                                        device="cpu").prefix_cache
+    mla = get_model(DS, smoke=True, **DENSE_MLA)
+    assert ContinuousBatchingEngine(mla, device="cpu").prefix_cache
+    with pytest.raises(ValueError, match="prefix_cache"):
+        ContinuousBatchingEngine(model, paged=False, prefix_cache=True,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="chunk_len"):
+        ContinuousBatchingEngine(model, chunk_len=0, device="cpu")
+
+
+def test_prefill_bucket_clamped_to_chunk_len():
+    from repro_torch.serve import prefill_bucket
+    assert prefill_bucket(5) == 8 and prefill_bucket(9) == 16
+    assert prefill_bucket(100, 100) == 100 and prefill_bucket(3, 4) == 4
+    assert prefill_bucket(3, 6, min_bucket=2) == 4
+    with pytest.raises(ValueError):
+        prefill_bucket(9, 8)
+
+
+def test_drain_that_raises_leaves_a_usable_engine(model, params, prompts):
+    """A drain that raises with slots in use leaves books the next drain
+    cannot trust: it gets a new pool with an empty index over the same
+    cache tensors (zeroed), and serves as a fresh engine does."""
+    eng = ContinuousBatchingEngine(model, n_slots=2, max_len=24,
+                                   block_size=4, device="cpu")
+    too_long = np.zeros(20, np.int32)
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        eng.serve(params, [Request(rid=0, tokens=prompts[0], max_new_tokens=6),
+                           Request(rid=1, tokens=too_long, max_new_tokens=6,
+                                   arrival=2)])
+    old = eng._pool
+    assert old.n_free_slots < 2 and old._index
+    leaves = [t for d in old.caches.values() for t in d.values()]
+    reqs = [Request(rid=i, tokens=p, max_new_tokens=4, arrival=i)
+            for i, p in enumerate(prompts[:3])]
+    got = eng.serve(params, reqs)
+    assert eng._pool is not old and got.counters["prefix_hit_requests"] == 0
+    assert all(a is b for a, b in zip(
+        (t for d in eng._pool.caches.values() for t in d.values()), leaves))
+    want = ContinuousBatchingEngine(model, n_slots=2, max_len=24,
+                                    block_size=4, device="cpu").serve(
+        params, reqs)
+    for rid in want.results:
+        np.testing.assert_array_equal(got.results[rid].tokens,
+                                      want.results[rid].tokens)

@@ -3,9 +3,11 @@
 eagerly, on the card: bit-equal logits and tokens for llama3_1b at full
 width and DeepSeek-V3's smoke dense prefix (absorbed MLA decode), fused and
 gather, plain and under an MP plan; two drains in a row over different
-params, and a weight changed in place, each against its eager drain; the
-launch counters against steps x layers; a failed capture raises; the
-weight cache's operands against quantizing per call.
+params, and a weight changed in place, each against its eager drain; a
+drain with copy-on-write forks and a preemption, captured once, against
+its eager drain, and the forked blocks' parents against a drain without
+forks; the launch counters against steps x layers; a failed capture
+raises; the weight cache's operands against quantizing per call.
 
 These tests need a CUDA device and skip without one. They import neither
 ``jax`` nor ``repro``, so they run on the card with::
@@ -79,10 +81,14 @@ def _plan(model) -> MPPlan:
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
 
 
-def _engine(model, mp, paged_attn, eager: bool):
-    eng = ContinuousBatchingEngine(model, n_slots=4, max_len=48, mp=mp,
-                                   block_size=16, paged_attn=paged_attn,
-                                   device="cuda")
+def _engine(model, mp, paged_attn, eager: bool, **kw):
+    """A continuous engine whose decode step records its live rows' logits;
+    the prefix cache is off unless ``kw`` turns it on, so that a second
+    drain of the same prompts prefills them again."""
+    kw = dict(dict(n_slots=4, max_len=48, block_size=16,
+                   prefix_cache=False), **kw)
+    eng = ContinuousBatchingEngine(model, mp=mp, paged_attn=paged_attn,
+                                   device="cuda", **kw)
     step = (tsteps.make_paged_decode_step(model, mp=eng.mp,
                                           paged_attn=paged_attn)
             if eager else eng.decode_step)
@@ -130,21 +136,25 @@ def test_graphed_drain_equals_eager_drain(cuda, arch, mp, paged_attn):
     for rid in e_toks:
         np.testing.assert_array_equal(g_toks[rid], e_toks[rid])
     assert torch.equal(g_logits, e_logits)
-    # the next drain over the same params and pool replays only
+    # the next drain over the same params and pool replays only; the pool's
+    # free slots now come in another order, as on the eager engine
+    _, _, e_logits2 = _drain(eager, e_log, params, reqs)
     again, g_toks2, g_logits2 = _drain(graphed, g_log, params, reqs)
     assert again.counters["graph_captures"] == 0
     assert again.counters["graph_replays"] == again.n_steps
-    assert torch.equal(g_logits2, e_logits)
+    assert torch.equal(g_logits2, e_logits2)
 
 
 def test_drains_over_other_params_each_match_their_eager_drain(cuda):
     model = _model("llama3_1b")
     plan = _plan(model)
     reqs = _reqs(model, 4)
+    # the eager engine drains what the graphed one does, in the same order,
+    # so both pools hand out slots and blocks alike
     graphed, g_log = _engine(model, plan, "fused", eager=False)
+    eager, e_log = _engine(model, plan, "fused", eager=True)
     for seed in (0, 1):
         params = _params(model, seed)
-        eager, e_log = _engine(model, plan, "fused", eager=True)
         _, _, want = _drain(eager, e_log, params, reqs)
         out, _, got = _drain(graphed, g_log, params, reqs)
         assert out.counters["graph_captures"] == 1
@@ -152,15 +162,68 @@ def test_drains_over_other_params_each_match_their_eager_drain(cuda):
         del params
     # a weight changed in place: quantized again, captured again
     params = _params(model, 2)
+    _drain(eager, e_log, params, reqs)
     _drain(graphed, g_log, params, reqs)
     w = params["layers"][str(model.cfg.n_layers - 1)]["mlp"]["up_proj"]["w"]
     w.mul_(1.5)
     out, _, got = _drain(graphed, g_log, params, reqs)
     assert out.counters["graph_captures"] == 1
     assert weight_cache.quantize_count(w, ("fake", "fp8_e4m3")) == 2
-    eager, e_log = _engine(model, plan, "fused", eager=True)
     _, _, want = _drain(eager, e_log, params, reqs)
     assert torch.equal(got, want)
+
+
+def _fork_and_preempt_reqs(model):
+    """r0 and r1 share a 32-token prompt (two blocks of 16): r1's tail
+    chunk forks r0's second block. The pool holds r0's and r1's worst
+    cases and no more, so r2 (priority 1, arriving at step 3) evicts r1,
+    which resumes through its still-cached prefix."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(11)
+    p0, p2 = (rng.integers(0, model.cfg.vocab_size, size=32).astype(np.int32)
+              for _ in range(2))
+    return [Request(rid=0, tokens=p0, max_new_tokens=16),
+            Request(rid=1, tokens=p0, max_new_tokens=16, arrival=1),
+            Request(rid=2, tokens=p2, max_new_tokens=16, arrival=3,
+                    priority=1)]
+
+
+@pytest.mark.parametrize("arch", ["llama3_1b", DS])
+def test_forks_and_preemption_replay_one_graph(cuda, arch):
+    model = _model(arch)
+    params = _params(model)
+    reqs = _fork_and_preempt_reqs(model)
+    kw = dict(n_slots=2, max_len=48, n_blocks=6, prefix_cache=True)
+    eager, e_log = _engine(model, None, "fused", eager=True, **kw)
+    e_out, e_toks, e_logits = _drain(eager, e_log, params, reqs)
+    graphed, g_log = _engine(model, None, "fused", eager=False, **kw)
+    out, g_toks, g_logits = _drain(graphed, g_log, params, reqs)
+    c = out.counters
+    assert c["cow_forks"] >= 1 and c["preemptions"] >= 1
+    assert c["prefix_hit_requests"] >= 2
+    assert (c["graph_captures"], c["graph_replays"]) == (1, out.n_steps - 1)
+    for key in ("cow_forks", "preemptions", "prefix_hit_tokens"):
+        assert e_out.counters[key] == c[key], key
+    assert g_toks.keys() == e_toks.keys() == {0, 1, 2}
+    for rid in e_toks:
+        np.testing.assert_array_equal(g_toks[rid], e_toks[rid])
+    assert torch.equal(g_logits, e_logits)
+    # r0's prompt blocks hold what a drain of r0 alone leaves there
+    pool = graphed._pool
+    blocks = pool._match_blocks(pool.prefix_digests(reqs[0].tokens))
+    assert len(blocks) == 2
+    kept = {(layer, name): t[blocks].clone()
+            for layer, d in pool.caches.items() for name, t in d.items()}
+    # the next drain hits r0's and r2's prompts and replays only
+    again, _, _ = _drain(graphed, g_log, params, reqs)
+    assert again.counters["graph_captures"] == 0
+    assert again.counters["prefix_hit_requests"] >= 3
+    alone, a_log = _engine(model, None, "fused", eager=False, **kw)
+    _drain(alone, a_log, params, reqs[:1])
+    ref = alone._pool
+    assert ref._match_blocks(ref.prefix_digests(reqs[0].tokens)) == blocks
+    for (layer, name), t in kept.items():
+        assert torch.equal(t, ref.caches[layer][name][blocks]), (layer, name)
 
 
 @pytest.mark.parametrize("mp", [False, True], ids=["plain", "mp"])
