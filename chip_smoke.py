@@ -11,13 +11,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``nvcc -Xptxas -v`` reported them (phases 3 and 10 log the others);
 2. hold the GQA form's tensor-core kernel (``csrc/paged_decode_gqa.cu``)
    against its plain PyTorch version at the serving shape (B=4, Hkv=8, G=4,
-   D=64, block 16, up to 160 keys), at D=128 and at G 5 and 7: bf16 and
+   D=64, block 16, up to 160 keys), at D=128, at G 5 and 7, and at D=128
+   with G 5, 6 and 12 (4 KV heads), phase 18's configs: bf16 and
    scaled fp8-e4m3 KV, window None and 7, a vacant row (all -1 table,
    length 0), NaN in blocks no live page references and in the stale slots
    of live pages (past the length, below the window), two calls bit-equal;
    then time it, the CUDA-core kernel that served the form before, the
    plain version and ``scaled_dot_product_attention`` over gathered K/V at
-   the serving shape, at D=128 and at a long table (2048 keys a row);
+   the serving shape, at D=128, at D=128 over 4 KV heads of 12
+   (starcoder2_15b) and at a long table (2048 keys a row);
 3. hold the fp8 kernels against their plain versions at the model's
    shapes: ``amax`` and ``scale_cast`` bitwise on the activations (2048,
    2048) and the weights (8192, 2048), (2048, 8192), (128256, 2048), plus
@@ -93,9 +95,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     head; 8.03 B random parameters, 16 GB): phases 4 and 5 at phase 4's
     cell (every fused launch through ``gqa_mma`` at D 128; the fixed plan
     puts fp8 on the linear ops of layers 16-31 and the BGEMMs of layer
-    31), then ``calibrate`` over phase 6's batches at the largest depth
-    whose probes and backward fit in 85% of the card (the depth is printed
-    on a line of its own), with its seconds and peak memory;
+    31), phase 17's pipelined drain against the lockstep one, then
+    ``calibrate`` over phase 6's batches at the largest depth whose probes
+    and backward fit in 75% of the card (the depth is printed on a line of
+    its own), with its seconds and peak memory;
 14. DeepSeek-V3's dense prefix at full width (three MLA layers, random
     weights): phase 4's cell through the absorbed decode, fused and gather
     (each graphed drain against its eager twin), the one-shot engine and
@@ -121,7 +124,31 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     number of bit-equal requests is printed. Then a short shared-prefix
     drain on phase 14's DeepSeek dense prefix (forks of latent blocks,
     ``mla_mma`` over borrowed pages);
-16. print the kernel table and the serving and calibration numbers as JSON
+16. (phases 4-15 above run the engine's default drain, which is
+    pipelined since phase 17 was added);
+17. the pipelined drain against the lockstep one (``serve(sync=True)``),
+    each graphed after its own warm-up, bit for bit on every token and
+    every live row's logits: phase 4's llama3_1b cell fused and gather,
+    plain and under phase 5's plan, a steady decode drain (4 requests of
+    128 + 128 tokens arriving at once, fused, plain and under the plan),
+    phase 15's three drains, and phase 4's cell and the steady drain fused
+    on llama3_8b (in phase 13) and on DeepSeek's prefix (after phase 15's
+    MLA drain); both drains' tokens/s, wall tokens/s, wall per decode
+    step, host time blocked per step, read-back batch mean and peak steps
+    in flight are printed. Then the control plane at phase 4's cell: a
+    cancel from ``on_token`` (lockstep: exactly 3 tokens kept; pipelined:
+    a prefix), ``timeout_steps``, ``shutdown()``, and an ``on_token`` that
+    raises (re-raised, the pool's books settled, the engine serves again);
+18. the four other dense configs at their published widths, random weights
+    (qwen2p5_3b: QKV bias, tied head, G 8; nemotron_4_15b: relu2 MLP,
+    layernorm, 256000-entry head, G 6; starcoder2_15b: gelu MLP, layernorm,
+    G 12; qwen2p5_32b last, 65.5 GB): phases 4 and 5's checks at phase 4's
+    cell (every fused launch through ``gqa_mma``; the gather drains without
+    eager twins), the fixed plan on the later half of the layers
+    (qwen2p5_32b: its last 8 of 64, as fp8 codes for half would not fit),
+    peak device memory, and qwen2p5_3b calibrated at the largest depth that
+    fits, as in phase 13; each model is freed before the next;
+19. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -264,7 +291,8 @@ def forced_route(pa, rt: str):
 
 
 def paged_case(torch, seed: int, kv_dtype, poison_value: float,
-               lengths=(MAX_LEN, 100, BS, 0), d: int = D, g: int = G):
+               lengths=(MAX_LEN, 100, BS, 0), d: int = D, g: int = G,
+               hkv: int = HKV):
     """Block tables with every hazard the pool produces: rows of several
     lengths (a page boundary, mid-page, one page), a vacant row (all -1,
     length 0) and dead entries pointing at poisoned blocks. One decode row
@@ -295,9 +323,9 @@ def paged_case(torch, seed: int, kv_dtype, poison_value: float,
         x[poison] = poison_value
         return cast_to(torch.from_numpy(x).cuda(), kv_dtype)
 
-    k = fill((n_blocks, BS, HKV, d))
-    v = fill((n_blocks, BS, HKV, d))
-    q = torch.from_numpy(rng.normal(size=(rows, HKV, g, d)).astype(
+    k = fill((n_blocks, BS, hkv, d))
+    v = fill((n_blocks, BS, hkv, d))
+    q = torch.from_numpy(rng.normal(size=(rows, hkv, g, d)).astype(
         np.float32)).cuda().to(torch.bfloat16)
     return (q, k, v, torch.from_numpy(tables).cuda(),
             torch.from_numpy(lengths).cuda())
@@ -321,13 +349,20 @@ def poison_stale(torch, k, v, tables, lengths, window) -> int:
 
 
 # phase 2's shapes for the GQA kernel beside the serving one: llama3_8b's
-# d_head and the group sizes of the repo's GQA configs that do not divide 8
+# d_head, the group sizes of the repo's GQA configs that do not divide 8,
+# and the D 128 groups of the configs phase 18 serves (qwen2p5_32b G 5,
+# nemotron_4_15b G 6, starcoder2_15b G 12 over 4 KV heads)
 GQA_CHECKS = {"serving": dict(d=D, g=G), "d128": dict(d=128, g=G),
-              "g5": dict(d=D, g=5), "g7": dict(d=D, g=7)}
+              "g5": dict(d=D, g=5), "g7": dict(d=D, g=7),
+              "d128_g5": dict(d=128, g=5), "d128_g6": dict(d=128, g=6),
+              "d128_g12": dict(d=128, g=12, hkv=4)}
 # the shapes the kernel is timed at: the serving cell's mid-drain decode
-# step, the same at llama3_8b's d_head, and a long table (2048 keys a row)
-GQA_TIMES = {"serving": dict(d=D, lengths=(160, 152, 144, 136)),
-             "d128": dict(d=128, lengths=(160, 152, 144, 136)),
+# step, the same at llama3_8b's d_head and at starcoder2_15b's heads (4 KV
+# heads of 12 queries), and a long table (2048 keys a row)
+SERVING_KEYS = (160, 152, 144, 136)
+GQA_TIMES = {"serving": dict(d=D, lengths=SERVING_KEYS),
+             "d128": dict(d=128, lengths=SERVING_KEYS),
+             "d128_g12": dict(d=128, g=12, hkv=4, lengths=SERVING_KEYS),
              "long": dict(d=D, lengths=(2048,) * 4)}
 
 
@@ -413,8 +448,9 @@ def time_kernel(torch) -> dict:
     n0, n0_route = pa.launches, dict(pa.launches_by_route)
     for shape, dims in GQA_TIMES.items():
         d, lengths = dims["d"], dims["lengths"]
+        g, hkv = dims.get("g", G), dims.get("hkv", HKV)
         q, k, v, bt, ln = paged_case(torch, 1, torch.bfloat16, 0.0, lengths,
-                                     d=d)
+                                     d=d, g=g, hkv=hkv)
         kw = dict(scale=math.sqrt(d), scale_mode="div",
                   score_dtype=torch.bfloat16, probs_dtype=torch.bfloat16,
                   out_dtype=torch.bfloat16)
@@ -440,9 +476,9 @@ def time_kernel(torch) -> dict:
         # SDPA over K/V gathered beforehand (not timed): (B, H, S, D)
         kg = paged_deq(k, bt, torch.bfloat16, 1.0).permute(0, 2, 1, 3)
         vg = paged_deq(v, bt, torch.bfloat16, 1.0).permute(0, 2, 1, 3)
-        kg = kg.repeat_interleave(G, dim=1).contiguous()
-        vg = vg.repeat_interleave(G, dim=1).contiguous()
-        qs = q.reshape(B, HKV * G, 1, d)
+        kg = kg.repeat_interleave(g, dim=1).contiguous()
+        vg = vg.repeat_interleave(g, dim=1).contiguous()
+        qs = q.reshape(B, hkv * g, 1, d)
         S = kg.shape[2]
         mask = (torch.arange(S, device="cuda")[None, :]
                 < ln[:, None]).reshape(B, 1, 1, S)
@@ -453,19 +489,20 @@ def time_kernel(torch) -> dict:
         rec["library_ms"] = device_ms(torch, library)
         rec["library_ms_eager"] = eager_ms(torch, library, 500)
         live = sum(lengths)
-        nbytes = (q.numel() * 2 + live * HKV * 2 * d * 2 + bt.numel() * 4
-                  + ln.numel() * 4 + B * HKV * G * d * 2)
-        ops = 2 * live * HKV * G * 2 * d
+        nbytes = (q.numel() * 2 + live * hkv * 2 * d * 2 + bt.numel() * 4
+                  + ln.numel() * 4 + B * hkv * g * d * 2)
+        ops = 2 * live * hkv * g * 2 * d
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
         rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bound_bytes=nbytes, bound_ops=ops, d=d,
+                   bound_bytes=nbytes, bound_ops=ops, d=d, g=g, hkv=hkv,
                    lengths=list(lengths),
-                   head_group=pa.head_group(G, d, 0, bt.shape[1], BS,
-                                            rows=B * HKV,
+                   head_group=pa.head_group(g, d, 0, bt.shape[1], BS,
+                                            rows=B * hkv,
                                             sms=pa._sm_count(q.device),
                                             route="gqa_mma"))
-        log(f"paged_decode_attention GQA {shape} (D {d}, keys {lengths}, "
+        log(f"paged_decode_attention GQA {shape} (D {d}, {hkv} KV heads of "
+            f"{g}, keys {lengths}, "
             f"head group {rec['head_group']}): kernel {rec['ms'] * 1e3:.2f} "
             f"us (inputs past L2 {rec['ms_cold'] * 1e3:.2f}) | CUDA-core "
             f"kernel {rec['cuda_core_ms'] * 1e3:.2f} us | plain "
@@ -800,13 +837,13 @@ def record_steps(eng, names) -> list:
     if "prefill_chunk_step" in names:
         tick = eng._prefill_tick
 
-        def ticked(params, pool, sched, now):
+        def ticked(params, pool, sched, now, *rest):
             # who owns each prefilling slot, and the length its prompt
             # (after a preemption: prompt + tokens so far) has
             events.append(("tick", {s: (st.request.rid,
                                         st.effective_prompt_len)
                                     for s, st in sched.prefilling.items()}))
-            return tick(params, pool, sched, now)
+            return tick(params, pool, sched, now, *rest)
         eng._prefill_tick = ticked
     return events
 
@@ -914,7 +951,7 @@ def compare(name: str, got: dict, ref: dict, *, tol: float, bound: float,
 
 def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
                    route=None, eager=False, warm=None, name="",
-                   events_out=None, **engine_kw):
+                   events_out=None, sync=False, **engine_kw):
     """Warm-up drain of ``warm`` (default: the first request; on the card
     it captures the decode step's CUDA graph), then the recorded drain of
     ``reqs``, which must only replay it. Returns (summary, launches in the
@@ -922,7 +959,8 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
     of the drain must have gone through that kernel
     (``paged_attention.route``). ``eager`` swaps in the closure the graph
     captures, run eagerly: the yardstick the graphed drain is held to, bit
-    for bit. ``engine_kw`` overrides phase 4's engine; the prefix cache is
+    for bit. Both drains are pipelined (the engine's default) unless
+    ``sync``. ``engine_kw`` overrides phase 4's engine; the prefix cache is
     off unless it turns it on, so phases 4, 5, 13 and 14 serve as they
     did before the engine had one."""
     from repro_torch.kernels import paged_attention as pa
@@ -937,18 +975,19 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
     if eager:
         eng.decode_step = make_paged_decode_step(model, mp=eng.mp,
                                                  paged_attn=paged_attn)
-    warm = eng.serve(params, reqs[:1] if warm is None else warm)
+    warm = eng.serve(params, reqs[:1] if warm is None else warm, sync=sync)
     events = record_steps(eng, ("prefill_chunk_step", "decode_step"))
     torch.cuda.synchronize()
     pa.launches = 0
     pa.launches_by_route.update(dict.fromkeys(pa.ROUTES, 0))
     torch.cuda.reset_peak_memory_stats()
-    out = eng.serve(params, reqs)
+    out = eng.serve(params, reqs, sync=sync)
     torch.cuda.synchronize()
     out.counters["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = pa.launches
     label = f"{model.cfg.name} {name}{' ' if name else ''}{paged_attn}" \
-        f"{' MP' if mp else ''}{' eager' if eager else ''}"
+        f"{' MP' if mp else ''}{' eager' if eager else ''}" \
+        f"{' lockstep' if sync else ''}"
     caps = (warm.counters["graph_captures"], out.counters["graph_captures"],
             out.counters["graph_replays"])
     out.counters["warm_graph_captures"] = caps[0]
@@ -1026,10 +1065,33 @@ def serving_numbers(out) -> dict:
             "peak_blocks_in_use": out.counters["peak_blocks_in_use"]}
 
 
-def serve_phase(torch, model, params) -> dict:
-    """Phases 4 and 5 at full width on the card (phase 13 runs them on
-    llama3_8b): every drain graphed, and held bit for bit against the same
-    drain with the decode step run eagerly."""
+def fixed_plan(model, first=None):
+    """Phase 5's fixed MP plan: fp8 on every linear op of layers ``first``
+    (default: half the depth) to the last, plus the last layer's attention
+    BGEMMs (which then takes the gather path)."""
+    from repro_torch.core.mpconfig import MPPlan
+    n_layers = model.cfg.n_layers
+    first = n_layers // 2 if first is None else first
+    assignment = {f"layers/{i}/{op}": "fp8_e4m3"
+                  for i in range(first, n_layers)
+                  for op in ("attn/q_proj", "attn/k_proj", "attn/v_proj",
+                             "attn/o_proj", "mlp/gate_proj", "mlp/up_proj",
+                             "mlp/down_proj")
+                  if op != "mlp/gate_proj" or model.cfg.activation == "swiglu"}
+    last = n_layers - 1
+    for op in ("qk_matmul", "av_matmul"):
+        assignment[f"layers/{last}/attn/{op}"] = "fp8_e4m3"
+    return MPPlan(assignment=assignment, groups=[], objective="ET", tau=0.0,
+                  budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
+
+
+def serve_phase(torch, model, params, mp_from=None,
+                gather_eager=True) -> dict:
+    """Phases 4 and 5 at full width on the card (phases 13 and 18 run them
+    on the larger configs): every drain graphed, and held bit for bit
+    against the same drain with the decode step run eagerly (the gather
+    drains only with ``gather_eager``); the fixed plan quantizes layers
+    ``mp_from`` (default: half the depth) to the last."""
     from repro_torch.launch.serve import make_requests
     n_layers = model.cfg.n_layers
     reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
@@ -1056,10 +1118,11 @@ def serve_phase(torch, model, params) -> dict:
     if n_gather != 0:
         raise AssertionError(f"gather path launched the kernel {n_gather} "
                              f"times")
-    _, _, gather_eager_tl = run_continuous(torch, model, params, reqs,
-                                           paged_attn="gather", eager=True)
-    graphs["gather"] = graph_vs_eager("gather", gather_tl, gather_eager_tl,
-                                      failures)
+    if gather_eager:
+        _, _, gather_eager_tl = run_continuous(
+            torch, model, params, reqs, paged_attn="gather", eager=True)
+        graphs["gather"] = graph_vs_eager("gather", gather_tl,
+                                          gather_eager_tl, failures)
     oneshot, one_tl = run_oneshot(model, params, reqs)
     for rid in gather_tl:             # both run the same paged prefill
         if not torch.equal(fused_tl[rid][1][0], gather_tl[rid][1][0]):
@@ -1068,23 +1131,16 @@ def serve_phase(torch, model, params) -> dict:
     plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
     agree_fg = compare("fused vs gather", fused_tl, gather_tl, **plain)
     agree_go = compare("gather vs one-shot", gather_tl, one_tl, **plain)
+    agree_fo = compare("fused vs one-shot", fused_tl, one_tl, **plain)
 
     # phase 5: a fixed MP plan
-    from repro_torch.core.mpconfig import MPPlan
-    assignment = {f"layers/{i}/{op}": "fp8_e4m3"
-                  for i in range(n_layers // 2, n_layers)
-                  for op in ("attn/q_proj", "attn/k_proj", "attn/v_proj",
-                             "attn/o_proj", "mlp/gate_proj", "mlp/up_proj",
-                             "mlp/down_proj")}
-    last = n_layers - 1
-    for op in ("qk_matmul", "av_matmul"):
-        assignment[f"layers/{last}/attn/{op}"] = "fp8_e4m3"
-    plan = MPPlan(assignment=assignment, groups=[], objective="ET", tau=0.0,
-                  budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
+    plan = fixed_plan(model, mp_from)
+    first = n_layers // 2 if mp_from is None else mp_from
     mp_out, n_mp, mp_tl = run_continuous(torch, model, params, reqs, mp=plan,
                                          paged_attn="fused", route="gqa_mma")
-    log(f"MP plan ({plan.n_quantized} fp8 ops, layers {n_layers // 2}-"
-        f"{last}): {mp_out.n_steps} decode steps, {n_mp} kernel launches")
+    log(f"MP plan ({plan.n_quantized} fp8 ops, layers {first}-"
+        f"{n_layers - 1}): {mp_out.n_steps} decode steps, {n_mp} kernel "
+        f"launches")
     if n_mp != mp_out.n_steps * (n_layers - 1):
         raise AssertionError(f"MP launches {n_mp} != {mp_out.n_steps} steps "
                              f"x {n_layers - 1} fused layers")
@@ -1104,10 +1160,12 @@ def serve_phase(torch, model, params) -> dict:
     if n_mp_gather != 0:
         raise AssertionError(f"MP gather path launched the kernel "
                              f"{n_mp_gather} times")
-    _, _, mp_gather_eager_tl = run_continuous(
-        torch, model, params, reqs, mp=plan, paged_attn="gather", eager=True)
-    graphs["mp_gather"] = graph_vs_eager("MP gather", mp_gather_tl,
-                                         mp_gather_eager_tl, failures)
+    if gather_eager:
+        _, _, mp_gather_eager_tl = run_continuous(
+            torch, model, params, reqs, mp=plan, paged_attn="gather",
+            eager=True)
+        graphs["mp_gather"] = graph_vs_eager("MP gather", mp_gather_tl,
+                                             mp_gather_eager_tl, failures)
     _, mp_one_tl = run_oneshot(model, params, reqs, mp=plan)
     agree_mp_go = compare("MP gather vs MP one-shot", mp_gather_tl,
                           mp_one_tl, **plain)
@@ -1123,8 +1181,11 @@ def serve_phase(torch, model, params) -> dict:
         "kernel_launches_main_path": n_fused,
         "weight_cache_gb": kept / 1e9, "weight_cache_of_bf16_gb": of / 1e9,
         "graph_vs_eager": graphs,
+        "mp_plan": {"fp8_ops": plan.n_quantized, "layers": [first,
+                                                             n_layers - 1]},
         "agreement": {"fused_vs_gather": agree_fg,
                       "gather_vs_oneshot": agree_go,
+                      "fused_vs_oneshot": agree_fo,
                       "mp_gather_vs_mp_oneshot": agree_mp_go,
                       "mp_fused_vs_mp_gather": agree_mp_fg},
         "serving": {
@@ -1421,8 +1482,8 @@ def _bytes_of(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def llama8b_calibration(torch, cfg, params, batches) -> dict:
-    """Algorithm 1's ``calibrate`` on llama3_8b over phase 6's batches at
+def fitted_calibration(torch, cfg, params, batches) -> dict:
+    """Algorithm 1's ``calibrate`` on ``cfg`` over phase 6's batches at
     the largest depth whose probes and backward fit in
     ``CAL_MEMORY_SHARE`` of the card: the peaks at depths 1 and 3 (every
     layer's weights resident) give the per-layer cost of probes,
@@ -1458,7 +1519,7 @@ def llama8b_calibration(torch, cfg, params, batches) -> dict:
     need = fixed + n * per_layer
     depth = n if need <= budget else max(1, min(n, int(
         (budget - fixed + n * w_layer) // (per_layer + w_layer))))
-    log(f"llama3_8b calibration depth: {depth} of {n} layers (peak at 1 / "
+    log(f"{cfg.name} calibration depth: {depth} of {n} layers (peak at 1 / "
         f"{d3} layers {p1 / 1e9:.2f} / {p3 / 1e9:.2f} GB, so all {n} would "
         f"need about {need / 1e9:.1f} GB against {budget / 1e9:.1f} GB, "
         f"{CAL_MEMORY_SHARE:.0%} of the card's {total / 1e9:.1f} GB)")
@@ -1466,23 +1527,23 @@ def llama8b_calibration(torch, cfg, params, batches) -> dict:
     for i in range(depth, n):
         del params["layers"][str(i)]
     gc.collect()
-    log(f"llama3_8b layers {depth}-{n - 1} freed: {held / 1e9:.2f} -> "
+    log(f"{cfg.name} layers {depth}-{n - 1} freed: {held / 1e9:.2f} -> "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
         f"({(n - depth) * w_layer / 1e9:.2f} GB of their weights)")
     model, bundle, seconds, peak = run(depth)
     sens = np.array(sorted(bundle.sens.sensitivity.values()))
     n_groups = len(bundle.objectives["ET"]["groups"])
-    log(f"llama3_8b calibrate at depth {depth}: {len(bundle.sens.ops)} ops, "
+    log(f"{cfg.name} calibrate at depth {depth}: {len(bundle.sens.ops)} ops, "
         f"{n_groups} groups, {CAL_BATCHES} batches of {CAL_SHAPE} in "
         f"{seconds:.1f} s; peak device memory {peak / 1e9:.2f} GB")
     if not (np.isfinite(sens).all() and (sens > 0).all()
             and math.isfinite(bundle.sens.loss_mean)):
-        raise AssertionError("llama3_8b calibration gave a non-finite or "
+        raise AssertionError(f"{cfg.name} calibration gave a non-finite or "
                              "zero sensitivity")
     if n_groups != 4 * depth + 1:
         raise AssertionError(f"{n_groups} groups, expected {4 * depth + 1}")
     plan = bundle.solve(TAU, "ET")
-    log(f"llama3_8b ET plan at tau {TAU}: {plan.n_quantized} ops fp8 "
+    log(f"{cfg.name} ET plan at tau {TAU}: {plan.n_quantized} ops fp8 "
         f"[{plan.meta['gain_tier']}]")
     return {"depth": depth, "of_layers": n, "seconds": seconds,
             "peak_gb": peak / 1e9, "peak_depth1_gb": p1 / 1e9,
@@ -1497,7 +1558,8 @@ def llama8b_phase(torch) -> dict:
     """Phase 13: Llama-3.1-8B-Instruct's published widths, random weights:
     phases 4 and 5's checks at phase 4's cell (every fused launch through
     ``gqa_mma`` at D 128; the fixed plan: fp8 on the linear ops of layers
-    16-31 and the BGEMMs of layer 31), then calibration."""
+    16-31 and the BGEMMs of layer 31), phase 17's pipelined drain against
+    the lockstep one, then calibration."""
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
     from repro_torch.launch.serve import make_model_and_params
     t0 = time.perf_counter()
@@ -1511,13 +1573,15 @@ def llama8b_phase(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     out = serve_phase(torch, model, params)
     out["serving_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["pipelined_vs_lockstep"] = pipeline_check(torch, model, params,
+                                                  "gqa_mma")
     data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
                                        batch=CAL_SHAPE[0],
                                        seq_len=CAL_SHAPE[1]), DEVICE)
     batches = list(data.batches(0, CAL_BATCHES))
     del model                 # its decode graphs hold the params they read
     gc.collect()
-    out["calibration"] = llama8b_calibration(torch, cfg, params, batches)
+    out["calibration"] = fitted_calibration(torch, cfg, params, batches)
     return out
 
 
@@ -2218,12 +2282,54 @@ def shared_prefix_drains(torch, model, params, spec: dict, route: str,
     return rec
 
 
+def shared_setup(vocab: int) -> tuple:
+    """Phase 15's shared-prefix requests and engine arguments."""
+    plen = SHARED["system"] + SHARED["own"]
+    return shared_prefix_requests(vocab, **SHARED), dict(
+        max_len=plen + SHARED["new_tokens"], prefix_cache=True,
+        warm=warm_request(vocab, plen, SHARED["new_tokens"]))
+
+
+def preempt_setup(vocab: int) -> tuple:
+    """Phase 15's preemption requests (the priority-1 one last) and engine
+    arguments: a pool of ``fits`` worst cases."""
+    from repro_torch.serve import Request
+    c = PREEMPT
+    reqs = [Request(rid=i, tokens=random_prompt(vocab, c["prompt_len"],
+                                                1600 + i),
+                    max_new_tokens=c["new_tokens"]) for i in range(c["low"])]
+    reqs.append(Request(rid=c["low"], tokens=random_prompt(
+        vocab, c["prompt_len"], 1700), max_new_tokens=c["new_tokens"],
+        arrival=c["high_at"], priority=1))
+    worst = -(-(c["prompt_len"] + c["new_tokens"] - 1) // SERVE["block_size"])
+    return reqs, dict(max_len=c["prompt_len"] + c["new_tokens"],
+                      n_blocks=1 + c["fits"] * worst, prefix_cache=True,
+                      warm=warm_request(vocab, c["prompt_len"],
+                                        c["new_tokens"]))
+
+
+def chunked_setup(vocab: int) -> tuple:
+    """Phase 15's chunked-prefill requests (the long one last), engine
+    arguments, and the chunking arguments."""
+    from repro_torch.serve import Request
+    c = CHUNKED
+    reqs = [Request(rid=i, tokens=random_prompt(vocab, c["prompt_len"],
+                                                1800 + i),
+                    max_new_tokens=c["new_tokens"]) for i in range(c["short"])]
+    reqs.append(Request(rid=c["short"], tokens=random_prompt(
+        vocab, c["long_len"], 1900), max_new_tokens=c["new_tokens"],
+        arrival=c["long_at"]))
+    return reqs, dict(max_len=c["long_len"] + c["new_tokens"],
+                      warm=warm_request(vocab, c["prompt_len"],
+                                        c["new_tokens"])), dict(
+        chunk_len=c["chunk_len"], chunk_budget=c["chunk_budget"])
+
+
 def prefix_phase(torch, model, params) -> dict:
     """Phase 15 on llama3_1b at full width (4 slots, block 16, graphed
     decode): the shared-prefix, preemption and chunked-prefill drains,
     each fused and gather, graphed and eager, against its twin without
     the feature."""
-    from repro_torch.serve import Request
     vocab = model.cfg.vocab_size
     failures = []
     plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
@@ -2231,18 +2337,8 @@ def prefix_phase(torch, model, params) -> dict:
         torch, model, params, SHARED, "gqa_mma", failures, "shared prefix")}
 
     c = PREEMPT
-    reqs = [Request(rid=i, tokens=random_prompt(vocab, c["prompt_len"],
-                                                1600 + i),
-                    max_new_tokens=c["new_tokens"]) for i in range(c["low"])]
-    high = Request(rid=c["low"], tokens=random_prompt(vocab, c["prompt_len"],
-                                                      1700),
-                   max_new_tokens=c["new_tokens"], arrival=c["high_at"],
-                   priority=1)
-    reqs.append(high)
-    worst = -(-(c["prompt_len"] + c["new_tokens"] - 1) // SERVE["block_size"])
-    kw = dict(max_len=c["prompt_len"] + c["new_tokens"],
-              n_blocks=1 + c["fits"] * worst, prefix_cache=True,
-              warm=warm_request(vocab, c["prompt_len"], c["new_tokens"]))
+    reqs, kw = preempt_setup(vocab)
+    high = reqs[-1]
     pre, pre_tl, _, _, events, rec = drain_set(
         torch, model, params, reqs, route="gqa_mma", failures=failures,
         name="preemption", **kw)
@@ -2285,18 +2381,10 @@ def prefix_phase(torch, model, params) -> dict:
     out["preemption"] = rec
 
     c = CHUNKED
-    reqs = [Request(rid=i, tokens=random_prompt(vocab, c["prompt_len"],
-                                                1800 + i),
-                    max_new_tokens=c["new_tokens"]) for i in range(c["short"])]
-    reqs.append(Request(rid=c["short"], tokens=random_prompt(
-        vocab, c["long_len"], 1900), max_new_tokens=c["new_tokens"],
-        arrival=c["long_at"]))
-    kw = dict(max_len=c["long_len"] + c["new_tokens"],
-              warm=warm_request(vocab, c["prompt_len"], c["new_tokens"]))
+    reqs, kw, chunks = chunked_setup(vocab)
     ch, ch_tl, _, _, _, rec = drain_set(
         torch, model, params, reqs, route="gqa_mma", failures=failures,
-        name="chunked", chunk_len=c["chunk_len"],
-        chunk_budget=c["chunk_budget"], **kw)
+        name="chunked", **chunks, **kw)
     one, _, one_tl = run_continuous(torch, model, params, reqs,
                                     paged_attn="fused", route="gqa_mma",
                                     name="one chunk", **kw)
@@ -2344,6 +2432,287 @@ def mla_prefix_phase(torch, absorbed, params) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the pipelined drain against the lockstep one, the control plane
+# ---------------------------------------------------------------------------
+
+
+def drain_numbers(out) -> dict:
+    """How a drain moved its tokens: decode and wall tokens/s, wall per
+    decode step, host time blocked on transfers per step, read-backs."""
+    c = out.counters
+    return {"tokens_per_s": out.tokens_per_s,
+            "wall_tokens_per_s": c["wall_tokens_per_s"],
+            "wall_ms_per_step": out.decode_s / max(out.n_steps, 1) * 1e3,
+            "host_blocked_ms_per_step": c["host_blocked_s_per_step"] * 1e3,
+            "n_readbacks": c["n_readbacks"],
+            "readback_batch_mean": c["readback_batch_mean"],
+            "steps_in_flight_peak": c["steps_in_flight_peak"],
+            "drain_wait_ms": c["drain_wait_s"] * 1e3,
+            "ttft_p50_ms": c["ttft_p50_s"] * 1e3,
+            "n_decode_steps": out.n_steps, "total_s": out.total_s}
+
+
+def pipelined_vs_lockstep(torch, model, params, reqs, name: str,
+                          failures: list, **kw) -> tuple:
+    """The same drain pipelined (the engine's default) and lockstep, each
+    graphed after its own warm-up drain: the same decode steps and
+    launches, and every token and the logits of every live row bit-equal.
+    Returns (the record, the lockstep drain's rid -> (tokens, logits))."""
+    pipe, n_p, p_tl = run_continuous(torch, model, params, reqs, name=name,
+                                     **kw)
+    lock, n_l, l_tl = run_continuous(torch, model, params, reqs, name=name,
+                                     sync=True, **kw)
+    n_eq = bit_equal(p_tl, l_tl)
+    label = f"{model.cfg.name} {name}{' ' if name else ''}" \
+        f"{kw.get('paged_attn', '')}{' MP' if kw.get('mp') else ''}"
+    if n_eq != len(l_tl) or n_p != n_l or pipe.n_steps != lock.n_steps:
+        failures.append(f"{label}: pipelined vs lockstep {n_eq} of "
+                        f"{len(l_tl)} requests bit-equal, steps {pipe.n_steps}"
+                        f" / {lock.n_steps}, launches {n_p} / {n_l}")
+    if pipe.counters["sync"] or not lock.counters["sync"]:
+        failures.append(f"{label}: the drains ran in the wrong modes")
+    rec = {"bit_equal_requests": n_eq, "requests": len(l_tl),
+           "kernel_launches": n_p, "pipelined": drain_numbers(pipe),
+           "lockstep": drain_numbers(lock)}
+    p, q = rec["pipelined"], rec["lockstep"]
+    log(f"{label}: pipelined vs lockstep {n_eq} of {len(l_tl)} requests "
+        f"bit-equal | tokens/s {p['tokens_per_s']:.1f} / "
+        f"{q['tokens_per_s']:.1f} | wall tokens/s "
+        f"{p['wall_tokens_per_s']:.1f} / {q['wall_tokens_per_s']:.1f} | wall "
+        f"per decode step {p['wall_ms_per_step']:.3f} / "
+        f"{q['wall_ms_per_step']:.3f} ms | host blocked "
+        f"{p['host_blocked_ms_per_step']:.3f} / "
+        f"{q['host_blocked_ms_per_step']:.3f} ms a step | read-back batch "
+        f"mean {p['readback_batch_mean']:.2f} / "
+        f"{q['readback_batch_mean']:.2f} | peak steps in flight "
+        f"{p['steps_in_flight_peak']} / {q['steps_in_flight_peak']}")
+    return rec, l_tl
+
+
+# steady decode: every request prefills in the first tick, then only decode
+# steps run, so decode_s / steps is the wall of a decode step in both
+# drains (in phase 4's cell the pipelined drain's decode_s spans the
+# prefills that arrive mid-decode too)
+STEADY = dict(requests=4, prompt_len=128, new_tokens=128)
+
+
+def phase4_requests(model) -> list:
+    from repro_torch.launch.serve import make_requests
+    return make_requests(model.cfg.vocab_size, SERVE["requests"],
+                         SERVE["prompt_len"], SERVE["new_tokens"],
+                         SERVE["arrival_every"])
+
+
+def steady_drains(torch, model, params, failures, **kw) -> dict:
+    """``STEADY``'s decode-only drain pipelined against lockstep."""
+    from repro_torch.launch.serve import make_requests
+    reqs = make_requests(model.cfg.vocab_size, STEADY["requests"],
+                         STEADY["prompt_len"], STEADY["new_tokens"], 0)
+    rec, _ = pipelined_vs_lockstep(
+        torch, model, params, reqs, "steady decode", failures,
+        max_len=STEADY["prompt_len"] + STEADY["new_tokens"], **kw)
+    return rec
+
+
+def pipeline_check(torch, model, params, route: str) -> dict:
+    """Phase 4's cell and the steady decode drain, fused and graphed,
+    pipelined against lockstep (phase 17 on llama3_8b and DeepSeek's
+    prefix)."""
+    failures = []
+    rec, _ = pipelined_vs_lockstep(torch, model, params,
+                                   phase4_requests(model), "", failures,
+                                   paged_attn="fused", route=route)
+    rec["steady"] = steady_drains(torch, model, params, failures,
+                                  paged_attn="fused", route=route)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
+def control_plane(torch, model, params, reqs, ref: dict,
+                  failures: list) -> dict:
+    """At phase 4's cell, fused and graphed, one engine (its warm-up drain
+    captures): a cancel issued by ``on_token`` at a request's third token
+    keeps exactly 3 tokens in the lockstep drain and a prefix in the
+    pipelined one; ``timeout_steps`` retires the request on the engine
+    clock; ``shutdown`` returns partial results; an ``on_token`` that
+    raises is re-raised with the pool's books settled, and the engine
+    serves again. Every kept token is the lockstep drain's (``ref``)."""
+    import dataclasses
+    from repro_torch.serve import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(
+        model, paged_attn="fused", device=DEVICE, n_slots=SERVE["n_slots"],
+        max_len=SERVE["prompt_len"] + SERVE["new_tokens"],
+        block_size=SERVE["block_size"], prefix_cache=False)
+    eng.serve(params, reqs[:1])
+    victim = reqs[0].rid
+
+    def kept(name, res, rid=victim, n=None) -> int:
+        toks, want = np.asarray(res.tokens), np.asarray(ref[rid][0])
+        good = len(toks) <= len(want) and np.array_equal(
+            toks, want[:len(toks)]) and (n is None or len(toks) == n)
+        if not good:
+            failures.append(f"control plane, {name}: request {rid} kept "
+                            f"{toks.tolist()}, not {'the first ' + str(n) if n else 'a prefix'} "
+                            f"of the lockstep drain's {want.tolist()}")
+        return len(toks)
+
+    def cancel_at(idx):
+        return lambda rid, i, tok: eng.cancel(rid) if (
+            rid == victim and i == idx) else None
+
+    rec = {}
+    for sync in (True, False):
+        name = "lockstep cancel" if sync else "pipelined cancel"
+        out = eng.serve(params, reqs, sync=sync, on_token=cancel_at(2))
+        res = out.results[victim]
+        n = kept(name, res, n=3 if sync else None)
+        if res.status != "cancelled" or out.counters["n_cancelled"] != 1 \
+                or n < 3:
+            failures.append(f"control plane, {name}: status {res.status}, "
+                            f"{out.counters['n_cancelled']} cancelled, {n} "
+                            f"tokens")
+        for r in reqs[1:]:
+            if out.results[r.rid].status != "ok" or len(
+                    out.results[r.rid].tokens) != r.max_new_tokens:
+                failures.append(f"control plane, {name}: request {r.rid} "
+                                f"did not complete")
+        rec[name.replace(" ", "_") + "_kept"] = n
+    timeout = 6
+    timed = [dataclasses.replace(r, timeout_steps=timeout)
+             if r.rid == victim else r for r in reqs]
+    out = eng.serve(params, timed)
+    res = out.results[victim]
+    rec["timeout_kept"] = kept("timeout", res, n=timeout + 1)
+    if res.status != "timeout" or res.finished_step != timeout:
+        failures.append(f"control plane, timeout: status {res.status} at "
+                        f"step {res.finished_step}")
+    out = eng.serve(params, reqs, on_token=lambda rid, i, tok: eng.shutdown()
+                    if (rid == victim and i == 4) else None)
+    for rid, res in out.results.items():
+        if res.status != "ok":
+            kept("shutdown", res, rid)
+    rec["shutdown"] = {"n_cancelled": out.counters["n_cancelled"],
+                       "tokens_kept": sum(len(r.tokens)
+                                          for r in out.results.values())}
+    if out.counters["n_cancelled"] < 1 or len(out.results) != len(reqs):
+        failures.append(f"control plane, shutdown: {out.counters}")
+
+    def raises(rid, i, tok):
+        if i == 3:
+            raise RuntimeError("client went away")
+
+    try:
+        eng.serve(params, reqs, on_token=raises)
+        failures.append("control plane: a raising on_token was swallowed")
+    except RuntimeError as e:
+        if "client went away" not in str(e):
+            raise
+    books = eng._pool.check_consistency()
+    if not books["ok"] or eng._pool.n_free_slots != SERVE["n_slots"]:
+        failures.append(f"control plane: books after the raise {books}")
+    out = eng.serve(params, reqs)
+    rec["after_raise_bit_equal_tokens"] = sum(
+        np.array_equal(out.results[r.rid].tokens, ref[r.rid][0])
+        for r in reqs)
+    if any(out.results[r.rid].status != "ok" for r in reqs):
+        failures.append("control plane: the drain after the raise failed")
+    log(f"control plane: lockstep cancel kept {rec['lockstep_cancel_kept']} "
+        f"tokens, pipelined cancel {rec['pipelined_cancel_kept']}, timeout "
+        f"{rec['timeout_kept']} (step {timeout}); shutdown cancelled "
+        f"{rec['shutdown']['n_cancelled']} requests keeping "
+        f"{rec['shutdown']['tokens_kept']} tokens; a raising on_token "
+        f"re-raised with settled books, then "
+        f"{rec['after_raise_bit_equal_tokens']} of {len(reqs)} requests "
+        f"bit-equal to the lockstep drain")
+    return rec
+
+
+def pipeline_phase(torch, model, params) -> dict:
+    """Phase 17 on llama3_1b at full width: phase 4's cell fused and
+    gather, plain and under phase 5's plan, the steady decode drain (fused,
+    plain and under the plan), then phase 15's three drains, each
+    pipelined against lockstep; then the control plane."""
+    failures = []
+    reqs = phase4_requests(model)
+    plan = fixed_plan(model)
+    out, ref = {}, None
+    for label, mp in (("plain", None), ("mp", plan)):
+        for attn in ("fused", "gather"):
+            out[f"{label}_{attn}"], tl = pipelined_vs_lockstep(
+                torch, model, params, reqs, "", failures, mp=mp,
+                paged_attn=attn, route="gqa_mma" if attn == "fused" else None)
+            ref = tl if ref is None else ref
+        out[f"steady_{label}"] = steady_drains(
+            torch, model, params, failures, mp=mp, paged_attn="fused",
+            route="gqa_mma")
+    vocab = model.cfg.vocab_size
+    s_reqs, s_kw = shared_setup(vocab)
+    p_reqs, p_kw = preempt_setup(vocab)
+    c_reqs, c_kw, chunks = chunked_setup(vocab)
+    for key, sreqs, kw in (("shared_prefix", s_reqs, s_kw),
+                           ("preemption", p_reqs, p_kw),
+                           ("chunked", c_reqs, dict(c_kw, **chunks))):
+        out[key], _ = pipelined_vs_lockstep(
+            torch, model, params, sreqs, key.replace("_", " "), failures,
+            paged_attn="fused", route="gqa_mma", **kw)
+    out["control"] = control_plane(torch, model, params, reqs, ref, failures)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the other dense configs at their published widths
+# ---------------------------------------------------------------------------
+
+# (config, first layer of its fixed MP plan; None: half the depth), the
+# largest last. qwen2p5_32b's 65.5 GB of bf16 weights leave no room for the
+# fp8 codes of half its layers (about 15.6 GB more): its plan quantizes the
+# last 8 of its 64 layers
+DENSE_CONFIGS = (("qwen2p5_3b", None), ("nemotron_4_15b", None),
+                 ("starcoder2_15b", None), ("qwen2p5_32b", 56))
+
+
+def dense_config_phase(torch, arch: str, mp_from) -> dict:
+    """Phase 18 for one config: random weights from a seeded device
+    generator at its published widths; phases 4 and 5's checks at phase
+    4's cell (every fused launch through ``gqa_mma``; the gather drains
+    without eager twins); peak device memory; for qwen2p5_3b also
+    calibration over phase 6's batches at the largest depth that fits."""
+    from repro_torch.launch.serve import make_model_and_params
+    t0 = time.perf_counter()
+    model, params = make_model_and_params(arch, False, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"{arch}: {model.n_params() / 1e9:.3f}B params ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+        f"heads (G {cfg.n_heads // cfg.n_kv_heads}), d_head {cfg.d_head}, "
+        f"{cfg.activation}, {cfg.norm}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'} head"
+        f"{', QKV bias' if cfg.qkv_bias else ''}), random init in "
+        f"{time.perf_counter() - t0:.1f} s, {weights_gb:.2f} GB on the card")
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_phase(torch, model, params, mp_from=mp_from,
+                      gather_eager=False)
+    out.update(weights_gb=weights_gb, n_params=model.n_params(),
+               serving_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{arch}: peak device memory while serving "
+        f"{out['serving_peak_gb']:.2f} GB")
+    if arch == "qwen2p5_3b":
+        from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+        data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                           batch=CAL_SHAPE[0],
+                                           seq_len=CAL_SHAPE[1]), DEVICE)
+        batches = list(data.batches(0, CAL_BATCHES))
+        del model
+        gc.collect()
+        out["calibration"] = fitted_calibration(torch, cfg, params, batches)
+    return out
 
 
 def main() -> int:
@@ -2430,6 +2799,8 @@ def main() -> int:
         LONG_PROMPTS["llama3_1b"], "llama3_1b")}
     report["prefix"] = phase("prefix cache, preemption, chunked prefill",
                              prefix_phase, torch, model, params)
+    report["pipeline"] = phase("pipelined drain and control plane",
+                               pipeline_phase, torch, model, params)
     del model, params, bundle, batches
     gc.collect()                      # the model's decode graphs go with it
     torch.cuda.empty_cache()
@@ -2446,6 +2817,18 @@ def main() -> int:
         LONG_PROMPTS[DEEPSEEK], DEEPSEEK)
     report["prefix_mla"] = phase("MLA prefix cache", mla_prefix_phase, torch,
                                  absorbed, ds_params)
+    report["pipeline_mla"] = phase(f"pipelined drain {DEEPSEEK}",
+                                   pipeline_check, torch, absorbed,
+                                   ds_params, "mla_mma")
+    del absorbed, expanded, ds_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["dense"] = {}
+    for arch, mp_from in DENSE_CONFIGS:
+        report["dense"][arch] = phase(arch, dense_config_phase, torch, arch,
+                                      mp_from)
+        gc.collect()                  # the model's graphs and weights
+        torch.cuda.empty_cache()
 
     t = report["fp8_times"]
     launches = report["measured_tier"]["launches"]
@@ -2461,6 +2844,12 @@ def main() -> int:
         "launches_phase15": {k: report["prefix"][k]["kernel_launches"]
                              for k in ("shared_prefix", "preemption",
                                        "chunked")},
+        "launches_phase17": {k: report["pipeline"][k]["kernel_launches"]
+                             for k in ("plain_fused", "mp_fused",
+                                       "shared_prefix", "preemption",
+                                       "chunked")},
+        "launches_phase18": {a: r["kernel_launches_main_path"]
+                             for a, r in report["dense"].items()},
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"],
         "kernel_ms": report["ms"],
@@ -2532,6 +2921,15 @@ def main() -> int:
           flush=True)
     print(json.dumps({"prefix_cache": report["prefix"],
                       "prefix_cache_mla": report["prefix_mla"]}), flush=True)
+    print(json.dumps({"pipeline": report["pipeline"],
+                      "pipeline_llama3_8b": l8["pipelined_vs_lockstep"],
+                      "pipeline_mla": report["pipeline_mla"]}), flush=True)
+    print(json.dumps({"dense": {a: {k: r[k] for k in (
+        "n_params", "weights_gb", "serving_peak_gb", "mp_plan", "serving",
+        "agreement", "graph_vs_eager", "kernel_launches_main_path")
+        if k in r} | ({"calibration": r["calibration"]}
+                      if "calibration" in r else {})
+        for a, r in report["dense"].items()}}), flush=True)
     mt = report["measured_tier"]
     print(json.dumps({"calibration": report["calibration"],
                       "measured_tier": {k: mt[k] for k in (

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Serving with the decode step run eagerly against the decode step
-replayed as a CUDA graph, on one GPU, through the launcher's own profiler.
+replayed as a CUDA graph, and the lockstep drain against the pipelined one,
+on one GPU, through the launcher's own profiler.
 
     python3 serve_graph_ab.py [--archs llama3_1b,deepseek_v3_671b,llama3_8b]
-        [--out ab.json] [--arms eager,graph]
+        [--out ab.json] [--arms eager,graph] [--cells serving]
+        [--plans plain,mp]
 
 For each configuration at full width (random weights, seed 0; DeepSeek-V3's
 dense prefix with absorbed MLA decode), plain and under a fixed MP plan (fp8
@@ -11,7 +13,12 @@ on the linear ops of the later half of the layers and the last layer's
 BGEMMs, as ``chip_smoke.py`` serves), the serving cell of ``chip_smoke.py``
 (8 requests, 4 slots, 128-token prompts, 32 new tokens, one arrival every 2
 steps, block 16) is drained in turns by ``--arms`` (default eager,
-graphed; ``eager,graph,graph,eager`` for a spread). Each arm: a warm-up
+graphed; ``eager,graph,graph,eager`` for a spread; ``pipelined`` is the
+graphed step drained pipelined, the engine's default, where ``eager`` and
+``graph`` drain lockstep). ``--cells steady`` adds a decode-only drain (4
+requests of 128 + 128 tokens arriving at once, ``chip_smoke.STEADY``),
+whose decode wall per step is a decode step's wall in both drains. Each
+arm: a warm-up
 drain of one request (the graphed arm captures there), the
 timed drain, then the same drain under ``torch.profiler``
 (``launch.serve.profile_drain``: device busy time over the drain and its
@@ -36,6 +43,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SERVE = dict(requests=8, n_slots=4, prompt_len=128, new_tokens=32,
              arrival_every=2, block_size=16)
+CELLS = {"serving": dict(requests=8, prompt_len=128, new_tokens=32,
+                         arrival_every=2),
+         "steady": dict(requests=4, prompt_len=128, new_tokens=128,
+                        arrival_every=0)}
 DEEPSEEK = "deepseek_v3_671b"
 
 
@@ -86,27 +97,33 @@ def replay_ms(torch, step, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_arm(torch, model, params, reqs, plan, arm: str) -> dict:
+def run_arm(torch, model, params, reqs, plan, arm: str,
+            max_len: int) -> dict:
     from repro_torch.launch.serve import profile_drain
     from repro_torch.launch.steps import make_paged_decode_step
     from repro_torch.serve import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(
-        model, n_slots=SERVE["n_slots"],
-        max_len=SERVE["prompt_len"] + SERVE["new_tokens"], mp=plan,
+        model, n_slots=SERVE["n_slots"], max_len=max_len, mp=plan,
         block_size=SERVE["block_size"], device="cuda")
     graph_step = eng.decode_step
     if arm == "eager":
         eng.decode_step = make_paged_decode_step(model, mp=eng.mp)
-    eng.serve(params, reqs[:1])
+    sync = arm != "pipelined"
+    eng.serve(params, reqs[:1], sync=sync)
     torch.cuda.synchronize()
-    out = eng.serve(params, reqs)
+    out = eng.serve(params, reqs, sync=sync)
     torch.cuda.synchronize()
-    prof = profile_drain(eng, params, reqs, None, out.total_s, top=5)
+    prof = profile_drain(eng, params, reqs, None, out.total_s, top=5,
+                         sync=sync)
     c = out.counters
     rec = {"tokens_per_s": out.tokens_per_s,
+           "wall_tokens_per_s": c["wall_tokens_per_s"],
            "ttft_p50_ms": c["ttft_p50_s"] * 1e3,
            "n_decode_steps": out.n_steps,
            "decode_wall_ms_per_step": out.decode_s / out.n_steps * 1e3,
+           "host_blocked_ms_per_step": c["host_blocked_s_per_step"] * 1e3,
+           "readback_batch_mean": c["readback_batch_mean"],
+           "steps_in_flight_peak": c["steps_in_flight_peak"],
            "drain_wall_ms": out.total_s * 1e3,
            "device_busy_ms": prof["device_busy_s"] * 1e3,
            "busy_share": prof["busy_share"],
@@ -114,7 +131,7 @@ def run_arm(torch, model, params, reqs, plan, arm: str) -> dict:
            "graph_replays": c["graph_replays"],
            "kernel_launches": c["kernel_launches"],
            "top": prof["top"]}
-    if arm == "graph":
+    if arm != "eager":
         rec["replay_device_ms"] = replay_ms(torch, graph_step)
     return rec
 
@@ -124,6 +141,8 @@ def main() -> int:
     ap.add_argument("--archs", default=f"llama3_1b,{DEEPSEEK},llama3_8b")
     ap.add_argument("--out", default=None)
     ap.add_argument("--arms", default="eager,graph")
+    ap.add_argument("--cells", default="serving")
+    ap.add_argument("--plans", default="plain,mp")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -137,31 +156,45 @@ def main() -> int:
     for arch in args.archs.split(","):
         t0 = time.perf_counter()
         model, params = model_for(arch)
-        reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
-                             SERVE["prompt_len"], SERVE["new_tokens"],
-                             SERVE["arrival_every"])
         print(f"[ab] {arch}: {model.n_params() / 1e9:.3f}B params "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
-        for label, plan in (("plain", None), ("mp", fixed_plan(model))):
-            arms = []
-            for arm in args.arms.split(","):
-                rec = run_arm(torch, model, params, reqs, plan, arm)
-                rec["arm"] = arm
-                arms.append(rec)
-                print(f"[ab] {arch} {label} {arm}: {rec['tokens_per_s']:.1f}"
-                      f" tok/s | TTFT p50 {rec['ttft_p50_ms']:.2f} ms | "
-                      f"decode {rec['decode_wall_ms_per_step']:.2f} ms/step "
-                      f"wall | busy {rec['device_busy_ms']:.1f} ms of "
-                      f"{rec['drain_wall_ms']:.1f} ms "
-                      f"({100 * rec['busy_share']:.1f}%)"
-                      + (f" | graph replay {rec['replay_device_ms']:.3f} ms"
-                         f" device" if "replay_device_ms" in rec else "")
-                      + f" | captures {rec['graph_captures']} replays "
-                      f"{rec['graph_replays']}", flush=True)
-            report["runs"][f"{arch}/{label}"] = arms
-            if args.out:                    # kept as it grows
-                Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-                Path(args.out).write_text(json.dumps(report, indent=2))
+        plans = {"plain": None, "mp": fixed_plan(model)}
+        for cell in args.cells.split(","):
+            c = CELLS[cell]
+            reqs = make_requests(model.cfg.vocab_size, c["requests"],
+                                 c["prompt_len"], c["new_tokens"],
+                                 c["arrival_every"])
+            for label in args.plans.split(","):
+                arms = []
+                for arm in args.arms.split(","):
+                    rec = run_arm(torch, model, params, reqs, plans[label],
+                                  arm, c["prompt_len"] + c["new_tokens"])
+                    rec["arm"] = arm
+                    arms.append(rec)
+                    print(f"[ab] {arch} {cell} {label} {arm}: "
+                          f"{rec['tokens_per_s']:.1f} tok/s, wall "
+                          f"{rec['wall_tokens_per_s']:.1f} | TTFT p50 "
+                          f"{rec['ttft_p50_ms']:.2f} ms | decode "
+                          f"{rec['decode_wall_ms_per_step']:.2f} ms/step "
+                          f"wall, host blocked "
+                          f"{rec['host_blocked_ms_per_step']:.3f} | "
+                          f"read-back batch "
+                          f"{rec['readback_batch_mean']:.2f}, peak in "
+                          f"flight {rec['steps_in_flight_peak']} | busy "
+                          f"{rec['device_busy_ms']:.1f} ms of "
+                          f"{rec['drain_wall_ms']:.1f} ms "
+                          f"({100 * rec['busy_share']:.1f}%)"
+                          + (f" | graph replay "
+                             f"{rec['replay_device_ms']:.3f} ms device"
+                             if "replay_device_ms" in rec else "")
+                          + f" | captures {rec['graph_captures']} replays "
+                          f"{rec['graph_replays']}", flush=True)
+                key = f"{arch}/{label}" if cell == "serving" else \
+                    f"{arch}/{cell}/{label}"
+                report["runs"][key] = arms
+                if args.out:                    # kept as it grows
+                    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+                    Path(args.out).write_text(json.dumps(report, indent=2))
         del model, params
         gc.collect()              # the model's decode graphs go with it
         torch.cuda.empty_cache()

@@ -126,6 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged decode attention: 'fused' (default) runs the "
                          "CUDA kernel over block-major KV; 'gather' keeps "
                          "the reference path")
+    ap.add_argument("--sync-engine", action="store_true",
+                    help="lockstep drain: read every step's tokens back "
+                         "before dispatching the next (continuous mode; "
+                         "default is the pipelined drain that overlaps "
+                         "token transfer with decode)")
     ap.add_argument("--profile", default=None, metavar="TRACE.json",
                     help="continuous mode: serve the stream once more under "
                          "torch.profiler, write its chrome trace here and "
@@ -218,6 +223,15 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
           f"| {c['prefill_chunks']} prefill steps")
     print(f"[serve] decode step: {c['graph_captures']} CUDA graph captures, "
           f"{c['graph_replays']} replays")
+    print(f"[serve] drain: {'lockstep' if c['sync'] else 'pipelined'} | "
+          f"{c['wall_tokens_per_s']:.1f} wall tok/s | host blocked "
+          f"{c['host_blocked_s_per_step'] * 1e3:.3f} ms/step | "
+          f"{c['n_readbacks']} read-backs (mean batch "
+          f"{c['readback_batch_mean']:.2f}, max "
+          f"{c['readback_batch_max']}) | peak {c['steps_in_flight_peak']} "
+          f"steps in flight | drain wait {c['drain_wait_s'] * 1e3:.2f} ms")
+    print(f"[serve] requests: {c['n_cancelled']} cancelled or timed out | "
+          f"{c['n_failed']} failed | {c['n_retried']} retried")
     print(f"[serve] prefill: {c['prefill_chunks']} chunk steps | "
           f"{c['decode_stall_steps']} decode-stall chunk steps "
           f"(longest run {c['max_decode_stall_run']})")
@@ -229,7 +243,8 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
 
 
 def profile_drain(eng, params, reqs, trace_path: Optional[str],
-                  unprofiled_wall_s: float, top: int = 12) -> dict:
+                  unprofiled_wall_s: float, top: int = 12,
+                  sync: bool = False) -> dict:
     """Serve ``reqs`` once under ``torch.profiler`` (CPU + CUDA activity),
     write the chrome trace (unless ``trace_path`` is None: an eager drain's
     trace takes tens of seconds to write), and print the device time of
@@ -243,7 +258,7 @@ def profile_drain(eng, params, reqs, trace_path: Optional[str],
     if eng.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts) as prof:
-        out = eng.serve(params, reqs)
+        out = eng.serve(params, reqs, sync=sync)
     if trace_path is not None:
         prof.export_chrome_trace(trace_path)
     rows = sorted(((e.self_device_time_total, e.count, e.key)
@@ -309,11 +324,13 @@ def main(argv=None) -> None:
         reqs = make_requests(model.cfg.vocab_size, args.requests,
                              args.prompt_len, args.new_tokens,
                              args.arrival_every)
-        eng.serve(params, reqs[:1])                  # warm-up
-        out = eng.serve(params, reqs)
+        sync = args.sync_engine
+        eng.serve(params, reqs[:1], sync=sync)       # warm-up
+        out = eng.serve(params, reqs, sync=sync)
         report_continuous(out, args.requests, args.n_slots)
         if args.profile:
-            profile_drain(eng, params, reqs, args.profile, out.total_s)
+            profile_drain(eng, params, reqs, args.profile, out.total_s,
+                          sync=sync)
     elif args.profile:
         raise SystemExit("--profile traces the continuous engine; pass "
                          "--continuous")

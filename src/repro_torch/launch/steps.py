@@ -231,7 +231,12 @@ class PagedDecodeStep:
         graph = torch.cuda.CUDAGraph()
         before = _read_counters()
         try:
-            with weight_cache.holding() as held, torch.cuda.graph(graph):
+            # thread-local: the pipelined drain's consumer thread waits on
+            # events and reads pinned memory while this thread captures;
+            # in the global mode those calls from any thread invalidate the
+            # capture. This thread's own unsafe calls still fail it
+            with weight_cache.holding() as held, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 s_logits, _, s_next = self.fn(params, caches, *inputs)
         except Exception as e:
             raise RuntimeError(

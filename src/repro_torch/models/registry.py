@@ -10,7 +10,8 @@ import importlib
 
 from repro_torch.models.lm import LM, LMConfig
 
-ARCH_IDS = ["llama3_1b", "llama3_8b", "deepseek_v3_671b"]
+ARCH_IDS = ["llama3_1b", "llama3_8b", "deepseek_v3_671b", "qwen2p5_3b",
+            "qwen2p5_32b", "nemotron_4_15b", "starcoder2_15b"]
 
 
 def canonical(arch: str) -> str:

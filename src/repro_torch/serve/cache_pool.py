@@ -427,8 +427,41 @@ class PagedCachePool:
                         and not report["trash_used"])
         return report
 
+    def reconcile(self) -> None:
+        """Repair the books after a drain that re-raised: recompute every
+        refcount from the block tables and route blocks no table maps back
+        to the cached LRU (indexed) or the free list. The engine runs it
+        once every slot has been released, so the next drain can reuse the
+        pool."""
+        mat = Counter(int(b) for row in self.block_tables for b in row
+                      if b >= 0)
+        self._ref.update(mat)
+        for blk in [b for b in self._ref if b not in mat]:
+            del self._ref[blk]
+            self._cached.pop(blk, None)
+            if blk in self._free_blocks:
+                continue
+            if blk in self._block_digest:
+                self._cached[blk] = None
+            else:
+                self._free_blocks.append(blk)
+
     def block_tables_device(self) -> torch.Tensor:
         # hand the device a private copy: torch.from_numpy aliases the host
         # array, and the pool mutates block_tables in place
-        # (ensure_block/ensure_range/free_slot) while a step may still read it
-        return torch.from_numpy(self.block_tables.copy()).to(self.device)
+        # (ensure_block/ensure_range/free_slot) while a step may still read
+        # it
+        return host_to_device(self.block_tables.copy(), self.device)
+
+
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array built for one step, on ``device`` without blocking the
+    host: on CUDA staged in pinned memory and copied with ``non_blocking``
+    (PyTorch's caching host allocator records the copy on its stream and
+    does not hand the pinned block out again before the copy has run). On
+    the CPU the tensor shares the array's memory, so ``arr`` must be
+    private to the caller."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

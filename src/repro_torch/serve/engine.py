@@ -20,18 +20,22 @@ As in the reference, the continuous engine shares KV blocks across requests
 by default (``prefix_cache``, copy-on-write, the index kept across drains),
 lets a strictly higher-priority waiter evict a live request under block
 pressure (``preemption``; the victim resumes by re-prefilling its prompt
-and the tokens it had), and splits long prompts into chunks interleaved
-with decode steps (``chunk_len``, ``chunk_budget``). Only the lockstep
-drain is ported: every step's tokens are read back before the next step is
-dispatched. The pipelined drain, dense-ring continuous serving,
-load-adaptive MP, fault injection, the numerical guardrail and mesh serving
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+and the tokens it had), splits long prompts into chunks interleaved with
+decode steps (``chunk_len``, ``chunk_budget``), and drains pipelined: the
+device runs up to ``max_in_flight`` steps ahead while a consumer thread
+reads tokens back (``serve(sync=True)`` is the lockstep drain). Requests
+can be cancelled (``cancel``, ``shutdown``, ``Request.timeout_steps``) and
+streamed (``on_token``). Dense-ring continuous serving, load-adaptive MP,
+fault injection, the numerical guardrail and mesh serving raise
+``NotImplementedError`` naming their ROADMAP.md item.
 
 Both engines accept ``mp`` as an op->format dict or an ``MPPlan``.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 import weakref
 from typing import Optional, Sequence
@@ -46,8 +50,10 @@ from repro_torch.kernels import paged_attention as _paged_kernel
 from repro_torch.launch import steps as _steps
 from repro_torch.launch.steps import (get_serving_step, greedy_next_token,
                                       merge_first_tokens)
-from repro_torch.serve.cache_pool import PagedCachePool, paged_block_bytes
-from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.cache_pool import (PagedCachePool, host_to_device,
+                                          paged_block_bytes)
+from repro_torch.serve.scheduler import (DONE, PREFILLING, RUNNING, WAITING,
+                                         Request, Scheduler)
 
 __all__ = ["ServeEngine", "ContinuousBatchingEngine", "GenResult",
            "ServeSummary", "prefill_bucket"]
@@ -164,8 +170,6 @@ _LATER = {
                  "ROADMAP item A5, a later port slice",
     "mesh": "mesh-sharded serving lands with ROADMAP item A9, the "
             "multi-GPU port slice",
-    "sync=False": "the pipelined drain lands with ROADMAP item A3, the next "
-                  "serving slice of the port",
 }
 
 
@@ -193,27 +197,53 @@ def _refuse(name: str):
     raise NotImplementedError(f"{name}: {_LATER[name]} (see ROADMAP.md)")
 
 
+@dataclasses.dataclass
+class _HostSet:
+    """One decode step's pinned host buffers: positions and block tables
+    going in, its greedy tokens coming out, and (on CUDA) the event
+    recorded behind its copies."""
+    pos: torch.Tensor
+    bt: torch.Tensor
+    tok: torch.Tensor
+    event: Optional[object]
+
+
+def _seconds(timing) -> float:
+    """A prefill chunk's time: host seconds, or a (start, end) pair of CUDA
+    events read once the end has completed."""
+    if isinstance(timing, tuple):
+        start, end = timing
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    return timing
+
+
 class ContinuousBatchingEngine:
     """Continuous batching over a fixed pool of paged cache slots.
 
-    Each clock tick: admit arrived requests while slots and blocks allow
-    (the block budget is the backpressure signal; with ``preemption`` a
-    strictly higher-priority waiter gated on it evicts the lowest-priority,
-    latest-admitted live request, which re-queues with its prompt and the
-    tokens it had), run prefill chunk steps — freely while nothing decodes,
-    else at most ``chunk_budget`` — each co-batching the next chunk of every
-    prefilling slot (at most ``chunk_len`` tokens, padded to the largest
-    bucket; priority, then shortest remaining prefill, then slot), then one
-    decode step over all ``n_slots`` rows with per-row positions and block
-    tables. Vacant rows decode garbage whose K/V writes land in the trash
-    block.
+    Each clock tick: apply pending control (cancellations, shutdown,
+    ``Request.timeout_steps``), admit arrived requests while slots and
+    blocks allow (the block budget is the backpressure signal; with
+    ``preemption`` a strictly higher-priority waiter gated on it evicts the
+    lowest-priority, latest-admitted live request, which re-queues with its
+    prompt and the tokens it had), run prefill chunk steps — freely while
+    nothing decodes, else at most ``chunk_budget`` — each co-batching the
+    next chunk of every prefilling slot (at most ``chunk_len`` tokens,
+    padded to the largest bucket; priority, then shortest remaining
+    prefill, then slot), then one decode step over all ``n_slots`` rows
+    with per-row positions and block tables. Vacant rows decode garbage
+    whose K/V writes land in the trash block.
 
     ``prefix_cache`` (None: on, as for every paged pure-attention model the
     port builds) hashes each admitted prompt block by block against the
     pool's index, maps matched blocks into the slot's table and starts its
     prefill at the first unmatched token; a shared page in a chunk's write
     range is forked first (copy-on-write). The pool and its index outlive
-    the drain, so a later drain hits what an earlier one indexed."""
+    the drain, so a later drain hits what an earlier one indexed.
+
+    :meth:`cancel` and :meth:`shutdown` may be called from any thread (an
+    ``on_token`` callback included); the drain applies them at the top of
+    the next tick, so a slot is never freed under a step being built."""
 
     def __init__(self, model, n_slots: int = 4, max_len: int = 512,
                  mp=None, paged: bool = True, block_size: int = 16,
@@ -262,7 +292,26 @@ class ContinuousBatchingEngine:
                                             paged_attn=paged_attn)
         self._pool = None
         self._weights = ()        # the weights the pool's index was built on
-        self._inputs = None       # (host, device) decode input buffers
+        self._inputs = None       # device decode input buffers
+        self._ring: list = []     # pinned host sets, one per step in flight
+        self._ctl_lock = threading.Lock()
+        self._cancel_pending: set = set()
+        self._shutdown_flag = False
+
+    def cancel(self, rid: int) -> None:
+        """Ask for ``rid`` to be cancelled. Thread-safe; applied at the next
+        tick: a waiting request leaves the queue, a live one frees its slot.
+        The request retires with status ``"cancelled"`` and the tokens it
+        had committed by then (possibly none)."""
+        with self._ctl_lock:
+            self._cancel_pending.add(rid)
+
+    def shutdown(self) -> None:
+        """Ask the running drain to stop: every unfinished request is
+        cancelled at the next tick, the tokens in flight are delivered, and
+        ``serve`` returns the partial results."""
+        with self._ctl_lock:
+            self._shutdown_flag = True
 
     def _make_pool(self, params) -> PagedCachePool:
         """The engine's one pool, kept across drains with its prefix index
@@ -289,20 +338,23 @@ class ContinuousBatchingEngine:
         self._weights = weights
         return pool
 
-    def _decode_inputs(self, pool: PagedCachePool):
-        """The decode step's input buffers, kept across drains: pinned host
-        arrays for positions and block tables, and device buffers for
-        token, positions and block tables, filled with ``copy_`` each
-        step."""
+    def _staging(self, pool: PagedCachePool, n_sets: int):
+        """The decode step's device input buffers (token, positions, block
+        tables: the graph is bound to them, so they stay single and are
+        filled with stream-ordered ``copy_``) and ``n_sets`` pinned host
+        sets, one per step in flight, all kept across drains."""
+        dev, n, nb = self.device, self.n_slots, pool.max_blocks
         if self._inputs is None:
-            dev, n, nb = self.device, self.n_slots, pool.max_blocks
-            pin = dev.type == "cuda"
-            host = (torch.zeros((n,), dtype=torch.int32, pin_memory=pin),
-                    torch.zeros((n, nb), dtype=torch.int32, pin_memory=pin))
-            inputs = tuple(torch.zeros(shape, dtype=torch.int32, device=dev)
-                           for shape in ((n, 1), (n,), (n, nb)))
-            self._inputs = (host, inputs)
-        return self._inputs
+            self._inputs = tuple(torch.zeros(shape, dtype=torch.int32,
+                                             device=dev)
+                                 for shape in ((n, 1), (n,), (n, nb)))
+        cuda = dev.type == "cuda"
+        while len(self._ring) < n_sets:
+            self._ring.append(_HostSet(
+                *(torch.zeros(shape, dtype=torch.int32, pin_memory=cuda)
+                  for shape in ((n,), (n, nb), (n,))),
+                event=torch.cuda.Event() if cuda else None))
+        return self._inputs, self._ring[:n_sets]
 
     def _digests(self, pool: PagedCachePool, st):
         """Chained prefix digests of the request's effective prompt (after
@@ -320,7 +372,8 @@ class ContinuousBatchingEngine:
         best waiter blocks the queue while the block budget cannot cover
         it. With ``evict`` (preemption), a gated waiter that outranks a
         live request evicts the scheduler's victim and admission retries;
-        each round removes one victim, and equal priority never evicts."""
+        each round removes one victim, and equal priority never evicts.
+        ``evict`` returns False when the drain is shutting down."""
         def gate(r):
             st = sched.states[r.rid]
             need = pool.blocks_for_request(st.effective_prompt_len,
@@ -359,18 +412,20 @@ class ContinuousBatchingEngine:
             if cand is None:
                 return
             victim = sched.preempt_candidate(cand.request.priority)
-            if victim is None:
+            if victim is None or not evict(victim):
                 return
-            evict(victim)
 
     def _prefill_tick(self, params, pool: PagedCachePool, sched: Scheduler,
-                      now: int):
+                      now: int, sync: bool = True):
         """One prefill step co-batching the next chunk (at most
         ``chunk_len`` tokens) of every prefilling slot over the full
         ``n_slots`` batch (inactive rows pass through with valid = 0); a
         borrowed page in a chunk's write range is forked first. Returns
-        (the step's seconds, device tokens, finished (slot, state) pairs,
-        prompt tokens processed)."""
+        (the chunk's time, device tokens, finished (slot, state) pairs,
+        prompt tokens processed). The time is device time: the lockstep
+        drain (``sync``) waits for the chunk; the pipelined one records a
+        pair of CUDA events around it, read after the drain (on the CPU the
+        host's time is the chunk's)."""
         cands = []
         for slot, st in sched.prefilling.items():
             start = st.prefill_pos
@@ -396,14 +451,22 @@ class ContinuousBatchingEngine:
             start_v[slot] = start
             valid_v[slot] = take
         dev = self.device
+        events = None
+        if not sync and dev.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
         t0 = time.perf_counter()
         logits, pool.caches = self.prefill_chunk_step(
-            params, pool.caches, torch.from_numpy(tok).to(dev),
-            torch.from_numpy(start_v).to(dev),
-            torch.from_numpy(valid_v).to(dev), pool.block_tables_device())
+            params, pool.caches, host_to_device(tok, dev),
+            host_to_device(start_v, dev), host_to_device(valid_v, dev),
+            pool.block_tables_device())
         nxt = greedy_next_token(logits)
-        _sync(dev)          # the stall counters hold the chunk's device time
+        if sync:
+            _sync(dev)           # the stall counters hold device time
         dt = time.perf_counter() - t0
+        if events is not None:
+            events[1].record()
         if self.prefix_cache:
             # index the blocks this chunk filled: a later matcher's chunks
             # are queued after these writes on the same stream
@@ -414,18 +477,46 @@ class ContinuousBatchingEngine:
             st = sched.prefill_advance(slot, take, dt)
             if st.prefill_pos == st.effective_prompt_len:
                 finished.append((slot, sched.finish_prefill(slot, None, now)))
-        return dt, nxt, finished, sum(c[3] for c in cands)
+        return (dt if events is None else events), nxt, finished, \
+            sum(c[3] for c in cands)
 
     def serve(self, params, requests: Sequence[Request], *,
-              sync: bool = True) -> ServeSummary:
+              sync: bool = False, on_token=None,
+              max_in_flight: int = 8) -> ServeSummary:
         """Drain ``requests`` (any arrival order) and return all results.
-        Only the lockstep drain (``sync=True``) is ported."""
-        if not sync:
-            _refuse("sync=False")
+
+        The drain is pipelined by default, as in the reference: this thread
+        schedules by token counts alone (every request runs exactly
+        ``max_new_tokens`` steps), so it never needs a token value. Each
+        step's token vector is copied without blocking into a pinned host
+        set of a ring of ``max_in_flight + 1``, an event is recorded behind
+        the copy, and the set goes on a queue of ``max_in_flight`` entries
+        (a full queue is the backpressure). A consumer thread drains the
+        queue greedily, waits once per wakeup on the newest event, fills
+        each request's token list, stamps its TTFT at delivery and fires
+        ``on_token(rid, idx, token)`` in order per request. ``sync=True``
+        is the lockstep drain: every step's tokens are read back (and
+        ``on_token`` fired) before the next step is dispatched. Both run
+        the same device schedule and the same on-device argmax, so their
+        tokens are bit-equal.
+
+        :meth:`cancel`, :meth:`shutdown` and ``Request.timeout_steps`` take
+        effect at tick granularity; cancelled and timed-out requests keep
+        the tokens they had committed (``RequestResult.status`` says
+        which). An exception from ``on_token``, or from the consumer's
+        copies and events, cancels every remaining request; the drain
+        delivers what is in flight, settles the pool's books and re-raises
+        it. Nothing falls back to the lockstep drain."""
+        if max_in_flight < 1:
+            raise ValueError(f"max_in_flight must be >= 1, got "
+                             f"{max_in_flight}")
         _check_params(params, self.device)
         pool = self._make_pool(params)
-        (pos_host, bt_host), (tok_in, pos_in, bt_in) = \
-            self._decode_inputs(pool)
+        (tok_in, pos_in, bt_in), ring = self._staging(
+            pool, 1 if sync else max_in_flight + 1)
+        with self._ctl_lock:
+            self._cancel_pending.clear()
+            self._shutdown_flag = False
         sched = Scheduler()
         for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
             sched.submit(r)
@@ -433,131 +524,326 @@ class ContinuousBatchingEngine:
         cur_tok = torch.zeros((self.n_slots, 1), dtype=torch.int32,
                               device=self.device)
         now = n_steps = 0
-        decode_s = 0.0
+        decode_s = host_blocked_s = drain_wait_s = 0.0
+        t_first_decode = None
+        n_readbacks = inflight_peak = 0
+        readback_sizes = []
         peak_queue = peak_live = peak_blocks = peak_slots = 0
         prefill_chunks = prefill_tokens = decode_stall_steps = 0
         stall_run = max_stall_run = 0
-        stall_s_run = 0.0
-        stall_s = []              # per decode step: prefill time before it
+        stall_run_times = []      # prefill chunk times since the last step
+        stall_times = []          # per decode step: its chunks' times
         launches0 = _paged_kernel.launches
         graphs0 = _steps.graph_captures, _steps.graph_replays
 
-        def deliver(nxt, deliveries):
-            """Read one step's tokens back (this blocks on the step) and fill
-            each (state, index, slot) placeholder."""
-            arr = nxt.cpu().numpy()
+        # ---- delivery, shared by both drains ----
+        q: queue.Queue = queue.Queue(maxsize=max_in_flight)
+        free: queue.Queue = queue.Queue()      # ring sets not in flight
+        for k in range(len(ring)):
+            free.put(k)
+        consumer_err = []
+
+        def deliver(arr, deliveries):
+            """Fill each (state, index, slot) placeholder from a host token
+            vector, stamp TTFT at delivery, fire the callback."""
             t_now = time.perf_counter()
             for st, idx, slot in deliveries:
-                st.out_tokens[idx] = int(arr[slot])
+                tok = int(arr[slot])
+                st.out_tokens[idx] = tok
                 if idx == 0:
                     st.ttft_s = t_now - st.wall_admitted
+                if on_token is not None and not consumer_err:
+                    on_token(st.request.rid, idx, tok)
 
-        def evict(st):
-            # every token of the victim was read back by the lockstep drain;
-            # its blocks' next writer is a step queued after this
+        def consume():
+            nonlocal n_readbacks
+            stop = False
+            while not stop:
+                item = q.get()
+                if item is None:
+                    return
+                batch = [item]
+                while True:            # greedy: one wait per wakeup
+                    try:
+                        more = q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if more is None:
+                        stop = True
+                        break
+                    batch.append(more)
+                try:
+                    # the newest event covers every earlier copy: they
+                    # were all queued before it on the same stream
+                    ev = ring[batch[-1][0]].event
+                    if ev is not None:
+                        ev.synchronize()
+                    arrs = [ring[k].tok.numpy().copy() for k, _ in batch]
+                finally:
+                    for k, _ in batch:
+                        free.put(k)
+                n_readbacks += 1
+                readback_sizes.append(len(batch))
+                for arr, (_, dl) in zip(arrs, batch):
+                    try:
+                        deliver(arr, dl)
+                    except BaseException as e:  # noqa: BLE001
+                        # keep draining so the producer never waits on a
+                        # full queue; re-raised from serve after the join
+                        consumer_err.append(e)
+
+        def consume_guarded():
+            try:
+                consume()
+            except BaseException as e:  # noqa: BLE001 — an event or copy
+                consumer_err.append(e)
+                while True:            # release the producer until the end
+                    item = q.get()
+                    if item is None:
+                        return
+                    free.put(item[0])
+
+        def acquire() -> int:
+            """A ring set no step in flight uses: the consumer releases a
+            set once it has waited on an event at or after the set's own,
+            and the set's event is waited on again here before the producer
+            rewrites its buffers."""
+            nonlocal host_blocked_s
+            t0 = time.perf_counter()
+            k = free.get()
+            if ring[k].event is not None:
+                ring[k].event.synchronize()
+            host_blocked_s += time.perf_counter() - t0
+            return k
+
+        def emit(nxt, deliveries, k=None):
+            """Hand one step's (n_slots,) device tokens to delivery: read
+            back now (lockstep) or queued for the consumer (pipelined)."""
+            nonlocal host_blocked_s, n_readbacks, inflight_peak
+            if sync:
+                t0 = time.perf_counter()
+                arr = nxt.cpu().numpy()        # blocks on the step
+                host_blocked_s += time.perf_counter() - t0
+                n_readbacks += 1
+                readback_sizes.append(1)
+                try:
+                    deliver(arr, deliveries)
+                except BaseException as e:  # noqa: BLE001 — on_token
+                    # the same shutdown as the pipelined drain: cancel,
+                    # settle the books, re-raise after the drain
+                    consumer_err.append(e)
+                return
+            if k is None:
+                k = acquire()
+            h = ring[k]
+            h.tok.copy_(nxt, non_blocking=True)
+            if h.event is not None:
+                h.event.record()
+            t0 = time.perf_counter()
+            q.put((k, deliveries))             # blocks at max_in_flight
+            host_blocked_s += time.perf_counter() - t0
+            inflight_peak = max(inflight_peak, q.qsize())
+
+        def evict(st) -> bool:
+            # the resumed request re-prefills its prompt and every token it
+            # has, so each placeholder must hold its value first
+            while any(t is None for t in st.out_tokens):
+                if consumer_err:
+                    return False               # shutting down
+                time.sleep(2e-4)
+            # freeing blocks while steps are still in flight is safe: a
+            # block's next writer is a step dispatched after this, and the
+            # device runs the stream's work in order
             pool.free_slot(st.slot)
             sched.preempt(st, now)
+            return True
 
+        def cancel_live(st, status):
+            if st.status == WAITING:
+                sched.remove_waiting(st.request.rid)
+            elif st.status in (PREFILLING, RUNNING):
+                # as in evict: later writers of its blocks come after this
+                pool.free_slot(st.slot)
+            retired.append(sched.retire(st, now, status))
+
+        def apply_control():
+            with self._ctl_lock:
+                todo = self._cancel_pending
+                self._cancel_pending = set()
+                shutdown = self._shutdown_flag
+            # a callback error is a shutdown: schedule nothing new, deliver
+            # what is in flight, re-raise after the drain
+            shutdown = shutdown or bool(consumer_err)
+            for st in list(sched.states.values()):
+                t = st.request.timeout_steps
+                if (st.status != DONE and t is not None
+                        and now >= st.request.arrival + t):
+                    cancel_live(st, "timeout")
+            if shutdown:
+                todo = set(sched.states)
+            for rid in sorted(todo):
+                st = sched.states.get(rid)
+                if st is not None and st.status != DONE:
+                    cancel_live(st, "cancelled")
+
+        consumer = None
+        if not sync:
+            consumer = threading.Thread(target=consume_guarded,
+                                        name="serve-consumer", daemon=True)
+            consumer.start()
         evict = evict if self.preemption else None
         t_start = time.perf_counter()
-        with torch.no_grad():
-            while sched.has_work():
-                self._admit(pool, sched, now, evict)
-                peak_queue = max(peak_queue, sched.queue_depth)
-                chunks = 0
-                while sched.prefilling and (not sched.running
-                                            or chunks < self.chunk_budget):
-                    was_decoding = bool(sched.running)
-                    dt, nxt, finished, n_tok = self._prefill_tick(
-                        params, pool, sched, now)
-                    prefill_chunks += 1
-                    prefill_tokens += n_tok
-                    chunks += 1
-                    if was_decoding:
-                        decode_stall_steps += 1
-                        stall_run += 1
-                        max_stall_run = max(max_stall_run, stall_run)
-                        stall_s_run += dt
-                    if finished:
-                        mask = np.zeros((self.n_slots,), bool)
-                        for slot, _ in finished:
-                            mask[slot] = True
-                        cur_tok = merge_first_tokens(
-                            cur_tok, nxt, torch.from_numpy(mask).to(
-                                self.device))
-                        # a resumed request's placeholder is its last entry
-                        deliver(nxt, [(st, len(st.out_tokens) - 1, slot)
-                                      for slot, st in finished])
-                        for slot, st in finished:
-                            if st.done:              # max_new_tokens == 1
+        try:
+            with torch.no_grad():
+                while sched.has_work():
+                    apply_control()
+                    if not sched.has_work():
+                        break
+                    self._admit(pool, sched, now, evict)
+                    peak_queue = max(peak_queue, sched.queue_depth)
+                    chunks = 0
+                    while sched.prefilling and (not sched.running
+                                                or chunks < self.chunk_budget):
+                        was_decoding = bool(sched.running)
+                        timing, nxt, finished, n_tok = self._prefill_tick(
+                            params, pool, sched, now, sync)
+                        prefill_chunks += 1
+                        prefill_tokens += n_tok
+                        chunks += 1
+                        if was_decoding:
+                            decode_stall_steps += 1
+                            stall_run += 1
+                            max_stall_run = max(max_stall_run, stall_run)
+                            stall_run_times.append(timing)
+                        if finished:
+                            mask = np.zeros((self.n_slots,), bool)
+                            for slot, _ in finished:
+                                mask[slot] = True
+                            cur_tok = merge_first_tokens(
+                                cur_tok, nxt,
+                                host_to_device(mask, self.device))
+                            # a resumed request's placeholder is its last
+                            # entry
+                            emit(nxt, [(st, len(st.out_tokens) - 1, slot)
+                                       for slot, st in finished])
+                            for slot, st in finished:
+                                if st.done:          # max_new_tokens == 1
+                                    retired.append(sched.retire(st, now))
+                                    pool.free_slot(slot)
+                        self._admit(pool, sched, now, evict)
+                    if sched.running:
+                        k = 0 if sync else acquire()
+                        h = ring[k]
+                        pos = h.pos.numpy()
+                        pos[:] = 0
+                        for slot, st in sched.running.items():
+                            pos[slot] = st.next_pos
+                            pool.ensure_block(slot, st.next_pos)
+                        peak_live = max(peak_live, sum(
+                            st.next_pos + 1 for st in sched.running.values()))
+                        peak_slots = max(peak_slots, len(sched.running))
+                        peak_blocks = max(peak_blocks, pool.blocks_in_use)
+                        # decode sees block tables only for running rows: a
+                        # slot mid-prefill maps real (possibly shared)
+                        # blocks, and the vacant-row garbage write must go
+                        # to the trash block
+                        bt = h.bt.numpy()
+                        bt[:] = pool.block_tables
+                        for s in range(self.n_slots):
+                            if s not in sched.running:
+                                bt[s] = -1
+                        t0 = time.perf_counter()
+                        if t_first_decode is None:
+                            t_first_decode = t0
+                        # the set's buffers are pinned and no step in flight
+                        # reads them (acquire), so the copies need not wait
+                        # for the device; the graph's own input buffers are
+                        # filled in stream order
+                        tok_in.copy_(cur_tok)
+                        pos_in.copy_(h.pos, non_blocking=True)
+                        bt_in.copy_(h.bt, non_blocking=True)
+                        _, pool.caches, nxt = self.decode_step(
+                            params, pool.caches, tok_in, pos_in, bt_in)
+                        # nxt may be the graph's static output: the copy
+                        # emit queues now runs before the next replay
+                        # overwrites it
+                        cur_tok = nxt[:, None]
+                        deliveries = []
+                        for slot in list(sched.running):
+                            st = sched.running[slot]
+                            deliveries.append((st, len(st.out_tokens), slot))
+                            sched.record_token(slot, None)
+                        emit(nxt, deliveries, k)
+                        decode_s += time.perf_counter() - t0
+                        n_steps += 1
+                        stall_times.append(stall_run_times)
+                        stall_run_times, stall_run = [], 0
+                        for slot in list(sched.running):
+                            st = sched.running[slot]
+                            if st.done:
                                 retired.append(sched.retire(st, now))
                                 pool.free_slot(slot)
-                    self._admit(pool, sched, now, evict)
-                if sched.running:
-                    pos = pos_host.numpy()
-                    pos[:] = 0
-                    for slot, st in sched.running.items():
-                        pos[slot] = st.next_pos
-                        pool.ensure_block(slot, st.next_pos)
-                    peak_live = max(peak_live, sum(
-                        st.next_pos + 1 for st in sched.running.values()))
-                    peak_slots = max(peak_slots, len(sched.running))
-                    peak_blocks = max(peak_blocks, pool.blocks_in_use)
-                    # decode sees block tables only for running rows: a slot
-                    # mid-prefill maps real (possibly shared) blocks, and the
-                    # vacant-row garbage write must go to the trash block
-                    bt = bt_host.numpy()
-                    bt[:] = pool.block_tables
-                    for s in range(self.n_slots):
-                        if s not in sched.running:
-                            bt[s] = -1
-                    t0 = time.perf_counter()
-                    # the host arrays are pinned and rewritten only after
-                    # the previous step's tokens were read back, so the
-                    # copies need not wait for the device
-                    tok_in.copy_(cur_tok)
-                    pos_in.copy_(pos_host, non_blocking=True)
-                    bt_in.copy_(bt_host, non_blocking=True)
-                    _, pool.caches, nxt = self.decode_step(
-                        params, pool.caches, tok_in, pos_in, bt_in)
-                    cur_tok = nxt[:, None]
-                    deliveries = []
-                    for slot in list(sched.running):
-                        st = sched.running[slot]
-                        deliveries.append((st, len(st.out_tokens), slot))
-                        sched.record_token(slot, None)
-                    deliver(nxt, deliveries)
-                    decode_s += time.perf_counter() - t0
-                    n_steps += 1
-                    stall_s.append(stall_s_run)
-                    stall_s_run, stall_run = 0.0, 0
-                    for slot in list(sched.running):
-                        st = sched.running[slot]
-                        if st.done:
-                            retired.append(sched.retire(st, now))
-                            pool.free_slot(slot)
-                    now += 1
-                elif not sched.prefilling:
-                    # idle: jump the clock to the next arrival
-                    nxt_arrival = sched.next_arrival()
-                    if nxt_arrival is None:
-                        break
-                    now = max(now + 1, nxt_arrival)
-        total_s = time.perf_counter() - t_start
+                        now += 1
+                    elif not sched.prefilling:
+                        # idle: jump the clock to the next arrival
+                        nxt_arrival = sched.next_arrival()
+                        if nxt_arrival is None:
+                            break
+                        now = max(now + 1, nxt_arrival)
+        finally:
+            if consumer is not None:
+                # deliver everything emitted before returning; this wait
+                # overlaps no work left to dispatch, so it is not counted
+                # as blocked
+                t0 = time.perf_counter()
+                q.put(None)
+                consumer.join()
+                drain_wait_s = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        total_s = t_end - t_start
+        if consumer_err:
+            # every request was cancelled and its slot freed; a delivery
+            # that died half-way cannot have moved the pool, but settle its
+            # books so the engine's next drain reuses it
+            pool.reconcile()
+            raise consumer_err[0]
+        if not sync and t_first_decode is not None:
+            # the producer timed dispatch only: report the wall span from
+            # the first decode dispatch to the drain's end
+            decode_s = max(decode_s, t_end - t_first_decode)
+        stall_s = [sum(_seconds(t) for t in ts) for ts in stall_times]
         results = {st.request.rid: sched.materialize(st) for st in retired}
         n_decoded = sum(max(len(r.tokens) - 1, 0) for r in results.values())
         ttfts = sorted(r.ttft_s for r in results.values())
         blk_bytes = paged_block_bytes(self.model, pool.block_size)
+        statuses = [st.result_status for st in retired]
         counters = {
             "paged": True,
-            "sync": True,
+            "sync": bool(sync),
             "paged_attn": self.paged_attn,
             "n_decode_steps": n_steps,
             "kernel_launches": _paged_kernel.launches - launches0,
             "graph_captures": _steps.graph_captures - graphs0[0],
             "graph_replays": _steps.graph_replays - graphs0[1],
             "ttft_p50_s": ttfts[len(ttfts) // 2] if ttfts else 0.0,
+            # the same window in both drains (submission to drain end): the
+            # fair comparison of the lockstep and pipelined drains
             "wall_tokens_per_s": n_decoded / total_s if total_s > 0 else 0.0,
+            # time this thread sat blocked on token transfers on the decode
+            # path (lockstep: every read-back; pipelined: a full queue or
+            # ring), how read-backs batched, how far the device ran ahead
+            "host_blocked_s": host_blocked_s,
+            "host_blocked_s_per_step": host_blocked_s / max(n_steps, 1),
+            "drain_wait_s": drain_wait_s,
+            "n_readbacks": n_readbacks,
+            "readback_batch_max": int(max(readback_sizes, default=0)),
+            "readback_batch_mean": (float(np.mean(readback_sizes))
+                                    if readback_sizes else 0.0),
+            "steps_in_flight_peak": inflight_peak,
+            "n_cancelled": sum(s in ("cancelled", "timeout")
+                               for s in statuses),
+            "n_failed": statuses.count("failed"),
+            "n_retried": statuses.count("retried"),
             "peak_queue_depth": peak_queue,
             "blocked_admissions": sched.blocked_admissions,
             "peak_live_tokens": peak_live,

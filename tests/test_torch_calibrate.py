@@ -88,13 +88,25 @@ def _plan_dict(plan) -> dict:
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cfg", ["smoke_config", "config"])
-def test_groups_match_reference(cfg):
+# besides the llama: QKV bias and a tied head (qwen2p5_3b), a non-gated
+# relu2 MLP under layernorm (nemotron_4_15b)
+OTHER_FAMILIES = ["qwen2p5_3b", "nemotron_4_15b"]
+
+
+@pytest.mark.parametrize("arch_cfg", [
+    pytest.param(("llama3_1b", "smoke_config"), id="smoke_config"),
+    pytest.param(("llama3_1b", "config"), id="config")] + [
+    pytest.param((arch, cfg), id=f"{arch}-{cfg}")
+    for arch in OTHER_FAMILIES for cfg in ("smoke_config", "config")])
+def test_groups_match_reference(arch_cfg):
     """Graphs need no weights: the full 16-layer llama3_1b partitions into
     the reference's 65 groups (per layer {q,k,v,qk,av}, {o}, {gate,up},
-    {down}, then lm_head)."""
-    from repro.configs import llama3_1b as jc
-    from repro_torch.configs import llama3_1b as tc
+    {down}, then lm_head); the other families' graphs and partitions equal
+    the reference's too."""
+    import importlib
+    arch, cfg = arch_cfg
+    jc = importlib.import_module(f"repro.configs.{arch}")
+    tc = importlib.import_module(f"repro_torch.configs.{arch}")
     jg = jgraphs.build_lm_graph(getattr(jc, cfg)())
     tg = tgraphs.build_lm_graph(getattr(tc, cfg)())
     assert tg.nodes == jg.nodes and tg.edges == jg.edges
@@ -104,7 +116,7 @@ def test_groups_match_reference(cfg):
                dict(drop_residual=False)):
         assert tpart(tg, **kw) == jpart(jg, **kw)
     groups = tpart(tg, drop_residual=True, max_group_size=8)
-    if cfg == "config":
+    if arch_cfg == ("llama3_1b", "config"):
         assert len(groups) == 65 and groups[-1] == ["lm_head"]
         assert set(groups[0]) == {f"layers/0/attn/{n}" for n in (
             "q_proj", "k_proj", "v_proj", "qk_matmul", "av_matmul")}
@@ -202,6 +214,44 @@ def test_calibrate_matches_reference(calibrated):
         for a, b in zip(tb.objectives[obj]["gains"],
                         jb.objectives[obj]["gains"]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
+def test_calibrate_matches_reference_on_other_families(arch):
+    """Algorithm 1 end to end on a smoke model of each other family, f32
+    weights bridged from the reference: the same ops, sensitivities within
+    ``SENS_RTOL``, losses within ``LOSS_RTOL``, the same groups and gain
+    tables, and the same plans (their budgets and predictions within
+    ``SENS_RTOL``)."""
+    jm = jget(arch, smoke=True, dtype="float32")
+    jp = jm.init(jax.random.key(0))
+    tm = tget(arch, smoke=True, dtype="float32")
+    tp = params_from_flat({k: np.asarray(v) for k, v in
+                           flatten_paths(jp).items()}, tm.cfg, "cpu")
+    batches = _batches(tm.cfg.vocab_size)
+    jb = jpl.calibrate(jm, jp, _jbatches(batches), jpl.AMPOptions(hw=JH100))
+    tb = tpl.calibrate(tm, tp, batches, tpl.AMPOptions())
+    assert [dataclasses.asdict(o) for o in tb.sens.ops] == [
+        dataclasses.asdict(o) for o in jb.sens.ops]
+    js, ts = jb.sens.sensitivity, tb.sens.sensitivity
+    assert sorted(ts) == sorted(js)
+    for name in js:
+        assert ts[name] == pytest.approx(js[name],
+                                         rel=SENS_RTOL["float32"]), name
+    assert tb.sens.loss_mean == pytest.approx(jb.sens.loss_mean,
+                                              rel=LOSS_RTOL["float32"])
+    for obj in ("ET", "TT", "M"):
+        assert tb.objectives[obj]["groups"] == jb.objectives[obj]["groups"]
+        for a, b in zip(tb.objectives[obj]["gains"],
+                        jb.objectives[obj]["gains"]):
+            np.testing.assert_array_equal(a, b)
+        tplan, jplan = tb.solve(0.05, obj), jb.solve(0.05, obj)
+        assert tplan.assignment == jplan.assignment
+        assert [list(g) for g in tplan.groups] == [list(g)
+                                                   for g in jplan.groups]
+        for field in ("budget", "predicted_loss_mse", "predicted_gain"):
+            assert getattr(tplan, field) == pytest.approx(
+                getattr(jplan, field), rel=SENS_RTOL["float32"]), field
 
 
 @pytest.mark.parametrize("ext", ["json", "npz"])

@@ -35,12 +35,17 @@ MP = {"layers/0/attn/q_proj": "fp8_e4m3", "layers/0/mlp/down_proj": "fp8_e4m3",
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6, "mp": 2.0 ** -4}
 
 
-# the dense llama configs the port serves: llama3_1b (tied head, d_head 64)
-# and llama3_8b (untied head, d_head 128 at full width), each at smoke size
+# the dense configs the port serves, each at smoke size: llama3_1b (tied
+# head, d_head 64), llama3_8b (untied head, d_head 128 at full width), and
+# the features no llama has: QKV bias and a tied head (qwen2p5_3b), QKV bias
+# with one KV head (qwen2p5_32b), layernorm with a non-gated relu2 MLP
+# (nemotron_4_15b) and with a non-gated gelu MLP (starcoder2_15b)
+DENSE = ["llama3_1b", "llama3_8b", "qwen2p5_3b", "qwen2p5_32b",
+         "nemotron_4_15b", "starcoder2_15b"]
 PAIRS = [pytest.param(("llama3_1b", "float32"), id="float32"),
-         pytest.param(("llama3_1b", "bfloat16"), id="bfloat16"),
-         pytest.param(("llama3_8b", "float32"), id="llama3_8b-float32"),
-         pytest.param(("llama3_8b", "bfloat16"), id="llama3_8b-bfloat16")]
+         pytest.param(("llama3_1b", "bfloat16"), id="bfloat16")] + [
+    pytest.param((arch, dtype), id=f"{arch}-{dtype}")
+    for arch in DENSE[1:] for dtype in ("float32", "bfloat16")]
 
 
 @pytest.fixture(scope="module", params=PAIRS)
@@ -87,12 +92,12 @@ def test_bridge_round_trips_every_path(pair):
 @pytest.mark.parametrize("arch_cfg", [
     pytest.param(("llama3_1b", "config"), id="config"),
     pytest.param(("llama3_1b", "bench_config"), id="bench_config"),
-    pytest.param(("llama3_1b", "smoke_config"), id="smoke_config"),
-    pytest.param(("llama3_8b", "config"), id="llama3_8b-config"),
-    pytest.param(("llama3_8b", "smoke_config"), id="llama3_8b-smoke_config")])
+    pytest.param(("llama3_1b", "smoke_config"), id="smoke_config")] + [
+    pytest.param((arch, cfg), id=f"{arch}-{cfg}")
+    for arch in DENSE[1:] for cfg in ("config", "smoke_config")])
 def test_param_specs_match_reference(arch_cfg):
     """Same paths and shapes as the reference for every config of the
-    dense llamas, the full 1.2B- and 8.0B-parameter ones included (specs
+    dense models, the full 1.2B- to 32.8B-parameter ones included (specs
     only, nothing allocated), and the same config fields."""
     import dataclasses
     import importlib
@@ -193,17 +198,72 @@ def test_unported_features_raise():
     assert m.apply(p, torch.zeros((1, 8), dtype=torch.int32),
                    TCtx()).shape == (1, 8, m.cfg.vocab_size)
     with pytest.raises(KeyError, match="llama3_1b"):
-        tget("qwen2p5_3b")
-    assert ARCH_IDS == ["llama3_1b", "llama3_8b", "deepseek_v3_671b"]
+        tget("mamba2_370m")
+    assert ARCH_IDS == ["llama3_1b", "llama3_8b", "deepseek_v3_671b",
+                        "qwen2p5_3b", "qwen2p5_32b", "nemotron_4_15b",
+                        "starcoder2_15b"]
 
 
-@pytest.mark.parametrize("arch", ["llama3_1b", "llama3_8b"])
+def _jax_greedy(jm, jp, batch, n: int, jit: bool):
+    """The reference ``ServeEngine``'s greedy loop (bucketed prefill, then
+    scalar-position decode) over the reference model's steps, compiled
+    (``jit``, as the engine runs them) or op by op. Returns the tokens and
+    each step's top-two logit gap, (B, n) each."""
+    from repro.serve import prefill_bucket as jbucket
+    B, T0 = batch.shape
+    ctx = JCtx()
+
+    def prefill(p, c, t, s, v):
+        return jm.prefill_chunk(p, t, c, ctx, start_pos=s, valid_len=v)
+
+    def decode(p, c, t, pos):
+        return jm.decode_step(p, t, pos, c, ctx)
+
+    if jit:
+        prefill, decode = jax.jit(prefill), jax.jit(decode)
+    tok = np.zeros((B, jbucket(T0)), np.int32)
+    tok[:, :T0] = batch
+    logits, caches = prefill(jp, jm.init_cache(B, T0 + n), jnp.asarray(tok),
+                             jnp.zeros((B,), jnp.int32),
+                             jnp.full((B,), T0, jnp.int32))
+    toks, gaps = [], []
+    for i in range(n):
+        last = np.asarray(logits[:, -1], np.float32)
+        top = np.sort(last, axis=-1)
+        toks.append(last.argmax(-1).astype(np.int32))
+        gaps.append(top[:, -1] - top[:, -2])
+        if i + 1 < n:
+            logits, caches = decode(jp, caches, jnp.asarray(toks[-1][:, None]),
+                                    jnp.asarray(T0 + i, jnp.int32))
+    return np.stack(toks, 1), np.stack(gaps, 1)
+
+
+def _reference_ties_where_port_differs(jm, jp, batch, got, want):
+    """The port's greedy tokens may part from the reference engine's only
+    where the engine's compiled steps tie exactly (argmax then takes the
+    lower index) while the reference model's steps run op by op do not —
+    XLA's fusions round some bf16 intermediates otherwise than the ops
+    alone — and then the port's tokens are the op-by-op reference's."""
+    n = want.shape[1]
+    compiled, gaps = _jax_greedy(jm, jp, batch, n, jit=True)
+    np.testing.assert_array_equal(compiled, want)
+    eager, _ = _jax_greedy(jm, jp, batch, n, jit=False)
+    np.testing.assert_array_equal(got, eager)
+    for row in range(len(batch)):
+        diff = np.nonzero(got[row] != want[row])[0]
+        if diff.size:
+            assert gaps[row, diff[0]] == 0.0, (row, diff[0], gaps[row])
+
+
+@pytest.mark.parametrize("arch", DENSE)
 def test_greedy_tokens_match_reference_and_continuous_matches_oneshot(arch):
-    """End to end on each dense llama's smoke config, bf16 weights bridged
+    """End to end on each dense model's smoke config, bf16 weights bridged
     from the reference: the reference ``ServeEngine``'s greedy tokens equal
-    the port's one-shot engine's, and the port's continuous engine (paged
-    pool, staggered arrivals through two slots, fused decode attention's
-    plain version) gives the one-shot tokens."""
+    the port's one-shot engine's (where the engine's compiled steps tie
+    exactly, the port gives the reference model's op-by-op tokens:
+    ``_reference_ties_where_port_differs``), and the port's continuous
+    engine (paged pool, staggered arrivals through two slots, fused decode
+    attention's plain version) gives the one-shot tokens."""
     from repro.serve import ServeEngine as JServeEngine
     from repro_torch.serve import (ContinuousBatchingEngine, Request,
                                    ServeEngine)
@@ -218,7 +278,8 @@ def test_greedy_tokens_match_reference_and_continuous_matches_oneshot(arch):
         jp, {"tokens": jnp.asarray(batch)}, max_new_tokens=6).tokens)
     got = ServeEngine(tm, device="cpu").generate(
         tp, {"tokens": batch}, max_new_tokens=6).tokens
-    np.testing.assert_array_equal(got, want)
+    if not np.array_equal(got, want):
+        _reference_ties_where_port_differs(jm, jp, batch, got, want)
     eng = ContinuousBatchingEngine(tm, n_slots=2, max_len=32, block_size=4,
                                    device="cpu")
     out = eng.serve(tp, [Request(rid=i, tokens=p, max_new_tokens=6,

@@ -287,10 +287,13 @@ def test_later_slices_refuse(model, kw):
 
 
 def test_pipelined_drain_refused(model, params):
+    """The pipelined drain is the default now; what it refuses is a depth
+    below one step in flight."""
     eng = ContinuousBatchingEngine(model, n_slots=1, max_len=16,
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        eng.serve(params, [], sync=False)
+    with pytest.raises(ValueError, match="max_in_flight"):
+        eng.serve(params, [], max_in_flight=0)
+    assert eng.serve(params, []).counters["sync"] is False
     with pytest.raises(ValueError, match="paged_attn"):
         ContinuousBatchingEngine(model, paged_attn="flash", device="cpu")
 

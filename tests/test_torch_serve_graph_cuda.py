@@ -7,7 +7,10 @@ params, and a weight changed in place, each against its eager drain; a
 drain with copy-on-write forks and a preemption, captured once, against
 its eager drain, and the forked blocks' parents against a drain without
 forks; the launch counters against steps x layers; a failed capture
-raises; the weight cache's operands against quantizing per call.
+raises; the weight cache's operands against quantizing per call; the
+pipelined drain against the lockstep one at 1, 2 and 8 steps in flight, a
+capture made while the consumer thread and another thread wait on events,
+and the pinned host sets reused only after the event behind their copies.
 
 These tests need a CUDA device and skip without one. They import neither
 ``jax`` nor ``repro``, so they run on the card with::
@@ -337,3 +340,122 @@ def test_mla_kernel_replayed_in_a_graph_equals_eager(cuda, lengths):
         torch.cuda.synchronize()
         for o in outs:
             assert torch.equal(o, want)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined drain on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("max_in_flight", [1, 2, 8])
+def test_pipelined_graphed_drain_equals_lockstep(cuda, max_in_flight):
+    """llama3_1b at full width, fused, graphed: the pipelined drain and the
+    lockstep one give the same tokens and the same live-row logits, bit
+    for bit, and the pipelined drain ran ahead of its read-backs."""
+    model = _model("llama3_1b")
+    params = _params(model)
+    reqs = _reqs(model, 8)
+    drains = {}
+    for sync in (True, False):
+        eng, log = _engine(model, None, "fused", eager=False)
+        eng.serve(params, reqs[:1], sync=sync)           # capture
+        del log[:]
+        out = eng.serve(params, reqs, sync=sync, max_in_flight=max_in_flight)
+        torch.cuda.synchronize()
+        assert out.counters["graph_captures"] == 0
+        assert out.counters["graph_replays"] == out.n_steps
+        drains[sync] = out, torch.cat(log)
+    (lock, l_logits), (pipe, p_logits) = drains[True], drains[False]
+    assert pipe.n_steps == lock.n_steps
+    for rid, res in lock.results.items():
+        np.testing.assert_array_equal(pipe.results[rid].tokens, res.tokens)
+    assert torch.equal(p_logits, l_logits)
+    c = pipe.counters
+    assert not c["sync"] and 1 <= c["steps_in_flight_peak"] <= max_in_flight
+    assert c["readback_batch_max"] <= max_in_flight
+
+
+def test_capture_while_the_consumer_thread_runs(cuda):
+    """A fresh engine's pipelined drain captures its decode graph while the
+    consumer thread is alive, and another thread waits on and polls CUDA
+    events all the while: the capture succeeds (captured in thread-local
+    mode) and the drain equals a lockstep drain of an engine that captured
+    alone."""
+    import threading
+    model = _model("llama3_1b")
+    params = _params(model)
+    reqs = _reqs(model, 6)
+    ref_eng, ref_log = _engine(model, None, "fused", eager=False)
+    want = ref_eng.serve(params, reqs, sync=True)
+    torch.cuda.synchronize()
+    stop = threading.Event()
+    ev = torch.cuda.Event()
+    ev.record()
+    polls = []
+
+    def poll():
+        while not stop.is_set():
+            ev.synchronize()
+            polls.append(ev.query())
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    try:
+        eng, log = _engine(model, None, "fused", eager=False)
+        seen = []
+        got = eng.serve(params, reqs,
+                        on_token=lambda rid, idx, tok: seen.append(rid))
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        poller.join()
+    assert polls and got.counters["graph_captures"] == 1
+    assert got.counters["graph_replays"] == got.n_steps - 1
+    assert len(seen) == sum(len(r.tokens) for r in got.results.values())
+    for rid, res in want.results.items():
+        np.testing.assert_array_equal(got.results[rid].tokens, res.tokens)
+    assert torch.equal(torch.cat(log), torch.cat(ref_log))
+
+
+class _CheckedEvent:
+    """A ring set's event that counts the times it is recorded again
+    before its last recording completed (a set reused too early)."""
+
+    def __init__(self, ev):
+        self.ev, self.early, self.records = ev, 0, 0
+
+    def record(self):
+        self.early += not self.ev.query()
+        self.records += 1
+        self.ev.record()
+
+    def synchronize(self):
+        self.ev.synchronize()
+
+    def query(self):
+        return self.ev.query()
+
+
+def test_pinned_sets_are_reused_only_after_their_event(cuda):
+    """Two pinned sets (``max_in_flight=1``) behind 8 requests of 8 tokens
+    and a slow consumer: the producer must wait for sets, never rewrites
+    one before the event behind its copies completed, and the tokens equal
+    the lockstep drain's."""
+    import time
+    model = _model("llama3_1b")
+    params = _params(model)
+    reqs = _reqs(model, 8)
+    eng, _ = _engine(model, None, "fused", eager=False)
+    want = eng.serve(params, reqs, sync=True)
+    eng.serve(params, reqs[:1], max_in_flight=1)         # builds the sets
+    for h in eng._ring:
+        h.event = _CheckedEvent(h.event)
+    got = eng.serve(params, reqs, max_in_flight=1,
+                    on_token=lambda rid, idx, tok: time.sleep(1e-3))
+    torch.cuda.synchronize()
+    sets = eng._ring[:2]
+    assert sum(h.event.records for h in sets) > got.n_steps > 2 * len(sets)
+    assert sum(h.event.early for h in sets) == 0
+    assert got.counters["host_blocked_s"] > 0
+    for rid, res in want.results.items():
+        np.testing.assert_array_equal(got.results[rid].tokens, res.tokens)
