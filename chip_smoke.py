@@ -35,11 +35,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    generator) through the launcher's code path — 8 requests, 4 slots,
    128-token prompts, 32 new tokens, one arrival every 2 steps — on the
    continuous engine with fused and with gather decode attention, and on
-   the one-shot engine. The decode step is a CUDA graph, captured in each
-   engine's warm-up drain and only replayed in the timed drain (captures
-   and replays are checked and printed); every graphed drain is held bit
-   for bit, on every live row, against the same drain with the decode
-   step run eagerly. Check launch counts (every fused launch through the
+   the one-shot engine. Every serving step is a CUDA graph: each engine's
+   warm-up drain captures the decode step and its prompt's prefill
+   bucket, its prefill step is then run once at every other bucket the
+   timed drain can take (every row inactive), capturing each, and the
+   timed drain only replays (captures per step kind and replays are
+   checked and printed); every graphed drain is held bit for bit, on
+   every live row of every step, against the same drain with both steps
+   run eagerly. Check launch counts (every fused launch through the
    GQA kernel, route ``gqa_mma``), that the logits behind every token
    agree up to each request's first divergence, and that a divergence sits
    only at a near-tie of the reference's logits (the logits are read off
@@ -148,7 +151,20 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     (qwen2p5_32b: its last 8 of 64, as fp8 codes for half would not fit),
     peak device memory, and qwen2p5_3b calibrated at the largest depth that
     fits, as in phase 13; each model is freed before the next;
-19. print the kernel table and the serving and calibration numbers as JSON
+19. (run after phase 17, on its model) dense-ring serving: phase 4's
+    requests on dense per-slot rings (``paged=False``), pipelined,
+    lockstep and in chunks of 64, each graphed and held bit for bit
+    against its eager twin; pipelined against lockstep bit for bit; dense
+    against the paged gather drain and chunks against one chunk at the
+    near-tie rule, with the bit-equal requests counted;
+20. (run after phase 19) the serving cell's TTFT: phase 4's cell with the
+    prefill step eager beside the decode graph (the serving path before
+    prefill was graphed) and with every step graphed, in turns (eager,
+    graphed, graphed, eager): TTFT p50 and p99, wall tokens/s, the p99
+    decode stall and the device busy share of a profiled drain; then
+    ``ServeEngine.ttft`` at 1 and 4 prompts of 128 tokens, graphed and
+    eager;
+21. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -172,6 +188,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # phase 2 shapes: the serving drain's decode step at full width
 B, HKV, G, D, BS, MAX_LEN = 4, 8, 4, 64, 16, 160
@@ -813,22 +830,24 @@ def first_divergence(a: np.ndarray, b: np.ndarray) -> int:
 def record_steps(eng, names) -> list:
     """Wrap the engine's step closures ``names`` (instance attributes; the
     engine itself computes no diagnostics) so every call appends ``(name,
-    logits, *inputs)`` to the returned list. Prefill logits and inputs are
-    new tensors each call and are kept by reference; a paged decode step's
-    are copied on the device, since its inputs are the engine's buffers,
-    refilled every step, and a CUDA graph's logits are overwritten by its
-    next replay. No host sync, so the timed drain runs as it would
-    unrecorded, plus four small copies a decode step."""
-    events = []
+    logits, *inputs)`` to the returned list; a continuous engine's decode
+    step appends ``(name, logits, running slots)``. Logits and inputs are
+    copied on the device: a CUDA graph's logits are overwritten by its next
+    replay, and a step's inputs are the engine's buffers or a graph's
+    static inputs, refilled every call. No host sync, so the timed drain
+    runs as it would unrecorded, plus a few small copies a step."""
+    events, state = [], {}
 
     def wrap(name, step):
         def recorded(params, caches, *inputs):
             out = step(params, caches, *inputs)
-            logits = out[0]
-            if len(out) == 3:                  # the paged decode step
-                logits = logits.clone()
-                inputs = tuple(t.clone() for t in inputs)
-            events.append((name, logits, *inputs))
+            logits = out[0].clone()
+            sched = state.get("sched")
+            if name == "decode_step" and sched is not None:
+                events.append((name, logits, sorted(sched.running)))
+            else:
+                events.append((name, logits,
+                               *(t.clone() for t in inputs)))
             return out
         return recorded
 
@@ -840,6 +859,7 @@ def record_steps(eng, names) -> list:
         def ticked(params, pool, sched, now, *rest):
             # who owns each prefilling slot, and the length its prompt
             # (after a preemption: prompt + tokens so far) has
+            state["sched"] = sched
             events.append(("tick", {s: (st.request.rid,
                                         st.effective_prompt_len)
                                     for s, st in sched.prefilling.items()}))
@@ -854,8 +874,7 @@ def continuous_logits(events, reqs) -> dict:
     the tick began, and gives a token only where its chunk ends the
     (effective) prompt: a prompt may take several chunks, start past 0 on
     a prefix hit, or come back longer after a preemption. A decode row
-    belongs to the slot's last prefilled request while its block table is
-    live (rows not decoding get all -1)."""
+    belongs to the slot's last prefilled request while the slot runs."""
     import torch
     owner, slot_rid, rows = {}, {}, {r.rid: [] for r in reqs}
     for name, *rest in events:
@@ -864,8 +883,7 @@ def continuous_logits(events, reqs) -> dict:
             continue
         logits, *inputs = rest
         if name == "prefill_chunk_step":
-            _, start, valid, _ = inputs
-            start, valid = start.cpu().numpy(), valid.cpu().numpy()
+            start, valid = inputs[1].cpu().numpy(), inputs[2].cpu().numpy()
             live = []
             for s in np.nonzero(valid)[0]:
                 rid, eff_len = owner[s]
@@ -873,7 +891,7 @@ def continuous_logits(events, reqs) -> dict:
                 if start[s] + valid[s] == eff_len:
                     live.append(s)
         else:
-            live = np.nonzero(inputs[2][:, 0].cpu().numpy() >= 0)[0]
+            live = inputs[0]
         for s in live:
             rows[slot_rid[s]].append(logits[s, -1])
     return {rid: torch.stack(r) for rid, r in rows.items()}
@@ -949,33 +967,99 @@ def compare(name: str, got: dict, ref: dict, *, tol: float, bound: float,
     return out
 
 
+def eager_steps(eng) -> None:
+    """Swap the engine's serving steps for the closures their graphs
+    capture, run eagerly: the yardstick a graphed drain is held to."""
+    from repro_torch.launch import steps as st
+    if eng.paged:
+        eng.decode_step = st.make_paged_decode_step(
+            eng.model, mp=eng.mp, paged_attn=eng.paged_attn)
+        eng.prefill_chunk_step = st.make_chunked_prefill_step(eng.model,
+                                                              mp=eng.mp)
+    else:
+        eng.decode_step = st.make_decode_step(eng.model, mp=eng.mp)
+        eng.prefill_chunk_step = (
+            st.make_bucketed_prefill_step if eng.chunk_len is None
+            else st.make_dense_chunked_prefill_step)(eng.model, mp=eng.mp)
+
+
+def prefill_buckets(eng, longest: int) -> list:
+    """Every bucket a prefill chunk of an engine can take for prompts of up
+    to ``longest`` tokens (resumed ones included)."""
+    from repro_torch.serve.engine import prefill_bucket
+    top = prefill_bucket(min(longest, eng.chunk_len or longest),
+                         eng.chunk_len, eng.min_bucket)
+    out, b = [], eng.min_bucket
+    while b < top:
+        out.append(b)
+        b *= 2
+    return out + [top]
+
+
+def warm_buckets(torch, eng, params, longest: int) -> list:
+    """Run the engine's prefill step once at every bucket of
+    :func:`prefill_buckets`, every row inactive (valid 0: a paged row
+    writes the trash block, a dense one nothing): on the card each bucket
+    captures here, so the drains after it replay only, as a drain whose
+    buckets all came before does. The engine's pool must exist (a drain
+    made it)."""
+    from repro_torch.serve.cache_pool import host_to_device
+    pool, n = eng._pool, eng.n_slots
+    buckets = prefill_buckets(eng, longest)
+    with torch.no_grad():
+        for b in buckets:
+            inputs = [np.zeros((n, b), np.int32), np.ones(n, np.int32),
+                      np.zeros(n, np.int32)]
+            if eng.paged:
+                inputs.append(np.full((n, pool.max_blocks), -1, np.int32))
+            eng.prefill_chunk_step(params, pool.caches,
+                                   *(host_to_device(a, eng.device)
+                                     for a in inputs))
+    return buckets
+
+
+def kinds(by_kind: dict) -> str:
+    return ", ".join(f"{k} {n}" for k, n in sorted(by_kind.items())) or "none"
+
+
 def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
                    route=None, eager=False, warm=None, name="",
                    events_out=None, sync=False, **engine_kw):
     """Warm-up drain of ``warm`` (default: the first request; on the card
-    it captures the decode step's CUDA graph), then the recorded drain of
-    ``reqs``, which must only replay it. Returns (summary, launches in the
-    recorded drain, rid -> (tokens, logits)). With ``route``, every launch
-    of the drain must have gone through that kernel
-    (``paged_attention.route``). ``eager`` swaps in the closure the graph
-    captures, run eagerly: the yardstick the graphed drain is held to, bit
+    it captures the decode step's and one prefill bucket's CUDA graphs),
+    then the prefill step run at every other bucket the requests can take
+    (:func:`warm_buckets`, capturing each), then the recorded drain of
+    ``reqs``, which must only replay: every decode step and every prefill
+    chunk one replay. Returns (summary, launches in the recorded drain,
+    rid -> (tokens, logits)). With ``route``, every launch of the drain
+    must have gone through that kernel (``paged_attention.route``).
+    ``eager`` swaps in the closures the graphs capture, run eagerly
+    (:func:`eager_steps`): the yardstick the graphed drain is held to, bit
     for bit. Both drains are pipelined (the engine's default) unless
-    ``sync``. ``engine_kw`` overrides phase 4's engine; the prefix cache is
-    off unless it turns it on, so phases 4, 5, 13 and 14 serve as they
-    did before the engine had one."""
+    ``sync``. ``engine_kw`` overrides phase 4's engine (``paged=False``
+    with ``paged_attn=None``: the dense rings); the prefix cache is off
+    unless it turns it on, so phases 4, 5, 13 and 14 serve as they did
+    before the engine had one."""
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.launch.steps import make_paged_decode_step
     from repro_torch.serve import ContinuousBatchingEngine
     kw = dict(n_slots=SERVE["n_slots"],
               max_len=SERVE["prompt_len"] + SERVE["new_tokens"],
               block_size=SERVE["block_size"], prefix_cache=False)
     kw.update(engine_kw)
+    if not kw.get("paged", True):
+        kw = {k: v for k, v in kw.items() if k not in ("block_size",
+                                                       "prefix_cache")}
     eng = ContinuousBatchingEngine(model, mp=mp, paged_attn=paged_attn,
                                    device=DEVICE, **kw)
     if eager:
-        eng.decode_step = make_paged_decode_step(model, mp=eng.mp,
-                                                 paged_attn=paged_attn)
+        eager_steps(eng)
     warm = eng.serve(params, reqs[:1] if warm is None else warm, sync=sync)
+    g0 = _graph_counts()
+    buckets = warm_buckets(torch, eng, params, max(
+        r.prompt_len + r.max_new_tokens for r in reqs))
+    warm_caps = dict(warm.counters["graph_captures_by_kind"])
+    for k, n in (_graph_counts()[0] - g0[0]).items():
+        warm_caps[k] = warm_caps.get(k, 0) + n
     events = record_steps(eng, ("prefill_chunk_step", "decode_step"))
     torch.cuda.synchronize()
     pa.launches = 0
@@ -985,20 +1069,33 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
     torch.cuda.synchronize()
     out.counters["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
     launches = pa.launches
-    label = f"{model.cfg.name} {name}{' ' if name else ''}{paged_attn}" \
+    label = f"{model.cfg.name} {name}{' ' if name else ''}" \
+        f"{paged_attn or 'dense'}" \
+        f"{' chunks of ' + str(eng.chunk_len) if eng.chunk_len else ''}" \
         f"{' MP' if mp else ''}{' eager' if eager else ''}" \
         f"{' lockstep' if sync else ''}"
-    caps = (warm.counters["graph_captures"], out.counters["graph_captures"],
-            out.counters["graph_replays"])
-    out.counters["warm_graph_captures"] = caps[0]
-    want = (0, 0, 0) if eager or DEVICE == "cpu" else (1, 0, out.n_steps)
+    c = out.counters
+    out.counters["warm_graph_captures"] = sum(warm_caps.values())
+    out.counters["warm_graph_captures_by_kind"] = warm_caps
+    steps = out.n_steps + c["prefill_chunks"]
+    if eager or DEVICE == "cpu":
+        want = ({}, 0, 0)
+    else:
+        # the warm-up drain captured decode and its prompt's bucket; the
+        # bucket warm-up each other bucket, once
+        want = ({"paged_decode" if eng.paged else "decode": 1,
+                 eng._prefill_kind: len(buckets)}, 0, steps)
+    caps = (warm_caps, c["graph_captures"], c["graph_replays"])
     if caps != want:
-        raise AssertionError(f"{label}: graph captures (warm-up, drain) and "
-                             f"replays {caps}, expected {want}")
-    log(f"{label}: {out.n_steps} decode steps; CUDA graph captures "
-        f"{caps[0]} in the warm-up drain, {caps[1]} in the drain, "
-        f"{caps[2]} replays; {launches} paged kernel launches; peak device "
-        f"memory {out.counters['peak_device_gb']:.2f} GB")
+        raise AssertionError(f"{label}: graph captures by kind (warm-up), "
+                             f"captures and replays in the drain {caps}, "
+                             f"expected {want}")
+    log(f"{label}: {out.n_steps} decode steps, {c['prefill_chunks']} "
+        f"prefill chunks; CUDA graph captures in the warm-ups "
+        f"{kinds(warm_caps)} (buckets {buckets}), {c['graph_captures']} in "
+        f"the drain, replays {kinds(c['graph_replays_by_kind'])}; "
+        f"{launches} paged kernel launches; peak device memory "
+        f"{out.counters['peak_device_gb']:.2f} GB")
     if route is not None and pa.launches_by_route[route] != launches:
         raise AssertionError(f"{label}: launches by route "
                              f"{pa.launches_by_route}, expected all {launches}"
@@ -1016,6 +1113,11 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
         events_out.extend(e for e in events if e[0] == "tick")
     return out, launches, {rid: (out.results[rid].tokens, logits[rid])
                            for rid in logits}
+
+
+def _graph_counts() -> tuple:
+    from repro_torch.launch import steps as st
+    return st.graph_captures.copy(), st.graph_replays.copy()
 
 
 def graph_vs_eager(name: str, graphed: dict, eager: dict,
@@ -1055,14 +1157,20 @@ def run_oneshot(model, params, reqs, mp=None):
 
 
 def serving_numbers(out) -> dict:
+    c = out.counters
     return {"tokens_per_s": out.tokens_per_s,
-            "ttft_p50_ms": out.counters["ttft_p50_s"] * 1e3,
+            "wall_tokens_per_s": c["wall_tokens_per_s"],
+            "ttft_p50_ms": c["ttft_p50_s"] * 1e3,
             "n_decode_steps": out.n_steps,
-            "kernel_launches": out.counters["kernel_launches"],
-            "graph_captures": out.counters["graph_captures"],
-            "graph_replays": out.counters["graph_replays"],
-            "peak_device_gb": out.counters["peak_device_gb"],
-            "peak_blocks_in_use": out.counters["peak_blocks_in_use"]}
+            "prefill_chunks": c["prefill_chunks"],
+            "kernel_launches": c["kernel_launches"],
+            "warm_graph_captures": c["warm_graph_captures_by_kind"],
+            "graph_captures": c["graph_captures"],
+            "graph_replays": c["graph_replays_by_kind"],
+            "peak_device_gb": c["peak_device_gb"],
+            "peak_blocks_in_use": c.get("peak_blocks_in_use"),
+            "peak_kv_bytes": c["peak_kv_bytes"],
+            "dense_kv_bytes": c["dense_kv_bytes"]}
 
 
 def fixed_plan(model, first=None):
@@ -2666,6 +2774,156 @@ def pipeline_phase(torch, model, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 19 and 20: dense-ring serving; the prefill graphs' TTFT
+# ---------------------------------------------------------------------------
+
+DENSE_CHUNK = 64
+
+
+def dense_phase(torch, model, params) -> dict:
+    """Phase 19 on llama3_1b at full width: phase 4's requests on dense
+    per-slot rings (``paged=False``), pipelined and lockstep, and in chunks
+    of ``DENSE_CHUNK`` (a 128-token prompt takes two, its second while the
+    others decode), each graphed and held bit for bit against its eager
+    twin; pipelined against lockstep bit for bit; dense against the paged
+    gather drain and chunks against one chunk at the near-tie rule, with
+    the number of bit-equal requests."""
+    failures = []
+    reqs = phase4_requests(model)
+    dense = dict(paged_attn=None, paged=False, name="dense")
+    d, n_d, d_tl = run_continuous(torch, model, params, reqs, **dense)
+    _, _, de_tl = run_continuous(torch, model, params, reqs, eager=True,
+                                 **dense)
+    lock, _, lock_tl = run_continuous(torch, model, params, reqs, sync=True,
+                                      **dense)
+    ch, _, ch_tl = run_continuous(torch, model, params, reqs,
+                                  chunk_len=DENSE_CHUNK, **dense)
+    _, _, che_tl = run_continuous(torch, model, params, reqs, eager=True,
+                                  chunk_len=DENSE_CHUNK, **dense)
+    g, _, g_tl = run_continuous(torch, model, params, reqs,
+                                paged_attn="gather")
+    if n_d:
+        failures.append(f"dense decode launched the paged kernel {n_d} "
+                        f"times")
+    if ch.counters["decode_stall_steps"] == 0:
+        failures.append(f"no chunk of {DENSE_CHUNK} ran while others "
+                        f"decoded")
+    plain = dict(tol=LOGIT_TOL, bound=MARGIN_BOUND, failures=failures)
+    n_lock = bit_equal(d_tl, lock_tl)
+    if n_lock != len(reqs):
+        failures.append(f"dense pipelined vs lockstep: {n_lock} of "
+                        f"{len(reqs)} requests bit-equal")
+    rec = {"graph_vs_eager": {
+               "dense": graph_vs_eager("dense", d_tl, de_tl, failures),
+               "dense_chunked": graph_vs_eager(
+                   f"dense chunks of {DENSE_CHUNK}", ch_tl, che_tl,
+                   failures)},
+           "pipelined_vs_lockstep_bit_equal_requests": n_lock,
+           "dense_vs_paged_gather": compare("dense vs paged gather", d_tl,
+                                            g_tl, **plain),
+           "chunked_vs_one_chunk": compare(
+               f"dense chunks of {DENSE_CHUNK} vs one chunk", ch_tl, d_tl,
+               **plain),
+           "serving": {"dense": serving_numbers(d),
+                       "dense_lockstep": serving_numbers(lock),
+                       "dense_chunked": serving_numbers(ch),
+                       "paged_gather": serving_numbers(g)}}
+    rec["dense_vs_paged_gather"]["bit_equal_requests"] = bit_equal(d_tl, g_tl)
+    rec["chunked_vs_one_chunk"]["bit_equal_requests"] = bit_equal(ch_tl, d_tl)
+    log(f"dense rings: pipelined vs lockstep {n_lock} of {len(reqs)} "
+        f"requests bit-equal; dense vs paged gather "
+        f"{rec['dense_vs_paged_gather']['bit_equal_requests']}, chunks of "
+        f"{DENSE_CHUNK} vs one chunk "
+        f"{rec['chunked_vs_one_chunk']['bit_equal_requests']} bit-equal; "
+        f"KV {d.counters['dense_kv_bytes'] / 1e6:.1f} MB dense vs "
+        f"{g.counters['peak_kv_bytes'] / 1e6:.1f} MB paged at peak; wall "
+        f"tok/s dense {d.counters['wall_tokens_per_s']:.1f}, lockstep "
+        f"{lock.counters['wall_tokens_per_s']:.1f}, chunked "
+        f"{ch.counters['wall_tokens_per_s']:.1f}, paged gather "
+        f"{g.counters['wall_tokens_per_s']:.1f}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
+def ttft_phase(torch, model, params) -> dict:
+    """Phase 20 on llama3_1b at full width. Phase 4's cell (fused, graphed
+    decode) with the prefill step run eagerly, as it ran before it was
+    graphed, against every step graphed, in the order eager, graphed,
+    graphed, eager; each arm drains pipelined and then lockstep: TTFT p50
+    and p99 over the 8 requests (p99 of 8 is their maximum), wall
+    tokens/s, the p99 decode stall; the first arm of each kind also
+    profiles a pipelined drain for the device's busy share (device time
+    of every kernel and copy over the unprofiled drain's wall). Then
+    ``ServeEngine.ttft`` (median of 5 prefills after 2 warm-ups) at 1 and
+    4 prompts of 128 tokens, graphed and with the bucketed step eager."""
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.serve import profile_drain
+    from repro_torch.serve import ContinuousBatchingEngine, ServeEngine
+    reqs = phase4_requests(model)
+    longest = SERVE["prompt_len"] + SERVE["new_tokens"]
+    rec = {"prefill_eager": [], "graphed": []}
+    for arm in ("prefill_eager", "graphed", "graphed", "prefill_eager"):
+        eng = ContinuousBatchingEngine(
+            model, paged_attn="fused", device=DEVICE, prefix_cache=False,
+            n_slots=SERVE["n_slots"], max_len=longest,
+            block_size=SERVE["block_size"])
+        if arm == "prefill_eager":
+            eng.prefill_chunk_step = st.make_chunked_prefill_step(model)
+        eng.serve(params, reqs[:1])
+        warm_buckets(torch, eng, params, longest)
+        r = {}
+        for mode, sync in (("pipelined", False), ("lockstep", True)):
+            torch.cuda.synchronize()
+            out = eng.serve(params, reqs, sync=sync)
+            torch.cuda.synchronize()
+            ttfts = sorted(x.ttft_s for x in out.results.values())
+            c = out.counters
+            r[mode] = {
+                "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+                "ttft_p99_ms": ttfts[min(len(ttfts) - 1,
+                                         int(0.99 * len(ttfts)))] * 1e3,
+                "wall_tokens_per_s": c["wall_tokens_per_s"],
+                "decode_stall_p99_ms": c.get("decode_stall_p99_s",
+                                             0.0) * 1e3,
+                "wall_ms": out.total_s * 1e3,
+                "graph_replays": c["graph_replays_by_kind"]}
+            if mode == "pipelined" and not rec[arm]:
+                prof = profile_drain(eng, params, reqs, None, out.total_s,
+                                     top=5)
+                r[mode].update(busy_share=prof["busy_share"],
+                               device_busy_ms=prof["device_busy_s"] * 1e3)
+        rec[arm].append(r)
+        p, q = r["pipelined"], r["lockstep"]
+        busy = (f"; device busy {100 * p['busy_share']:.1f}% of "
+                f"{p['wall_ms']:.1f} ms" if "busy_share" in p else "")
+        log(f"TTFT cell, prefill "
+            f"{'eager' if arm == 'prefill_eager' else 'graphed'}: TTFT p50 "
+            f"{p['ttft_p50_ms']:.2f} ms, p99 {p['ttft_p99_ms']:.2f} ms "
+            f"pipelined, {q['ttft_p50_ms']:.2f} / {q['ttft_p99_ms']:.2f} ms "
+            f"lockstep; wall {p['wall_tokens_per_s']:.1f} / "
+            f"{q['wall_tokens_per_s']:.1f} tok/s; decode stall p99 "
+            f"{p['decode_stall_p99_ms']:.2f} / {q['decode_stall_p99_ms']:.2f}"
+            f" ms{busy}; replays {kinds(p['graph_replays'])}")
+        del eng
+    one = {}
+    for n in (1, 4):
+        batch = {"tokens": np.stack([r.tokens for r in reqs[:n]])}
+        for arm in ("graphed", "eager"):
+            eng = ServeEngine(model, device=DEVICE)
+            if arm == "eager":
+                eng.bucketed_prefill_step = st.make_bucketed_prefill_step(
+                    model)
+            one[f"batch{n}_{arm}_ms"] = eng.ttft(
+                params, batch, SERVE["prompt_len"] + 1) * 1e3
+        log(f"ServeEngine.ttft, {n} x {SERVE['prompt_len']} tokens: graphed "
+            f"{one[f'batch{n}_graphed_ms']:.3f} ms, eager "
+            f"{one[f'batch{n}_eager_ms']:.3f} ms")
+    rec["serve_engine_ttft"] = one
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the other dense configs at their published widths
 # ---------------------------------------------------------------------------
 
@@ -2801,6 +3059,10 @@ def main() -> int:
                              prefix_phase, torch, model, params)
     report["pipeline"] = phase("pipelined drain and control plane",
                                pipeline_phase, torch, model, params)
+    report["dense_rings"] = phase("dense rings", dense_phase, torch, model,
+                                  params)
+    report["ttft_cell"] = phase("TTFT cell", ttft_phase, torch, model,
+                                params)
     del model, params, bundle, batches
     gc.collect()                      # the model's decode graphs go with it
     torch.cuda.empty_cache()
@@ -2921,6 +3183,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"prefix_cache": report["prefix"],
                       "prefix_cache_mla": report["prefix_mla"]}), flush=True)
+    print(json.dumps({"dense_rings": report["dense_rings"],
+                      "ttft_cell": report["ttft_cell"]}), flush=True)
     print(json.dumps({"pipeline": report["pipeline"],
                       "pipeline_llama3_8b": l8["pipelined_vs_lockstep"],
                       "pipeline_mla": report["pipeline_mla"]}), flush=True)
@@ -2940,6 +3204,8 @@ def main() -> int:
                       "plans": report["plan_serving"]["plans"],
                       "fig3a": report["fig3a"],
                       "phase_seconds": report["phase_seconds"]}), flush=True)
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all, the "
+        f"kernels' build included")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ Serves ``chip_smoke.py`` phase 15's shared-prefix drain (llama3_1b at full
 width, random seeded weights: 8 requests sharing a 96-token system prompt
 plus 32 tokens of their own, the last repeating the first's prompt) on the
 continuous engine with the prefix cache on and off, ``--reps`` times each
-in turns, each engine warmed up by an unrelated request first. The prefill
+in turns, each engine warmed up by an unrelated request first and then
+by its prefill step at every bucket the drain can take (on the card each
+captures its CUDA graph there, so the drain replays only). The prefill
 step is wrapped: the card is synchronized before it, the host clock read
 when the call returns (enqueue) and again after a synchronize
 (completion). Prints, per drain, each request's TTFT (from admission, as
@@ -57,6 +59,7 @@ def main() -> int:
                 block_size=cs.SERVE["block_size"], prefix_cache=on,
                 device="cuda")
             eng.serve(params, warm)
+            cs.warm_buckets(torch, eng, params, plen + spec["new_tokens"])
             step, chunks = eng.prefill_chunk_step, []
 
             def timed(p, caches, tok, start, valid, bt, step=step,
@@ -77,10 +80,14 @@ def main() -> int:
             run = {"rep": rep, "prefix_cache": on,
                    "ttft_ms": [out.results[r].ttft_s * 1e3
                                for r in sorted(out.results)],
+                   "graph_captures": out.counters["graph_captures"],
+                   "graph_replays": out.counters["graph_replays"],
                    "chunks": chunks}
             runs.append(run)
             print(f"rep {rep} prefix cache {'on ' if on else 'off'}: TTFT ms "
-                  f"{[round(t, 2) for t in run['ttft_ms']]}", flush=True)
+                  f"{[round(t, 2) for t in run['ttft_ms']]}; graph captures "
+                  f"{run['graph_captures']}, replays {run['graph_replays']}",
+                  flush=True)
             for c in chunks:
                 print(f"    chunk bucket {c['bucket']:4d} tokens "
                       f"{c['tokens']:4d}: enqueue {c['enqueue_ms']:7.2f} ms,"

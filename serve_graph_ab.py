@@ -25,9 +25,10 @@ timed drain, then the same drain under ``torch.profiler``
 share of the unprofiled drain's wall time; no trace file is written). The
 graphed arm also times its
 decode graph's replay between CUDA events (device time of one decode step,
-no host in it). The eager arm swaps in the closure the graph captures
-(``launch.steps.make_paged_decode_step``), so the two arms differ by the
-graph alone. Prints one line per arm and, last, the card's name and power
+no host in it). The eager arm swaps in the closures the graphs capture
+(``launch.steps.make_paged_decode_step`` and
+``make_chunked_prefill_step``), so the two arms differ by the graphs
+alone. Prints one line per arm and, last, the card's name and power
 limit; ``--out`` gets every number.
 """
 from __future__ import annotations
@@ -83,8 +84,10 @@ def fixed_plan(model):
 
 
 def replay_ms(torch, step, reps: int = 20) -> float:
-    """Device ms of one replay of the step's decode graph."""
-    graph = step._captured.graph
+    """Device ms of one replay of the step's decode graph (its one graph:
+    the decode batch has one shape)."""
+    (cap,) = step._table.values()
+    graph = cap.graph
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -100,7 +103,8 @@ def replay_ms(torch, step, reps: int = 20) -> float:
 def run_arm(torch, model, params, reqs, plan, arm: str,
             max_len: int) -> dict:
     from repro_torch.launch.serve import profile_drain
-    from repro_torch.launch.steps import make_paged_decode_step
+    from repro_torch.launch.steps import (make_chunked_prefill_step,
+                                          make_paged_decode_step)
     from repro_torch.serve import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(
         model, n_slots=SERVE["n_slots"], max_len=max_len, mp=plan,
@@ -108,6 +112,7 @@ def run_arm(torch, model, params, reqs, plan, arm: str,
     graph_step = eng.decode_step
     if arm == "eager":
         eng.decode_step = make_paged_decode_step(model, mp=eng.mp)
+        eng.prefill_chunk_step = make_chunked_prefill_step(model, mp=eng.mp)
     sync = arm != "pipelined"
     eng.serve(params, reqs[:1], sync=sync)
     torch.cuda.synchronize()

@@ -1,9 +1,10 @@
 """Serving launcher: one-shot batch or continuous batching on the paged KV
-pool, plain, under an MP plan, or under a plan solved at serve time from a
-calibration bundle.
+pool (or dense per-slot rings), plain, under an MP plan, or under a plan
+solved at serve time from a calibration bundle.
 
     # continuous batching, staggered arrivals, full-width llama3_1b on the
-    # GPU (--arch llama3_8b: Llama-3.1-8B's widths, 16 GB of weights)
+    # GPU (--arch llama3_8b: Llama-3.1-8B's widths, 16 GB of weights;
+    # --dense-slots for the dense rings)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_1b \
         --continuous --n-slots 4 --requests 8 --arrival-every 2 \
         --prompt-len 128 --new-tokens 32 [--mp-plan plan.json]
@@ -33,10 +34,11 @@ in the reference launcher. An ``--mp-plan`` JSON saved by either package's
 ``CalibrationBundle`` saved by either package, and ``--registry`` picks the
 freshest bundle filed for this arch and these weights; both run the cheap IP
 for ``--tau`` / ``--objective`` here. Reports TTFT and decode throughput;
-continuous mode also reports the paged pool, the kernel launches, the
-decode step's CUDA graph captures and replays (on the card the decode step
-is captured once, in the warm-up drain, and replayed after), the prefill
-chunks and decode stalls, and the prefix cache's hits, copy-on-write forks
+continuous mode also reports the paged pool's peak KV bytes against the
+dense slots', the kernel launches, the steps' CUDA graph captures and
+replays by kind (on the card each step is captured once per input shape,
+mostly in the warm-up drain, and replayed after), the prefill chunks,
+buckets and decode stalls, and the prefix cache's hits, copy-on-write forks
 and preemptions. As in the reference, the continuous engine shares prompt
 prefixes across requests (``--no-prefix-cache`` turns it off) and lets a
 higher-priority request preempt; ``--chunk-len`` / ``--chunk-budget`` split
@@ -112,11 +114,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-len", type=int, default=None,
                     help="split prompts into prefill chunks of this many "
                          "tokens, interleaved with decode steps (continuous "
-                         "paged mode; prompts are length-bucketed either way)")
+                         "mode; prompts are length-bucketed either way)")
     ap.add_argument("--chunk-budget", type=int, default=1,
                     help="max prefill chunk steps between decode steps "
                          "(bounds per-request decode stall while a long "
                          "prompt prefills)")
+    ap.add_argument("--dense-slots", action="store_true",
+                    help="use monolithic per-slot rings instead of paged "
+                         "KV blocks (continuous mode)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable cross-request prefix sharing (paged "
                          "continuous engines content-hash admitted prompts "
@@ -214,15 +219,22 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
     print(f"[serve] continuous: {n_requests} reqs via {n_slots} slots | "
           f"{out.n_steps} decode steps | {out.tokens_per_s:.1f} tok/s | "
           f"TTFT p50 {c['ttft_p50_s'] * 1e3:.2f} ms")
-    print(f"[serve] paged KV: block_size {c['block_size']} | "
-          f"{c['peak_blocks_in_use']}/{c['n_blocks'] - 1} blocks at peak | "
-          f"peak KV {c['peak_kv_bytes'] / 1e6:.2f} MB | "
-          f"{c['blocked_admissions']} blocked admissions")
-    print(f"[serve] decode attention ({c['paged_attn']}): "
-          f"{c['kernel_launches']} kernel launches over {out.n_steps} steps "
-          f"| {c['prefill_chunks']} prefill steps")
-    print(f"[serve] decode step: {c['graph_captures']} CUDA graph captures, "
-          f"{c['graph_replays']} replays")
+    if c["paged"]:
+        print(f"[serve] paged KV: block_size {c['block_size']} | "
+              f"{c['peak_blocks_in_use']}/{c['n_blocks'] - 1} blocks at peak"
+              f" | peak KV {c['peak_kv_bytes'] / 1e6:.2f} MB vs dense "
+              f"{c['dense_kv_bytes'] / 1e6:.2f} MB | "
+              f"{c['blocked_admissions']} blocked admissions")
+        print(f"[serve] decode attention ({c['paged_attn']}): "
+              f"{c['kernel_launches']} kernel launches over {out.n_steps} "
+              f"steps | {c['prefill_chunks']} prefill steps")
+    else:
+        print(f"[serve] dense KV slots: {c['dense_kv_bytes'] / 1e6:.2f} MB")
+    kinds = ", ".join(f"{k} {n}/{c['graph_replays_by_kind'].get(k, 0)}"
+                      for k, n in sorted(c["graph_captures_by_kind"].items()))
+    print(f"[serve] steps: {c['graph_captures']} CUDA graph captures, "
+          f"{c['graph_replays']} replays (captures/replays by kind: "
+          f"{kinds or 'none'})")
     print(f"[serve] drain: {'lockstep' if c['sync'] else 'pipelined'} | "
           f"{c['wall_tokens_per_s']:.1f} wall tok/s | host blocked "
           f"{c['host_blocked_s_per_step'] * 1e3:.3f} ms/step | "
@@ -233,9 +245,10 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
     print(f"[serve] requests: {c['n_cancelled']} cancelled or timed out | "
           f"{c['n_failed']} failed | {c['n_retried']} retried")
     print(f"[serve] prefill: {c['prefill_chunks']} chunk steps | "
-          f"{c['decode_stall_steps']} decode-stall chunk steps "
-          f"(longest run {c['max_decode_stall_run']})")
-    if c["prefix_cache"]:
+          f"{c['prefill_buckets']} buckets for {c['distinct_prompt_lens']} "
+          f"prompt lengths | {c['decode_stall_steps']} decode-stall chunk "
+          f"steps (longest run {c['max_decode_stall_run']})")
+    if c.get("prefix_cache"):
         print(f"[serve] prefix cache: {c['prefix_hit_requests']} hit "
               f"requests | {c['prefix_hit_tokens']} prompt tokens "
               f"skipped | {c['cow_forks']} COW forks | "
@@ -314,12 +327,16 @@ def main(argv=None) -> None:
     elif args.mp_plan:
         plan = load_plan(args.mp_plan, model)
     if args.continuous:
+        if args.dense_slots and args.n_blocks is not None:
+            raise SystemExit("--n-blocks sizes the paged pool; drop "
+                             "--dense-slots")
         eng = ContinuousBatchingEngine(
             model, n_slots=args.n_slots,
             max_len=args.prompt_len + args.new_tokens, mp=plan,
-            block_size=args.block_size, n_blocks=args.n_blocks,
-            chunk_len=args.chunk_len, chunk_budget=args.chunk_budget,
-            prefix_cache=not args.no_prefix_cache,
+            paged=not args.dense_slots, block_size=args.block_size,
+            n_blocks=args.n_blocks, chunk_len=args.chunk_len,
+            chunk_budget=args.chunk_budget,
+            prefix_cache=False if args.no_prefix_cache else None,
             paged_attn=args.paged_attn, device=device)
         reqs = make_requests(model.cfg.vocab_size, args.requests,
                              args.prompt_len, args.new_tokens,

@@ -1,18 +1,21 @@
 """Serving step builders (port of the serving half of
 ``repro/launch/steps.py``).
 
-A step is a closure over the model and one ``QuantContext``;
-:func:`get_serving_step` memoizes the steps per (model, kind, MP assignment,
-paged_attn) so every engine over one model shares them, as the reference
-memoizes its ``jax.jit`` of each. The reference compiles every step; the
-port compiles the one whose shapes are fixed for a drain, the paged decode
-step: on CUDA it is captured once as a CUDA graph and replayed
-(:class:`PagedDecodeStep`). Prefill steps run eagerly: their shapes vary.
+A step is a closure over the model and one ``QuantContext`` that returns
+``(logits, caches, next_token)``; ``next_token`` is the (B,) int32 greedy
+token of :func:`greedy_next_token`, computed inside the step so that on the
+card it is part of the step's graph. :func:`get_serving_step` memoizes the
+steps per (model, kind, MP assignment, paged_attn) so every engine over one
+model shares them, as the reference memoizes its ``jax.jit`` of each. The
+reference compiles every step once per input shape; on CUDA the port
+captures every step as a CUDA graph once per input shape and replays it
+(:class:`GraphedStep`).
 """
 from __future__ import annotations
 
 import importlib
 import threading
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -21,13 +24,15 @@ from repro_torch.core.mpconfig import as_assignment
 from repro_torch.quant.qops import QuantContext
 
 __all__ = ["make_prefill_step", "make_bucketed_prefill_step",
-           "make_chunked_prefill_step", "make_decode_step",
-           "make_paged_decode_step", "PagedDecodeStep", "get_serving_step",
-           "greedy_next_token", "merge_first_tokens", "graph_captures",
-           "graph_replays"]
+           "make_chunked_prefill_step", "make_dense_chunked_prefill_step",
+           "make_decode_step", "make_paged_decode_step", "GraphedStep",
+           "get_serving_step", "greedy_next_token", "merge_first_tokens",
+           "graph_captures", "graph_replays"]
 
-graph_captures = 0              # CUDA graph captures of decode steps
-graph_replays = 0               # and their replays, in this process
+# CUDA graph captures and replays of serving steps in this process, by step
+# kind (``GraphedStep.kind``)
+graph_captures: Counter = Counter()
+graph_replays: Counter = Counter()
 
 
 def _serving_ctx(mp) -> QuantContext:
@@ -39,62 +44,83 @@ def _serving_ctx(mp) -> QuantContext:
             else QuantContext())
 
 
+def _with_next(logits: torch.Tensor, caches: dict) -> tuple:
+    return logits, caches, greedy_next_token(logits)
+
+
 def make_prefill_step(model, mp: Optional[dict] = None):
-    """(params, caches, tokens) -> (last-token logits, caches)."""
+    """(params, caches, tokens) -> (last-token logits, caches, next_token)."""
     ctx = _serving_ctx(mp)
 
     def prefill_step(params, caches, tokens):
-        return model.prefill(params, tokens, caches, ctx)
+        return _with_next(*model.prefill(params, tokens, caches, ctx))
     return prefill_step
 
 
 def make_bucketed_prefill_step(model, mp: Optional[dict] = None):
-    """(params, caches, tokens, start, valid) -> (last-valid logits, caches)
-    over dense rings; ``tokens`` (B, Lb) padded to a power-of-two bucket."""
+    """(params, caches, tokens, start, valid) -> (last-valid logits, caches,
+    next_token) over dense rings; ``tokens`` (B, Lb) padded to a
+    power-of-two bucket, ``start`` 0 for the rows being prefilled."""
     ctx = _serving_ctx(mp)
 
     def prefill_step(params, caches, tokens, start, valid):
-        return model.prefill_chunk(params, tokens, caches, ctx,
-                                   start_pos=start, valid_len=valid)
+        return _with_next(*model.prefill_chunk(
+            params, tokens, caches, ctx, start_pos=start, valid_len=valid))
     return prefill_step
 
 
 def make_chunked_prefill_step(model, mp: Optional[dict] = None):
     """(params, caches, tokens, start, valid, block_tables) -> (logits,
-    caches): the paged twin — the chunk's K/V goes straight into the pool's
-    blocks."""
+    caches, next_token): the paged twin — the chunk's K/V goes straight
+    into the pool's blocks."""
     ctx = _serving_ctx(mp)
 
     def prefill_step(params, caches, tokens, start, valid, block_tables):
-        return model.prefill_chunk(params, tokens, caches, ctx,
-                                   start_pos=start, valid_len=valid,
-                                   block_tables=block_tables)
+        return _with_next(*model.prefill_chunk(
+            params, tokens, caches, ctx, start_pos=start, valid_len=valid,
+            block_tables=block_tables))
+    return prefill_step
+
+
+def make_dense_chunked_prefill_step(model, mp: Optional[dict] = None):
+    """(params, caches, tokens, start, valid) -> (logits, caches,
+    next_token): chunked prefill over dense rings. As the bucketed step,
+    but ``start`` may be past 0: a later chunk of a long prompt resumes
+    where the last one stopped and attends over the earlier chunks through
+    the slot's own ring. Windowed layers need their rings widened by the
+    chunk length (``init_cache(..., chunk_extra=chunk_len)``)."""
+    ctx = _serving_ctx(mp)
+
+    def prefill_step(params, caches, tokens, start, valid):
+        return _with_next(*model.prefill_chunk(
+            params, tokens, caches, ctx, start_pos=start, valid_len=valid,
+            chunk_ring=True))
     return prefill_step
 
 
 def make_decode_step(model, mp: Optional[dict] = None):
-    """(params, caches, token, pos) -> (logits, caches) over dense rings."""
+    """(params, caches, token, pos) -> (logits, caches, next_token) over
+    dense rings; ``pos`` a 0-d tensor for a lock-step batch or (B,)
+    per-row positions (continuous batching)."""
     ctx = _serving_ctx(mp)
 
     def decode_step(params, caches, token, pos):
-        return model.decode_step(params, token, pos, caches, ctx)
+        return _with_next(*model.decode_step(params, token, pos, caches, ctx))
     return decode_step
 
 
 def make_paged_decode_step(model, mp: Optional[dict] = None,
                            paged_attn: str = "fused"):
     """(params, caches, token, pos, block_tables) -> (logits, caches,
-    next_token), run eagerly. ``paged_attn="fused"`` attends block-major
-    K/V in place through the CUDA kernel; ``"gather"`` keeps the reference
-    path. Layers whose attention BGEMMs carry an MP format always gather.
-    ``get_serving_step`` wraps it in a :class:`PagedDecodeStep`."""
+    next_token). ``paged_attn="fused"`` attends block-major K/V in place
+    through the CUDA kernel; ``"gather"`` keeps the reference path. Layers
+    whose attention BGEMMs carry an MP format always gather."""
     ctx = _serving_ctx(mp)
 
     def decode_step(params, caches, token, pos, block_tables):
-        logits, caches = model.decode_step(params, token, pos, caches, ctx,
-                                           block_tables=block_tables,
-                                           paged_attn=paged_attn)
-        return logits, caches, greedy_next_token(logits)
+        return _with_next(*model.decode_step(
+            params, token, pos, caches, ctx, block_tables=block_tables,
+            paged_attn=paged_attn))
     return decode_step
 
 
@@ -145,7 +171,6 @@ class _Captured:
     def __init__(self, graph, params, caches, inputs, logits, next_token,
                  launches, held):
         self.graph = graph
-        self.roots = (params, caches)
         self.edges = _edges(params, _edges(caches, []))
         # the replay reads a changed weight itself, but not a changed
         # weight's quantized operand, which it captured: those weights'
@@ -157,69 +182,90 @@ class _Captured:
         self.next_token = next_token
         self.launches = launches
 
-    def bound_to(self, params, caches, inputs) -> bool:
-        if params is not self.roots[0] or caches is not self.roots[1]:
-            return False
-        for a, b in zip(inputs, self.inputs):
-            if (a.shape, a.dtype, a.device) != (b.shape, b.dtype, b.device):
-                return False
+    def bound(self) -> bool:
         for parent, k, v in self.edges:
             if parent.get(k) is not v:
                 return False
         return all(w._version == v for w, v in self.quantized)
 
 
-class PagedDecodeStep:
-    """The paged decode step, ``(params, caches, token, pos, block_tables)
-    -> (logits, caches, next_token)`` with ``next_token`` the (B,) int32
-    greedy token of :func:`greedy_next_token`.
+class GraphedStep:
+    """A serving step, ``(params, caches, *inputs) -> (logits, caches,
+    next_token)``.
 
     On the CPU it runs eagerly, as the caller asked for the CPU. On CUDA it
-    is the port's counterpart of the reference's memoized ``jax.jit``: the
-    first call of a binding runs the step once on a side stream (the
-    warm-up, whose outputs it returns; it also fills the weight cache), then
-    captures it as a CUDA graph; later calls replay the graph. The binding
-    is the params' and caches' nested dicts and tensors (identity), the
-    in-place version of every weight whose quantized operand the graph
-    reads from the weight cache, and the inputs' shapes, dtypes and
-    devices; when any of them changes the step captures again, so a graph
-    is never replayed over other tensors or a stale quantized weight. The
-    graph reads token, positions and block tables from the tensors of the
-    call it was captured in — its static inputs: the engine keeps those
-    buffers across drains and fills them with ``copy_`` — and a call that
-    passes other tensors has them copied in. Logits and greedy token come
-    out in static outputs, which the next replay overwrites.
+    is the port's counterpart of the reference's memoized ``jax.jit``,
+    which compiles once per input shape: it keeps a table of CUDA graphs
+    keyed by the inputs' shapes, dtypes and devices (a prefill bucket, a
+    decode batch). The first call of a key runs the step once on a side
+    stream (the warm-up, whose outputs it returns; it also fills the
+    weight cache), then captures it; later calls of that key replay the
+    graph. Every graph is bound to the params' and caches' nested dicts
+    and tensors (identity) and to the in-place version of every weight
+    whose quantized operand it reads from the weight cache: other params
+    or caches drop the whole table, a changed weight the graph that read
+    it, so a graph is never replayed over other tensors or a stale
+    quantized weight. ``max_captures`` bounds the table (the per-length
+    one-shot prefill keeps one graph: a long prompt's graph holds
+    gigabytes); the captures of one step share one memory pool.
+
+    A capture reads its inputs from the tensors of the call it was made in
+    (a view, of another graph's output say, is copied into a buffer of its
+    own first): these are its static inputs, and a later call that passes
+    other tensors has them copied in, in stream order. Logits and greedy
+    token come out in static outputs, which the next replay of the same
+    graph overwrites: a caller that keeps them clones them, or copies them
+    in stream order before the next call.
 
     A capture that fails raises; on CUDA nothing falls back to eager. The
     capture records launches without making them, so it adds nothing to
     the kernels' launch counters, and each replay adds the launches it
-    recorded. ``graph_captures`` / ``graph_replays`` (module level) count
-    captures and replays."""
+    recorded. ``graph_captures`` / ``graph_replays`` (module level, by
+    ``kind``) and ``captures`` / ``replays`` (this step) count them."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, kind: str = "step",
+                 max_captures: Optional[int] = None):
         self.fn = fn
-        self._captured: Optional[_Captured] = None
+        self.kind = kind
+        self.max_captures = max_captures
+        self._table: dict = {}           # input signature -> _Captured
+        self._roots = None               # (params, caches) of the table
+        self.captures = 0
+        self.replays = 0
 
-    def __call__(self, params, caches, token, pos, block_tables):
-        global graph_replays
-        if token.device.type != "cuda":
-            return self.fn(params, caches, token, pos, block_tables)
-        inputs = (token, pos, block_tables)
-        cap = self._captured
-        if cap is None or not cap.bound_to(params, caches, inputs):
-            return self._capture(params, caches, inputs)
+    def release(self) -> None:
+        """Drop every graph (and so the memory pool they share)."""
+        self._table.clear()
+        self._roots = None
+
+    def __call__(self, params, caches, *inputs):
+        if not self._on_card(inputs):
+            return self.fn(params, caches, *inputs)
+        roots = self._roots
+        if roots is None or params is not roots[0] or caches is not roots[1]:
+            self.release()
+            self._roots = (params, caches)
+        key = tuple((tuple(t.shape), t.dtype, t.device) for t in inputs)
+        cap = self._table.get(key)
+        if cap is None or not cap.bound():
+            self._table.pop(key, None)
+            return self._capture(params, caches, key, inputs)
         for a, b in zip(inputs, cap.inputs):
             if a is not b:
-                b.copy_(a)
+                b.copy_(a, non_blocking=True)
         cap.graph.replay()
-        graph_replays += 1
+        self.replays += 1
+        graph_replays[self.kind] += 1
         _add_counters(cap.launches)
         return cap.logits, caches, cap.next_token
 
-    def _capture(self, params, caches, inputs):
-        global graph_captures
-        from repro_torch.quant import weight_cache
-        self._captured = None          # release the old graph and its pool
+    @staticmethod
+    def _on_card(inputs) -> bool:
+        return inputs[0].device.type == "cuda"
+
+    def _warm_up(self, params, caches, inputs) -> tuple:
+        """The step run eagerly on a side stream, ordered after the work
+        queued before it and before the work queued after it."""
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
@@ -228,27 +274,49 @@ class PagedDecodeStep:
         main.wait_stream(side)
         for t in (logits, nxt):
             t.record_stream(main)
+        return logits, caches, nxt
+
+    def _record(self, params, caches, static, pool) -> tuple:
+        """(graph, static logits, static next token) of the step captured
+        over the ``static`` inputs, in ``pool`` (None: a new pool)."""
         graph = torch.cuda.CUDAGraph()
+        # thread-local: the pipelined drain's consumer thread waits on
+        # events and reads pinned memory while this thread captures; in the
+        # global mode those calls from any thread invalidate the capture.
+        # This thread's own unsafe calls still fail it
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            s_logits, _, s_next = self.fn(params, caches, *static)
+        return graph, s_logits, s_next
+
+    def _capture(self, params, caches, key, inputs):
+        from repro_torch.quant import weight_cache
+        if (self.max_captures is not None
+                and len(self._table) >= self.max_captures):
+            roots = self._roots
+            self.release()               # its graphs' memory goes first
+            self._roots = roots
+        pool = next(iter(self._table.values())).graph.pool() \
+            if self._table else None
+        static = tuple(t if t._base is None else t.clone() for t in inputs)
+        logits, caches, nxt = self._warm_up(params, caches, inputs)
         before = _read_counters()
         try:
-            # thread-local: the pipelined drain's consumer thread waits on
-            # events and reads pinned memory while this thread captures;
-            # in the global mode those calls from any thread invalidate the
-            # capture. This thread's own unsafe calls still fail it
-            with weight_cache.holding() as held, torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-                s_logits, _, s_next = self.fn(params, caches, *inputs)
+            with weight_cache.holding() as held:
+                graph, s_logits, s_next = self._record(params, caches,
+                                                       static, pool)
         except Exception as e:
             raise RuntimeError(
-                "paged decode step: CUDA graph capture failed (on CUDA the "
-                "step does not run eagerly instead)") from e
+                f"{self.kind} step: CUDA graph capture failed (on CUDA the "
+                f"step does not run eagerly instead)") from e
         finally:
             after = _read_counters()
             delta = {k: after[k] - before.get(k, 0) for k in after}
             _add_counters(delta, times=-1)   # the capture launched nothing
-        self._captured = _Captured(graph, params, caches, inputs, s_logits,
-                                   s_next, delta, held)
-        graph_captures += 1
+        self._table[key] = _Captured(graph, params, caches, static, s_logits,
+                                     s_next, delta, held)
+        self.captures += 1
+        graph_captures[self.kind] += 1
         return logits, caches, nxt
 
 
@@ -256,14 +324,15 @@ _BUILDERS = {
     "prefill": make_prefill_step,
     "bucketed_prefill": make_bucketed_prefill_step,
     "chunked_prefill": make_chunked_prefill_step,
+    "dense_chunked_prefill": make_dense_chunked_prefill_step,
     "decode": make_decode_step,
     "paged_decode": make_paged_decode_step,
 }
 
 # {(kind, mp key, paged_attn): step}, kept on the model itself: a step's
 # closure holds the model, so a table keyed weakly on the model would keep
-# every model (and its decode graphs, with the params they are bound to)
-# alive; on the model, the cycle goes with it
+# every model (and its graphs, with the params they are bound to) alive; on
+# the model, the cycle goes with it
 _STEPS_ATTR = "_serving_steps"
 _SERVING_STEPS_LOCK = threading.Lock()
 
@@ -274,10 +343,13 @@ def _mp_cache_key(mp):
 
 
 def get_serving_step(model, kind: str, mp=None,
-                     paged_attn: Optional[str] = None):
+                     paged_attn: Optional[str] = None) -> GraphedStep:
     """Memoized serving step for ``model``. ``kind`` is one of
-    ``prefill`` / ``bucketed_prefill`` / ``chunked_prefill`` / ``decode`` /
-    ``paged_decode``; ``mp`` an assignment dict or an ``MPPlan``."""
+    ``prefill`` / ``bucketed_prefill`` / ``chunked_prefill`` /
+    ``dense_chunked_prefill`` / ``decode`` / ``paged_decode``; ``mp`` an
+    assignment dict or an ``MPPlan``. Every kind is a :class:`GraphedStep`
+    (one graph per input shape on CUDA; ``prefill``, the per-length
+    one-shot step, keeps one at a time)."""
     if kind not in _BUILDERS:
         raise ValueError(f"unknown serving step kind {kind!r}")
     if paged_attn is not None and kind != "paged_decode":
@@ -288,10 +360,12 @@ def get_serving_step(model, kind: str, mp=None,
         fn = steps.get(key)
         if fn is None:
             if kind == "paged_decode":
-                fn = PagedDecodeStep(make_paged_decode_step(
-                    model, mp=mp, paged_attn=paged_attn or "fused"))
+                raw = make_paged_decode_step(model, mp=mp,
+                                             paged_attn=paged_attn or "fused")
             else:
-                fn = _BUILDERS[kind](model, mp=mp)
+                raw = _BUILDERS[kind](model, mp=mp)
+            fn = GraphedStep(raw, kind,
+                             max_captures=1 if kind == "prefill" else None)
             steps[key] = fn
     return fn
 

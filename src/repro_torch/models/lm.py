@@ -273,6 +273,7 @@ class LM:
                block_tables: Optional[torch.Tensor] = None,
                chunk_valid: Optional[torch.Tensor] = None,
                chunk_start: Optional[torch.Tensor] = None,
+               chunk_ring: bool = False,
                layer_idx: Optional[int] = None, paged_attn: str = "fused"):
         cfg = self.cfg
         hn = L.apply_norm(p["attn_norm"], h, cfg.norm)
@@ -284,6 +285,7 @@ class LM:
                                        block_tables=block_tables,
                                        chunk_valid=chunk_valid,
                                        chunk_start=chunk_start,
+                                       chunk_ring=chunk_ring,
                                        paged_attn=paged_attn)
         else:
             y, cache = L.attention(p["attn"], ctx, f"{scope}/attn",
@@ -292,7 +294,8 @@ class LM:
                                    cache_pos=cache_pos,
                                    block_tables=block_tables,
                                    chunk_valid=chunk_valid,
-                                   chunk_start=chunk_start, window=window,
+                                   chunk_start=chunk_start,
+                                   chunk_ring=chunk_ring, window=window,
                                    paged_attn=paged_attn)
         h = h + y
         if cfg.d_ff > 0:
@@ -304,7 +307,8 @@ class LM:
     def _backbone(self, params: dict, ctx: QuantContext, h: torch.Tensor,
                   positions: torch.Tensor, *, caches: Optional[dict] = None,
                   cache_pos=None, block_tables=None, chunk_valid=None,
-                  chunk_start=None, paged_attn: str = "fused"):
+                  chunk_start=None, chunk_ring: bool = False,
+                  paged_attn: str = "fused"):
         """Run every layer in a Python loop; caches are updated in place."""
         cfg = self.cfg
         for i in range(cfg.n_layers):
@@ -314,7 +318,8 @@ class LM:
                                cache=cache_i, cache_pos=cache_pos,
                                block_tables=block_tables,
                                chunk_valid=chunk_valid,
-                               chunk_start=chunk_start, layer_idx=i,
+                               chunk_start=chunk_start,
+                               chunk_ring=chunk_ring, layer_idx=i,
                                paged_attn=paged_attn)
         return L.apply_norm(params["final_norm"], h, cfg.norm)
 
@@ -362,9 +367,15 @@ class LM:
         return (torch.float8_e4m3fn if self.cfg.kv_cache_dtype == "fp8_e4m3"
                 else self.dtype)
 
-    def cache_specs(self, batch: int, max_len: int) -> dict:
+    def cache_specs(self, batch: int, max_len: int, ring_window: bool = True,
+                    chunk_extra: int = 0) -> dict:
         """Flat ``layers/i@attn/<leaf>`` specs of the dense caches: KV rings
-        for attention layers, full-length latents for MLA layers."""
+        for attention layers, full-length latents for MLA layers.
+        ``ring_window=False`` keeps ``max_len`` rows for windowed layers
+        (the window is then enforced by the mask alone); ``chunk_extra``
+        widens windowed rings to ``window + chunk_extra`` rows, so that
+        dense chunked prefill never evicts keys still in a query's window
+        (engines pass their ``chunk_len``)."""
         cfg = self.cfg
         specs = {}
         for i in range(cfg.n_layers):
@@ -372,7 +383,8 @@ class LM:
                                        self.kv_dtype)
                       if cfg.block_types[i] == "mla" else
                       L.kv_cache_spec(cfg.attn_cfg, batch, max_len,
-                                      self.kv_dtype))
+                                      self.kv_dtype, ring=ring_window,
+                                      chunk_extra=chunk_extra))
             for leaf, ps in leaves.items():
                 specs[f"layers/{i}@attn/{leaf}"] = ps
         return specs
@@ -404,10 +416,11 @@ class LM:
                 s.shape, fill, dtype=s.dtype, device=device)
         return out
 
-    def init_cache(self, batch: int, max_len: int,
-                   device: DeviceLike = None) -> dict:
-        return self._materialize(self.cache_specs(batch, max_len),
-                                 resolve_device(device))
+    def init_cache(self, batch: int, max_len: int, device: DeviceLike = None,
+                   *, ring_window: bool = True, chunk_extra: int = 0) -> dict:
+        return self._materialize(
+            self.cache_specs(batch, max_len, ring_window=ring_window,
+                             chunk_extra=chunk_extra), resolve_device(device))
 
     def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
                          device: DeviceLike = None) -> dict:
@@ -443,13 +456,16 @@ class LM:
     def prefill_chunk(self, params: dict, tokens: torch.Tensor, caches: dict,
                       ctx: QuantContext, *, start_pos: torch.Tensor,
                       valid_len: torch.Tensor,
-                      block_tables: Optional[torch.Tensor] = None):
+                      block_tables: Optional[torch.Tensor] = None,
+                      chunk_ring: bool = False):
         """One padded prompt chunk for every cache row: ``tokens`` (B, Lb)
         padded to a bucket, ``start_pos`` (B,) absolute position of
         ``tokens[:, 0]`` (0 resets a dense row), ``valid_len`` (B,) real
         tokens per row (0 = row untouched). ``block_tables`` selects the
-        paged layout. Returns (logits (B, 1, V) at each row's last valid
-        position, caches)."""
+        paged layout; over dense rings ``chunk_ring`` attends the whole
+        ring in logical order, so a chunk can continue a prompt (windowed
+        rings need ``init_cache(chunk_extra=chunk_len)``). Returns (logits
+        (B, 1, V) at each row's last valid position, caches)."""
         B, T = tokens.shape
         dev = tokens.device
         start = torch.as_tensor(start_pos, dtype=torch.int32, device=dev)
@@ -460,7 +476,7 @@ class LM:
         chunk_valid = ar < valid[:, None]
         h = self._backbone(params, ctx, emb, positions, caches=caches,
                            chunk_valid=chunk_valid, chunk_start=start,
-                           block_tables=block_tables)
+                           chunk_ring=chunk_ring, block_tables=block_tables)
         idx = torch.clamp_min(valid - 1, 0).long()   # inactive rows: garbage
         h_last = h[torch.arange(B, device=dev), idx][:, None]
         return self._head(params, ctx, h_last), caches

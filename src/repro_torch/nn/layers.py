@@ -30,8 +30,14 @@ reference). MLA (DeepSeek-V3's multi-head latent attention) keeps a latent
 cache ``{"ckv", "kr"[, "pos"]}``; its absorbed paged decode runs the MLA form
 of the paged-decode CUDA kernel.
 
-Not ported: cross-attention, the dense chunked-prefill ring continuation
-(``chunk_ring``), and the mesh branch of the paged kernel call.
+Dense continuous serving splits prompts into chunks over the dense rings
+too (``chunk_ring``): a chunk attends the whole ring gathered into logical
+order, and windowed rings are widened by the chunk length
+(``kv_cache_spec(chunk_extra=...)``). Every cache write of a serving step
+has shapes fixed by its inputs' shapes (no boolean indexing), so the step
+can be captured as a CUDA graph.
+
+Not ported: cross-attention and the mesh branch of the paged kernel call.
 """
 from __future__ import annotations
 
@@ -218,11 +224,17 @@ def attn_specs(prefix: str, cfg: AttnConfig) -> dict:
 
 
 def kv_cache_spec(cfg: AttnConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, ring: bool = True) -> dict:
-    """Dense ring: ``W = min(max_len, window)`` rows (``ring=False`` keeps
-    ``max_len``; the window is then enforced by the mask alone)."""
+                  dtype=torch.bfloat16, ring: bool = True,
+                  chunk_extra: int = 0) -> dict:
+    """Dense ring: ``W = min(max_len, window + chunk_extra)`` rows
+    (``ring=False`` keeps ``max_len``; the window is then enforced by the
+    mask alone). A chunked prefill writes up to a whole chunk past the
+    window before the chunk's earliest query attends, so a ring of exactly
+    ``window`` rows would overwrite keys that query still needs whenever
+    ``window`` is not chunk-aligned: engines serving dense chunked prefill
+    pass their ``chunk_len`` as ``chunk_extra``."""
     W = (max_len if (cfg.window is None or not ring)
-         else min(max_len, cfg.window))
+         else min(max_len, cfg.window + chunk_extra))
     axes = ("act_batch", None, "kv_heads", "head_dim")
     return {
         "k": ParamSpec((batch, W, cfg.n_kv_heads, cfg.d_head), axes, dtype,
@@ -390,23 +402,65 @@ def _cache_roundtrip(t: torch.Tensor, cache_leaf: torch.Tensor,
     return cast_to(t, cache_leaf.dtype).to(dtype)
 
 
+def _select(mask: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """``torch.where`` that also takes one-byte float (fp8) tensors, as the
+    bytes they are."""
+    if a.dtype.itemsize == 1 and a.dtype.is_floating_point:
+        return torch.where(mask, a.view(torch.uint8),
+                           b.view(torch.uint8)).view(a.dtype)
+    return torch.where(mask, a, b)
+
+
 def _cache_write_chunk(cache: dict, tensors: dict, positions: torch.Tensor,
                        valid: torch.Tensor, start: torch.Tensor) -> dict:
     """Masked bucketed-prefill write into the dense ring. Rows with start == 0
     get their ``pos`` ring reset to -1 first; rows with no valid entries are
-    left untouched; only each row's last W valid entries are kept."""
+    left untouched; only each row's last W valid entries are kept.
+
+    Written slot by slot rather than entry by entry, so that every shape is
+    fixed by the inputs' (a CUDA graph can capture it): after the write,
+    ring slot ``j`` holds the latest position ``p = j (mod W)`` below the
+    row's end, which this chunk wrote when ``p >= start``."""
     B, T = positions.shape
     W = cache["pos"].shape[1]
-    end = start + valid.sum(dim=1).to(torch.int32)                 # (B,)
-    keep = valid & (positions >= (end - W)[:, None])
-    bidx = torch.arange(B, device=positions.device)[:, None].expand(B, T)
-    rows, slots = bidx[keep], (positions.long() % W)[keep]
-    cache["pos"].masked_fill_((start == 0)[:, None], -1)
-    cache["pos"].index_put_((rows, slots), positions[keep].to(torch.int32))
-    for name, t in tensors.items():
-        cache[name].index_put_((rows, slots),
-                               cast_to(t[keep], cache[name].dtype))
+    n = valid.sum(dim=1).to(torch.int32)
+    end = start + n                                                # (B,)
+    base = (end - W)[:, None]
+    j = torch.arange(W, dtype=torch.int32, device=positions.device)[None]
+    p = base + torch.remainder(j - base, W)                        # (B, W)
+    t = p - start[:, None]                          # index into the chunk
+    hit = (t >= 0) & (t < n[:, None])
+    idx = t.clamp(0, T - 1).long()
+    old_pos = torch.where((start == 0)[:, None],
+                          torch.full_like(cache["pos"], -1), cache["pos"])
+    cache["pos"].copy_(torch.where(hit, p, old_pos))
+    for name, x in tensors.items():
+        c = cache[name]
+        tail = (1,) * (x.dim() - 2)
+        src = torch.gather(x, 1, idx.view(B, W, *tail).expand(
+            B, W, *x.shape[2:]))
+        c.copy_(_select(hit.view(B, W, *tail), cast_to(src, c.dtype), c))
     return cache
+
+
+def _ring_logical_gather(cache: dict, names: tuple, dtype,
+                         start: torch.Tensor, valid: torch.Tensor) -> tuple:
+    """Gather a dense ring into ascending *logical* order for chunked
+    prefill continuation: after a chunk ending at absolute position ``end``
+    lands, the ring holds positions ``end - W .. end - 1`` (contiguous
+    writes from 0), so logical position ``p`` lives at slot ``p % W``.
+    Returns ``({name: (B, W, ...)}, kp)`` with ``kp[b, j] = end_b - W +
+    j``; entries with ``kp < 0`` (ring not yet full) gather arbitrary slots
+    and the mask's ``k_pos >= 0`` clause excludes them."""
+    W = cache["pos"].shape[1]
+    end = start + valid.sum(dim=1).to(torch.int32)                  # (B,)
+    kp = end[:, None] + torch.arange(-W, 0, dtype=torch.int32,
+                                     device=end.device)[None]        # (B, W)
+    slot = torch.remainder(kp, W).long()
+    bidx = torch.arange(slot.shape[0], device=end.device)[:, None].expand(
+        slot.shape)
+    return {name: cache[name][bidx, slot].to(dtype) for name in names}, kp
 
 
 def _cache_write(cache: dict, tensors: dict, positions: torch.Tensor,
@@ -458,6 +512,7 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
               block_tables: Optional[torch.Tensor] = None,
               chunk_valid: Optional[torch.Tensor] = None,
               chunk_start: Optional[torch.Tensor] = None,
+              chunk_ring: bool = False,
               window: Union[None, int, str] = "cfg",
               paged_attn: str = "fused"):
     """Self-attention; returns (y, cache).
@@ -467,7 +522,9 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
       scalar or (B,));
     * bucketed prefill: ``chunk_valid`` (B, T) marks real tokens of a padded
       chunk starting at ``chunk_start`` (B,); paged caches take the chunk
-      straight into blocks and attend the gathered logical layout;
+      straight into blocks and attend the gathered logical layout; dense
+      rings attend the chunk's own K/V, or with ``chunk_ring`` the whole
+      ring gathered into logical order (a chunk that continues a prompt);
     * paged decode: ``block_tables`` with a block-major cache — the new
       token is scattered into its page and, with ``paged_attn="fused"``,
       attended in place by the CUDA kernel; ``"gather"`` keeps the reference
@@ -505,9 +562,14 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
     elif cache is not None and chunk_valid is not None:
         cache = _cache_write_chunk(cache, {"k": k, "v": v}, positions,
                                    chunk_valid, chunk_start)
-        k = _cache_roundtrip(k, cache["k"], x.dtype)
-        v = _cache_roundtrip(v, cache["v"], x.dtype)
-        kp = positions
+        if chunk_ring:
+            g, kp = _ring_logical_gather(cache, ("k", "v"), x.dtype,
+                                         chunk_start, chunk_valid)
+            k, v = g["k"], g["v"]
+        else:
+            k = _cache_roundtrip(k, cache["k"], x.dtype)
+            v = _cache_roundtrip(v, cache["v"], x.dtype)
+            kp = positions
     elif cache is not None:
         cache = _cache_write(cache, {"k": k, "v": v}, positions, cache_pos)
         if cache_pos is not None:
@@ -644,6 +706,7 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
                   block_tables: Optional[torch.Tensor] = None,
                   chunk_valid: Optional[torch.Tensor] = None,
                   chunk_start: Optional[torch.Tensor] = None,
+                  chunk_ring: bool = False,
                   paged_attn: str = "fused"):
     """MLA over a latent cache ``{"ckv", "kr"[, "pos"]}``; returns (y,
     cache). Branches as :func:`attention`. Chunk attention always takes the
@@ -692,9 +755,15 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
     elif cache is not None and chunk_valid is not None:
         cache = _cache_write_chunk(cache, {"ckv": ckv, "kr": kr}, positions,
                                    chunk_valid, chunk_start)
-        ckv = _cache_roundtrip(ckv, cache["ckv"], x.dtype)
-        kr = _cache_roundtrip(kr, cache["kr"], x.dtype)
-        kp = positions
+        if chunk_ring:
+            # MLA latent caches are full length (W = max_len)
+            g, kp = _ring_logical_gather(cache, ("ckv", "kr"), x.dtype,
+                                         chunk_start, chunk_valid)
+            ckv, kr = g["ckv"], g["kr"]
+        else:
+            ckv = _cache_roundtrip(ckv, cache["ckv"], x.dtype)
+            kr = _cache_roundtrip(kr, cache["kr"], x.dtype)
+            kp = positions
     elif cache is not None:
         cache = _cache_write(cache, {"ckv": ckv, "kr": kr}, positions,
                              cache_pos)

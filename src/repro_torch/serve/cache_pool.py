@@ -1,5 +1,13 @@
-"""Paged KV cache pool for continuous batching, one shard (port of
-``PagedCachePool`` in ``repro/serve/cache_pool.py``).
+"""KV cache pools for continuous batching, one shard (port of
+``repro/serve/cache_pool.py``): dense slots and paged blocks.
+
+:class:`CachePool` (dense) owns one cache tree whose leading axis is the
+slot axis: ``n_slots`` sequences decode together, each slot a ring of
+``max_len`` rows (windowed layers: ``window`` + the prefill chunk length).
+Its memory scales with ``n_slots * max_len`` whatever the live tokens.
+
+:class:`PagedCachePool` replaces the per-slot rings with a shared store of
+fixed-size blocks.
 
 Attention K/V lives in block-major tensors ``(n_blocks, block_size, Hkv,
 D)`` (MLA latents in ``(n_blocks, block_size, r)``); each slot maps its
@@ -39,8 +47,16 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn.spec import param_bytes
+from repro_torch.quant.formats import cast_to
 
-__all__ = ["PagedCachePool", "paged_block_bytes"]
+__all__ = ["CachePool", "PagedCachePool", "dense_slot_bytes",
+           "paged_block_bytes", "paged_slot_bytes"]
+
+
+def dense_slot_bytes(model, max_len: int) -> int:
+    """Device bytes one dense cache slot pins at ``max_len``, whether or
+    not it holds live tokens."""
+    return param_bytes(model.cache_specs(1, max_len))
 
 
 def paged_block_bytes(model, block_size: int) -> int:
@@ -48,6 +64,91 @@ def paged_block_bytes(model, block_size: int) -> int:
     of ``block_size`` live tokens under paging)."""
     return (param_bytes(model.paged_cache_specs(1, 2, block_size))
             - param_bytes(model.paged_cache_specs(1, 1, block_size)))
+
+
+def paged_slot_bytes(model, block_size: int) -> int:
+    """Device bytes one slot pins under paging whatever its live tokens:
+    the slot-major leaves (SSM state in the reference's mamba and hybrid
+    archs; none in the attention and MLA models the port builds)."""
+    return (param_bytes(model.paged_cache_specs(2, 1, block_size))
+            - param_bytes(model.paged_cache_specs(1, 1, block_size)))
+
+
+class CachePool:
+    """``n_slots`` dense cache slots of ``max_len`` rows for one model.
+
+    ``chunk_extra`` widens windowed rings by the prefill chunk length
+    (``LM.cache_specs``). A request's first prefill chunk resets its slot's
+    ``pos`` ring, so stale K/V of the slot's last occupant never reaches
+    its attention; :meth:`insert` overwrites a whole slot with a batch-1
+    cache tree. ``caches`` takes another pool's tensors (the engine keeps
+    them, so its steps' CUDA graphs stay bound to them), reset."""
+
+    def __init__(self, model, n_slots: int, max_len: int,
+                 chunk_extra: int = 0, device: DeviceLike = None,
+                 caches: Optional[dict] = None):
+        if n_slots < 1 or max_len < 1:
+            raise ValueError((n_slots, max_len))
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.chunk_extra = chunk_extra
+        self.device = resolve_device(device)
+        if caches is None:
+            caches = model.init_cache(n_slots, max_len, self.device,
+                                      chunk_extra=chunk_extra)
+        else:
+            specs = model.cache_specs(n_slots, max_len,
+                                      chunk_extra=chunk_extra)
+            for key, spec in specs.items():
+                layer, leaf = key.split("@attn/")
+                t = caches.get(layer, {}).get(leaf)
+                if (t is None or tuple(t.shape) != tuple(spec.shape)
+                        or t.dtype != spec.dtype):
+                    raise ValueError(f"cache tensor {key} does not fit this "
+                                     f"pool ({spec.shape}, {spec.dtype})")
+                t.fill_(-1 if leaf == "pos" else 0)
+        self.caches = caches
+        self._free = list(range(n_slots - 1, -1, -1))  # pop() gives slot 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    # the uniform pool interface (shared with PagedCachePool)
+    @property
+    def n_free_slots(self) -> int:
+        return len(self._free)
+
+    def alloc(self) -> int:
+        """Claim a free slot; raises RuntimeError when the pool is full."""
+        if not self._free:
+            raise RuntimeError("cache pool exhausted")
+        return self._free.pop()
+
+    def free(self, slot: int) -> None:
+        if not 0 <= slot < self.n_slots or slot in self._free:
+            raise ValueError(f"slot {slot} is not in use")
+        self._free.append(slot)
+
+    def free_slot(self, slot: int) -> None:
+        self.free(slot)
+
+    def insert(self, slot: int, request_cache: dict) -> None:
+        """Copy a batch-1 cache tree into ``slot``, overwriting the whole
+        row (its ``pos`` ring included). Not on the engine's path, which
+        prefills the pool's rows in place; kept as the reference's cache
+        injection API."""
+        for layer, leaves in request_cache.items():
+            for leaf, t in leaves.items():
+                dst = self.caches[layer][leaf]
+                dst[slot].copy_(cast_to(t[0], dst.dtype))
+
+    # dense slots carry no state across drains
+    def reset_counters(self) -> None:
+        pass
+
+    def invalidate_prefix_index(self) -> None:
+        pass
 
 
 class PagedCachePool:

@@ -1,20 +1,27 @@
 """Serving engines (port of ``repro/serve/engine.py``).
 
+TTFT (the paper's measured quantity) is the wall time of the prefill step:
+:meth:`ServeEngine.ttft` is the median of ``n_iters`` prefills.
+
 * :class:`ServeEngine` — one-shot batch serving: bucketed prefill into dense
   rings, then lock-step greedy decode. It is the parity reference for the
   continuous engine.
 * :class:`ContinuousBatchingEngine` — a request queue drains through a fixed
-  pool of cache slots over the paged KV pool: requests are admitted
-  mid-decode as slots free up (``Scheduler``), each admitted prompt is
-  prefilled straight into its slot's blocks, and one decode step advances
-  every occupied slot at its own depth. Decode attention runs through the
-  CUDA paged-attention kernel (``paged_attn="fused"``, the default) or the
-  reference gather path (``"gather"``). On CUDA the decode step is a CUDA
-  graph, captured once and replayed (``launch/steps.PagedDecodeStep``):
-  the engine keeps one pool (its cache tensors and prefix index) and the
-  step's input buffers across drains, so the graph stays bound to them,
-  and fills the buffers with ``copy_`` before each step. ``counters``
-  report the drain's captures and replays.
+  pool of cache slots: requests are admitted mid-decode as slots free up
+  (``Scheduler``), each admitted prompt is prefilled into its slot, and one
+  decode step advances every occupied slot at its own depth. The pool is
+  paged by default (each prompt prefilled straight into its slot's
+  blocks; decode attention through the CUDA paged-attention kernel,
+  ``paged_attn="fused"``, or the reference gather path, ``"gather"``);
+  ``paged=False`` keeps the dense per-slot rings (``CachePool``).
+
+On CUDA every serving step is a CUDA graph, captured once per input shape
+(a prefill bucket, the decode batch) and replayed
+(``launch/steps.GraphedStep``), as the reference compiles every step once
+per shape. The engines keep their caches (the continuous engine its pool,
+with its prefix index) and the decode step's input buffers across calls,
+so the graphs stay bound to them, and fill the buffers with ``copy_``
+before each step. ``counters`` report the drain's captures and replays.
 
 As in the reference, the continuous engine shares KV blocks across requests
 by default (``prefix_cache``, copy-on-write, the index kept across drains),
@@ -25,9 +32,9 @@ decode steps (``chunk_len``, ``chunk_budget``), and drains pipelined: the
 device runs up to ``max_in_flight`` steps ahead while a consumer thread
 reads tokens back (``serve(sync=True)`` is the lockstep drain). Requests
 can be cancelled (``cancel``, ``shutdown``, ``Request.timeout_steps``) and
-streamed (``on_token``). Dense-ring continuous serving, load-adaptive MP,
-fault injection, the numerical guardrail and mesh serving raise
-``NotImplementedError`` naming their ROADMAP.md item.
+streamed (``on_token``). Load-adaptive MP, fault injection, the numerical
+guardrail and mesh serving raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 
 Both engines accept ``mp`` as an op->format dict or an ``MPPlan``.
 """
@@ -48,10 +55,10 @@ from repro_torch.core.mpconfig import as_assignment
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import paged_attention as _paged_kernel
 from repro_torch.launch import steps as _steps
-from repro_torch.launch.steps import (get_serving_step, greedy_next_token,
-                                      merge_first_tokens)
-from repro_torch.serve.cache_pool import (PagedCachePool, host_to_device,
-                                          paged_block_bytes)
+from repro_torch.launch.steps import get_serving_step, merge_first_tokens
+from repro_torch.serve.cache_pool import (CachePool, PagedCachePool,
+                                          dense_slot_bytes, host_to_device,
+                                          paged_block_bytes, paged_slot_bytes)
 from repro_torch.serve.scheduler import (DONE, PREFILLING, RUNNING, WAITING,
                                          Request, Scheduler)
 
@@ -105,9 +112,26 @@ class ServeSummary:
     tokens_per_s: float               # decode-produced tokens / decode_s
     counters: dict = dataclasses.field(default_factory=dict)
 
+    def tokens_for(self, rid: int) -> np.ndarray:
+        return self.results[rid].tokens
+
+
+def _tokens(batch: dict, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(batch["tokens"]),
+                           dtype=torch.int32).to(device)
+
 
 class ServeEngine:
-    """One-shot batch serving: prefill + lock-step greedy decode."""
+    """One-shot batch serving: prefill + lock-step greedy decode.
+
+    Prefill is length-bucketed (the prompt padded to a power of two and
+    masked: one step per bucket, shared with the dense continuous engine);
+    a prompt whose bucket reaches ``flash_min_seq`` takes the per-length
+    step, which attends through the blocked flash attention.
+    :meth:`generate` and :meth:`ttft` prefill into caches the engine keeps
+    for the last (batch, max_len) and resets in place, so that on CUDA the
+    steps' graphs stay bound to one set of tensors; :meth:`init_caches`
+    hands out fresh ones."""
 
     def __init__(self, model, mp=None, device: DeviceLike = None):
         self.model = model
@@ -117,51 +141,108 @@ class ServeEngine:
         self.bucketed_prefill_step = get_serving_step(
             model, "bucketed_prefill", mp=self.mp)
         self.decode_step = get_serving_step(model, "decode", mp=self.mp)
+        # which prefill steps this engine needed (a bucket, or ("legacy",
+        # length)) against the prompt lengths it served
+        self.prefill_compile_keys: set = set()
+        self.prompt_lens_seen: set = set()
+        self._caches = None       # ((batch, max_len), the kept caches)
+        self._pos = None          # the decode step's position, on the device
+
+    def init_caches(self, batch: int, max_len: int, enc_len: int = 0) -> dict:
+        """Fresh dense caches for ``batch`` sequences of ``max_len`` tokens.
+        ``enc_len`` sizes an encoder-decoder model's cross-attention cache in
+        the reference; the port builds decoder-only models, whose caches do
+        not take it."""
+        return self.model.init_cache(batch, max_len, self.device)
+
+    def _kept_caches(self, batch: int, max_len: int) -> dict:
+        """The engine's caches for (batch, max_len), reset in place: K/V
+        zeroed and positions -1, as :meth:`init_caches` makes them."""
+        if self._caches is None or self._caches[0] != (batch, max_len):
+            self._caches = None            # free the old ones first
+            self._caches = ((batch, max_len),
+                            self.init_caches(batch, max_len))
+            return self._caches[1]
+        caches = self._caches[1]
+        for leaves in caches.values():
+            for leaf, t in leaves.items():
+                t.fill_(-1 if leaf == "pos" else 0)
+        return caches
 
     def _prefill(self, params, caches, tokens: torch.Tensor):
-        """Bucketed prefill (prompt padded to a power of two and masked), or
-        the per-length step once the bucket reaches ``flash_min_seq``."""
+        """Bucketed prefill, or the per-length step once the bucket reaches
+        ``flash_min_seq``. Returns (last-token logits, caches, next
+        token)."""
         B, T0 = tokens.shape
+        self.prompt_lens_seen.add(int(T0))
         Lb = prefill_bucket(T0)
         if Lb >= self.model.cfg.flash_min_seq:
+            self.prefill_compile_keys.add(("legacy", int(T0)))
             return self.prefill_step(params, caches, tokens)
+        self.prefill_compile_keys.add(Lb)
         tok = F.pad(tokens, (0, Lb - T0))
         start = torch.zeros((B,), dtype=torch.int32, device=self.device)
         valid = torch.full((B,), T0, dtype=torch.int32, device=self.device)
         return self.bucketed_prefill_step(params, caches, tok, start, valid)
 
+    def ttft(self, params, batch: dict, max_len: int, n_iters: int = 5,
+             n_warmup: int = 2) -> float:
+        """Median prefill wall time over ``n_iters`` runs after ``n_warmup``
+        (the paper averages 5): the serving prefill path, bucket padding
+        included; on CUDA the warm-ups capture the step's graph and the
+        timed runs replay it."""
+        _check_params(params, self.device)
+        tokens = _tokens(batch, self.device)
+        times = []
+        with torch.no_grad():
+            for i in range(n_warmup + n_iters):
+                caches = self._kept_caches(tokens.shape[0], max_len)
+                _sync(self.device)
+                t0 = time.perf_counter()
+                self._prefill(params, caches, tokens)
+                _sync(self.device)
+                if i >= n_warmup:
+                    times.append(time.perf_counter() - t0)
+        times.sort()
+        return times[len(times) // 2]
+
     def generate(self, params, batch: dict, max_new_tokens: int,
                  max_len: Optional[int] = None) -> GenResult:
         """``batch["tokens"]`` (B, T) prompts of one length -> greedy tokens."""
         _check_params(params, self.device)
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 dtype=torch.int32).to(self.device)
+        tokens = _tokens(batch, self.device)
         B, T0 = tokens.shape
         max_len = max_len or (T0 + max_new_tokens)
-        caches = self.model.init_cache(B, max_len, self.device)
+        caches = self._kept_caches(B, max_len)
+        if self._pos is None:
+            self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        toks = torch.empty((B, max_new_tokens), dtype=torch.int32,
+                           device=self.device)
         with torch.no_grad():
             _sync(self.device)
             t0 = time.perf_counter()
-            logits, caches = self._prefill(params, caches, tokens)
-            out = [greedy_next_token(logits)]
+            _, caches, nxt = self._prefill(params, caches, tokens)
+            toks[:, 0] = nxt
             _sync(self.device)
             ttft = time.perf_counter() - t0
             t1 = time.perf_counter()
             for i in range(max_new_tokens - 1):
-                logits, caches = self.decode_step(params, caches,
-                                                  out[-1][:, None], T0 + i)
-                out.append(greedy_next_token(logits))
-            toks = torch.stack(out, dim=1).cpu().numpy()
+                # one graph serves every position: the step reads it from
+                # the device, and a step's token outputs are copied out
+                # before the next replay overwrites them
+                self._pos.fill_(T0 + i)
+                _, caches, nxt = self.decode_step(params, caches,
+                                                  toks[:, i:i + 1], self._pos)
+                toks[:, i + 1] = nxt
+            out = toks.cpu().numpy()
             dt = time.perf_counter() - t1
-        return GenResult(tokens=toks, ttft_s=ttft, decode_s=dt,
+        return GenResult(tokens=out, ttft_s=ttft, decode_s=dt,
                          tokens_per_s=B * max_new_tokens / max(dt, 1e-9))
 
 
 # options of the reference engine that the port does not have yet, by the
 # ROADMAP.md item that brings them
 _LATER = {
-    "paged=False": "dense-ring continuous serving lands with the rest of "
-                   "ROADMAP item A4, a later port slice",
     "adaptive": "load-adaptive MP lands with serving robustness, ROADMAP "
                 "item A5, a later port slice",
     "faults": "fault injection and containment land with serving "
@@ -199,11 +280,11 @@ def _refuse(name: str):
 
 @dataclasses.dataclass
 class _HostSet:
-    """One decode step's pinned host buffers: positions and block tables
-    going in, its greedy tokens coming out, and (on CUDA) the event
+    """One decode step's pinned host buffers: positions and (paged) block
+    tables going in, its greedy tokens coming out, and (on CUDA) the event
     recorded behind its copies."""
     pos: torch.Tensor
-    bt: torch.Tensor
+    bt: Optional[torch.Tensor]
     tok: torch.Tensor
     event: Optional[object]
 
@@ -219,7 +300,8 @@ def _seconds(timing) -> float:
 
 
 class ContinuousBatchingEngine:
-    """Continuous batching over a fixed pool of paged cache slots.
+    """Continuous batching over a fixed pool of cache slots, paged by
+    default (``paged=False``: dense per-slot rings).
 
     Each clock tick: apply pending control (cancellations, shutdown,
     ``Request.timeout_steps``), admit arrived requests while slots and
@@ -231,8 +313,22 @@ class ContinuousBatchingEngine:
     next chunk of every prefilling slot (at most ``chunk_len`` tokens,
     padded to the largest bucket; priority, then shortest remaining
     prefill, then slot), then one decode step over all ``n_slots`` rows
-    with per-row positions and block tables. Vacant rows decode garbage
-    whose K/V writes land in the trash block.
+    with per-row positions (and block tables). Vacant rows decode garbage
+    whose K/V writes land in the trash block (paged), or in the row's own
+    ring (dense), which its next occupant's first chunk resets. A dense
+    row between two chunks of its prompt decodes at the position its next
+    chunk starts at, which that chunk writes first.
+
+    ``prefill_cobatch`` (the default) pads every prefilling slot's next
+    chunk to the largest bucket and runs one step; ``False`` runs only the
+    chunks of the first candidate's bucket each step, as the reference's
+    legacy path does.
+
+    With ``paged=False`` the prefill step is the bucketed one, or with
+    ``chunk_len`` the ring-continuing chunked step over rings widened by
+    ``chunk_len``; ``n_blocks``, ``paged_attn`` and ``prefix_cache=True``
+    are refused, and preemption (which re-prefills through cached blocks)
+    is off.
 
     ``prefix_cache`` (None: on, as for every paged pure-attention model the
     port builds) hashes each admitted prompt block by block against the
@@ -251,13 +347,18 @@ class ContinuousBatchingEngine:
                  chunk_len: Optional[int] = None, chunk_budget: int = 1,
                  min_bucket: int = 8, paged_attn: Optional[str] = None,
                  mesh=None, prefix_cache: Optional[bool] = None,
-                 preemption: bool = True, adaptive=None, faults=None,
-                 guardrail=None, device: DeviceLike = None):
+                 preemption: bool = True, prefill_cobatch: bool = True,
+                 adaptive=None, faults=None, guardrail=None,
+                 device: DeviceLike = None):
+        if not paged and n_blocks is not None:
+            raise ValueError("n_blocks only applies to paged mode; drop it "
+                             "or remove paged=False")
+        if paged_attn is not None and not paged:
+            raise ValueError("paged_attn selects the paged decode-attention "
+                             "implementation; drop it or remove paged=False")
         if prefix_cache and not paged:
             raise ValueError("prefix_cache shares paged KV blocks; drop it "
                              "or remove paged=False")
-        if not paged:
-            _refuse("paged=False")
         for name, val in (("adaptive", adaptive), ("faults", faults),
                           ("guardrail", guardrail), ("mesh", mesh)):
             if val is not None:
@@ -281,15 +382,27 @@ class ContinuousBatchingEngine:
         self.chunk_budget = chunk_budget
         self.min_bucket = min_bucket
         self.paged_attn = paged_attn
+        self.paged = bool(paged)
         # every model the port builds is pure attention (attn / mla blocks,
-        # no slot-major SSM state), so the prefix cache is on unless refused
-        self.prefix_cache = prefix_cache is None or bool(prefix_cache)
-        self.preemption = bool(preemption)
+        # no slot-major SSM state), so a paged engine caches prefixes unless
+        # refused; preemption resumes through the paged pool
+        self.prefix_cache = self.paged and (prefix_cache is None
+                                            or bool(prefix_cache))
+        self.preemption = bool(preemption) and self.paged
+        self.prefill_cobatch = bool(prefill_cobatch)
         self.device = resolve_device(device)
-        self.prefill_chunk_step = get_serving_step(model, "chunked_prefill",
+        self._prefill_kind = ("chunked_prefill" if self.paged else
+                              "dense_chunked_prefill" if chunk_len is not None
+                              else "bucketed_prefill")
+        self.prefill_chunk_step = get_serving_step(model, self._prefill_kind,
                                                    mp=self.mp)
-        self.decode_step = get_serving_step(model, "paged_decode", mp=self.mp,
-                                            paged_attn=paged_attn)
+        self.decode_step = get_serving_step(
+            model, "paged_decode" if self.paged else "decode", mp=self.mp,
+            paged_attn=paged_attn if self.paged else None)
+        # which prefill buckets this engine ran, against the prompt lengths
+        # it served (kept across drains, as the graphs are)
+        self.prefill_compile_keys: set = set()
+        self.prompt_lens_seen: set = set()
         self._pool = None
         self._weights = ()        # the weights the pool's index was built on
         self._inputs = None       # device decode input buffers
@@ -313,47 +426,55 @@ class ContinuousBatchingEngine:
         with self._ctl_lock:
             self._shutdown_flag = True
 
-    def _make_pool(self, params) -> PagedCachePool:
+    def _make_pool(self, params):
         """The engine's one pool, kept across drains with its prefix index
         (a prefix indexed by one drain is a hit in the next) and its cache
-        tensors (the decode graph stays bound to them). The index is
+        tensors (the steps' graphs stay bound to them). The index is
         dropped when the weights are not the last drain's (other tensors,
         or one changed in place): its blocks hold K/V of those weights. A
         drain that raised with slots in use leaves books that cannot be
         trusted: the next one gets a new pool, with an empty index, over
-        the same tensors, zeroed."""
+        the same tensors, reset."""
         pool = self._pool
         weights = _weights_of(params)
+        caches = None if pool is None else pool.caches
         if pool is not None and pool.n_free_slots == self.n_slots:
             pool.reset_counters()
             if not _same_weights(self._weights, weights):
                 pool.invalidate_prefix_index()
-        else:
+        elif self.paged:
             pool = PagedCachePool(self.model, self.n_slots, self.max_len,
                                   block_size=self.block_size,
                                   n_blocks=self.n_blocks, device=self.device,
-                                  caches=None if pool is None
-                                  else pool.caches)
+                                  caches=caches)
+            self._pool = pool
+        else:
+            pool = CachePool(self.model, self.n_slots, self.max_len,
+                             chunk_extra=self.chunk_len or 0,
+                             device=self.device, caches=caches)
             self._pool = pool
         self._weights = weights
         return pool
 
-    def _staging(self, pool: PagedCachePool, n_sets: int):
-        """The decode step's device input buffers (token, positions, block
-        tables: the graph is bound to them, so they stay single and are
-        filled with stream-ordered ``copy_``) and ``n_sets`` pinned host
-        sets, one per step in flight, all kept across drains."""
-        dev, n, nb = self.device, self.n_slots, pool.max_blocks
+    def _staging(self, pool, n_sets: int):
+        """The decode step's device input buffers (token, positions and,
+        paged, block tables: the graph is bound to them, so they stay
+        single and are filled with stream-ordered ``copy_``) and ``n_sets``
+        pinned host sets, one per step in flight, all kept across drains."""
+        dev, n = self.device, self.n_slots
+        tables = ((n, pool.max_blocks),) if self.paged else ()
         if self._inputs is None:
             self._inputs = tuple(torch.zeros(shape, dtype=torch.int32,
                                              device=dev)
-                                 for shape in ((n, 1), (n,), (n, nb)))
+                                 for shape in ((n, 1), (n,)) + tables)
         cuda = dev.type == "cuda"
+
+        def pinned(shape):
+            return torch.zeros(shape, dtype=torch.int32, pin_memory=cuda)
         while len(self._ring) < n_sets:
             self._ring.append(_HostSet(
-                *(torch.zeros(shape, dtype=torch.int32, pin_memory=cuda)
-                  for shape in ((n,), (n, nb), (n,))),
-                event=torch.cuda.Event() if cuda else None))
+                pinned((n,)), pinned(tables[0]) if tables else None,
+                pinned((n,)), event=torch.cuda.Event() if cuda else None))
         return self._inputs, self._ring[:n_sets]
 
     def _digests(self, pool: PagedCachePool, st):
@@ -366,26 +487,27 @@ class ContinuousBatchingEngine:
             st.digests = pool.prefix_digests(st.effective_tokens)
         return st.digests
 
-    def _admit(self, pool: PagedCachePool, sched: Scheduler, now: int,
-               evict=None) -> None:
-        """Claim slots for admissible requests (priority, then FCFS); the
-        best waiter blocks the queue while the block budget cannot cover
-        it. With ``evict`` (preemption), a gated waiter that outranks a
-        live request evicts the scheduler's victim and admission retries;
-        each round removes one victim, and equal priority never evicts.
-        ``evict`` returns False when the drain is shutting down."""
-        def gate(r):
-            st = sched.states[r.rid]
-            need = pool.blocks_for_request(st.effective_prompt_len,
-                                           st.remaining_new_tokens)
-            if need > pool.allocatable_blocks:
-                raise ValueError(
-                    f"request {r.rid} needs {need} KV blocks but the pool "
-                    f"has only {pool.allocatable_blocks}; raise --n-blocks "
-                    f"or shrink the request")
-            return pool.can_admit(st.effective_prompt_len,
-                                  st.remaining_new_tokens,
-                                  digests=self._digests(pool, st))
+    def _admit(self, pool, sched: Scheduler, now: int, evict=None) -> None:
+        """Claim slots for admissible requests (priority, then FCFS); in a
+        paged pool the best waiter blocks the queue while the block budget
+        cannot cover it. With ``evict`` (preemption), a gated waiter that
+        outranks a live request evicts the scheduler's victim and admission
+        retries; each round removes one victim, and equal priority never
+        evicts. ``evict`` returns False when the drain is shutting down."""
+        gate = None
+        if self.paged:
+            def gate(r):
+                st = sched.states[r.rid]
+                need = pool.blocks_for_request(st.effective_prompt_len,
+                                               st.remaining_new_tokens)
+                if need > pool.allocatable_blocks:
+                    raise ValueError(
+                        f"request {r.rid} needs {need} KV blocks but the "
+                        f"pool has only {pool.allocatable_blocks}; raise "
+                        f"--n-blocks or shrink the request")
+                return pool.can_admit(st.effective_prompt_len,
+                                      st.remaining_new_tokens,
+                                      digests=self._digests(pool, st))
 
         while True:
             while pool.n_free_slots:
@@ -398,12 +520,17 @@ class ContinuousBatchingEngine:
                         f"request {req.rid}: {req.prompt_len}+"
                         f"{req.max_new_tokens} exceeds max_len "
                         f"{self.max_len}")
-                # matched prefix blocks are mapped in and skipped
-                slot = pool.alloc_slot(st.effective_prompt_len,
-                                       st.remaining_new_tokens,
-                                       digests=self._digests(pool, st))
-                sched.start_prefill(st, slot, now,
-                                    start_at=pool.matched_tokens(slot))
+                self.prompt_lens_seen.add(req.prompt_len)
+                start_at = 0
+                if self.paged:
+                    # matched prefix blocks are mapped in and skipped
+                    slot = pool.alloc_slot(st.effective_prompt_len,
+                                           st.remaining_new_tokens,
+                                           digests=self._digests(pool, st))
+                    start_at = pool.matched_tokens(slot)
+                else:
+                    slot = pool.alloc()
+                sched.start_prefill(st, slot, now, start_at=start_at)
                 if st.wall_admitted == 0.0:   # resumed: keep first admission
                     st.wall_admitted = time.perf_counter()
             if evict is None:
@@ -415,17 +542,18 @@ class ContinuousBatchingEngine:
             if victim is None or not evict(victim):
                 return
 
-    def _prefill_tick(self, params, pool: PagedCachePool, sched: Scheduler,
-                      now: int, sync: bool = True):
-        """One prefill step co-batching the next chunk (at most
-        ``chunk_len`` tokens) of every prefilling slot over the full
-        ``n_slots`` batch (inactive rows pass through with valid = 0); a
-        borrowed page in a chunk's write range is forked first. Returns
-        (the chunk's time, device tokens, finished (slot, state) pairs,
-        prompt tokens processed). The time is device time: the lockstep
-        drain (``sync``) waits for the chunk; the pipelined one records a
-        pair of CUDA events around it, read after the drain (on the CPU the
-        host's time is the chunk's)."""
+    def _prefill_tick(self, params, pool, sched: Scheduler, now: int,
+                      sync: bool = True):
+        """One prefill step over the full ``n_slots`` batch (inactive rows
+        pass through with valid = 0) co-batching the next chunk (at most
+        ``chunk_len`` tokens) of every prefilling slot, or with
+        ``prefill_cobatch=False`` of those in the first candidate's bucket;
+        in a paged pool a borrowed page in a chunk's write range is forked
+        first. Returns (the chunk's time, device tokens, finished (slot,
+        state) pairs, prompt tokens processed). The time is device time:
+        the lockstep drain (``sync``) waits for the chunk; the pipelined
+        one records a pair of CUDA events around it, read after the drain
+        (on the CPU the host's time is the chunk's)."""
         cands = []
         for slot, st in sched.prefilling.items():
             start = st.prefill_pos
@@ -438,14 +566,26 @@ class ContinuousBatchingEngine:
         cands.sort(key=lambda c: (-c[1].request.priority,
                                   c[1].effective_prompt_len
                                   - c[1].prefill_pos, c[0]))
-        for slot, st, start, take in cands:
-            pool.ensure_range(slot, start, start + take)
-        bucket = max(prefill_bucket(take, self.chunk_len, self.min_bucket)
-                     for *_, take in cands)
+        if self.paged:
+            for slot, st, start, take in cands:
+                pool.ensure_range(slot, start, start + take)
+        if self.prefill_cobatch:
+            # padding is masked per row: a smaller chunk's numerics do not
+            # change in a larger bucket
+            items = cands
+            bucket = max(prefill_bucket(take, self.chunk_len,
+                                        self.min_bucket)
+                         for *_, take in items)
+        else:
+            bucket = prefill_bucket(cands[0][3], self.chunk_len,
+                                    self.min_bucket)
+            items = [c for c in cands if prefill_bucket(
+                c[3], self.chunk_len, self.min_bucket) == bucket]
+        self.prefill_compile_keys.add(bucket)
         tok = np.zeros((self.n_slots, bucket), np.int32)
         start_v = np.ones((self.n_slots,), np.int32)   # >0: leave row alone
         valid_v = np.zeros((self.n_slots,), np.int32)  # 0: inactive row
-        for slot, st, start, take in cands:
+        for slot, st, start, take in items:
             tok[slot, :take] = np.asarray(st.effective_tokens,
                                           np.int32)[start:start + take]
             start_v[slot] = start
@@ -457,11 +597,14 @@ class ContinuousBatchingEngine:
                       torch.cuda.Event(enable_timing=True))
             events[0].record()
         t0 = time.perf_counter()
-        logits, pool.caches = self.prefill_chunk_step(
-            params, pool.caches, host_to_device(tok, dev),
-            host_to_device(start_v, dev), host_to_device(valid_v, dev),
-            pool.block_tables_device())
-        nxt = greedy_next_token(logits)
+        inputs = tuple(host_to_device(a, dev) for a in (tok, start_v,
+                                                         valid_v))
+        if self.paged:
+            inputs += (pool.block_tables_device(),)
+        # nxt may be the graph's static output: the caller merges and emits
+        # it before the next prefill step replays
+        _, pool.caches, nxt = self.prefill_chunk_step(params, pool.caches,
+                                                      *inputs)
         if sync:
             _sync(dev)           # the stall counters hold device time
         dt = time.perf_counter() - t0
@@ -470,15 +613,15 @@ class ContinuousBatchingEngine:
         if self.prefix_cache:
             # index the blocks this chunk filled: a later matcher's chunks
             # are queued after these writes on the same stream
-            for slot, st, start, take in cands:
+            for slot, st, start, take in items:
                 pool.register_prefix(slot, start + take)
         finished = []
-        for slot, st, start, take in cands:
+        for slot, st, start, take in items:
             st = sched.prefill_advance(slot, take, dt)
             if st.prefill_pos == st.effective_prompt_len:
                 finished.append((slot, sched.finish_prefill(slot, None, now)))
         return (dt if events is None else events), nxt, finished, \
-            sum(c[3] for c in cands)
+            sum(c[3] for c in items)
 
     def serve(self, params, requests: Sequence[Request], *,
               sync: bool = False, on_token=None,
@@ -512,8 +655,8 @@ class ContinuousBatchingEngine:
                              f"{max_in_flight}")
         _check_params(params, self.device)
         pool = self._make_pool(params)
-        (tok_in, pos_in, bt_in), ring = self._staging(
-            pool, 1 if sync else max_in_flight + 1)
+        step_in, ring = self._staging(pool, 1 if sync else max_in_flight + 1)
+        tok_in, pos_in = step_in[:2]
         with self._ctl_lock:
             self._cancel_pending.clear()
             self._shutdown_flag = False
@@ -534,7 +677,7 @@ class ContinuousBatchingEngine:
         stall_run_times = []      # prefill chunk times since the last step
         stall_times = []          # per decode step: its chunks' times
         launches0 = _paged_kernel.launches
-        graphs0 = _steps.graph_captures, _steps.graph_replays
+        graphs0 = (_steps.graph_captures.copy(), _steps.graph_replays.copy())
 
         # ---- delivery, shared by both drains ----
         q: queue.Queue = queue.Queue(maxsize=max_in_flight)
@@ -736,22 +879,30 @@ class ContinuousBatchingEngine:
                         h = ring[k]
                         pos = h.pos.numpy()
                         pos[:] = 0
+                        if not self.paged:
+                            # a dense row between two chunks of its prompt
+                            # decodes garbage into its own ring: at the
+                            # position its next chunk writes first
+                            for slot, st in sched.prefilling.items():
+                                pos[slot] = st.prefill_pos
                         for slot, st in sched.running.items():
                             pos[slot] = st.next_pos
-                            pool.ensure_block(slot, st.next_pos)
+                            if self.paged:
+                                pool.ensure_block(slot, st.next_pos)
                         peak_live = max(peak_live, sum(
                             st.next_pos + 1 for st in sched.running.values()))
                         peak_slots = max(peak_slots, len(sched.running))
-                        peak_blocks = max(peak_blocks, pool.blocks_in_use)
-                        # decode sees block tables only for running rows: a
-                        # slot mid-prefill maps real (possibly shared)
-                        # blocks, and the vacant-row garbage write must go
-                        # to the trash block
-                        bt = h.bt.numpy()
-                        bt[:] = pool.block_tables
-                        for s in range(self.n_slots):
-                            if s not in sched.running:
-                                bt[s] = -1
+                        if self.paged:
+                            peak_blocks = max(peak_blocks, pool.blocks_in_use)
+                            # decode sees block tables only for running
+                            # rows: a slot mid-prefill maps real (possibly
+                            # shared) blocks, and the vacant-row garbage
+                            # write must go to the trash block
+                            bt = h.bt.numpy()
+                            bt[:] = pool.block_tables
+                            for s in range(self.n_slots):
+                                if s not in sched.running:
+                                    bt[s] = -1
                         t0 = time.perf_counter()
                         if t_first_decode is None:
                             t_first_decode = t0
@@ -761,9 +912,10 @@ class ContinuousBatchingEngine:
                         # filled in stream order
                         tok_in.copy_(cur_tok)
                         pos_in.copy_(h.pos, non_blocking=True)
-                        bt_in.copy_(h.bt, non_blocking=True)
+                        if self.paged:
+                            step_in[2].copy_(h.bt, non_blocking=True)
                         _, pool.caches, nxt = self.decode_step(
-                            params, pool.caches, tok_in, pos_in, bt_in)
+                            params, pool.caches, *step_in)
                         # nxt may be the graph's static output: the copy
                         # emit queues now runs before the next replay
                         # overwrites it
@@ -805,7 +957,8 @@ class ContinuousBatchingEngine:
             # every request was cancelled and its slot freed; a delivery
             # that died half-way cannot have moved the pool, but settle its
             # books so the engine's next drain reuses it
-            pool.reconcile()
+            if self.paged:
+                pool.reconcile()
             raise consumer_err[0]
         if not sync and t_first_decode is not None:
             # the producer timed dispatch only: report the wall span from
@@ -815,16 +968,19 @@ class ContinuousBatchingEngine:
         results = {st.request.rid: sched.materialize(st) for st in retired}
         n_decoded = sum(max(len(r.tokens) - 1, 0) for r in results.values())
         ttfts = sorted(r.ttft_s for r in results.values())
-        blk_bytes = paged_block_bytes(self.model, pool.block_size)
         statuses = [st.result_status for st in retired]
+        captures = _steps.graph_captures - graphs0[0]
+        replays = _steps.graph_replays - graphs0[1]
         counters = {
-            "paged": True,
+            "paged": self.paged,
             "sync": bool(sync),
-            "paged_attn": self.paged_attn,
             "n_decode_steps": n_steps,
             "kernel_launches": _paged_kernel.launches - launches0,
-            "graph_captures": _steps.graph_captures - graphs0[0],
-            "graph_replays": _steps.graph_replays - graphs0[1],
+            # CUDA graph captures and replays of every step kind
+            "graph_captures": sum(captures.values()),
+            "graph_replays": sum(replays.values()),
+            "graph_captures_by_kind": dict(captures),
+            "graph_replays_by_kind": dict(replays),
             "ttft_p50_s": ttfts[len(ttfts) // 2] if ttfts else 0.0,
             # the same window in both drains (submission to drain end): the
             # fair comparison of the lockstep and pipelined drains
@@ -848,27 +1004,42 @@ class ContinuousBatchingEngine:
             "blocked_admissions": sched.blocked_admissions,
             "peak_live_tokens": peak_live,
             "peak_slots_in_use": peak_slots,
+            # what dense slots of max_len would pin, paged or not
+            "dense_kv_bytes": self.n_slots * dense_slot_bytes(self.model,
+                                                              self.max_len),
             "prefill_chunks": prefill_chunks,
             "prefill_tokens": prefill_tokens,
+            "prefill_cobatch": self.prefill_cobatch,
+            "prefill_buckets": len(self.prefill_compile_keys),
+            "distinct_prompt_lens": len(self.prompt_lens_seen),
             "preemptions": sched.preemptions,
             "decode_stall_steps": decode_stall_steps,
             "max_decode_stall_run": max_stall_run,
-            "block_size": pool.block_size,
-            "n_blocks": pool.n_blocks,
-            "peak_blocks_in_use": peak_blocks,
-            "free_blocks_final": pool.n_free_blocks,
-            "kv_bytes_per_block": blk_bytes,
-            "peak_kv_bytes": peak_blocks * blk_bytes,
-            # tokens whose prefill was skipped because a resident chain of
-            # blocks already held them
-            "prefix_cache": self.prefix_cache,
-            "prefix_hit_requests": pool.prefix_hit_requests,
-            "prefix_hit_blocks": pool.prefix_hit_blocks,
-            "prefix_hit_tokens": pool.prefix_hit_tokens,
-            "cow_forks": pool.cow_forks,
-            "cached_blocks_final": pool.n_cached_blocks,
-            "reclaimed_cached_blocks": pool.reclaimed_cached_blocks,
         }
+        if self.paged:
+            blk_bytes = paged_block_bytes(self.model, pool.block_size)
+            counters.update({
+                "paged_attn": self.paged_attn,
+                "block_size": pool.block_size,
+                "n_blocks": pool.n_blocks,
+                "peak_blocks_in_use": peak_blocks,
+                "free_blocks_final": pool.n_free_blocks,
+                "kv_bytes_per_block": blk_bytes,
+                "peak_kv_bytes": (peak_blocks * blk_bytes + self.n_slots
+                                  * paged_slot_bytes(self.model,
+                                                     pool.block_size)),
+                # tokens whose prefill was skipped because a resident chain
+                # of blocks already held them
+                "prefix_cache": self.prefix_cache,
+                "prefix_hit_requests": pool.prefix_hit_requests,
+                "prefix_hit_blocks": pool.prefix_hit_blocks,
+                "prefix_hit_tokens": pool.prefix_hit_tokens,
+                "cow_forks": pool.cow_forks,
+                "cached_blocks_final": pool.n_cached_blocks,
+                "reclaimed_cached_blocks": pool.reclaimed_cached_blocks,
+            })
+        else:
+            counters["peak_kv_bytes"] = counters["dense_kv_bytes"]
         if stall_s:
             arr = np.sort(np.asarray(stall_s, np.float64))
             counters["decode_stall_p50_s"] = float(arr[len(arr) // 2])

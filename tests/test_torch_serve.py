@@ -89,10 +89,10 @@ def _record_gaps(eng) -> list:
 
     def wrap(step):
         def recorded(*args):
-            logits, caches = step(*args)
-            top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+            out = step(*args)
+            top = torch.topk(out[0][:, -1].float(), 2, dim=-1).values
             gaps.append((top[:, 0] - top[:, 1]).numpy())
-            return logits, caches
+            return out
         return recorded
 
     for name in ("prefill_step", "bucketed_prefill_step", "decode_step"):
@@ -279,7 +279,7 @@ def test_oneshot_matches_reference_serve_engine(prompts):
 
 
 @pytest.mark.parametrize("kw", [
-    {"paged": False}, {"adaptive": object()}, {"faults": object()},
+    {"adaptive": object()}, {"faults": object()},
     {"guardrail": object()}, {"mesh": object()}])
 def test_later_slices_refuse(model, kw):
     with pytest.raises(NotImplementedError, match="slice"):

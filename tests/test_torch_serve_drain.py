@@ -459,10 +459,11 @@ def test_drain_after_a_raised_drain_starts_over_a_clean_pool(model, params,
         np.testing.assert_array_equal(again.results[i].tokens, ref[i])
 
 
-# the port's own counters: kernel launches, graph captures and replays, the
-# step count and the TTFT median
+# the port's own counters: kernel launches, graph captures and replays (in
+# all and by step kind), the step count and the TTFT median
 PORT_ONLY = {"n_decode_steps", "kernel_launches", "graph_captures",
-             "graph_replays", "ttft_p50_s"}
+             "graph_replays", "graph_captures_by_kind",
+             "graph_replays_by_kind", "ttft_p50_s"}
 
 
 def test_counter_keys_are_the_references():

@@ -1,16 +1,21 @@
-"""The paged decode step replayed as a CUDA graph
-(``repro_torch.launch.steps.PagedDecodeStep``) against the same step run
-eagerly, on the card: bit-equal logits and tokens for llama3_1b at full
+"""The serving steps replayed as CUDA graphs
+(``repro_torch.launch.steps.GraphedStep``: decode once, prefill once per
+bucket) against the same steps run eagerly, on the card: bit-equal logits
+(of every live decode and prefill row) and tokens for llama3_1b at full
 width and DeepSeek-V3's smoke dense prefix (absorbed MLA decode), fused and
 gather, plain and under an MP plan; two drains in a row over different
 params, and a weight changed in place, each against its eager drain; a
-drain with copy-on-write forks and a preemption, captured once, against
-its eager drain, and the forked blocks' parents against a drain without
-forks; the launch counters against steps x layers; a failed capture
-raises; the weight cache's operands against quantizing per call; the
-pipelined drain against the lockstep one at 1, 2 and 8 steps in flight, a
-capture made while the consumer thread and another thread wait on events,
-and the pinned host sets reused only after the event behind their copies.
+drain with copy-on-write forks and a preemption, captured once per step
+kind and bucket, against its eager drain, and the forked blocks' parents
+against a drain without forks; chunked, prefix-shared and preempted
+drains, pipelined and lockstep, against their eager twins, one capture per
+bucket and only replays in a second drain; the dense-ring engine and the
+one-shot engine against their eager twins; the launch counters against
+steps x layers; a failed capture (decode or prefill) raises; the weight
+cache's operands against quantizing per call; the pipelined drain against
+the lockstep one at 1, 2 and 8 steps in flight, a capture made while the
+consumer thread and another thread wait on events, and the pinned host
+sets reused only after the event behind their copies.
 
 These tests need a CUDA device and skip without one. They import neither
 ``jax`` nor ``repro``, so they run on the card with::
@@ -84,29 +89,69 @@ def _plan(model) -> MPPlan:
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
 
 
+def _eager_steps(eng) -> None:
+    """The closures the engine's graphs capture, run eagerly."""
+    m, mp = eng.model, eng.mp
+    if eng.paged:
+        eng.decode_step = tsteps.make_paged_decode_step(
+            m, mp=mp, paged_attn=eng.paged_attn)
+        eng.prefill_chunk_step = tsteps.make_chunked_prefill_step(m, mp=mp)
+    else:
+        eng.decode_step = tsteps.make_decode_step(m, mp=mp)
+        eng.prefill_chunk_step = (
+            tsteps.make_bucketed_prefill_step if eng.chunk_len is None
+            else tsteps.make_dense_chunked_prefill_step)(m, mp=mp)
+
+
 def _engine(model, mp, paged_attn, eager: bool, **kw):
-    """A continuous engine whose decode step records its live rows' logits;
-    the prefix cache is off unless ``kw`` turns it on, so that a second
-    drain of the same prompts prefills them again."""
+    """A continuous engine whose steps record their live rows' logits (a
+    prefill row with valid tokens, a paged decode row with a block table,
+    every dense decode row); the prefix cache is off unless ``kw`` turns it
+    on, so that a second drain of the same prompts prefills them again."""
+    paged = kw.get("paged", True)
     kw = dict(dict(n_slots=4, max_len=48, block_size=16,
-                   prefix_cache=False), **kw)
-    eng = ContinuousBatchingEngine(model, mp=mp, paged_attn=paged_attn,
-                                   device="cuda", **kw)
-    step = (tsteps.make_paged_decode_step(model, mp=eng.mp,
-                                          paged_attn=paged_attn)
-            if eager else eng.decode_step)
+                   prefix_cache=False if paged else None), **kw)
+    eng = ContinuousBatchingEngine(
+        model, mp=mp, paged_attn=paged_attn if paged else None,
+        device="cuda", **kw)
+    if eager:
+        _eager_steps(eng)
     logits = []
 
-    def recorded(params, caches, token, pos, block_tables):
-        out = step(params, caches, token, pos, block_tables)
-        # the live rows' logits (a graph's outputs are overwritten by the
-        # next replay); a vacant row decodes garbage whose K/V writes all
-        # land in the trash block, where the last of several writes to one
-        # slot wins in no fixed order, eager or graphed
-        logits.append(out[0][block_tables[:, 0] >= 0].clone())
-        return out
-    eng.decode_step = recorded
+    def wrap(step, decode):
+        def recorded(params, caches, *inputs):
+            out = step(params, caches, *inputs)
+            # the live rows' logits (a graph's outputs are overwritten by
+            # the next replay); a vacant row decodes garbage whose K/V
+            # writes all land in the trash block, where the last of several
+            # writes to one slot wins in no fixed order, eager or graphed
+            live = ((inputs[2][:, 0] >= 0) if decode and len(inputs) == 3
+                    else (inputs[2] > 0) if not decode
+                    else torch.ones_like(inputs[1], dtype=torch.bool))
+            logits.append(out[0][live].clone())
+            return out
+        return recorded
+    eng.decode_step = wrap(eng.decode_step, True)
+    eng.prefill_chunk_step = wrap(eng.prefill_chunk_step, False)
     return eng, logits
+
+
+def _one_per_bucket(eng, out) -> None:
+    """A drain that captured: the decode step once, the prefill step once
+    for each bucket the engine has run; every other call replayed."""
+    c = out.counters
+    decode = "paged_decode" if eng.paged else "decode"
+    assert c["graph_captures_by_kind"] == {
+        decode: 1, eng._prefill_kind: len(eng.prefill_compile_keys)}
+    assert c["graph_replays_by_kind"].get(decode, 0) == out.n_steps - 1
+    assert c["graph_replays_by_kind"].get(eng._prefill_kind, 0) == \
+        c["prefill_chunks"] - len(eng.prefill_compile_keys)
+
+
+def _replays_only(out) -> None:
+    c = out.counters
+    assert c["graph_captures"] == 0
+    assert c["graph_replays"] == out.n_steps + c["prefill_chunks"]
 
 
 def _drain(eng, logits, params, reqs):
@@ -133,8 +178,7 @@ def test_graphed_drain_equals_eager_drain(cuda, arch, mp, paged_attn):
     _, e_toks, e_logits = _drain(eager, e_log, params, reqs)
     graphed, g_log = _engine(model, plan, paged_attn, eager=False)
     out, g_toks, g_logits = _drain(graphed, g_log, params, reqs)
-    assert out.counters["graph_captures"] == 1
-    assert out.counters["graph_replays"] == out.n_steps - 1
+    _one_per_bucket(graphed, out)
     assert g_toks.keys() == e_toks.keys()
     for rid in e_toks:
         np.testing.assert_array_equal(g_toks[rid], e_toks[rid])
@@ -143,8 +187,7 @@ def test_graphed_drain_equals_eager_drain(cuda, arch, mp, paged_attn):
     # free slots now come in another order, as on the eager engine
     _, _, e_logits2 = _drain(eager, e_log, params, reqs)
     again, g_toks2, g_logits2 = _drain(graphed, g_log, params, reqs)
-    assert again.counters["graph_captures"] == 0
-    assert again.counters["graph_replays"] == again.n_steps
+    _replays_only(again)
     assert torch.equal(g_logits2, e_logits2)
 
 
@@ -160,7 +203,7 @@ def test_drains_over_other_params_each_match_their_eager_drain(cuda):
         params = _params(model, seed)
         _, _, want = _drain(eager, e_log, params, reqs)
         out, _, got = _drain(graphed, g_log, params, reqs)
-        assert out.counters["graph_captures"] == 1
+        _one_per_bucket(graphed, out)
         assert torch.equal(got, want)
         del params
     # a weight changed in place: quantized again, captured again
@@ -170,7 +213,7 @@ def test_drains_over_other_params_each_match_their_eager_drain(cuda):
     w = params["layers"][str(model.cfg.n_layers - 1)]["mlp"]["up_proj"]["w"]
     w.mul_(1.5)
     out, _, got = _drain(graphed, g_log, params, reqs)
-    assert out.counters["graph_captures"] == 1
+    _one_per_bucket(graphed, out)
     assert weight_cache.quantize_count(w, ("fake", "fp8_e4m3")) == 2
     _, _, want = _drain(eager, e_log, params, reqs)
     assert torch.equal(got, want)
@@ -204,7 +247,7 @@ def test_forks_and_preemption_replay_one_graph(cuda, arch):
     c = out.counters
     assert c["cow_forks"] >= 1 and c["preemptions"] >= 1
     assert c["prefix_hit_requests"] >= 2
-    assert (c["graph_captures"], c["graph_replays"]) == (1, out.n_steps - 1)
+    _one_per_bucket(graphed, out)
     for key in ("cow_forks", "preemptions", "prefix_hit_tokens"):
         assert e_out.counters[key] == c[key], key
     assert g_toks.keys() == e_toks.keys() == {0, 1, 2}
@@ -219,7 +262,8 @@ def test_forks_and_preemption_replay_one_graph(cuda, arch):
             for layer, d in pool.caches.items() for name, t in d.items()}
     # the next drain hits r0's and r2's prompts and replays only
     again, _, _ = _drain(graphed, g_log, params, reqs)
-    assert again.counters["graph_captures"] == 0
+    assert again.counters["graph_captures_by_kind"].get("paged_decode",
+                                                         0) == 0
     assert again.counters["prefix_hit_requests"] >= 3
     alone, a_log = _engine(model, None, "fused", eager=False, **kw)
     _drain(alone, a_log, params, reqs[:1])
@@ -249,9 +293,11 @@ def test_launch_counters_count_replays(cuda, mp):
             out.n_steps * n_fused
 
 
-def test_failed_capture_raises(cuda):
+@pytest.mark.parametrize("kind", ["paged_decode", "chunked_prefill"])
+def test_failed_capture_raises(cuda, kind):
     model = _model("llama3_1b")
-    inner = tsteps.make_paged_decode_step(model)
+    inner = tsteps.make_paged_decode_step(model) if kind == "paged_decode" \
+        else tsteps.make_chunked_prefill_step(model)
 
     def refuses_capture(*args):
         if torch.cuda.is_current_stream_capturing():
@@ -260,9 +306,15 @@ def test_failed_capture_raises(cuda):
 
     eng = ContinuousBatchingEngine(model, n_slots=2, max_len=48,
                                    device="cuda")
-    eng.decode_step = tsteps.PagedDecodeStep(refuses_capture)
-    with pytest.raises(RuntimeError, match="capture failed"):
+    step = tsteps.GraphedStep(refuses_capture, kind)
+    if kind == "paged_decode":
+        eng.decode_step = step
+    else:
+        eng.prefill_chunk_step = step
+    with pytest.raises(RuntimeError, match=f"{kind} step: CUDA graph "
+                                           f"capture failed"):
         eng.serve(_params(model), _reqs(model, 2))
+    assert step.captures == 0
 
 
 def test_fp8_linear_cached_weight_equals_per_call(cuda):
@@ -362,8 +414,7 @@ def test_pipelined_graphed_drain_equals_lockstep(cuda, max_in_flight):
         del log[:]
         out = eng.serve(params, reqs, sync=sync, max_in_flight=max_in_flight)
         torch.cuda.synchronize()
-        assert out.counters["graph_captures"] == 0
-        assert out.counters["graph_replays"] == out.n_steps
+        _replays_only(out)
         drains[sync] = out, torch.cat(log)
     (lock, l_logits), (pipe, p_logits) = drains[True], drains[False]
     assert pipe.n_steps == lock.n_steps
@@ -409,8 +460,8 @@ def test_capture_while_the_consumer_thread_runs(cuda):
     finally:
         stop.set()
         poller.join()
-    assert polls and got.counters["graph_captures"] == 1
-    assert got.counters["graph_replays"] == got.n_steps - 1
+    assert polls
+    _one_per_bucket(eng, got)
     assert len(seen) == sum(len(r.tokens) for r in got.results.values())
     for rid, res in want.results.items():
         np.testing.assert_array_equal(got.results[rid].tokens, res.tokens)
@@ -459,3 +510,143 @@ def test_pinned_sets_are_reused_only_after_their_event(cuda):
     assert got.counters["host_blocked_s"] > 0
     for rid, res in want.results.items():
         np.testing.assert_array_equal(got.results[rid].tokens, res.tokens)
+
+
+# ---------------------------------------------------------------------------
+# prefill graphs: one per bucket, every engine
+# ---------------------------------------------------------------------------
+
+
+def _chunked_reqs(model):
+    """Three requests decode while a 100-token prompt arrives in chunks of
+    32 (its last chunk 4 tokens: buckets 32 and 8), plus prompts of 24 and
+    40 tokens (buckets 32, and 32 then 8)."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(12)
+    lens = (24, 40, 24, 100)
+    return [Request(rid=i, tokens=rng.integers(
+                0, model.cfg.vocab_size, size=n).astype(np.int32),
+                max_new_tokens=12, arrival=(0, 0, 1, 4)[i])
+            for i, n in enumerate(lens)]
+
+
+_DRAINS = {
+    "chunked": (_chunked_reqs, dict(n_slots=4, max_len=128, chunk_len=32)),
+    "shared_preempted": (_fork_and_preempt_reqs,
+                         dict(n_slots=2, max_len=48, n_blocks=6,
+                              prefix_cache=True)),
+}
+
+
+@pytest.mark.parametrize("sync", [False, True], ids=["pipelined",
+                                                     "lockstep"])
+@pytest.mark.parametrize("drain", sorted(_DRAINS))
+def test_graphed_prefill_equals_eager_prefill(cuda, drain, sync):
+    """Every prefill chunk and decode step replayed from its graph: the
+    live rows' logits of both steps and the tokens equal the eager drain's
+    bit for bit; the drain captures the decode step once and the prefill
+    step once per bucket it ran, and a second drain (with the prefix index
+    it left, for the shared prompts) only replays."""
+    model = _model("llama3_1b")
+    params = _params(model)
+    make, kw = _DRAINS[drain]
+    reqs = make(model)
+    eager, e_log = _engine(model, None, "fused", eager=True, **kw)
+    e_out = eager.serve(params, reqs, sync=sync)
+    graphed, g_log = _engine(model, None, "fused", eager=False, **kw)
+    out = graphed.serve(params, reqs, sync=sync)
+    torch.cuda.synchronize()
+    assert len(graphed.prefill_compile_keys) >= 2
+    _one_per_bucket(graphed, out)
+    for key in ("prefill_chunks", "cow_forks", "preemptions",
+                "decode_stall_steps"):
+        assert out.counters[key] == e_out.counters[key], key
+    for rid, res in e_out.results.items():
+        np.testing.assert_array_equal(out.tokens_for(rid), res.tokens)
+    assert torch.equal(torch.cat(g_log), torch.cat(e_log))
+    del e_log[:], g_log[:]
+    seen = set(graphed.prefill_compile_keys)
+    e_again = eager.serve(params, reqs, sync=sync)
+    again = graphed.serve(params, reqs, sync=sync)
+    torch.cuda.synchronize()
+    # prefix hits may cut a prompt into a bucket the first drain never ran
+    new = len(graphed.prefill_compile_keys) - len(seen)
+    c = again.counters
+    assert c["graph_captures_by_kind"].get("chunked_prefill", 0) == new
+    assert c["graph_replays"] == again.n_steps + c["prefill_chunks"] - new
+    for rid, res in e_again.results.items():
+        np.testing.assert_array_equal(again.tokens_for(rid), res.tokens)
+    assert torch.equal(torch.cat(g_log), torch.cat(e_log))
+
+
+@pytest.mark.parametrize("chunk_len", [None, 16], ids=["bucketed",
+                                                        "chunked"])
+def test_dense_engine_graphed_equals_eager(cuda, chunk_len):
+    """The dense-ring engine (``paged=False``), every step graphed, against
+    its eager twin: tokens and every row's logits bit for bit, one capture
+    per step kind and bucket, replays only in the next drain; dense against
+    the paged engine up to the near-tie rule of the chunk paths."""
+    model = _model("llama3_1b")
+    params = _params(model)
+    reqs = _chunked_reqs(model)
+    kw = dict(paged=False, n_slots=4, max_len=128, chunk_len=chunk_len)
+    eager, e_log = _engine(model, None, None, eager=True, **kw)
+    e_out = eager.serve(params, reqs)
+    graphed, g_log = _engine(model, None, None, eager=False, **kw)
+    out = graphed.serve(params, reqs)
+    torch.cuda.synchronize()
+    _one_per_bucket(graphed, out)
+    assert out.counters["kernel_launches"] == 0
+    for rid, res in e_out.results.items():
+        np.testing.assert_array_equal(out.tokens_for(rid), res.tokens)
+    assert torch.equal(torch.cat(g_log), torch.cat(e_log))
+    again = graphed.serve(params, reqs)
+    torch.cuda.synchronize()
+    _replays_only(again)
+    for rid, res in out.results.items():
+        np.testing.assert_array_equal(again.tokens_for(rid), res.tokens)
+
+
+def test_serve_engine_graphed_equals_eager(cuda):
+    """The one-shot engine with its bucketed prefill and dense decode
+    graphed (the decode position read from the device, one graph for every
+    position) against the same steps eager: tokens and logits bit for bit;
+    a second batch of the same shape replays only; ``ttft`` times
+    replays."""
+    from repro_torch.serve import ServeEngine
+    model = _model("llama3_1b")
+    params = _params(model)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, model.cfg.vocab_size, size=(4, 40))}
+    runs = {}
+    for arm in ("eager", "graphed"):
+        eng = ServeEngine(model, device="cuda")
+        graphed = (eng.bucketed_prefill_step, eng.decode_step)
+        if arm == "eager":
+            eng.bucketed_prefill_step = tsteps.make_bucketed_prefill_step(
+                model)
+            eng.decode_step = tsteps.make_decode_step(model)
+        logits = []
+        for name in ("bucketed_prefill_step", "decode_step"):
+            def recorded(*a, step=getattr(eng, name)):
+                out = step(*a)
+                logits.append(out[0].clone())
+                return out
+            setattr(eng, name, recorded)
+        c0 = sum(g.captures for g in graphed)
+        r0 = sum(g.replays for g in graphed)
+        first = eng.generate(params, batch, max_new_tokens=10).tokens
+        second = eng.generate(params, batch, max_new_tokens=10).tokens
+        torch.cuda.synchronize()
+        runs[arm] = (first, second, torch.cat(logits),
+                     sum(g.captures for g in graphed) - c0,
+                     sum(g.replays for g in graphed) - r0)
+        if arm == "graphed":
+            assert eng.ttft(params, batch, 50) > 0
+    (e1, e2, e_logits, e_caps, _), (g1, g2, g_logits, caps, replays) = \
+        runs["eager"], runs["graphed"]
+    np.testing.assert_array_equal(g1, e1)
+    np.testing.assert_array_equal(g2, e2)
+    np.testing.assert_array_equal(g1, g2)
+    assert torch.equal(g_logits, e_logits)
+    assert (e_caps, caps, replays) == (0, 2, 2 * 10 - 2)
