@@ -145,12 +145,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 18. the four other dense configs at their published widths, random weights
     (qwen2p5_3b: QKV bias, tied head, G 8; nemotron_4_15b: relu2 MLP,
     layernorm, 256000-entry head, G 6; starcoder2_15b: gelu MLP, layernorm,
-    G 12; qwen2p5_32b last, 65.5 GB): phases 4 and 5's checks at phase 4's
-    cell (every fused launch through ``gqa_mma``; the gather drains without
-    eager twins), the fixed plan on the later half of the layers
-    (qwen2p5_32b: its last 8 of 64, as fp8 codes for half would not fit),
-    peak device memory, and qwen2p5_3b calibrated at the largest depth that
-    fits, as in phase 13; each model is freed before the next;
+    G 12; qwen2p5_32b: G 5, QKV bias), the three large ones cut to 8
+    layers (``DENSE_CONFIGS``: the script's time limit): phases 4 and 5's
+    checks at phase 4's cell (every fused launch through ``gqa_mma``; the
+    gather drains without eager twins), the fixed plan on the later half
+    of the layers, peak device memory, and qwen2p5_3b calibrated at the
+    largest depth that fits, as in phase 13; each model is freed before
+    the next;
 19. (run after phase 17, on its model) dense-ring serving: phase 4's
     requests on dense per-slot rings (``paged=False``), pipelined,
     lockstep and in chunks of 64, each graphed and held bit for bit
@@ -164,7 +165,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     decode stall and the device busy share of a profiled drain; then
     ``ServeEngine.ttft`` at 1 and 4 prompts of 128 tokens, graphed and
     eager;
-21. print the kernel table and the serving and calibration numbers as JSON
+21. (run after phase 20, on its model) serving robustness at phase 4's
+    cell, fused, pipelined, every step graphed, on one engine: the fault
+    matrix (one fault of each kind at ticks 4-8: every request ends with a
+    result, those no fault touched bit-equal to the fault-free drain, the
+    others at the near-tie rule; a NaN page flagged through kernel 5 and
+    quarantined; consistent books, no quarantined block handed out
+    again); two hung steps degrading fused to gather; the guardrail under
+    phase 8's ET plan every 4 steps (its MSEs against the plan's budget,
+    no breach, tokens bit-equal to the drain without it) and a forced
+    breach restoring the unquantized plan mid-drain; the cost of a
+    guardrail every 16 steps when nothing breaches (wall tokens/s, in
+    turns); a 3-level tau ladder from phase 6's bundle (budgets the ET
+    plan's predicted loss MSE / 16, / 4, / 1) under the arrival burst
+    (its swaps, the captures each plan's warm-up made) and a ladder of
+    one level bit-equal to the fixed plan. Every plan, the shadow step
+    and the gather step are captured in warm-ups: no drain captures, and
+    every step of every drain is a replay. Phases 2 and 11 also hold the
+    GQA and MLA kernels to carrying a NaN in a live key to every output of
+    its row and of no other. Throughout the script, a drain without a
+    fault injector that reports a kernel fault or a degradation fails it;
+22. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -365,6 +386,29 @@ def poison_stale(torch, k, v, tables, lengths, window) -> int:
     return len(blocks)
 
 
+def poison_live(torch, tensors, tables, lengths, row: int) -> None:
+    """NaN (byte 0xFF, as ``poison_stale``) in the last live key slot of
+    ``row``, every head, in place: the fault injector's ``nan_page``
+    reaches attention so. The kernel must carry it to every output of the
+    row and of no other row."""
+    L = int(lengths[row])
+    blk, off = int(tables[row, (L - 1) // BS]), (L - 1) % BS
+    for t in tensors:
+        t.view(torch.uint8)[blk, off] = 0xFF
+
+
+def live_nan_reaches_row(torch, name: str, out, clean, row: int) -> None:
+    """``out`` (a live key of ``row`` NaN) against ``clean``: that row all
+    non-finite, every other row bit-equal."""
+    others = [b for b in range(out.shape[0]) if b != row]
+    if torch.isfinite(out[row].float()).any():
+        raise AssertionError(f"{name}: NaN in a live key of row {row} did "
+                             f"not reach every output of the row")
+    if not torch.equal(out[others], clean[others]):
+        raise AssertionError(f"{name}: NaN in row {row}'s live key changed "
+                             f"another row")
+
+
 # phase 2's shapes for the GQA kernel beside the serving one: llama3_8b's
 # d_head, the group sizes of the repo's GQA configs that do not divide 8,
 # and the D 128 groups of the configs phase 18 serves (qwen2p5_32b G 5,
@@ -446,6 +490,11 @@ def kernel_phase(torch) -> dict:
                     if not torch.equal(t, got):
                         raise AssertionError(f"{name}: NaN in {what} changed "
                                              f"the output")
+                # a NaN page (the fault injector's) in a live key of row 1
+                # must reach that row: the engine's tripwire reads it there
+                poison_live(torch, (k, v), bt.cpu(), ln.cpu(), 1)
+                live_nan_reaches_row(torch, name, pa.paged_decode_attention(
+                    q, k, v, bt, ln, **kw), got, 1)
     log(f"GQA kernel vs plain: {cases} cases within tolerance, max abs err "
         f"{max_err:.3e}, bitwise equal in {bitwise} of {cases}")
     return {"max_abs_err": max_err, "gqa_cases": cases,
@@ -1173,13 +1222,13 @@ def serving_numbers(out) -> dict:
             "dense_kv_bytes": c["dense_kv_bytes"]}
 
 
-def fixed_plan(model, first=None):
-    """Phase 5's fixed MP plan: fp8 on every linear op of layers ``first``
-    (default: half the depth) to the last, plus the last layer's attention
-    BGEMMs (which then takes the gather path)."""
+def fixed_plan(model):
+    """Phase 5's fixed MP plan: fp8 on every linear op of the later half of
+    the layers, plus the last layer's attention BGEMMs (which then takes
+    the gather path)."""
     from repro_torch.core.mpconfig import MPPlan
     n_layers = model.cfg.n_layers
-    first = n_layers // 2 if first is None else first
+    first = n_layers // 2
     assignment = {f"layers/{i}/{op}": "fp8_e4m3"
                   for i in range(first, n_layers)
                   for op in ("attn/q_proj", "attn/k_proj", "attn/v_proj",
@@ -1193,13 +1242,12 @@ def fixed_plan(model, first=None):
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
 
 
-def serve_phase(torch, model, params, mp_from=None,
-                gather_eager=True) -> dict:
+def serve_phase(torch, model, params, gather_eager=True) -> dict:
     """Phases 4 and 5 at full width on the card (phases 13 and 18 run them
     on the larger configs): every drain graphed, and held bit for bit
     against the same drain with the decode step run eagerly (the gather
-    drains only with ``gather_eager``); the fixed plan quantizes layers
-    ``mp_from`` (default: half the depth) to the last."""
+    drains only with ``gather_eager``); the fixed plan quantizes the later
+    half of the layers."""
     from repro_torch.launch.serve import make_requests
     n_layers = model.cfg.n_layers
     reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
@@ -1242,8 +1290,8 @@ def serve_phase(torch, model, params, mp_from=None,
     agree_fo = compare("fused vs one-shot", fused_tl, one_tl, **plain)
 
     # phase 5: a fixed MP plan
-    plan = fixed_plan(model, mp_from)
-    first = n_layers // 2 if mp_from is None else mp_from
+    plan = fixed_plan(model)
+    first = n_layers // 2
     mp_out, n_mp, mp_tl = run_continuous(torch, model, params, reqs, mp=plan,
                                          paged_attn="fused", route="gqa_mma")
     log(f"MP plan ({plan.n_quantized} fp8 ops, layers {first}-"
@@ -1963,6 +2011,11 @@ def mla_kernel_phase(torch) -> dict:
             if not torch.isfinite(t).all() or not torch.equal(t, got):
                 raise AssertionError(f"MLA {name}: NaN in {what} changed "
                                      f"the output")
+        # a NaN page in a live latent of row 0 must reach that row
+        poison_live(torch, (ckv, nan_kw["k2"]), bt.cpu(), ln.cpu(), 0)
+        live_nan_reaches_row(torch, f"MLA {name}",
+                             pa.paged_decode_attention(*nan_args, **nan_kw),
+                             got, 0)
     log(f"MLA form vs plain: {len(MLA_CHECKS)} cases within tolerance, "
         f"mla_mma max abs err {max_err:.3e}, cuda_core {core_err:.3e}")
 
@@ -2924,26 +2977,458 @@ def ttft_phase(torch, model, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 21: serving robustness
+# ---------------------------------------------------------------------------
+
+# one spec of each kind at ticks 4-8 of phase 4's cell (requests arrive at
+# ticks 0, 2, ..., 14; a prefill first comes after tick 5 at tick 6)
+FAULT_MATRIX = (("step_exception", dict(step=4, phase="decode")),
+                ("step_exception", dict(step=5, phase="prefill")),
+                ("nan_page", dict(step=6, slot=0, page=1)),
+                ("nan_logits", dict(step=7, slot=1)),
+                ("alloc_failure", dict(step=8, slot=2)),
+                ("consumer_error", dict(step=8, slot=0)),
+                ("consumer_stall", dict(step=5, hang_s=0.01)),
+                ("hung_step", dict(step=6, phase="decode", hang_s=0.01)))
+# the ladder: 3 levels, each tau twice the last (4x the loss-MSE budget);
+# escalate at 2 queued requests (the scheduler counts the ones yet to
+# arrive too), restore at none; occupancy never decides (the pool has room
+# for twice the cell)
+LADDER = dict(n_levels=3, factor=2.0, every=2, dwell=4, queue_high=2,
+              queue_low=0, occ_high=1.0, occ_low=1.0)
+
+
+@contextlib.contextmanager
+def restored(eng, names):
+    """The engine's attributes ``names`` as they were, on exit."""
+    saved = {n: eng.__dict__[n] for n in names if n in eng.__dict__}
+    try:
+        yield
+    finally:
+        for n in names:
+            if n in saved:
+                setattr(eng, n, saved[n])
+            else:
+                eng.__dict__.pop(n, None)
+
+
+@contextlib.contextmanager
+def recording(eng):
+    """``record_steps`` on the engine's steps, undone on exit."""
+    with restored(eng, ("decode_step", "prefill_chunk_step",
+                        "_prefill_tick")):
+        yield record_steps(eng, ("prefill_chunk_step", "decode_step"))
+
+
+@contextlib.contextmanager
+def ticks(eng):
+    """The owners of every prefill tick (slot -> (rid, effective prompt
+    length)), whatever steps the engine swaps in."""
+    events = []
+    with restored(eng, ("_prefill_tick",)):
+        tick = eng._prefill_tick
+
+        def ticked(params, pool, sched, now, *rest):
+            events.append(("tick", {
+                s: (st.request.rid, st.effective_prompt_len)
+                for s, st in sched.prefilling.items()}))
+            return tick(params, pool, sched, now, *rest)
+        eng._prefill_tick = ticked
+        yield events
+
+
+def touched_rids(events, reqs, out) -> set:
+    """Requests a fault may have changed: any that did not end ``ok``, any
+    that prefilled a longer prompt than its own (a retry) and any whose
+    prefill ran in a chunk beside such a one (a larger bucket: another
+    GEMM shape)."""
+    plen = {r.rid: r.prompt_len for r in reqs}
+    out_rids = {rid for rid, r in out.results.items() if r.status != "ok"}
+    for name, owners in events:
+        if any(eff > plen[rid] for rid, eff in owners.values()):
+            out_rids |= {rid for rid, _ in owners.values()}
+    return out_rids
+
+
+def hold_drain(name: str, out, reqs, ref: dict, bit_rids, bound: float,
+               failures: list) -> dict:
+    """A drain against the fault-free one (``ref``: rid -> (tokens,
+    logits)): every request has a result; ``bit_rids`` are bit-equal to
+    it, the others agree up to a first divergence at a near-tie of the
+    reference's logits; a request that did not complete keeps a prefix."""
+    n_bit = n_near = 0
+    for r in reqs:
+        res = out.results.get(r.rid)
+        if res is None:
+            failures.append(f"{name}: request {r.rid} has no result")
+            continue
+        tok, (want, lw) = np.asarray(res.tokens), ref[r.rid]
+        if res.status in ("ok", "retried") and len(tok) != len(want):
+            failures.append(f"{name}: request {r.rid} ({res.status}) has "
+                            f"{len(tok)} of {len(want)} tokens")
+            continue
+        if r.rid in bit_rids:
+            if np.array_equal(tok, want[:len(tok)]):
+                n_bit += 1
+            else:
+                failures.append(f"{name}: request {r.rid}, which no fault "
+                                f"touched, differs from the fault-free "
+                                f"drain")
+            continue
+        i = first_divergence(tok, want[:len(tok)])
+        if i < len(tok):
+            gap = float(top2_gaps(lw[i:i + 1])[0])
+            log(f"{name}: request {r.rid} ({res.status}) diverges at token "
+                f"{i} where the fault-free drain's top-2 gap is {gap:.4f}")
+            if not gap < bound:
+                failures.append(f"{name}: request {r.rid} diverges at token "
+                                f"{i} with a top-2 gap {gap:.4f} >= {bound}")
+        n_near += 1
+    return {"bit_equal": n_bit, "near_tie_rule": n_near}
+
+
+def graph_only(name: str, out, failures: list) -> None:
+    """No capture in the drain, and every step a replay: the decode and
+    prefill steps, and the shadow step of each guardrail check."""
+    if DEVICE == "cpu":
+        return                    # a CPU rehearsal: the steps run eagerly
+    c = out.counters
+    shadow = c.get("guardrail", {}).get("checks", 0)
+    want = out.n_steps + c["prefill_chunks"] + shadow
+    if c["graph_captures"] or c["graph_replays"] != want:
+        failures.append(f"{name}: {c['graph_captures']} captures and "
+                        f"{c['graph_replays']} replays in the drain, "
+                        f"expected 0 and {want}")
+
+
+def robustness_phase(torch, model, params, plan, bundle) -> dict:
+    """Phase 21 on llama3_1b at full width, phase 4's cell (fused,
+    pipelined, every step graphed) on one engine whose pool holds twice
+    the cell, so that quarantined blocks never gate admission:
+
+    * the fault matrix: one spec of each kind (``FAULT_MATRIX``) against
+      the fault-free drain. Every request ends with a result; those no
+      fault touched are bit-equal, the others held by the near-tie rule
+      (a failed one keeps a prefix); ``nan_page`` is flagged (through
+      kernel 5) and quarantined; the books are consistent after each
+      drain and no quarantined block is handed out again;
+    * two ``hung_step`` faults degrade the drain to the gather path, whose
+      graph the warm-up captured;
+    * the guardrail under ``plan`` (phase 8's ET plan, its own budget) at
+      every 4 steps: its MSEs against the budget, no breach, tokens
+      bit-equal to the drain without it; a budget of 1e-12 restores the
+      unquantized plan within the drain;
+    * a 3-level ladder from ``bundle`` (phase 6's) under phase 4's burst,
+      its budgets ``plan``'s predicted loss MSE / 16, / 4 and / 1: the
+      swaps, the captures each plan's warm-up made, none in the drain; a
+      one-level ladder bit-equal to the fixed plan;
+    * the cost when idle: the plan's drain without a guardrail against the
+      same with one every 16 steps, in turns (off, on, on, off).
+
+    No drain captures a graph: each step kind of each plan, the shadow
+    step and the gather step are captured in warm-ups."""
+    from repro_torch.launch import steps as st
+    from repro_torch.serve import (AdaptiveMPController,
+                                   ContinuousBatchingEngine, FaultInjector,
+                                   FaultSpec, NumericalGuardrail)
+    reqs = phase4_requests(model)
+    longest = SERVE["prompt_len"] + SERVE["new_tokens"]
+    n_pages = -(-longest // SERVE["block_size"])
+    eng = ContinuousBatchingEngine(
+        model, paged_attn="fused", device=DEVICE, prefix_cache=False,
+        n_slots=SERVE["n_slots"], max_len=longest,
+        block_size=SERVE["block_size"],
+        n_blocks=1 + 2 * SERVE["n_slots"] * n_pages)
+    failures, rec = [], {}
+
+    def warm(label: str) -> int:
+        """The warm-up drain and every bucket, on the engine's steps as
+        they are; returns the captures."""
+        g0 = sum(st.graph_captures.values())
+        eng.serve(params, reqs[:1])
+        warm_buckets(torch, eng, params, longest)
+        n = sum(st.graph_captures.values()) - g0
+        log(f"robustness warm-up, {label}: {n} CUDA graph captures")
+        return n
+
+    given = set()                 # blocks the allocator hands out
+
+    def drain(name: str, **kw) -> tuple:
+        """One drain; returns (summary, prefill tick owners). Checks the
+        books, that no block quarantined before it was handed out, and
+        that every step replayed a graph."""
+        gone = set(eng._pool._quarantined)
+        given.clear()
+        with ticks(eng) as events:
+            out = eng.serve(params, reqs, **kw)
+        torch.cuda.synchronize()
+        pool = eng._pool
+        if not pool.check_consistency()["ok"]:
+            failures.append(f"{name}: pool books inconsistent")
+        if given & gone:
+            failures.append(f"{name}: quarantined blocks "
+                            f"{sorted(given & gone)} handed out again")
+        graph_only(name, out, failures)
+        return out, events
+
+    warm_caps = {"plain fused": warm("plain, fused")}
+    pool = eng._pool
+    for fn in ("_alloc_block", "_alloc_block_unreserved"):
+        def tracked(*a, _orig=getattr(pool, fn)):
+            blk = _orig(*a)
+            if blk is not None:
+                given.add(int(blk))
+            return blk
+        setattr(pool, fn, tracked)
+    with recording(eng) as events:
+        base = eng.serve(params, reqs)
+    torch.cuda.synchronize()
+    graph_only("fault-free", base, failures)
+    ref = continuous_logits(events, reqs)
+    ref = {r.rid: (base.results[r.rid].tokens, ref[r.rid]) for r in reqs}
+
+    # ---- the fault matrix ----
+    matrix = {}
+    for kind, kw in FAULT_MATRIX:
+        name = f"fault {kind}" + (f" ({kw['phase']})" if "phase" in kw
+                                  else "")
+        eng.faults = FaultInjector([FaultSpec(kind=kind, **kw)])
+        out, tick_ev = drain(name)
+        eng.faults = None
+        f = out.counters["faults"]
+        bit = {r.rid for r in reqs} - touched_rids(tick_ev, reqs, out)
+        held = hold_drain(name, out, reqs, ref, bit, MARGIN_BOUND, failures)
+        statuses = {rid: r.status for rid, r in sorted(out.results.items())}
+        if f["injected"] != {kind: 1}:
+            failures.append(f"{name}: injected {f['injected']}")
+        if kind in ("nan_page", "nan_logits") and not (
+                f["seen"].get("nonfinite_logits", 0) >= 1
+                and f["quarantined_blocks"] > 0):
+            failures.append(f"{name}: the tripwire did not flag and "
+                            f"quarantine the poisoned row ({f})")
+        if f["kernel_faults"] != (1 if kind in ("step_exception",
+                                                "hung_step") else 0) \
+                or f["degraded_paged_attn"]:
+            failures.append(f"{name}: kernel faults {f['kernel_faults']}, "
+                            f"degraded {f['degraded_paged_attn']}")
+        matrix[name] = {"statuses": statuses, "seen": f["seen"],
+                        "contained": f["contained"], "retries": f["retries"],
+                        "failed": f["failed"],
+                        "quarantined_blocks": f["quarantined_blocks"],
+                        "touched": sorted(set(statuses) - bit), **held,
+                        "wall_tokens_per_s": out.counters[
+                            "wall_tokens_per_s"]}
+        log(f"{name}: statuses {statuses}; seen {f['seen']}; "
+            f"{f['contained']} contained, {f['failed']} failed, "
+            f"{f['quarantined_blocks']} blocks quarantined; "
+            f"{held['bit_equal']} requests bit-equal to the fault-free drain,"
+            f" {held['near_tie_rule']} held by the near-tie rule; "
+            f"{out.counters['graph_replays']} replays, "
+            f"{out.counters['graph_captures']} captures")
+    rec["fault_matrix"] = matrix
+    rec["quarantined_blocks"] = eng._pool.n_quarantined_blocks
+
+    # ---- fused -> gather after kernel_fault_limit hung steps ----
+    eng.paged_attn = "gather"
+    eng.decode_step = st.get_serving_step(model, "paged_decode",
+                                          paged_attn="gather")
+    warm_caps["plain gather"] = warm("plain, gather")
+    eng.paged_attn = "fused"
+    eng.decode_step = st.get_serving_step(model, "paged_decode",
+                                          paged_attn="fused")
+    eng.faults = FaultInjector([
+        FaultSpec("hung_step", step=4, hang_s=0.01),
+        FaultSpec("hung_step", step=6, hang_s=0.01)])
+    out, _ = drain("degraded")
+    eng.faults = None
+    f = out.counters["faults"]
+    if not (f["kernel_faults"] == 2 and f["degraded_paged_attn"]
+            and eng.paged_attn == "gather"):
+        failures.append(f"degraded drain: kernel faults "
+                        f"{f['kernel_faults']}, degraded "
+                        f"{f['degraded_paged_attn']}")
+    rec["degraded"] = dict(hold_drain("degraded", out, reqs, ref, set(),
+                                      MARGIN_BOUND, failures),
+                           kernel_faults=f["kernel_faults"],
+                           replays=out.counters["graph_replays_by_kind"])
+    log(f"degraded drain: {f['kernel_faults']} hung steps, fused -> gather "
+        f"in the drain; {rec['degraded']['near_tie_rule']} requests held by "
+        f"the near-tie rule; replays "
+        f"{kinds(out.counters['graph_replays_by_kind'])}, "
+        f"{out.counters['graph_captures']} captures")
+    eng.paged_attn = "fused"
+    eng.decode_step = st.get_serving_step(model, "paged_decode",
+                                          paged_attn="fused")
+
+    # ---- the guardrail under the plan (its restore serves the plain
+    # steps, which the first warm-up captured; the shadow step is the plain
+    # decode step) ----
+    eng._swap_plan(plan)
+    warm_caps["plan"] = warm(f"plan ({plan.n_quantized} ops fp8)")
+    eng.guardrail = NumericalGuardrail(every=1, budget=1e9)
+    g0 = sum(st.graph_captures.values())
+    eng.serve(params, reqs[:1])                  # captures the shadow step
+    warm_caps["shadow"] = sum(st.graph_captures.values()) - g0
+    eng.guardrail = None
+    with recording(eng) as events:
+        off, _ = drain("plan, no guardrail")
+    plan_ref = continuous_logits(events, reqs)
+    plan_ref = {r.rid: (off.results[r.rid].tokens, plan_ref[r.rid])
+                for r in reqs}
+    mses = []
+    eng.guardrail = grail = NumericalGuardrail(every=4)
+    observe = grail.observe_mse
+
+    def observed(now, mse, budget):
+        mses.append((int(now), float(mse), budget))
+        return observe(now, mse, budget)
+    grail.observe_mse = observed
+    on, _ = drain("plan, guardrail every 4")
+    eng.guardrail = None
+    g = on.counters["guardrail"]
+    budget = grail.budget_for(plan)
+    same = hold_drain("guardrail every 4", on, reqs, plan_ref,
+                      {r.rid for r in reqs}, MARGIN_BOUND_MP, failures)
+    if g["breaches"] or g["restored_at"] is not None or not g["checks"]:
+        failures.append(f"guardrail: the honest plan breached or was never "
+                        f"checked ({g})")
+    log(f"guardrail every 4 under the plan: {g['checks']} checks, MSE "
+        f"{', '.join(f'{m:.3e}' for _, m, _ in mses)} against the budget "
+        f"{budget:.4e} x margin {grail.margin:g}; {g['breaches']} breaches; "
+        f"{same['bit_equal']} of {len(reqs)} requests bit-equal to the drain "
+        f"without it")
+    rec["guardrail"] = {"checks": g["checks"], "mse": [m for _, m, _ in mses],
+                        "budget": budget, "margin": grail.margin,
+                        "breaches": g["breaches"],
+                        "bit_equal_to_no_guardrail": same["bit_equal"]}
+    eng._swap_plan(plan)
+    eng.guardrail = NumericalGuardrail(every=4, budget=1e-12,
+                                       max_breaches=2)
+    out, _ = drain("plan, guardrail forced breach")
+    eng.guardrail = None
+    g = out.counters["guardrail"]
+    if g["restored_at"] is None or eng.mp:
+        failures.append(f"forced breach: the drain was not restored to the "
+                        f"unquantized plan ({g})")
+    if not all(r.status == "ok" for r in out.results.values()):
+        failures.append("forced breach: a request did not complete")
+    rec["guardrail_forced_breach"] = {"checks": g["checks"],
+                                      "breaches": g["breaches"],
+                                      "restored_at": g["restored_at"],
+                                      "swaps": g["swaps"]}
+    log(f"guardrail forced breach (budget 1e-12, 2 breaches): restored the "
+        f"unquantized plan at step {g['restored_at']} after {g['checks']} "
+        f"checks; every request completed")
+
+    # ---- the cost when idle ----
+    eng._swap_plan(plan)
+    idle = {"off": [], "on": []}
+    for arm in ("off", "on", "on", "off"):
+        eng.guardrail = NumericalGuardrail(every=16) if arm == "on" else None
+        out, _ = drain(f"idle cost, guardrail {arm}")
+        idle[arm].append(out.counters["wall_tokens_per_s"])
+        if arm == "on":
+            hold_drain("idle cost, guardrail every 16", out, reqs, plan_ref,
+                       {r.rid for r in reqs}, MARGIN_BOUND_MP, failures)
+    eng.guardrail = None
+    mean = {k: float(np.mean(v)) for k, v in idle.items()}
+    rec["idle_cost"] = {"wall_tokens_per_s": idle,
+                        "on_over_off": mean["on"] / mean["off"]}
+    log(f"cost when idle, the plan's drain: wall tokens/s without a "
+        f"guardrail {idle['off'][0]:.1f}, {idle['off'][1]:.1f}; with one "
+        f"every 16 steps {idle['on'][0]:.1f}, {idle['on'][1]:.1f} "
+        f"(on / off {rec['idle_cost']['on_over_off']:.4f})")
+
+    # ---- load-adaptive MP ----
+    # at phase 8's tau the budget does not bind (the measured gains decide
+    # the plan, and twice the tau gives the same ops): the ladder's budgets
+    # are the plan's predicted loss MSE / 16, / 4 and / 1, so each level
+    # quantizes more ops than the last
+    base = math.sqrt(plan.predicted_loss_mse / 16
+                     / plan.meta["loss_sq_mean"])
+    ctrl = AdaptiveMPController.from_bundle(bundle, base, objective="ET",
+                                            **LADDER)
+    per_plan = {}
+    for level in range(len(ctrl.taus)):
+        p = ctrl.plan_for(level)
+        eng._swap_plan(p)
+        per_plan[f"tau {ctrl.taus[level]:g}"] = {
+            "n_fp8": p.n_quantized,
+            "captures": warm(f"ladder level {level}, tau "
+                             f"{ctrl.taus[level]:g}, {p.n_quantized} ops "
+                             f"fp8")}
+    eng._swap_plan(ctrl.plan)
+    eng.adaptive = ctrl
+    out, _ = drain("adaptive ladder")
+    eng.adaptive = None
+    a = out.counters["adaptive"]
+    if not (a["downshifts"] >= 1 and a["restores"] >= 1
+            and a["final_level"] == 0):
+        failures.append(f"adaptive: no downshift-restore cycle under the "
+                        f"burst ({a})")
+    if not all(r.status == "ok" for r in out.results.values()):
+        failures.append("adaptive: a request did not complete")
+    rec["adaptive"] = {"swaps": a["swaps"], "downshifts": a["downshifts"],
+                       "restores": a["restores"], "plans": per_plan,
+                       "wall_tokens_per_s": out.counters[
+                           "wall_tokens_per_s"]}
+    log(f"adaptive ladder taus {[f'{t:g}' for t in ctrl.taus]}: swaps "
+        f"{[(s['step'], s['level']) for s in a['swaps']]} (tick, level); "
+        f"{a['downshifts']} downshifts, {a['restores']} restores; captures "
+        f"per plan in the warm-ups "
+        f"{ {k: v['captures'] for k, v in per_plan.items()} }, "
+        f"{out.counters['graph_captures']} in the drain")
+    eng._swap_plan(ctrl.plan_for(0))
+    with recording(eng) as events:
+        fixed, _ = drain("ladder level 0, fixed")
+    fixed_tl = continuous_logits(events, reqs)
+    fixed_tl = {r.rid: (fixed.results[r.rid].tokens, fixed_tl[r.rid])
+                for r in reqs}
+    one = AdaptiveMPController(bundle=bundle, taus=ctrl.taus[:1],
+                               objective="ET",
+                               **{k: v for k, v in LADDER.items()
+                                  if k not in ("n_levels", "factor")})
+    one._plans[0] = ctrl.plan_for(0)
+    eng.adaptive = one
+    out, _ = drain("one-level ladder")
+    eng.adaptive = None
+    never = hold_drain("one-level ladder", out, reqs, fixed_tl,
+                       {r.rid for r in reqs}, MARGIN_BOUND_MP, failures)
+    rec["adaptive"]["never_firing_bit_equal"] = never["bit_equal"]
+    log(f"a ladder of one level: {never['bit_equal']} of {len(reqs)} "
+        f"requests bit-equal to the fixed plan's drain")
+    rec["warm_captures"] = warm_caps
+    eng._swap_plan(None)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 18: the other dense configs at their published widths
 # ---------------------------------------------------------------------------
 
-# (config, first layer of its fixed MP plan; None: half the depth), the
-# largest last. qwen2p5_32b's 65.5 GB of bf16 weights leave no room for the
-# fp8 codes of half its layers (about 15.6 GB more): its plan quantizes the
-# last 8 of its 64 layers
-DENSE_CONFIGS = (("qwen2p5_3b", None), ("nemotron_4_15b", None),
-                 ("starcoder2_15b", None), ("qwen2p5_32b", 56))
+# (config, depth served; None: the published one), the largest last; every
+# fixed MP plan covers the later half of the layers. The three large
+# configs serve 8 of their 32, 40 and 64 layers at full width: their eager
+# twins (11.6 tokens/s for qwen2p5_32b at 64 layers) took up to 294 s of the
+# script, which ran 1089.9 s of its 1200 s in one run at full depth
+DENSE_CONFIGS = (("qwen2p5_3b", None), ("nemotron_4_15b", 8),
+                 ("starcoder2_15b", 8), ("qwen2p5_32b", 8))
 
 
-def dense_config_phase(torch, arch: str, mp_from) -> dict:
+def dense_config_phase(torch, arch: str, depth) -> dict:
     """Phase 18 for one config: random weights from a seeded device
-    generator at its published widths; phases 4 and 5's checks at phase
-    4's cell (every fused launch through ``gqa_mma``; the gather drains
-    without eager twins); peak device memory; for qwen2p5_3b also
-    calibration over phase 6's batches at the largest depth that fits."""
+    generator at its published widths and ``depth`` layers (None: all);
+    phases 4 and 5's checks at phase 4's cell (every fused launch through
+    ``gqa_mma``; the gather drains without eager twins); peak device
+    memory; for qwen2p5_3b also calibration over phase 6's batches at the
+    largest depth that fits."""
     from repro_torch.launch.serve import make_model_and_params
     t0 = time.perf_counter()
-    model, params = make_model_and_params(arch, False, DEVICE, seed=0)
+    model, params = make_model_and_params(
+        arch, False, DEVICE, seed=0,
+        **({} if depth is None else {"n_layers": depth}))
     torch.cuda.synchronize()
     cfg = model.cfg
     weights_gb = torch.cuda.memory_allocated() / 1e9
@@ -2955,8 +3440,7 @@ def dense_config_phase(torch, arch: str, mp_from) -> dict:
         f"{', QKV bias' if cfg.qkv_bias else ''}), random init in "
         f"{time.perf_counter() - t0:.1f} s, {weights_gb:.2f} GB on the card")
     torch.cuda.reset_peak_memory_stats()
-    out = serve_phase(torch, model, params, mp_from=mp_from,
-                      gather_eager=False)
+    out = serve_phase(torch, model, params, gather_eager=False)
     out.update(weights_gb=weights_gb, n_params=model.n_params(),
                serving_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"{arch}: peak device memory while serving "
@@ -2973,6 +3457,23 @@ def dense_config_phase(torch, arch: str, mp_from) -> dict:
     return out
 
 
+def no_silent_faults(engine_cls) -> None:
+    """Every drain of ``engine_cls`` in this run: one served without a
+    fault injector must report no kernel fault and no degradation (a real
+    step error is never contained in silence)."""
+    serve = engine_cls.serve
+
+    def checked(self, *args, **kw):
+        out = serve(self, *args, **kw)
+        f = out.counters["faults"]
+        if self.faults is None and (f["kernel_faults"]
+                                    or f["degraded_paged_attn"]):
+            raise AssertionError(f"a drain without an injector reported "
+                                 f"kernel faults or a degradation: {f}")
+        return out
+    engine_cls.serve = checked
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2986,7 +3487,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
+    from repro_torch.serve import ContinuousBatchingEngine
     resolve_device("cuda")            # sets the matmul precision policy
+    no_silent_faults(ContinuousBatchingEngine)
 
     card = card_line()
     print(card, flush=True)
@@ -3063,6 +3566,8 @@ def main() -> int:
                                   params)
     report["ttft_cell"] = phase("TTFT cell", ttft_phase, torch, model,
                                 params)
+    report["robustness"] = phase("serving robustness", robustness_phase,
+                                 torch, model, params, plans["ET"], bundle)
     del model, params, bundle, batches
     gc.collect()                      # the model's decode graphs go with it
     torch.cuda.empty_cache()
@@ -3086,9 +3591,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     report["dense"] = {}
-    for arch, mp_from in DENSE_CONFIGS:
+    for arch, depth in DENSE_CONFIGS:
         report["dense"][arch] = phase(arch, dense_config_phase, torch, arch,
-                                      mp_from)
+                                      depth)
         gc.collect()                  # the model's graphs and weights
         torch.cuda.empty_cache()
 
@@ -3185,6 +3690,8 @@ def main() -> int:
                       "prefix_cache_mla": report["prefix_mla"]}), flush=True)
     print(json.dumps({"dense_rings": report["dense_rings"],
                       "ttft_cell": report["ttft_cell"]}), flush=True)
+    print(json.dumps({"robustness": report["robustness"], "card": card}),
+          flush=True)
     print(json.dumps({"pipeline": report["pipeline"],
                       "pipeline_llama3_8b": l8["pipelined_vs_lockstep"],
                       "pipeline_mla": report["pipeline_mla"]}), flush=True)

@@ -94,8 +94,8 @@ def build_lm_graph(cfg: LMConfig) -> GraphSpec:
         raise NotImplementedError(
             f"{cfg.name}: the graph of block types {other or ['attn/mla']} "
             f"with MoE={bool(cfg.moe_layers)} scan_layers={cfg.scan_layers} "
-            f"lands with the slice that ports them (mamba, hybrid, MoE, "
-            f"scan_layers: slice 9)")
+            f"lands with the port slice that ports them (mamba and hybrid: "
+            f"ROADMAP item A8; MoE: A6; scan_layers: A9)")
     g = GraphSpec()
     prev = g.add("embed")
     for i in range(cfg.n_layers):
@@ -126,4 +126,5 @@ def build_graph(model) -> GraphSpec:
         return build_lm_graph(model.cfg)
     raise NotImplementedError(
         f"no computation graph for {type(model).__name__}: the port builds "
-        f"decoder-only LMs; the encoder-decoder family lands with slice 9")
+        f"decoder-only LMs; the encoder-decoder family lands with ROADMAP "
+        f"item A8")

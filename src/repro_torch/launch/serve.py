@@ -43,6 +43,17 @@ and preemptions. As in the reference, the continuous engine shares prompt
 prefixes across requests (``--no-prefix-cache`` turns it off) and lets a
 higher-priority request preempt; ``--chunk-len`` / ``--chunk-budget`` split
 long prompts into chunks interleaved with decode steps.
+
+Serving robustness, as in the reference: ``--adaptive-tau`` walks a ladder
+of plans solved from the bundle under load, ``--inject-faults`` serves
+under a fault schedule (``--max-retries`` bounds the retries),
+``--guardrail-every`` holds the plan to its loss-MSE budget with a shadow
+step, and ``--n-blocks auto`` sizes the paged pool from the request
+profile::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --continuous --inject-faults 'nan_page@step=3;hung_step@step=5' \
+        --n-blocks auto
 """
 from __future__ import annotations
 
@@ -95,6 +106,39 @@ def build_parser() -> argparse.ArgumentParser:
                          "calibration bundle compatible with this arch and "
                          "these weights' fingerprint, instead of trusting a "
                          "hand-passed --calibration path")
+    ap.add_argument("--adaptive-tau", type=float, default=None,
+                    help="enable load-adaptive MP (continuous mode; needs "
+                         "--calibration or --registry): serve under a tau "
+                         "ladder starting at this base, escalating to more "
+                         "aggressive plans as the queue grows and restoring "
+                         "as it drains")
+    ap.add_argument("--adaptive-levels", type=int, default=3,
+                    help="tau ladder depth (base * factor**i)")
+    ap.add_argument("--adaptive-factor", type=float, default=2.0)
+    ap.add_argument("--adaptive-every", type=int, default=2,
+                    help="controller evaluation cadence in engine ticks")
+    ap.add_argument("--adaptive-dwell", type=int, default=4,
+                    help="min ticks between plan swaps")
+    ap.add_argument("--adaptive-queue-high", type=int, default=2,
+                    help="queue-depth watermark that triggers escalation")
+    ap.add_argument("--adaptive-queue-low", type=int, default=0,
+                    help="queue-depth watermark below which to restore")
+    ap.add_argument("--inject-faults", default=None,
+                    help="deterministic fault schedule for the continuous "
+                         "engine, e.g. 'nan_page@step=3,slot=0;"
+                         "alloc_failure@step=5,slot=1' (kind@k=v,...; a "
+                         "bare number is the step); see "
+                         "repro_torch.serve.FaultSpec")
+    ap.add_argument("--max-retries", type=int, default=1,
+                    help="bounded per-request retries after a contained "
+                         "fault before the request is marked failed")
+    ap.add_argument("--guardrail-every", type=int, default=None,
+                    help="enable the tau-anchored numerical guardrail: run a "
+                         "high-precision shadow step every N decode steps and "
+                         "compare logit MSE against the active plan's "
+                         "loss-MSE budget (continuous mode with an MP plan)")
+    ap.add_argument("--guardrail-margin", type=float, default=4.0,
+                    help="breach when shadow MSE > margin * budget")
     ap.add_argument("--batch", type=int, default=4,
                     help="one-shot batch size")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -108,9 +152,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode steps between request arrivals")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged KV block size in tokens")
-    ap.add_argument("--n-blocks", type=int, default=None,
-                    help="paged KV pool size incl. the trash block (default: "
-                         "the worst case, which never backpressures)")
+    ap.add_argument("--n-blocks", default=None,
+                    help="paged KV pool size incl. the trash block: an int, "
+                         "'auto' to size from the request profile (p95 "
+                         "live-block demand x headroom, see "
+                         "PagedCachePool.size_n_blocks), or omit for the "
+                         "worst case (never backpressures)")
     ap.add_argument("--chunk-len", type=int, default=None,
                     help="split prompts into prefill chunks of this many "
                          "tokens, interleaved with decode steps (continuous "
@@ -244,6 +291,37 @@ def report_continuous(out, n_requests: int, n_slots: int) -> None:
           f"steps in flight | drain wait {c['drain_wait_s'] * 1e3:.2f} ms")
     print(f"[serve] requests: {c['n_cancelled']} cancelled or timed out | "
           f"{c['n_failed']} failed | {c['n_retried']} retried")
+    if "adaptive" in c:
+        a = c["adaptive"]
+        print(f"[serve] adaptive MP: {a['downshifts']} downshifts / "
+              f"{a['restores']} restores over taus {a['taus']} | "
+              f"final tau {a['final_tau']:g} (level {a['final_level']}) "
+              f"| swaps at steps "
+              f"{[s['step'] for s in a['swaps']] or 'none'}")
+    f = c["faults"]
+    if f["seen"] or f["injected"]:
+        inj_desc = ", ".join(f"{k}x{v}" for k, v in
+                             sorted(f["injected"].items())) or "none"
+        print(f"[serve] faults: injected {inj_desc} | "
+              f"{f['contained']} contained / {f['retries']} retries / "
+              f"{f['failed']} failed | "
+              f"{f['quarantined_blocks']} blocks quarantined | "
+              f"kernel faults {f['kernel_faults']}"
+              + (" | degraded fused->gather"
+                 if f["degraded_paged_attn"] else ""))
+    g = c.get("guardrail")
+    if g:
+        print(f"[serve] guardrail: {g['checks']} shadow checks | "
+              f"{g['breaches']} breaches | last MSE "
+              f"{g['last_mse'] if g['last_mse'] is not None else 'n/a'}"
+              + (f" | restored base plan at step {g['restored_at']}"
+                 if g["restored_at"] is not None else ""))
+    statuses = [r.status for r in out.results.values()]
+    n_failed, n_retried = statuses.count("failed"), statuses.count("retried")
+    if n_failed or n_retried:
+        print(f"[serve] degraded results: {n_retried} retried "
+              f"(bit-identical after re-prefill) | {n_failed} failed "
+              f"(partial tokens returned)")
     print(f"[serve] prefill: {c['prefill_chunks']} chunk steps | "
           f"{c['prefill_buckets']} buckets for {c['distinct_prompt_lens']} "
           f"prompt lengths | {c['decode_stall_steps']} decode-stall chunk "
@@ -315,7 +393,17 @@ def main(argv=None) -> None:
             and not (args.calibration or args.registry):
         raise SystemExit("--tau/--objective select a serve-time solve and "
                          "require --calibration or --registry")
-    plan = bundle = None
+    if args.adaptive_tau is not None:
+        if not (args.calibration or args.registry):
+            raise SystemExit("--adaptive-tau re-solves under load and needs "
+                             "--calibration or --registry")
+        if not args.continuous:
+            raise SystemExit("--adaptive-tau drives the continuous engine; "
+                             "pass --continuous")
+    if (args.inject_faults or args.guardrail_every) and not args.continuous:
+        raise SystemExit("--inject-faults/--guardrail-every drive the "
+                         "continuous engine; pass --continuous")
+    plan = bundle = controller = None
     if args.calibration:
         bundle, src = CalibrationBundle.load(args.calibration), \
             args.calibration
@@ -323,26 +411,76 @@ def main(argv=None) -> None:
         bundle, src = registry_bundle(model, params, args.registry)
     if bundle is not None:
         check_bundle_ops(model, bundle, src)
-        plan = solve_from_bundle(bundle, args.tau, args.objective, src)
+        if args.adaptive_tau is not None:
+            from repro_torch.serve import AdaptiveMPController
+            controller = AdaptiveMPController.from_bundle(
+                bundle, args.adaptive_tau, n_levels=args.adaptive_levels,
+                factor=args.adaptive_factor,
+                objective=args.objective or "ET",
+                every=args.adaptive_every, dwell=args.adaptive_dwell,
+                queue_high=args.adaptive_queue_high,
+                queue_low=args.adaptive_queue_low)
+            base = controller.plan
+            print(f"[serve] adaptive MP: tau ladder "
+                  f"{[f'{t:g}' for t in controller.taus]} (base plan "
+                  f"quantizes {base.n_quantized} ops, "
+                  f"tier {base.meta.get('gain_tier')})")
+        else:
+            plan = solve_from_bundle(bundle, args.tau, args.objective, src)
     elif args.mp_plan:
         plan = load_plan(args.mp_plan, model)
     if args.continuous:
-        if args.dense_slots and args.n_blocks is not None:
-            raise SystemExit("--n-blocks sizes the paged pool; drop "
-                             "--dense-slots")
+        max_len = args.prompt_len + args.new_tokens
+        n_blocks = args.n_blocks
+        if n_blocks == "auto":
+            from repro_torch.serve import PagedCachePool
+            if args.dense_slots:
+                raise SystemExit("--n-blocks auto sizes the paged pool; "
+                                 "drop --dense-slots")
+            profile = [(args.prompt_len, args.new_tokens)] * args.requests
+            n_blocks = PagedCachePool.size_n_blocks(
+                profile, args.n_slots, args.block_size)
+            worst = PagedCachePool.plan_blocks(args.n_slots, max_len,
+                                               args.block_size)
+            print(f"[serve] auto-sized paged pool: {n_blocks} blocks "
+                  f"(worst case {worst}) from {args.requests}-request "
+                  f"profile at p95 live demand x1.25 headroom")
+        elif n_blocks is not None:
+            n_blocks = int(n_blocks)
+            if args.dense_slots:
+                raise SystemExit("--n-blocks sizes the paged pool; drop "
+                                 "--dense-slots")
+        injector = guardrail = None
+        if args.inject_faults:
+            from repro_torch.serve import FaultInjector
+            injector = FaultInjector.parse(args.inject_faults)
+            print(f"[serve] fault injection: {len(injector.specs)} scheduled "
+                  f"({args.inject_faults})")
+        if args.guardrail_every:
+            from repro_torch.serve import NumericalGuardrail
+            guardrail = NumericalGuardrail(every=args.guardrail_every,
+                                           margin=args.guardrail_margin)
+            print(f"[serve] guardrail: shadow step every "
+                  f"{args.guardrail_every} decode steps, breach at "
+                  f"{args.guardrail_margin:g}x the plan's loss-MSE budget")
         eng = ContinuousBatchingEngine(
-            model, n_slots=args.n_slots,
-            max_len=args.prompt_len + args.new_tokens, mp=plan,
+            model, n_slots=args.n_slots, max_len=max_len, mp=plan,
             paged=not args.dense_slots, block_size=args.block_size,
-            n_blocks=args.n_blocks, chunk_len=args.chunk_len,
+            n_blocks=n_blocks, chunk_len=args.chunk_len,
             chunk_budget=args.chunk_budget,
             prefix_cache=False if args.no_prefix_cache else None,
-            paged_attn=args.paged_attn, device=device)
+            paged_attn=args.paged_attn, adaptive=controller,
+            faults=injector, max_retries=args.max_retries,
+            guardrail=guardrail, device=device)
         reqs = make_requests(model.cfg.vocab_size, args.requests,
                              args.prompt_len, args.new_tokens,
                              args.arrival_every)
         sync = args.sync_engine
+        # the warm-up must not take the fault schedule or the guardrail's
+        # one restore
+        eng.faults, eng.guardrail = None, None
         eng.serve(params, reqs[:1], sync=sync)       # warm-up
+        eng.faults, eng.guardrail = injector, guardrail
         out = eng.serve(params, reqs, sync=sync)
         report_continuous(out, args.requests, args.n_slots)
         if args.profile:

@@ -27,7 +27,8 @@ __all__ = ["make_prefill_step", "make_bucketed_prefill_step",
            "make_chunked_prefill_step", "make_dense_chunked_prefill_step",
            "make_decode_step", "make_paged_decode_step", "GraphedStep",
            "get_serving_step", "greedy_next_token", "merge_first_tokens",
-           "graph_captures", "graph_replays"]
+           "nonfinite_rows", "shadow_logit_mse", "graph_captures",
+           "graph_replays"]
 
 # CUDA graph captures and replays of serving steps in this process, by step
 # kind (``GraphedStep.kind``)
@@ -374,6 +375,24 @@ def greedy_next_token(logits: torch.Tensor) -> torch.Tensor:
     """(B, T, V) logits -> (B,) int32 greedy token of the last position
     (first index on ties, as in the reference)."""
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def nonfinite_rows(logits: torch.Tensor) -> torch.Tensor:
+    """(B, T, V) logits -> (B,) bool: the row's last-position logits hold a
+    NaN or an inf. The serving engines' numerical tripwire: a reduction
+    over a step's output (the step's own numerics are untouched), copied
+    back beside the step's tokens."""
+    return ~torch.isfinite(logits[:, -1]).all(dim=-1)
+
+
+def shadow_logit_mse(logits: torch.Tensor, ref_logits: torch.Tensor,
+                     row: int) -> torch.Tensor:
+    """f32 mean squared error between one row's last-position logits under
+    the active plan and under the unquantized shadow step: what the
+    guardrail holds against the plan's loss-MSE budget."""
+    a = logits[row, -1].float()
+    b = ref_logits[row, -1].float()
+    return torch.mean(torch.square(a - b))
 
 
 def merge_first_tokens(cur_tok: torch.Tensor, new_tok: torch.Tensor,

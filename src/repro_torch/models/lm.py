@@ -165,16 +165,20 @@ class LMConfig:
         return self.sliding_window
 
 
+# the ROADMAP.md item that ports each family of layers or option
+_ITEMS = {"scan_layers": "A9", "prefix_embed": "A8", "mtp_depth": "A6"}
+
+
 def _unsupported(cfg: LMConfig) -> list:
     out = []
     other = sorted(set(cfg.block_types) - {"attn", "mla"})
     if other:
-        out.append(f"block types {other} (mamba / hybrid)")
+        out.append(f"block types {other} (mamba / hybrid: ROADMAP item A8)")
     if cfg.moe_layers:
-        out.append("MoE layers")
+        out.append("MoE layers (ROADMAP item A6)")
     for flag in ("scan_layers", "prefix_embed", "mtp_depth"):
         if getattr(cfg, flag):
-            out.append(flag)
+            out.append(f"{flag} (ROADMAP item {_ITEMS[flag]})")
     return out
 
 
@@ -187,7 +191,8 @@ class LM:
         missing = _unsupported(cfg)
         if missing:
             raise NotImplementedError(
-                f"{cfg.name}: not ported yet: {', '.join(missing)}")
+                f"{cfg.name}: {', '.join(missing)} land with the port slice "
+                f"of the ROADMAP.md item named")
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
 

@@ -33,8 +33,16 @@ Indexed blocks whose refcount drops to zero stay resident in an LRU of
 cached blocks, which :meth:`_alloc_block` reclaims (de-indexing each) only
 once the free list is empty; ``n_free_blocks`` counts free plus cached.
 
-Not ported: mesh sharding of the pool, and page quarantine and poisoning
-(fault tolerance).
+Fault containment, as in the reference: :meth:`quarantine_slot` takes the
+blocks of a slot whose logits went non-finite out of circulation for good
+(de-indexed, forked away from live borrowers, never on the free list or in
+the cached LRU again), so the pool's capacity shrinks by one block each;
+:meth:`poison_block` is the fault injector's NaN page; :meth:`reconcile`
+settles the books after a drain that raised. :meth:`size_n_blocks` sizes a
+pool from a request profile instead of the worst case.
+
+Not ported: mesh sharding of the pool (one shard: block 0 is the one trash
+block, as in the reference's single-shard layout).
 """
 from __future__ import annotations
 
@@ -206,6 +214,12 @@ class PagedCachePool:
         self._slot_borrowed: dict = {}      # slot -> {shared page indices}
         self._slot_matched: dict = {}       # slot -> matched prefix tokens
         self._slot_registered: dict = {}    # slot -> pages indexed so far
+        # ---- fault containment: poisoned blocks out of circulation ----
+        self._quarantined: set = set()
+        # blocks awaiting quarantine: still mapped by a borrower that could
+        # not be forked off (pool dry); _release quarantines them when the
+        # last reference drops
+        self._quarantine_pending: set = set()
         self.reset_counters()
 
     def _reuse(self, model, caches: dict) -> None:
@@ -234,6 +248,7 @@ class PagedCachePool:
         self.prefix_hit_tokens = 0
         self.cow_forks = 0
         self.reclaimed_cached_blocks = 0
+        self.quarantined_blocks = 0          # this drain's; the set stays
 
     def invalidate_prefix_index(self) -> None:
         """Forget every indexed block: cached ones return to the free list,
@@ -259,6 +274,44 @@ class PagedCachePool:
             raise ValueError("need at least the trash block plus one")
         return int(n_blocks)
 
+    @staticmethod
+    def size_n_blocks(profile, n_slots: int, block_size: int, *,
+                      percentile: float = 95.0, headroom: float = 1.25,
+                      data_shards: int = 1) -> int:
+        """``n_blocks`` sized from a request profile (``(prompt_len,
+        max_new_tokens)`` pairs) instead of the worst case: the FCFS
+        live-block trajectory over ``n_slots`` rows at one decode step per
+        tick, its ``percentile`` times ``headroom``, plus the trash
+        block(s); clamped to [largest request, worst case] and rounded up
+        to a multiple of ``data_shards``. Below the worst case the pool
+        trades memory for occasional admission backpressure."""
+        profile = [(int(p), int(m)) for p, m in profile]
+        if not profile:
+            raise ValueError("size_n_blocks needs a non-empty profile")
+
+        def bf(n):
+            return max(-(-n // block_size), 1)
+        max_blocks_req = max(bf(p + max(m - 1, 0)) for p, m in profile)
+        worst = n_slots * max(max_blocks_req, 1)
+        # a request holds its slot for max(m, 1) ticks and, at decode tick
+        # t, the blocks covering p + t tokens
+        free_at = [0] * n_slots
+        demand: dict = {}
+        for p, m in profile:
+            s = min(range(n_slots), key=free_at.__getitem__)
+            start, dur = free_at[s], max(m, 1)
+            for t in range(dur):
+                demand[start + t] = demand.get(start + t, 0) + bf(p + t)
+            free_at[s] = start + dur
+        live = sorted(demand.values())
+        idx = min(int(len(live) * percentile / 100.0), len(live) - 1)
+        need = int(np.ceil(live[idx] * headroom))
+        need = max(min(need, worst), max_blocks_req)
+        n = need + max(data_shards, 1)                     # trash block(s)
+        if data_shards > 1:
+            n = -(-n // data_shards) * data_shards
+        return n
+
     # ---- budget / accounting ----
     @property
     def n_free_slots(self) -> int:
@@ -275,13 +328,19 @@ class PagedCachePool:
         return len(self._cached)
 
     @property
+    def n_quarantined_blocks(self) -> int:
+        return len(self._quarantined)
+
+    @property
     def blocks_in_use(self) -> int:
-        return (self.n_blocks - 1) - self.n_free_blocks
+        return ((self.n_blocks - 1 - self.n_quarantined_blocks)
+                - self.n_free_blocks)
 
     @property
     def allocatable_blocks(self) -> int:
-        """Largest single-request reservation the pool can ever satisfy."""
-        return self.n_blocks - 1
+        """Largest single-request reservation the pool can ever satisfy:
+        every block but the trash block and the quarantined ones."""
+        return self.n_blocks - 1 - self.n_quarantined_blocks
 
     def blocks_for(self, n_tokens: int) -> int:
         return max(-(-n_tokens // self.block_size), 1)
@@ -412,7 +471,11 @@ class PagedCachePool:
             raise RuntimeError(f"block {blk} released more than claimed")
         if self._ref[blk] == 0:
             del self._ref[blk]
-            if blk in self._block_digest:
+            if blk in self._quarantine_pending:
+                # a poisoned block whose last borrower let go
+                self._quarantine_pending.discard(blk)
+                self._quarantine(blk)
+            elif blk in self._block_digest:
                 self._cached[blk] = None    # resident until reclaimed
             else:
                 self._free_blocks.append(blk)
@@ -505,47 +568,152 @@ class PagedCachePool:
             elif borrowed and page in borrowed:
                 self._cow_fork(slot, page)
 
+    # ---- fault containment: quarantine, poison, reconcile ----
+    def _quarantine(self, blk: int) -> None:
+        """Take ``blk`` out of circulation for good; no table maps it."""
+        if blk in self._block_digest:
+            self._deindex(blk)
+        self._quarantined.add(blk)
+        self.quarantined_blocks += 1
+
+    def _alloc_block_unreserved(self) -> Optional[int]:
+        """A block for a quarantine fork-off, charged to no reservation (the
+        copy was never part of the borrower's admission budget); None when
+        the pool is dry. A later ``_alloc_block`` may then raise, which the
+        engine contains as an allocation fault."""
+        if self._free_blocks:
+            blk = self._free_blocks.pop()
+        elif self._cached:
+            blk, _ = self._cached.popitem(last=False)
+            self._deindex(blk)
+            self.reclaimed_cached_blocks += 1
+        else:
+            return None
+        self._ref[blk] = 1
+        return blk
+
+    def _fork_off(self, slot: int, page: int) -> bool:
+        """Copy ``slot``'s borrowed ``page`` onto a private block so that
+        the quarantined source loses this reader (the copy may carry the
+        poison too: then the borrower's own tripwire fires). False when the
+        pool is dry: the borrower keeps the page, quarantined on its last
+        release."""
+        src = int(self.block_tables[slot, page])
+        dst = self._alloc_block_unreserved()
+        if dst is None:
+            return False
+        self._slot_blocks[slot].append(dst)
+        self._copy_block_device(src, dst)
+        self.block_tables[slot, page] = dst
+        self._slot_blocks[slot].remove(src)
+        self._release(src)
+        borrowed = self._slot_borrowed.get(slot)
+        if borrowed is not None:
+            borrowed.discard(page)
+        return True
+
+    def quarantine_slot(self, slot: int) -> int:
+        """Poisoned-page containment for a faulted slot: every block its
+        table maps is de-indexed, forked away from every other slot that
+        maps it, dropped from this slot's table and retired to the
+        quarantine set, which no allocation path hands out again. The whole
+        mapping is suspect: a non-finite logit row does not say which page
+        was poisoned. Returns the blocks newly quarantined (a borrowed
+        block whose fork failed follows on its last release). Call before
+        ``free_slot``."""
+        before = self.quarantined_blocks
+        borrowed = self._slot_borrowed.get(slot, set())
+        for page in range(self.max_blocks):
+            blk = int(self.block_tables[slot, page])
+            if blk < 0:
+                continue
+            if blk in self._block_digest:
+                self._deindex(blk)
+            self._quarantine_pending.add(blk)
+            for t in range(self.n_slots):
+                if t == slot:
+                    continue
+                for p in np.nonzero(self.block_tables[t] == blk)[0]:
+                    self._fork_off(t, int(p))
+            self.block_tables[slot, page] = -1
+            self._slot_blocks[slot].remove(blk)
+            borrowed.discard(page)
+            self._release(blk)
+        return self.quarantined_blocks - before
+
+    def poison_block(self, blk: int) -> None:
+        """Fill physical block ``blk`` with NaN in every block-major
+        floating-point cache leaf, fp8 ones included (NaN stays NaN in
+        e4m3fn and e5m2): the fault injector's NaN page. In place, on the
+        current stream."""
+        for key, spec in self.model.paged_cache_specs(1, 1, 1).items():
+            if "kv_blocks" not in spec.logical_axes:
+                continue
+            layer, leaf = key.split("@attn/")
+            t = self.caches[layer][leaf]
+            if t.is_floating_point():
+                t.select(spec.logical_axes.index("kv_blocks"),
+                         int(blk)).fill_(float("nan"))
+
     def check_consistency(self) -> dict:
         """Cross-check the books against the block tables: the multiset of
-        table entries equals the refcounts, free and cached blocks are
-        mapped by no table, and the trash block is nowhere. Returns a report
-        with ``ok`` and the mismatches."""
+        table entries equals the refcounts, free, cached and quarantined
+        blocks are mapped by no table and quarantined ones are neither free
+        nor cached, and the trash block is nowhere. Returns a report with
+        ``ok`` and the mismatches."""
         mat = Counter(int(b) for row in self.block_tables for b in row
                       if b >= 0)
         free, cached, mapped = (set(self._free_blocks), set(self._cached),
                                 set(mat))
+        quarantined = set(self._quarantined)
         report = {
             "tables_vs_ref": mat == Counter(self._ref),
             "free_mapped": sorted(free & mapped),
             "cached_mapped": sorted(cached & mapped),
+            "quarantined_mapped": sorted(quarantined & mapped),
+            "quarantined_free": sorted(quarantined & (free | cached)),
             "free_cached": sorted(free & cached),
-            "trash_used": 0 in (mapped | free | cached
+            "trash_used": 0 in (mapped | free | cached | quarantined
                                 | set(self._block_digest)),
         }
         report["ok"] = (report["tables_vs_ref"] and not report["free_mapped"]
                         and not report["cached_mapped"]
+                        and not report["quarantined_mapped"]
+                        and not report["quarantined_free"]
                         and not report["free_cached"]
                         and not report["trash_used"])
         return report
 
-    def reconcile(self) -> None:
+    def reconcile(self) -> dict:
         """Repair the books after a drain that re-raised: recompute every
         refcount from the block tables and route blocks no table maps back
-        to the cached LRU (indexed) or the free list. The engine runs it
-        once every slot has been released, so the next drain can reuse the
-        pool."""
+        to the cached LRU (indexed), the free list, or quarantine (pending
+        quarantine). The engine runs it once every slot has been released,
+        so the next drain can reuse the pool. Returns what changed, as the
+        reference does."""
         mat = Counter(int(b) for row in self.block_tables for b in row
                       if b >= 0)
-        self._ref.update(mat)
+        fixed = 0
+        for blk, want in mat.items():
+            if self._ref.get(blk) != want:
+                self._ref[blk] = want
+                fixed += 1
+        orphans = 0
         for blk in [b for b in self._ref if b not in mat]:
             del self._ref[blk]
             self._cached.pop(blk, None)
             if blk in self._free_blocks:
                 continue
-            if blk in self._block_digest:
+            if blk in self._quarantine_pending:
+                self._quarantine_pending.discard(blk)
+                self._quarantine(blk)
+            elif blk in self._block_digest:
                 self._cached[blk] = None
             else:
                 self._free_blocks.append(blk)
+            orphans += 1
+        return {"ref_fixed": fixed, "orphans_rerouted": orphans,
+                "consistent": self.check_consistency()["ok"]}
 
     def block_tables_device(self) -> torch.Tensor:
         # hand the device a private copy: torch.from_numpy aliases the host

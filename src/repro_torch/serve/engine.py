@@ -32,9 +32,13 @@ decode steps (``chunk_len``, ``chunk_budget``), and drains pipelined: the
 device runs up to ``max_in_flight`` steps ahead while a consumer thread
 reads tokens back (``serve(sync=True)`` is the lockstep drain). Requests
 can be cancelled (``cancel``, ``shutdown``, ``Request.timeout_steps``) and
-streamed (``on_token``). Load-adaptive MP, fault injection, the numerical
-guardrail and mesh serving raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+streamed (``on_token``). As in the reference it contains faults (an
+injector's schedule, ``faults``; a non-finite tripwire read back beside
+each step's tokens; bounded retries through the resume path, poisoned-page
+quarantine, fused -> gather degradation after repeated kernel faults),
+holds an MP plan to its loss-MSE budget with a shadow step
+(``guardrail``) and walks a ladder of plans under load (``adaptive``).
+Mesh serving raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Both engines accept ``mp`` as an op->format dict or an ``MPPlan``.
 """
@@ -55,10 +59,13 @@ from repro_torch.core.mpconfig import as_assignment
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import paged_attention as _paged_kernel
 from repro_torch.launch import steps as _steps
-from repro_torch.launch.steps import get_serving_step, merge_first_tokens
+from repro_torch.launch.steps import (get_serving_step, greedy_next_token,
+                                     merge_first_tokens, nonfinite_rows,
+                                     shadow_logit_mse)
 from repro_torch.serve.cache_pool import (CachePool, PagedCachePool,
                                           dense_slot_bytes, host_to_device,
                                           paged_block_bytes, paged_slot_bytes)
+from repro_torch.serve.faults import InjectedFault, poison_logit_rows
 from repro_torch.serve.scheduler import (DONE, PREFILLING, RUNNING, WAITING,
                                          Request, Scheduler)
 
@@ -243,15 +250,22 @@ class ServeEngine:
 # options of the reference engine that the port does not have yet, by the
 # ROADMAP.md item that brings them
 _LATER = {
-    "adaptive": "load-adaptive MP lands with serving robustness, ROADMAP "
-                "item A5, a later port slice",
-    "faults": "fault injection and containment land with serving "
-              "robustness, ROADMAP item A5, a later port slice",
-    "guardrail": "the numerical guardrail lands with serving robustness, "
-                 "ROADMAP item A5, a later port slice",
     "mesh": "mesh-sharded serving lands with ROADMAP item A9, the "
             "multi-GPU port slice",
 }
+
+
+class _ImpossibleRequest(Exception):
+    """Raised by the paged admission gate when a request's worst-case block
+    need exceeds what the pool can ever hold. The engine decides whether
+    that is a configuration error (a pool with nothing quarantined: a
+    ``ValueError``) or the quarantine having shrunk the pool under a
+    request that used to fit (it retires ``failed``)."""
+
+    def __init__(self, st, need: int):
+        super().__init__(need)
+        self.st = st
+        self.need = need
 
 
 def _weights_of(params: dict) -> tuple:
@@ -280,12 +294,13 @@ def _refuse(name: str):
 
 @dataclasses.dataclass
 class _HostSet:
-    """One decode step's pinned host buffers: positions and (paged) block
-    tables going in, its greedy tokens coming out, and (on CUDA) the event
-    recorded behind its copies."""
+    """One step's pinned host buffers: positions and (paged) block tables
+    going in, its greedy tokens and non-finite flags coming out, and (on
+    CUDA) the event recorded behind its copies."""
     pos: torch.Tensor
     bt: Optional[torch.Tensor]
     tok: torch.Tensor
+    flag: torch.Tensor
     event: Optional[object]
 
 
@@ -339,7 +354,27 @@ class ContinuousBatchingEngine:
 
     :meth:`cancel` and :meth:`shutdown` may be called from any thread (an
     ``on_token`` callback included); the drain applies them at the top of
-    the next tick, so a slot is never freed under a step being built."""
+    the next tick, so a slot is never freed under a step being built.
+
+    ``adaptive`` (an :class:`~repro_torch.serve.adaptive.
+    AdaptiveMPController`, which then holds the base plan: ``mp`` is
+    refused beside it) is consulted once per tick before admission and may
+    swap every step to another ladder level's plan (:meth:`_swap_plan`:
+    other memoized, on the card graphed, steps; the prefix index is
+    dropped, as quantized K/V depends on the plan). ``faults`` (a
+    :class:`~repro_torch.serve.faults.FaultInjector`) injects its schedule
+    at the tick boundary, before each step, before each block allocation
+    and at delivery. A faulted request keeps the tokens before its fault;
+    it is retried through the resume path up to ``max_retries`` times
+    (``RequestResult.status`` ``"retried"``), else retires ``"failed"``;
+    the pages of a row whose logits went non-finite (each step's flags are
+    read back with its tokens) are quarantined. ``kernel_fault_limit``
+    step faults degrade fused paged attention to the gather path.
+    ``guardrail`` (a :class:`~repro_torch.serve.adaptive.
+    NumericalGuardrail`) runs an unquantized shadow decode step over the
+    same inputs every ``every`` steps, before the active step, which then
+    overwrites every cache slot the shadow wrote before any attention reads
+    it; a breach of the plan's budget restores the base plan."""
 
     def __init__(self, model, n_slots: int = 4, max_len: int = 512,
                  mp=None, paged: bool = True, block_size: int = 16,
@@ -348,8 +383,22 @@ class ContinuousBatchingEngine:
                  min_bucket: int = 8, paged_attn: Optional[str] = None,
                  mesh=None, prefix_cache: Optional[bool] = None,
                  preemption: bool = True, prefill_cobatch: bool = True,
-                 adaptive=None, faults=None, guardrail=None,
+                 adaptive=None, faults=None, max_retries: int = 1,
+                 guardrail=None, kernel_fault_limit: int = 2,
                  device: DeviceLike = None):
+        if mesh is not None:
+            _refuse("mesh")
+        if adaptive is not None:
+            if mp is not None:
+                raise ValueError(
+                    "pass the base plan through the controller (its level-0 "
+                    "tau), not both mp= and adaptive=")
+            mp = adaptive.plan
+        if int(max_retries) < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if int(kernel_fault_limit) < 1:
+            raise ValueError(f"kernel_fault_limit must be >= 1, got "
+                             f"{kernel_fault_limit}")
         if not paged and n_blocks is not None:
             raise ValueError("n_blocks only applies to paged mode; drop it "
                              "or remove paged=False")
@@ -359,10 +408,6 @@ class ContinuousBatchingEngine:
         if prefix_cache and not paged:
             raise ValueError("prefix_cache shares paged KV blocks; drop it "
                              "or remove paged=False")
-        for name, val in (("adaptive", adaptive), ("faults", faults),
-                          ("guardrail", guardrail), ("mesh", mesh)):
-            if val is not None:
-                _refuse(name)
         if paged_attn is None:
             paged_attn = "fused"
         if paged_attn not in ("fused", "gather"):
@@ -375,7 +420,14 @@ class ContinuousBatchingEngine:
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
+        self.adaptive = adaptive
         self.mp = as_assignment(mp)
+        # the plan object: the guardrail reads its solved budget
+        self._mp_plan = mp
+        self.faults = faults
+        self.max_retries = int(max_retries)
+        self.guardrail = guardrail
+        self.kernel_fault_limit = int(kernel_fault_limit)
         self.block_size = block_size
         self.n_blocks = n_blocks
         self.chunk_len = chunk_len
@@ -456,6 +508,21 @@ class ContinuousBatchingEngine:
         self._weights = weights
         return pool
 
+    def _swap_plan(self, plan) -> None:
+        """Serve ``plan`` from the next step on: the steps of its assignment
+        from the ``get_serving_step`` memo (a plan seen before selects its
+        steps, on the card their graphs, again) and no prefix index, since
+        blocks written under the old plan hold other K/V bytes."""
+        self.mp = as_assignment(plan)
+        self._mp_plan = plan
+        self.prefill_chunk_step = get_serving_step(
+            self.model, self._prefill_kind, mp=self.mp)
+        self.decode_step = get_serving_step(
+            self.model, "paged_decode" if self.paged else "decode",
+            mp=self.mp, paged_attn=self.paged_attn if self.paged else None)
+        if self._pool is not None:
+            self._pool.invalidate_prefix_index()
+
     def _staging(self, pool, n_sets: int):
         """The decode step's device input buffers (token, positions and,
         paged, block tables: the graph is bound to them, so they stay
@@ -469,12 +536,13 @@ class ContinuousBatchingEngine:
                                  for shape in ((n, 1), (n,)) + tables)
         cuda = dev.type == "cuda"
 
-        def pinned(shape):
-            return torch.zeros(shape, dtype=torch.int32, pin_memory=cuda)
+        def pinned(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, pin_memory=cuda)
         while len(self._ring) < n_sets:
             self._ring.append(_HostSet(
                 pinned((n,)), pinned(tables[0]) if tables else None,
-                pinned((n,)), event=torch.cuda.Event() if cuda else None))
+                pinned((n,)), pinned((n,), torch.bool),
+                event=torch.cuda.Event() if cuda else None))
         return self._inputs, self._ring[:n_sets]
 
     def _digests(self, pool: PagedCachePool, st):
@@ -487,13 +555,17 @@ class ContinuousBatchingEngine:
             st.digests = pool.prefix_digests(st.effective_tokens)
         return st.digests
 
-    def _admit(self, pool, sched: Scheduler, now: int, evict=None) -> None:
+    def _admit(self, pool, sched: Scheduler, now: int, evict=None,
+               on_impossible=None) -> None:
         """Claim slots for admissible requests (priority, then FCFS); in a
         paged pool the best waiter blocks the queue while the block budget
         cannot cover it. With ``evict`` (preemption), a gated waiter that
         outranks a live request evicts the scheduler's victim and admission
         retries; each round removes one victim, and equal priority never
-        evicts. ``evict`` returns False when the drain is shutting down."""
+        evicts. ``evict`` returns False when the drain is shutting down.
+        A request no pool state can ever hold raises ``ValueError``, unless
+        it fit the pool before quarantine shrank it: then
+        ``on_impossible`` retires it."""
         gate = None
         if self.paged:
             def gate(r):
@@ -501,17 +573,26 @@ class ContinuousBatchingEngine:
                 need = pool.blocks_for_request(st.effective_prompt_len,
                                                st.remaining_new_tokens)
                 if need > pool.allocatable_blocks:
-                    raise ValueError(
-                        f"request {r.rid} needs {need} KV blocks but the "
-                        f"pool has only {pool.allocatable_blocks}; raise "
-                        f"--n-blocks or shrink the request")
+                    raise _ImpossibleRequest(st, need)
                 return pool.can_admit(st.effective_prompt_len,
                                       st.remaining_new_tokens,
                                       digests=self._digests(pool, st))
 
         while True:
             while pool.n_free_slots:
-                st = sched.pop_admissible(now, gate)
+                try:
+                    st = sched.pop_admissible(now, gate)
+                except _ImpossibleRequest as exc:
+                    if (on_impossible is not None
+                            and pool.n_quarantined_blocks > 0
+                            and exc.need <= pool.n_blocks - 1):
+                        on_impossible(exc.st)
+                        continue
+                    raise ValueError(
+                        f"request {exc.st.request.rid} needs {exc.need} KV "
+                        f"blocks but the pool has only "
+                        f"{pool.allocatable_blocks}; raise --n-blocks or "
+                        f"shrink the request") from None
                 if st is None:
                     break
                 req = st.request
@@ -549,11 +630,15 @@ class ContinuousBatchingEngine:
         ``chunk_len`` tokens) of every prefilling slot, or with
         ``prefill_cobatch=False`` of those in the first candidate's bucket;
         in a paged pool a borrowed page in a chunk's write range is forked
-        first. Returns (the chunk's time, device tokens, finished (slot,
-        state) pairs, prompt tokens processed). The time is device time:
-        the lockstep drain (``sync``) waits for the chunk; the pipelined
-        one records a pair of CUDA events around it, read after the drain
-        (on the CPU the host's time is the chunk's)."""
+        first, and a slot whose pages cannot be allocated (injected, or the
+        pool short after a quarantine) is dropped from the step. Returns
+        (the chunk's time, device tokens, their non-finite flags, finished
+        (slot, state) pairs, prompt tokens processed, states whose
+        allocation failed); the tokens are None when every candidate's
+        allocation failed and no step ran. The time is device time: the
+        lockstep drain (``sync``) waits for the chunk; the pipelined one
+        records a pair of CUDA events around it, read after the drain (on
+        the CPU the host's time is the chunk's)."""
         cands = []
         for slot, st in sched.prefilling.items():
             start = st.prefill_pos
@@ -566,9 +651,21 @@ class ContinuousBatchingEngine:
         cands.sort(key=lambda c: (-c[1].request.priority,
                                   c[1].effective_prompt_len
                                   - c[1].prefill_pos, c[0]))
+        alloc_failed = []
         if self.paged:
+            ok = []
             for slot, st, start, take in cands:
-                pool.ensure_range(slot, start, start + take)
+                try:
+                    if self.faults is not None:
+                        self.faults.on_alloc(slot)
+                    pool.ensure_range(slot, start, start + take)
+                except (InjectedFault, RuntimeError):
+                    alloc_failed.append(st)
+                    continue
+                ok.append((slot, st, start, take))
+            cands = ok
+            if not cands:
+                return 0.0, None, None, [], 0, alloc_failed
         if self.prefill_cobatch:
             # padding is masked per row: a smaller chunk's numerics do not
             # change in a larger bucket
@@ -603,8 +700,9 @@ class ContinuousBatchingEngine:
             inputs += (pool.block_tables_device(),)
         # nxt may be the graph's static output: the caller merges and emits
         # it before the next prefill step replays
-        _, pool.caches, nxt = self.prefill_chunk_step(params, pool.caches,
-                                                      *inputs)
+        logits, pool.caches, nxt = self.prefill_chunk_step(params, pool.caches,
+                                                           *inputs)
+        flag = nonfinite_rows(logits)
         if sync:
             _sync(dev)           # the stall counters hold device time
         dt = time.perf_counter() - t0
@@ -620,8 +718,8 @@ class ContinuousBatchingEngine:
             st = sched.prefill_advance(slot, take, dt)
             if st.prefill_pos == st.effective_prompt_len:
                 finished.append((slot, sched.finish_prefill(slot, None, now)))
-        return (dt if events is None else events), nxt, finished, \
-            sum(c[3] for c in items)
+        return ((dt if events is None else events), nxt, flag, finished,
+                sum(c[3] for c in items), alloc_failed)
 
     def serve(self, params, requests: Sequence[Request], *,
               sync: bool = False, on_token=None,
@@ -649,7 +747,16 @@ class ContinuousBatchingEngine:
         which). An exception from ``on_token``, or from the consumer's
         copies and events, cancels every remaining request; the drain
         delivers what is in flight, settles the pool's books and re-raises
-        it. Nothing falls back to the lockstep drain."""
+        it. Nothing falls back to the lockstep drain.
+
+        Faults: each step's non-finite flags travel with its tokens (in the
+        same pinned set); a flagged request, or one an injected consumer
+        error hit, is contained at the next tick boundary (its tokens cut at
+        the first bad one, its pages quarantined when they may hold NaN,
+        then a retry or ``failed``); a step that raises an ``InjectedFault``
+        contains every row it would have run. An error raised by
+        ``on_token`` itself is not contained: it cancels everything and
+        re-raises, as above."""
         if max_in_flight < 1:
             raise ValueError(f"max_in_flight must be >= 1, got "
                              f"{max_in_flight}")
@@ -678,6 +785,46 @@ class ContinuousBatchingEngine:
         stall_times = []          # per decode step: its chunks' times
         launches0 = _paged_kernel.launches
         graphs0 = (_steps.graph_captures.copy(), _steps.graph_replays.copy())
+        adaptive_swaps = []       # plan swaps applied in this drain
+        # ---- fault containment's books ----
+        inj = self.faults
+        grail = self.guardrail
+        faults_seen: dict = {}    # containment events by fault kind
+        faults_contained = faults_failed = fault_retries = 0
+        kernel_faults = 0         # step exceptions and hung steps
+        degraded = False          # fused paged attention -> gather
+        poison_watch: set = set()     # slots with an injected NaN in flight
+        last_fault_error = None
+        guardrail_swaps = []      # forced restores (a breach)
+
+        def stall_p99() -> float:
+            """p99 of the last 256 decode steps' prefill stall. Pipelined on
+            the card each chunk's time is a pair of events, read here by
+            waiting for its end, so it is read only when the controller
+            can act on it."""
+            if not stall_times or self.adaptive.stall_high_s == float("inf"):
+                return 0.0
+            srt = np.sort(np.asarray([sum(_seconds(t) for t in ts)
+                                      for ts in stall_times[-256:]],
+                                     np.float64))
+            return float(srt[min(len(srt) - 1, int(0.99 * len(srt)))])
+
+        def consult_adaptive():
+            """Feed the controller this tick's counters and apply its swap;
+            once per tick, at the step boundary before admission."""
+            if self.paged:
+                occ = pool.blocks_in_use / max(pool.n_blocks - 1, 1)
+            else:
+                occ = 1.0 - pool.n_free_slots / self.n_slots
+            newplan = self.adaptive.observe(
+                now, queue_depth=sched.queue_depth,
+                blocked=sched.blocked_admissions, occupancy=occ,
+                stall_p99=stall_p99())
+            if newplan is not None:
+                self._swap_plan(newplan)
+                adaptive_swaps.append({"step": int(now),
+                                       "level": self.adaptive.level,
+                                       "tau": self.adaptive.tau})
 
         # ---- delivery, shared by both drains ----
         q: queue.Queue = queue.Queue(maxsize=max_in_flight)
@@ -686,16 +833,34 @@ class ContinuousBatchingEngine:
             free.put(k)
         consumer_err = []
 
-        def deliver(arr, deliveries):
+        def deliver(arr, flags, deliveries):
             """Fill each (state, index, slot) placeholder from a host token
-            vector, stamp TTFT at delivery, fire the callback."""
+            vector, stamp the first token's index whose logits were
+            non-finite, stamp TTFT at delivery, fire the callback."""
             t_now = time.perf_counter()
             for st, idx, slot in deliveries:
                 tok = int(arr[slot])
                 st.out_tokens[idx] = tok
+                if flags[slot] and st.fault_idx is None:
+                    # the producer contains the request at the next tick
+                    # boundary; the tokens before idx stay
+                    st.fault_idx = idx
+                    st.fault_kind = "nonfinite_logits"
                 if idx == 0:
                     st.ttft_s = t_now - st.wall_admitted
-                if on_token is not None and not consumer_err:
+                if inj is not None:
+                    try:
+                        inj.on_deliver(st.request.rid, slot)
+                    except InjectedFault:
+                        # an injected consumer error is contained per
+                        # request; an error of on_token itself is not
+                        if st.fault_idx is None:
+                            st.fault_idx = idx
+                            st.fault_kind = "consumer_error"
+                        continue
+                suppressed = st.fault_idx is not None and idx >= st.fault_idx
+                if on_token is not None and not consumer_err \
+                        and not suppressed:
                     on_token(st.request.rid, idx, tok)
 
         def consume():
@@ -721,15 +886,16 @@ class ContinuousBatchingEngine:
                     ev = ring[batch[-1][0]].event
                     if ev is not None:
                         ev.synchronize()
-                    arrs = [ring[k].tok.numpy().copy() for k, _ in batch]
+                    arrs = [(ring[k].tok.numpy().copy(),
+                             ring[k].flag.numpy().copy()) for k, _ in batch]
                 finally:
                     for k, _ in batch:
                         free.put(k)
                 n_readbacks += 1
                 readback_sizes.append(len(batch))
-                for arr, (_, dl) in zip(arrs, batch):
+                for (arr, flg), (_, dl) in zip(arrs, batch):
                     try:
-                        deliver(arr, dl)
+                        deliver(arr, flg, dl)
                     except BaseException as e:  # noqa: BLE001
                         # keep draining so the producer never waits on a
                         # full queue; re-raised from serve after the join
@@ -759,30 +925,33 @@ class ContinuousBatchingEngine:
             host_blocked_s += time.perf_counter() - t0
             return k
 
-        def emit(nxt, deliveries, k=None):
-            """Hand one step's (n_slots,) device tokens to delivery: read
-            back now (lockstep) or queued for the consumer (pipelined)."""
+        def emit(nxt, flag, deliveries, k=None):
+            """Hand one step's (n_slots,) device tokens and non-finite flags
+            to delivery through one pinned set: read back now (lockstep) or
+            queued for the consumer (pipelined)."""
             nonlocal host_blocked_s, n_readbacks, inflight_peak
+            if k is None:
+                k = 0 if sync else acquire()
+            h = ring[k]
+            h.tok.copy_(nxt, non_blocking=True)
+            h.flag.copy_(flag, non_blocking=True)
+            if h.event is not None:
+                h.event.record()
+            t0 = time.perf_counter()
             if sync:
-                t0 = time.perf_counter()
-                arr = nxt.cpu().numpy()        # blocks on the step
+                if h.event is not None:
+                    h.event.synchronize()      # waits for the step
+                arr, flg = h.tok.numpy().copy(), h.flag.numpy().copy()
                 host_blocked_s += time.perf_counter() - t0
                 n_readbacks += 1
                 readback_sizes.append(1)
                 try:
-                    deliver(arr, deliveries)
+                    deliver(arr, flg, deliveries)
                 except BaseException as e:  # noqa: BLE001 — on_token
                     # the same shutdown as the pipelined drain: cancel,
                     # settle the books, re-raise after the drain
                     consumer_err.append(e)
                 return
-            if k is None:
-                k = acquire()
-            h = ring[k]
-            h.tok.copy_(nxt, non_blocking=True)
-            if h.event is not None:
-                h.event.record()
-            t0 = time.perf_counter()
             q.put((k, deliveries))             # blocks at max_in_flight
             host_blocked_s += time.perf_counter() - t0
             inflight_peak = max(inflight_peak, q.qsize())
@@ -800,6 +969,95 @@ class ContinuousBatchingEngine:
             pool.free_slot(st.slot)
             sched.preempt(st, now)
             return True
+
+        # ---- fault containment ----
+        def flush_placeholders(st) -> bool:
+            """Wait for the consumer to land every token of ``st`` in
+            flight (a retry resumes from the tokens so far). False when
+            nothing more will land (shutting down)."""
+            while any(t is None for t in st.out_tokens):
+                if consumer_err or sync:
+                    # the lockstep drain delivers inline: a placeholder
+                    # left means its emit never ran
+                    return False
+                time.sleep(2e-4)
+            return True
+
+        def maybe_degrade():
+            """Past ``kernel_fault_limit`` step faults, fall back from the
+            fused paged-attention kernel to the gather path: other memoized
+            (on the card: graphed) steps, selected between two steps."""
+            nonlocal degraded
+            if (not degraded and self.paged and self.paged_attn == "fused"
+                    and kernel_faults >= self.kernel_fault_limit):
+                degraded = True
+                self.paged_attn = "gather"
+                self.decode_step = get_serving_step(
+                    self.model, "paged_decode", mp=self.mp,
+                    paged_attn="gather")
+
+        def contain(st, kind=None, quarantine=None):
+            """Contain one faulted request: settle its deliveries in flight,
+            cut its tokens at the first bad one, quarantine its pages when
+            they may hold NaN, and requeue it for a retry (prompt and the
+            tokens kept re-prefill through the resume path) or retire it
+            ``failed`` with the tokens it kept."""
+            nonlocal faults_contained, faults_failed, fault_retries
+            if st.status == WAITING:
+                return              # already contained in this sweep
+            kind = kind or st.fault_kind or "fault"
+            if not flush_placeholders(st):
+                return              # shutting down; apply_control retires
+            was_done = st.status == DONE
+            if was_done and st.result_status not in ("ok", "retried"):
+                return              # cancelled or timed out: terminal
+            faults_seen[kind] = faults_seen.get(kind, 0) + 1
+            if st.fault_idx is not None:
+                del st.out_tokens[st.fault_idx:]
+            if quarantine is None:
+                quarantine = kind in ("nonfinite_logits", "nan_page")
+            if st.status in (PREFILLING, RUNNING):
+                if st.slot in poison_watch:
+                    # an injected NaN is in flight for this slot: whatever
+                    # fault got here first, its pages may hold it
+                    quarantine = True
+                poison_watch.discard(st.slot)
+                if self.paged and quarantine:
+                    pool.quarantine_slot(st.slot)
+                pool.free_slot(st.slot)
+            retry = (st.n_retries < self.max_retries
+                     and kind != "consumer_error")
+            if retry:
+                if was_done:
+                    # the flag landed after the deadline retired it
+                    retired.remove(st)
+                sched.requeue_for_retry(st, now)
+                fault_retries += 1
+                faults_contained += 1
+            else:
+                faults_failed += 1
+                st.fault_kind = kind
+                if was_done:
+                    st.result_status = "failed"
+                else:
+                    retired.append(sched.retire(st, now, "failed"))
+
+        def apply_faults():
+            """The producer's containment sweep at a tick boundary: every
+            request the tripwire or an injected delivery fault stamped."""
+            for st in [st for st in sched.states.values()
+                       if st.fault_idx is not None and st.status != WAITING]:
+                contain(st)
+
+        def impossible(st):
+            """Quarantine shrank the pool below this request's worst-case
+            need: it retires ``failed`` instead of ending the drain."""
+            nonlocal faults_failed
+            faults_seen["impossible_request"] = (
+                faults_seen.get("impossible_request", 0) + 1)
+            faults_failed += 1
+            sched.remove_waiting(st.request.rid)
+            retired.append(sched.retire(st, now, "failed"))
 
         def cancel_live(st, status):
             if st.status == WAITING:
@@ -838,21 +1096,58 @@ class ContinuousBatchingEngine:
         t_start = time.perf_counter()
         try:
             with torch.no_grad():
-                while sched.has_work():
+                while True:
+                    if not sched.has_work():
+                        # a flag still in flight can requeue a retry: land
+                        # every delivery, sweep once more, then stop
+                        for st in list(retired):
+                            flush_placeholders(st)
+                        apply_faults()
+                        if not sched.has_work():
+                            break
                     apply_control()
                     if not sched.has_work():
-                        break
-                    self._admit(pool, sched, now, evict)
+                        continue
+                    if inj is not None:
+                        inj.tick(now)
+                    apply_faults()
+                    if not sched.has_work():
+                        continue
+                    if self.adaptive is not None:
+                        consult_adaptive()
+                    self._admit(pool, sched, now, evict, impossible)
                     peak_queue = max(peak_queue, sched.queue_depth)
                     chunks = 0
                     while sched.prefilling and (not sched.running
                                                 or chunks < self.chunk_budget):
                         was_decoding = bool(sched.running)
-                        timing, nxt, finished, n_tok = self._prefill_tick(
-                            params, pool, sched, now, sync)
+                        try:
+                            if (inj is not None
+                                    and inj.on_step("prefill") == "hung"):
+                                kernel_faults += 1
+                                maybe_degrade()
+                            timing, nxt, flag, finished, n_tok, alloc_failed \
+                                = self._prefill_tick(params, pool, sched,
+                                                     now, sync)
+                        except InjectedFault as e:
+                            # raised before any cache write: contain every
+                            # prefilling row (a retry prefills from scratch)
+                            last_fault_error = e
+                            kernel_faults += 1
+                            maybe_degrade()
+                            for st in list(sched.prefilling.values()):
+                                contain(st, kind="step_exception",
+                                        quarantine=False)
+                            chunks += 1
+                            continue
+                        for st in alloc_failed:
+                            contain(st, kind="alloc_failure",
+                                    quarantine=False)
+                        chunks += 1
+                        if nxt is None:         # every allocation failed
+                            continue
                         prefill_chunks += 1
                         prefill_tokens += n_tok
-                        chunks += 1
                         if was_decoding:
                             decode_stall_steps += 1
                             stall_run += 1
@@ -867,13 +1162,14 @@ class ContinuousBatchingEngine:
                                 host_to_device(mask, self.device))
                             # a resumed request's placeholder is its last
                             # entry
-                            emit(nxt, [(st, len(st.out_tokens) - 1, slot)
-                                       for slot, st in finished])
+                            emit(nxt, flag,
+                                 [(st, len(st.out_tokens) - 1, slot)
+                                  for slot, st in finished])
                             for slot, st in finished:
                                 if st.done:          # max_new_tokens == 1
                                     retired.append(sched.retire(st, now))
                                     pool.free_slot(slot)
-                        self._admit(pool, sched, now, evict)
+                        self._admit(pool, sched, now, evict, impossible)
                     if sched.running:
                         k = 0 if sync else acquire()
                         h = ring[k]
@@ -885,10 +1181,25 @@ class ContinuousBatchingEngine:
                             # position its next chunk writes first
                             for slot, st in sched.prefilling.items():
                                 pos[slot] = st.prefill_pos
+                        alloc_bad = []
                         for slot, st in sched.running.items():
                             pos[slot] = st.next_pos
                             if self.paged:
-                                pool.ensure_block(slot, st.next_pos)
+                                try:
+                                    if inj is not None:
+                                        inj.on_alloc(slot)
+                                    pool.ensure_block(slot, st.next_pos)
+                                except (InjectedFault, RuntimeError) as e:
+                                    last_fault_error = e
+                                    alloc_bad.append(st)
+                        for st in alloc_bad:
+                            contain(st, kind="alloc_failure",
+                                    quarantine=False)
+                        if not sched.running:  # every allocation failed
+                            if not sync:
+                                free.put(k)
+                            now += 1
+                            continue
                         peak_live = max(peak_live, sum(
                             st.next_pos + 1 for st in sched.running.values()))
                         peak_slots = max(peak_slots, len(sched.running))
@@ -903,6 +1214,46 @@ class ContinuousBatchingEngine:
                             for s in range(self.n_slots):
                                 if s not in sched.running:
                                     bt[s] = -1
+                        # injected poisons: a NaN page before the step (its
+                        # attention reads it), a NaN logit row after it
+                        nan_rows = None
+                        if inj is not None:
+                            for spec in inj.take_poisons():
+                                slots = sorted(sched.running)
+                                slot = (spec.slot if spec.slot in sched.running
+                                        else slots[0])
+                                live = [int(b) for b in pool.block_tables[slot]
+                                        if int(b) >= 1] if self.paged else []
+                                if spec.kind == "nan_page" and self.paged:
+                                    if live:
+                                        pool.poison_block(
+                                            live[min(spec.page,
+                                                     len(live) - 1)])
+                                        poison_watch.add(slot)
+                                else:   # nan_logits (a dense nan_page too)
+                                    if nan_rows is None:
+                                        nan_rows = np.zeros((self.n_slots,),
+                                                            bool)
+                                    nan_rows[slot] = True
+                                    poison_watch.add(slot)
+                        try:
+                            if (inj is not None
+                                    and inj.on_step("decode") == "hung"):
+                                kernel_faults += 1
+                                maybe_degrade()
+                        except InjectedFault as e:
+                            # raised before dispatch: the caches are intact;
+                            # contain every running row
+                            last_fault_error = e
+                            kernel_faults += 1
+                            maybe_degrade()
+                            for st in list(sched.running.values()):
+                                contain(st, kind="step_exception",
+                                        quarantine=False)
+                            if not sync:
+                                free.put(k)    # nothing was queued from it
+                            now += 1
+                            continue
                         t0 = time.perf_counter()
                         if t_first_decode is None:
                             t_first_decode = t0
@@ -914,8 +1265,45 @@ class ContinuousBatchingEngine:
                         pos_in.copy_(h.pos, non_blocking=True)
                         if self.paged:
                             step_in[2].copy_(h.bt, non_blocking=True)
-                        _, pool.caches, nxt = self.decode_step(
+                        shadow = None
+                        if (grail is not None and self.mp
+                                and grail.restored_at is None
+                                and n_steps % grail.every == 0):
+                            # the unquantized shadow over the same inputs,
+                            # before the active step: that step rewrites
+                            # every cache slot the shadow wrote before its
+                            # attention reads one
+                            rows = sorted(sched.running)
+                            ref_step = get_serving_step(
+                                self.model,
+                                "paged_decode" if self.paged else "decode",
+                                mp=None, paged_attn=(self.paged_attn
+                                                     if self.paged else None))
+                            s_logits, _, _ = ref_step(params, pool.caches,
+                                                      *step_in)
+                            shadow = (s_logits,
+                                      rows[(n_steps // grail.every)
+                                           % len(rows)])
+                        logits, pool.caches, nxt = self.decode_step(
                             params, pool.caches, *step_in)
+                        if shadow is not None:
+                            # one blocking scalar read-back per check; a
+                            # NaN MSE (a poison, not a quantization error)
+                            # never breaches
+                            mse = float(shadow_logit_mse(logits, *shadow))
+                            budget = grail.budget_for(self._mp_plan)
+                            if grail.observe_mse(now, mse, budget):
+                                self._swap_plan(
+                                    self.adaptive.force_restore(now)
+                                    if self.adaptive is not None else None)
+                                guardrail_swaps.append(
+                                    {"step": int(now), "mse": mse,
+                                     "budget": budget})
+                        if nan_rows is not None and nan_rows.any():
+                            logits = poison_logit_rows(
+                                logits, host_to_device(nan_rows,
+                                                       self.device))
+                            nxt = greedy_next_token(logits)
                         # nxt may be the graph's static output: the copy
                         # emit queues now runs before the next replay
                         # overwrites it
@@ -925,14 +1313,24 @@ class ContinuousBatchingEngine:
                             st = sched.running[slot]
                             deliveries.append((st, len(st.out_tokens), slot))
                             sched.record_token(slot, None)
-                        emit(nxt, deliveries, k)
+                        emit(nxt, nonfinite_rows(logits), deliveries, k)
                         decode_s += time.perf_counter() - t0
                         n_steps += 1
                         stall_times.append(stall_run_times)
                         stall_run_times, stall_run = [], 0
+                        # a request is done after max_new_tokens steps;
+                        # no token value is read to decide
                         for slot in list(sched.running):
                             st = sched.running[slot]
                             if st.done:
+                                if slot in poison_watch:
+                                    # an injected NaN hit this row: land its
+                                    # flag before its pages are freed
+                                    poison_watch.discard(slot)
+                                    flush_placeholders(st)
+                                    if st.fault_idx is not None:
+                                        contain(st)
+                                        continue
                                 retired.append(sched.retire(st, now))
                                 pool.free_slot(slot)
                         now += 1
@@ -1016,6 +1414,38 @@ class ContinuousBatchingEngine:
             "decode_stall_steps": decode_stall_steps,
             "max_decode_stall_run": max_stall_run,
         }
+        counters["faults"] = {
+            "injected": dict(inj.fired) if inj is not None else {},
+            "seen": dict(faults_seen),
+            "contained": faults_contained,
+            "retries": fault_retries,
+            "failed": faults_failed,
+            "kernel_faults": kernel_faults,
+            "degraded_paged_attn": degraded,
+            "quarantined_blocks": (pool.quarantined_blocks
+                                   if self.paged else 0),
+            "last_error": (repr(last_fault_error)
+                           if last_fault_error is not None else None),
+        }
+        if grail is not None:
+            counters["guardrail"] = {
+                "every": grail.every,
+                "margin": grail.margin,
+                "checks": grail.checks,
+                "breaches": grail.breaches,
+                "last_mse": grail.last_mse,
+                "restored_at": grail.restored_at,
+                "swaps": list(guardrail_swaps),
+            }
+        if self.adaptive is not None:
+            counters["adaptive"] = {
+                "taus": list(self.adaptive.taus),
+                "final_level": self.adaptive.level,
+                "final_tau": self.adaptive.tau,
+                "downshifts": self.adaptive.downshifts,
+                "restores": self.adaptive.restores,
+                "swaps": list(adaptive_swaps),
+            }
         if self.paged:
             blk_bytes = paged_block_bytes(self.model, pool.block_size)
             counters.update({

@@ -124,10 +124,10 @@ def test_groups_match_reference(arch_cfg):
 
 def test_build_graph_refuses_unported_families():
     from repro_torch.configs import llama3_1b as tc
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
         tgraphs.build_lm_graph(tc.smoke_config(block_types=("mamba",
                                                             "attn")))
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
         tgraphs.build_graph(object())
 
 

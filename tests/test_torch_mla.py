@@ -424,11 +424,12 @@ def test_calibrate_groups_match_reference():
 
 def test_unmodified_configs_raise_naming_moe_and_mtp():
     for smoke in (False, True):
-        with pytest.raises(NotImplementedError, match="MoE.*mtp_depth"):
+        with pytest.raises(NotImplementedError,
+                           match="MoE.*A6.*mtp_depth.*A6"):
             tget("deepseek_v3_671b", smoke=smoke)
-    with pytest.raises(NotImplementedError, match="mamba"):
+    with pytest.raises(NotImplementedError, match="mamba.*ROADMAP item A8"):
         tget("deepseek_v3_671b", smoke=True, block_types=("mla", "mamba",
                                                           "mla"), **DENSE)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(NotImplementedError, match="MoE: A6"):
         tgraphs.build_lm_graph(tget.__globals__["get_smoke_config"](
             "deepseek_v3_671b"))

@@ -278,9 +278,7 @@ def test_oneshot_matches_reference_serve_engine(prompts):
         assert_agree(want[i], got.tokens[i], gaps[i])
 
 
-@pytest.mark.parametrize("kw", [
-    {"adaptive": object()}, {"faults": object()},
-    {"guardrail": object()}, {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_later_slices_refuse(model, kw):
     with pytest.raises(NotImplementedError, match="slice"):
         ContinuousBatchingEngine(model, device="cpu", **kw)

@@ -650,3 +650,154 @@ def test_serve_engine_graphed_equals_eager(cuda):
     np.testing.assert_array_equal(g1, g2)
     assert torch.equal(g_logits, e_logits)
     assert (e_caps, caps, replays) == (0, 2, 2 * 10 - 2)
+
+
+# ---------------------------------------------------------------------------
+# serving robustness: faults, the shadow step and the gather fallback, all
+# through graphs
+# ---------------------------------------------------------------------------
+
+FAULT_MATRIX = [
+    ("step_exception", dict(step=2, phase="decode")),
+    ("step_exception", dict(step=0, phase="prefill")),
+    ("nan_page", dict(step=2, slot=0, page=0)),
+    ("nan_logits", dict(step=2, slot=1)),
+    ("alloc_failure", dict(step=1, slot=2)),
+    ("consumer_error", dict(step=2, slot=3)),
+    ("consumer_stall", dict(step=2, hang_s=0.001)),
+    ("hung_step", dict(step=2, phase="decode", hang_s=0.001)),
+]
+_FAULT_ENGINE: dict = {}
+
+
+def _warm_buckets(eng, params, longest: int) -> None:
+    """The prefill step once at every bucket a prompt (a retried one
+    included) of up to ``longest`` tokens can take, every row inactive."""
+    from repro_torch.serve.engine import prefill_bucket
+    n, b = eng.n_slots, eng.min_bucket
+    top = prefill_bucket(longest, eng.chunk_len, eng.min_bucket)
+    while b <= top:
+        args = (torch.zeros((n, b), dtype=torch.int32),
+                torch.ones(n, dtype=torch.int32),
+                torch.zeros(n, dtype=torch.int32),
+                torch.full((n, eng._pool.max_blocks), -1, dtype=torch.int32))
+        eng.prefill_chunk_step(params, eng._pool.caches,
+                               *(a.cuda() for a in args))
+        b *= 2
+
+
+def _fault_engine():
+    """One llama3_1b engine (fused, pipelined, its pool twice the cell),
+    warmed at every bucket, with its fault-free drain of 4 requests
+    arriving together."""
+    if not _FAULT_ENGINE:
+        model = _model("llama3_1b")
+        params = _params(model)
+        reqs = make_requests(model.cfg.vocab_size, 4, 24, 8, 0)
+        eng = ContinuousBatchingEngine(
+            model, paged_attn="fused", device="cuda", n_slots=4, max_len=32,
+            block_size=16, n_blocks=1 + 2 * 4 * 2, prefix_cache=False)
+        eng.serve(params, reqs[:1])
+        _warm_buckets(eng, params, 32)
+        base = eng.serve(params, reqs)
+        torch.cuda.synchronize()
+        _replays_only(base)
+        _FAULT_ENGINE.update(eng=eng, params=params, reqs=reqs, base={
+            rid: r.tokens for rid, r in base.results.items()})
+    return _FAULT_ENGINE
+
+
+@pytest.mark.parametrize("kind,kw", FAULT_MATRIX,
+                         ids=[f"{k}-{kw.get('phase', 'any')}"
+                              for k, kw in FAULT_MATRIX])
+def test_fault_matrix_replays_graphs_only(cuda, kind, kw):
+    """Each fault kind in the pipelined drain on the card: no capture and
+    no eager step (every decode step and prefill chunk a replay), every
+    request ends, a request no fault reached bit-equal to the fault-free
+    drain (all four prefill in one chunk, and a retry prefills alone), a
+    completed retry of the same length; a NaN page reaches its row's
+    logits through the fused kernel and is quarantined."""
+    from repro_torch.serve import FaultInjector, FaultSpec
+    fx = _fault_engine()
+    eng, params, reqs = fx["eng"], fx["params"], fx["reqs"]
+    eng.faults = FaultInjector([FaultSpec(kind=kind, **kw)])
+    try:
+        out = eng.serve(params, reqs)
+    finally:
+        eng.faults = None
+    torch.cuda.synchronize()
+    _replays_only(out)
+    f = out.counters["faults"]
+    assert f["injected"] == {kind: 1}
+    assert eng._pool.check_consistency()["ok"]
+    for rid, res in out.results.items():
+        want = fx["base"][rid]
+        if res.status == "ok":
+            np.testing.assert_array_equal(res.tokens, want)
+        elif res.status == "retried":
+            assert len(res.tokens) == len(want)
+        else:
+            assert res.status == "failed" and kind == "consumer_error"
+            np.testing.assert_array_equal(res.tokens,
+                                          want[:len(res.tokens)])
+    if kind in ("nan_page", "nan_logits"):
+        assert f["seen"].get("nonfinite_logits", 0) >= 1
+        assert f["quarantined_blocks"] > 0
+    assert not f["degraded_paged_attn"]
+
+
+def test_shadow_and_gather_steps_capture_once(cuda):
+    """Under a plan with a guardrail at every step, two hung steps degrade
+    the drain to gather: the plan's fused and gather decode steps and the
+    unquantized shadow of each are captured once, in that drain; the next
+    drain (gather from the start) replays them only."""
+    from repro_torch.serve import (FaultInjector, FaultSpec,
+                                   NumericalGuardrail)
+    model = _model("llama3_1b")
+    params = _params(model)
+    plan = _plan(model)
+    reqs = make_requests(model.cfg.vocab_size, 4, 24, 8, 0)
+    eng = ContinuousBatchingEngine(model, mp=plan, paged_attn="fused",
+                                   device="cuda", n_slots=4, max_len=32,
+                                   prefix_cache=False)
+    steps = {(name, pa): tsteps.get_serving_step(model, "paged_decode",
+                                                 mp=mp, paged_attn=pa)
+             for name, mp in (("plan", plan), ("plain", None))
+             for pa in ("fused", "gather")}
+    caps0 = {k: s.captures for k, s in steps.items()}
+    eng.faults = FaultInjector([FaultSpec("hung_step", step=1, hang_s=0.0),
+                                FaultSpec("hung_step", step=2, hang_s=0.0)])
+    eng.guardrail = NumericalGuardrail(every=1, budget=1e9)
+    first = eng.serve(params, reqs)
+    torch.cuda.synchronize()
+    f, g = first.counters["faults"], first.counters["guardrail"]
+    assert f["degraded_paged_attn"] and eng.paged_attn == "gather"
+    assert g["checks"] == first.n_steps and g["breaches"] == 0
+    assert {k: s.captures - caps0[k] for k, s in steps.items()} == \
+        dict.fromkeys(steps, 1)
+    assert first.counters["graph_captures_by_kind"]["paged_decode"] == 4
+    eng.faults = None
+    eng.guardrail = NumericalGuardrail(every=1, budget=1e9)
+    again = eng.serve(params, reqs)
+    torch.cuda.synchronize()
+    c = again.counters
+    assert c["graph_captures"] == 0
+    assert c["graph_replays_by_kind"]["paged_decode"] == 2 * again.n_steps
+    assert c["graph_replays"] == 2 * again.n_steps + c["prefill_chunks"]
+    assert all(r.status == "ok" for r in again.results.values())
+
+
+@pytest.mark.parametrize("kv", ["fp8_e4m3", "fp8_e5m2", "bfloat16"])
+def test_poisoned_block_stays_nan_on_the_card(cuda, kv):
+    """``PagedCachePool.poison_block`` on CUDA caches: NaN in every K/V
+    leaf of the block, fp8 included (not saturated to the format's
+    largest value), nothing else touched."""
+    from repro_torch.serve import PagedCachePool
+    model = get_model("llama3_1b", smoke=True, kv_cache_dtype=kv)
+    pool = PagedCachePool(model, n_slots=1, max_len=16, block_size=4,
+                          n_blocks=6, device="cuda")
+    pool.poison_block(3)
+    for layer in pool.caches.values():
+        for t in layer.values():
+            assert torch.isnan(t[3].float()).all()
+            assert (t[[1, 2, 4, 5]].float() == 0).all()
