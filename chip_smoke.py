@@ -58,13 +58,28 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    partition, roofline/theoretical/memory tables for the H100), with its
    seconds and peak device memory; save the bundle as npz, reload it, and
    check the reloaded bundle solves to the identical plan;
-7. the measured tier at ``WallClockGainModel``'s own repeats (2 warm-up, 5
-   timed runs a combo): ``tabulate_measured_gains`` times a full forward
-   of a (4, 512) prompt under ``impl="kernel"`` for every combo of every
-   group; the fp8 kernels' launch counters must rise by 1 amax + 1
-   scale_cast + 1 fp8_matmul per fp8 linear op per run (the activation),
-   plus 1 amax + 1 scale_cast once for each weight set to fp8 (the weight
-   cache); prints how many groups gain beyond the base forward's spread;
+7. the measured tier over CUDA graphs at ``WallClockGainModel``'s own
+   repeats (2 warm-up, 5 timed runs a combo): ``tabulate_measured_gains``
+   times a full forward of a (2, 256) prompt under ``impl="kernel"`` for
+   every combo of every group, each assignment one graph
+   (``launch.steps.GraphedForward``, the counterpart of the reference's
+   ``jax.jit`` of ``model.apply``: captured at its first call, replayed
+   after, released when the next assignment is built). Run twice, each
+   run after 5 s of base replays that settle the card's clocks, with the
+   base captured anew every 120 assignments: each run checks the fp8
+   kernels' launches (1 amax + 1 scale_cast + 1 fp8_matmul per fp8
+   linear op in each eager warm-up and in each capture, the capture's
+   times its replays, plus 1 amax + 1 scale_cast once for each weight
+   set to fp8: the weight cache), prints the base replay's spread over 20
+   replays, the base captures' medians, their spread and the card's
+   clocks after each, the groups whose best combo gains beyond either
+   spread, the run's seconds and its ET plan; then whether the two plans
+   agree (their symmetric difference if not), the capture placement
+   check (captures of the base kept side by side, in one pool and in
+   their own, replayed in turns on the host clock and between CUDA
+   events, and what a capture costs in each), and paper Fig. 3b on the
+   second run's plan: the sum of its per-group measured gains against
+   its end-to-end measured gain;
 8. solve the measured ET plan (and TT, M), serve it through
    ``python -m repro_torch.launch.serve --calibration`` at phase 4's cell,
    and in process hold the MP continuous (gather) drain against the MP
@@ -94,14 +109,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     8192-token prompt through the one-shot engine (blocked flash
     attention) against the same prompt at a threshold of 2^30 (reference
     attention): prefill logits, first tokens and TTFT;
-13. Llama-3.1-8B at its published widths (32 layers, d_head 128, untied
-    head; 8.03 B random parameters, 16 GB): phases 4 and 5 at phase 4's
-    cell (every fused launch through ``gqa_mma`` at D 128; the fixed plan
-    puts fp8 on the linear ops of layers 16-31 and the BGEMMs of layer
-    31), phase 17's pipelined drain against the lockstep one, then
-    ``calibrate`` over phase 6's batches at the largest depth whose probes
-    and backward fit in 75% of the card (the depth is printed on a line of
-    its own), with its seconds and peak memory;
+13. Llama-3.1-8B at its published widths (d_head 128, untied head),
+    served at 16 of its 32 layers (the cut is printed): phases 4 and 5 at
+    phase 4's cell (every fused launch through ``gqa_mma`` at D 128; the
+    fixed plan puts fp8 on the linear ops of layers 8-15 and the BGEMMs of
+    layer 15), phase 17's pipelined drain against the lockstep one, then
+    ``calibrate`` over phase 6's batches on all 32 layers' config at the
+    largest depth whose probes and backward fit in 75% of the card
+    (``fitted_calibration``: the depth, a cut, the predicted and measured
+    peaks are printed), with its seconds and peak memory;
 14. DeepSeek-V3's dense prefix at full width (three MLA layers, random
     weights): phase 4's cell through the absorbed decode, fused and gather
     (each graphed drain against its eager twin), the one-shot engine and
@@ -145,8 +161,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 18. the four other dense configs at their published widths, random weights
     (qwen2p5_3b: QKV bias, tied head, G 8; nemotron_4_15b: relu2 MLP,
     layernorm, 256000-entry head, G 6; starcoder2_15b: gelu MLP, layernorm,
-    G 12; qwen2p5_32b: G 5, QKV bias), the three large ones cut to 8
-    layers (``DENSE_CONFIGS``: the script's time limit): phases 4 and 5's
+    G 12; qwen2p5_32b: G 5, QKV bias), each served at 8 layers
+    (``DENSE_CONFIGS``: the script's time limit): phases 4 and 5's
     checks at phase 4's cell (every fused launch through ``gqa_mma``; the
     gather drains without eager twins), the fixed plan on the later half
     of the layers, peak device memory, and qwen2p5_3b calibrated at the
@@ -185,7 +201,32 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     GQA and MLA kernels to carrying a NaN in a live key to every output of
     its row and of no other. Throughout the script, a drain without a
     fault injector that reports a kernel fault or a degradation fails it;
-22. print the kernel table and the serving and calibration numbers as JSON
+22. Mixture-of-Experts and multi-token prediction at full width, random
+    weights from a seeded generator, each model freed before the next:
+    first kernels 1-3 on the router's form (f32 (512, d_model) by f32
+    (E, d_model), f32 out, E 8, 64 and 256) against their plain versions;
+    then Moonlight's config (``moonshot_v1_16b_a3b``: 48 MoE layers of 64
+    experts top-6, 16 heads over 16 KV heads, 28.1 B parameters) and
+    DeepSeek-V3 at depth 5 (its three dense MLA layers and MoE layers 3
+    and 4 of 256 experts top-8 plus one shared, MTP off for serving; the
+    cut is printed) at phase 4's cell: fused (every launch through
+    ``gqa_mma`` at a head group of 1, or ``mla_mma``; decode steps x
+    layers) against its eager twin and its lockstep twin bit for bit, and
+    against gather; under a fixed plan (fp8 on every linear op of
+    Moonlight's later half; on DeepSeek's last layer, its routed experts
+    left in bf16; and the last layer's BGEMMs) fused against gather.
+    Fused and gather may part at a routing flip: each MoE layer's top-k
+    router probabilities are recorded inside
+    every step's graph (``RouterRecorder``); the tokens whose expert set
+    differs are printed with their k-th to (k+1)-th probability gap, the
+    logits are held within the near-tie bound up to each request's first
+    flip or token divergence, a first flip must sit at a gap below 2^-8,
+    and a token divergence at a logit near-tie or after such a flip. Then
+    each configuration calibrated (DeepSeek with its MTP module, whose
+    block takes the last kept layer's kind: dense at the depth the fit
+    allows) at the depth ``fitted_calibration`` gives, its groups counted
+    by ``core.graphs`` and from the block kinds;
+23. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -250,7 +291,10 @@ MM_TOL = 2.0 ** -6
 # Algorithm 1 at full width: calibration batches, the measured tier's prompt
 # and the loss-MSE threshold of the served plan
 CAL_BATCHES, CAL_SHAPE = 4, (2, 256)
-TIER_PROMPT = (4, 512)
+# the measured tier's forward: the calibration batches' shape (a (4, 512)
+# forward made phase 7's two graphed tabulations take 370 s of the
+# script's 1200)
+TIER_PROMPT = (2, 256)
 TAU = 0.05
 DEVICE = "cuda"
 SERVE = dict(requests=8, n_slots=4, prompt_len=128, new_tokens=32,
@@ -266,6 +310,27 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def card_clocks() -> dict:
+    """The card's SM clock (MHz), temperature (C) and power draw (W) as
+    ``nvidia-smi`` reads them now (NaN where it cannot)."""
+    keys = ("sm_mhz", "temp_c", "power_w")
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,"
+                            "temperature.gpu,power.draw",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+        vals = r.stdout.strip().splitlines()[0].split(",")
+    except (OSError, IndexError, subprocess.SubprocessError):
+        vals = []
+    out = {}
+    for k, v in zip(keys, vals + ["nan"] * len(keys)):
+        try:
+            out[k] = float(v)
+        except ValueError:
+            out[k] = float("nan")
+    return out
 
 
 def eager_ms(torch, fn, iters: int, warmup: int = 5) -> float:
@@ -411,19 +476,23 @@ def live_nan_reaches_row(torch, name: str, out, clean, row: int) -> None:
 
 # phase 2's shapes for the GQA kernel beside the serving one: llama3_8b's
 # d_head, the group sizes of the repo's GQA configs that do not divide 8,
-# and the D 128 groups of the configs phase 18 serves (qwen2p5_32b G 5,
-# nemotron_4_15b G 6, starcoder2_15b G 12 over 4 KV heads)
+# the D 128 groups of the configs phase 18 serves (qwen2p5_32b G 5,
+# nemotron_4_15b G 6, starcoder2_15b G 12 over 4 KV heads), and Moonlight's
+# multi-head attention in phase 22 (G 1: 16 query heads over 16 KV heads)
 GQA_CHECKS = {"serving": dict(d=D, g=G), "d128": dict(d=128, g=G),
               "g5": dict(d=D, g=5), "g7": dict(d=D, g=7),
               "d128_g5": dict(d=128, g=5), "d128_g6": dict(d=128, g=6),
-              "d128_g12": dict(d=128, g=12, hkv=4)}
+              "d128_g12": dict(d=128, g=12, hkv=4),
+              "d128_g1": dict(d=128, g=1, hkv=16)}
 # the shapes the kernel is timed at: the serving cell's mid-drain decode
-# step, the same at llama3_8b's d_head and at starcoder2_15b's heads (4 KV
-# heads of 12 queries), and a long table (2048 keys a row)
+# step, the same at llama3_8b's d_head, at starcoder2_15b's heads (4 KV
+# heads of 12 queries) and at Moonlight's (16 KV heads of 1 query), and a
+# long table (2048 keys a row)
 SERVING_KEYS = (160, 152, 144, 136)
 GQA_TIMES = {"serving": dict(d=D, lengths=SERVING_KEYS),
              "d128": dict(d=128, lengths=SERVING_KEYS),
              "d128_g12": dict(d=128, g=12, hkv=4, lengths=SERVING_KEYS),
+             "d128_g1": dict(d=128, g=1, hkv=16, lengths=SERVING_KEYS),
              "long": dict(d=D, lengths=(2048,) * 4)}
 
 
@@ -893,7 +962,9 @@ def record_steps(eng, names) -> list:
             logits = out[0].clone()
             sched = state.get("sched")
             if name == "decode_step" and sched is not None:
-                events.append((name, logits, sorted(sched.running)))
+                events.append((name, logits, sorted(sched.running),
+                               None if ROUTER is None
+                               else ROUTER.rows(logits.shape[0])))
             else:
                 events.append((name, logits,
                                *(t.clone() for t in inputs)))
@@ -1073,7 +1144,7 @@ def kinds(by_kind: dict) -> str:
 
 def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
                    route=None, eager=False, warm=None, name="",
-                   events_out=None, sync=False, **engine_kw):
+                   events_out=None, steps_out=None, sync=False, **engine_kw):
     """Warm-up drain of ``warm`` (default: the first request; on the card
     it captures the decode step's and one prefill bucket's CUDA graphs),
     then the prefill step run at every other bucket the requests can take
@@ -1160,6 +1231,8 @@ def run_continuous(torch, model, params, reqs, *, mp=None, paged_attn,
     logits = continuous_logits(events, reqs)
     if events_out is not None:
         events_out.extend(e for e in events if e[0] == "tick")
+    if steps_out is not None:
+        steps_out.extend(events)
     return out, launches, {rid: (out.results[rid].tokens, logits[rid])
                            for rid in logits}
 
@@ -1418,80 +1491,330 @@ def calibration_phase(torch, model, params, workdir: Path) -> tuple:
         "s_max": float(sens[-1])}
 
 
-def measured_phase(torch, model, params, bundle) -> dict:
-    """Phase 7: the measured wall-clock tier through the fp8 kernels, at
-    ``WallClockGainModel``'s own repeats. The kernels' launch counters are
-    set to 0 just before and read just after."""
+# the base forward's spread: replays of its graph, timed as the tier times
+# a combo (host clock around the replay and a synchronize)
+SPREAD_RUNS = 20
+# every combo is a capture of its own, so the noise a gain must beat is
+# that of one capture against the next: the base forward is captured anew
+# every BASE_RECAPTURE_EVERY assignments of a tabulation and timed as a
+# combo is (4 more captures over the 578 assignments)
+BASE_RECAPTURE_EVERY = 120
+# seconds of base replays before a tabulation: a first tabulation that
+# started on a card idle since calibration timed its base 0.49 ms (7%)
+# below every later capture of it, so every combo seemed to lose
+TIER_SETTLE_S = 5.0
+# the reference's repeats for Fig. 3b (benchmarks/fig3_validation.py)
+FIG3B_REPEATS = dict(n_warmup=2, n_iters=7)
+
+
+class TierForwards:
+    """The measured tier's ``run_factory`` over graphed forwards
+    (``launch.steps.GraphedForward``, the counterpart of the reference's
+    ``jax.jit(lambda p, t: model.apply(p, t, ctx))``): each assignment's
+    first call runs the forward eagerly and captures it, later calls
+    replay; the previous assignment's graph is released when the next is
+    built (a graph of a forward holds its activations). The first
+    forward built (the base) is kept until :meth:`close`, and every later
+    capture allocates in its memory pool, so a released graph's blocks
+    serve the next capture instead of being freed and allocated again.
+    With ``recapture_every``, before every such number of assignments the
+    base forward is captured anew and timed at the tier's repeats
+    (``base_recaptures``: each capture's timed runs, in s); the card's
+    clocks are read after the base's timed runs and after each capture
+    anew (``clocks``). Counts, for
+    the launch check, every call's fp8 linear ops in eager warm-ups and
+    every capture's recorded launches times its replays."""
+
+    def __init__(self, torch, model, params, prompt, linear: set,
+                 recapture_every: int = 0):
+        self.torch, self.model, self.params = torch, model, params
+        self.prompt, self.linear = prompt, linear
+        self.recapture_every = recapture_every
+        self.times: dict = {}
+        self.base_recaptures: list = []
+        self.clocks: list = []
+        self.n_assignments = 0
+        self.fp8_weights: set = set()
+        self.warm = 0                  # fp8 linear ops in eager warm-ups
+        self.replayed = {"amax": 0, "scale_cast": 0, "fp8_matmul": 0}
+        self.recorded_per_op = True    # every capture records 1+1+1 per op
+        self.n_captures = 0
+        self.current = None
+        self.keeper = None
+
+    def _account(self, cur) -> None:
+        fwd, n_fp8 = cur
+        rec = fwd.step.recorded()
+        for k in self.replayed:
+            self.replayed[k] += rec.get(k, 0) * fwd.step.replays
+            if fwd.step.captures:
+                self.recorded_per_op &= rec.get(k, 0) == n_fp8
+        self.n_captures += fwd.step.captures
+        fwd.release()
+
+    def release(self) -> None:
+        cur, self.current = self.current, None
+        if cur is not None and cur is not self.keeper:
+            self._account(cur)
+
+    def close(self) -> None:
+        self.release()
+        keeper, self.keeper = self.keeper, None
+        if keeper is not None:
+            self._account(keeper)
+
+    def _recapture_base(self) -> None:
+        from repro_torch.core.timegain import WallClockGainModel
+        runs: list = []
+        run = self._graph({}, runs)
+        for _ in range(WallClockGainModel.n_warmup):
+            run()
+        runs.clear()
+        for _ in range(WallClockGainModel.n_iters):
+            run()
+        self.base_recaptures.append(runs)
+        self.clocks.append(card_clocks())
+
+    def __call__(self, assignment):
+        if self.recapture_every and self.n_assignments == 1:
+            self.clocks.append(card_clocks())   # the base's runs are done
+        if self.recapture_every and self.n_assignments and \
+                self.n_assignments % self.recapture_every == 0:
+            self._recapture_base()
+        self.n_assignments += 1
+        key = tuple(sorted(n for n, f in assignment.items() if f != "bf16"))
+        return self._graph(assignment, self.times.setdefault(key, []))
+
+    def _graph(self, assignment, times: list):
+        from repro_torch.launch.steps import GraphedForward
+        from repro_torch.quant.qops import QuantContext
+        torch = self.torch
+        self.release()
+        ctx = QuantContext(mode="mp", mp=dict(assignment), impl="kernel")
+        fp8 = [n for n, f in assignment.items() if f != "bf16"]
+        n_fp8 = sum(1 for n in fp8 if n in self.linear)
+        self.fp8_weights.update(n for n in fp8 if n in self.linear)
+        pool = None if self.keeper is None else self.keeper[0].step.pool()
+        fwd = GraphedForward(self.model, ctx, shared_pool=pool)
+        self.current = (fwd, n_fp8)
+        if self.keeper is None:
+            self.keeper = self.current
+
+        def run():
+            t0 = time.perf_counter()
+            first = fwd.step.captures == 0
+            fwd(self.params, self.prompt)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if first:
+                self.warm += n_fp8
+        return run
+
+
+# the capture placement check: captures of the base forward kept side by
+# side in each pool layout, replayed in turns for as many rounds
+PLACEMENT_CAPTURES = 4
+PLACEMENT_ROUNDS = 20
+
+
+def capture_placement(torch, model, params, prompt) -> dict:
+    """Whether a replay's time belongs to its capture or to the clock: the
+    base forward captured ``PLACEMENT_CAPTURES`` times in the first
+    capture's memory pool (as the tier captures) and as many times in pools
+    of their own, all kept, then replayed in turns for
+    ``PLACEMENT_ROUNDS`` rounds, each replay timed on the host clock as the
+    tier times it and between CUDA events. Captures whose medians differ
+    beyond one capture's own replays differ by their capture (memory
+    placement); a trend over the rounds that every capture shares is
+    drift. Then, per layout, as many captures built, replayed once and
+    released in turn, as the tier builds them, each timed: what sharing
+    the pool saves a capture."""
+    from repro_torch.launch.steps import GraphedForward
+    from repro_torch.quant.qops import QuantContext
+    ctx = QuantContext(mode="mp", mp={}, impl="kernel")
+    layouts = ("one pool", "own pools")
+
+    def build(keep):
+        pool = keep.step.pool() if keep is not None else None
+        fwd = GraphedForward(model, ctx, shared_pool=pool)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(params, prompt)
+        torch.cuda.synchronize()
+        return fwd, (time.perf_counter() - t0) * 1e3
+
+    kept = {m: [] for m in layouts}
+    for _ in range(PLACEMENT_CAPTURES):
+        for m in layouts:
+            keep = kept[m][0] if m == "one pool" and kept[m] else None
+            kept[m].append(build(keep)[0])
+    host = {m: [[] for _ in range(PLACEMENT_CAPTURES)] for m in layouts}
+    dev = {m: [[] for _ in range(PLACEMENT_CAPTURES)] for m in layouts}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(PLACEMENT_ROUNDS):
+        for i in range(PLACEMENT_CAPTURES):
+            for m in layouts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                kept[m][i](params, prompt)
+                e1.record()
+                torch.cuda.synchronize()
+                host[m][i].append((time.perf_counter() - t0) * 1e3)
+                dev[m][i].append(e0.elapsed_time(e1))
+    for fwds in kept.values():
+        for fwd in fwds:
+            fwd.release()
+    churn = {}
+    for m in layouts:
+        keep, ms = None, []
+        for i in range(PLACEMENT_CAPTURES + 1):
+            fwd, t = build(keep if m == "one pool" else None)
+            if i == 0:
+                keep = fwd
+                continue
+            ms.append(t)
+            fwd.release()
+        keep.release()
+        churn[m] = ms
+    out = {}
+    for m in layouts:
+        rec = {}
+        for clock, t in (("host", host[m]), ("device", dev[m])):
+            t = np.array(t)                       # (capture, round)
+            med = np.median(t, axis=1)
+            k = max(1, PLACEMENT_ROUNDS // 4)
+            rec[clock] = {
+                "medians_ms": med.tolist(),
+                "across_captures_ms": float(med.max() - med.min()),
+                "within_capture_ms": float(np.median(t.max(1) - t.min(1))),
+                "drift_ms": float(np.median(t[:, -k:]) -
+                                  np.median(t[:, :k]))}
+        rec["capture_ms"] = churn[m]
+        out[m] = rec
+        h, d = rec["host"], rec["device"]
+        log(f"capture placement, {m}: {PLACEMENT_CAPTURES} captures of the "
+            f"base forward replayed in turns, {PLACEMENT_ROUNDS} rounds: "
+            f"host-clock medians {[round(x, 3) for x in h['medians_ms']]} "
+            f"ms (across captures {h['across_captures_ms']:.3f}, within one "
+            f"capture {h['within_capture_ms']:.3f}, drift "
+            f"{h['drift_ms']:+.3f}); device (CUDA events) "
+            f"{[round(x, 3) for x in d['medians_ms']]} ms (across "
+            f"{d['across_captures_ms']:.3f}, within "
+            f"{d['within_capture_ms']:.3f}, drift {d['drift_ms']:+.3f}); a "
+            f"capture built and released in turn "
+            f"{np.median(churn[m]):.1f} ms (median of {len(churn[m])})")
+    return out
+
+
+def settle(torch, model, params, prompt, seconds: float) -> int:
+    """Replays of the base forward's graph for ``seconds``, so that a
+    tabulation's first timings meet the card at the clocks its sustained
+    load runs at; returns the number of replays."""
+    from repro_torch.launch.steps import GraphedForward
+    from repro_torch.quant.qops import QuantContext
+    fwd = GraphedForward(model, QuantContext(mode="mp", mp={},
+                                             impl="kernel"))
+    t0, n = time.perf_counter(), 0
+    while time.perf_counter() - t0 < seconds:
+        fwd(params, prompt)
+        n += 1
+        if n % 16 == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    fwd.release()
+    return n
+
+
+def tier_run(torch, model, params, bundle, prompt, linear, k: int) -> dict:
+    """One tabulation of the measured tier at ``WallClockGainModel``'s own
+    repeats over graphed forwards, with the base forward captured anew
+    every ``BASE_RECAPTURE_EVERY`` assignments; its launch check, the base
+    replay's spread over ``SPREAD_RUNS`` replays of one capture and the
+    spread of the base captures' medians, the groups gaining beyond each,
+    and the ET plan it gives."""
     from repro_torch.core.pipeline import tabulate_measured_gains
     from repro_torch.core.timegain import WallClockGainModel
     from repro_torch.kernels import fp8_matmul as mm
     from repro_torch.kernels import quant_cast as qc
     from repro_torch.quant import weight_cache
-    from repro_torch.quant.qops import QuantContext
     n_warmup = WallClockGainModel.n_warmup
     n_iters = WallClockGainModel.n_iters
-    g = torch.Generator(device=DEVICE).manual_seed(7)
-    prompt = torch.randint(0, model.cfg.vocab_size, TIER_PROMPT, generator=g,
-                           device=DEVICE, dtype=torch.int32)
-    linear = {op.name for op in bundle.sens.ops if op.kind == "linear"}
-    times: dict = {}
-    fp8_linear_runs = [0]
-    fp8_weights: set = set()
-
-    def run_factory(assignment):
-        ctx = QuantContext(mode="mp", mp=dict(assignment), impl="kernel")
-        key = tuple(sorted(n for n, f in assignment.items() if f != "bf16"))
-        n_fp8 = sum(1 for n in key if n in linear)
-        fp8_weights.update(n for n in key if n in linear)
-
-        def run():
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                model.apply(params, prompt, ctx)
-            torch.cuda.synchronize()
-            times.setdefault(key, []).append(time.perf_counter() - t0)
-            fp8_linear_runs[0] += n_fp8
-        return run
-
-    base = run_factory({})
-    for _ in range(3):
-        base()                                   # warm-up, not recorded
-    times.clear()
+    n_settle = settle(torch, model, params, prompt, TIER_SETTLE_S)
+    fwds = TierForwards(torch, model, params, prompt, linear,
+                        recapture_every=BASE_RECAPTURE_EVERY)
+    weight_cache.clear()              # every run quantizes its weights once
     torch.cuda.synchronize()
     qc.launches.update(amax=0, scale_cast=0)
     mm.launches = 0
     wq0 = weight_cache.quantizations
     t0 = time.perf_counter()
-    key = tabulate_measured_gains(bundle, run_factory, objective="ET",
+    key = tabulate_measured_gains(bundle, fwds, objective="ET",
                                   n_warmup=n_warmup, n_iters=n_iters)
+    fwds.close()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {"amax": qc.launches["amax"],
               "scale_cast": qc.launches["scale_cast"],
               "fp8_matmul": mm.launches}
     n_wq = weight_cache.quantizations - wq0
-    want = {"amax": fp8_linear_runs[0] + n_wq,
-            "scale_cast": fp8_linear_runs[0] + n_wq,
-            "fp8_matmul": fp8_linear_runs[0]}
-    n_runs = sum(len(v) for v in times.values())
-    log(f"measured tier ({n_warmup} warm-up + {n_iters} timed runs a "
-        f"combo): {len(times)} assignments, {n_runs} forwards of "
-        f"{TIER_PROMPT} in {seconds:.1f} s; launches {counts} (expected "
-        f"{want}: 1+1+1 per fp8 linear per run, plus 1 amax + 1 scale_cast "
-        f"for each of the {n_wq} weights, quantized once)")
+    want = {"amax": fwds.warm + fwds.replayed["amax"] + n_wq,
+            "scale_cast": fwds.warm + fwds.replayed["scale_cast"] + n_wq,
+            "fp8_matmul": fwds.warm + fwds.replayed["fp8_matmul"]}
+    times = fwds.times
+    n_recap = len(fwds.base_recaptures)
+    n_runs = sum(len(v) for v in times.values()) + \
+        n_recap * (n_warmup + n_iters)
+    log(f"measured tier run {k} ({n_warmup} warm-up + {n_iters} timed runs "
+        f"a combo, CUDA graph replays): {len(times)} assignments and "
+        f"{n_recap} more captures of the base, {fwds.n_captures} captures, "
+        f"{n_runs} forwards of {TIER_PROMPT} in "
+        f"{seconds:.1f} s; launches {counts} (expected {want}: 1+1+1 per "
+        f"fp8 linear in each eager warm-up ({fwds.warm}), the captures' "
+        f"recorded launches x their replays {fwds.replayed}, plus 1 amax + "
+        f"1 scale_cast for each of the {n_wq} weights, quantized once)")
     if counts != want or counts["fp8_matmul"] == 0:
         raise AssertionError(f"fp8 kernel launches {counts} != {want}")
-    if n_wq != len(fp8_weights):
+    if not fwds.recorded_per_op:
+        raise AssertionError("a capture did not record 1 amax + 1 "
+                             "scale_cast + 1 fp8_matmul per fp8 linear op")
+    if DEVICE != "cpu" and fwds.n_captures != len(times) + n_recap:
+        raise AssertionError(f"{fwds.n_captures} captures for "
+                             f"{len(times)} assignments and {n_recap} "
+                             f"base captures")
+    if n_wq != len(fwds.fp8_weights):
         raise AssertionError(f"{n_wq} weight quantizations for "
-                             f"{len(fp8_weights)} weights set to fp8")
+                             f"{len(fwds.fp8_weights)} weights set to fp8")
+    n_captures = fwds.n_captures
     base_s = np.array(times[()]) * 1e3          # the tier's own base runs
-    for _ in range(10):
+    spread_s: list = []
+    base = fwds._graph({}, spread_s)
+    for _ in range(n_warmup):
         base()
-    spread = np.array(times[()]) * 1e3
-    log(f"base forward (all bf16): tier median {np.median(base_s):.3f} ms; "
-        f"{spread.size} runs min {spread.min():.3f} median "
-        f"{np.median(spread):.3f} max {spread.max():.3f} ms (spread "
-        f"{spread.max() - spread.min():.3f} ms)")
+    spread_s.clear()
+    for _ in range(SPREAD_RUNS):
+        base()
+    fwds.close()
+    spread = np.array(spread_s) * 1e3
+    base_spread = float(spread.max() - spread.min())
+    log(f"base forward (all bf16) run {k}: tier median "
+        f"{np.median(base_s):.3f} ms; {spread.size} replays min "
+        f"{spread.min():.3f} median {np.median(spread):.3f} max "
+        f"{spread.max():.3f} ms (spread {base_spread:.3f} ms)")
+    # the tier's own base and its captures anew, each a median of n_iters
+    capture_meds = [float(np.median(base_s))] + [
+        float(np.median(r)) * 1e3 for r in fwds.base_recaptures]
+    across = max(capture_meds) - min(capture_meds)
+    clocks = ", ".join(f"{c['sm_mhz']:.0f} MHz {c['temp_c']:.0f} C "
+                       f"{c['power_w']:.0f} W" for c in fwds.clocks)
+    log(f"base forward run {k}: {len(capture_meds)} captures in the "
+        f"tabulation (every {BASE_RECAPTURE_EVERY} assignments, after "
+        f"{n_settle} replays in {TIER_SETTLE_S:.0f} s to settle the card), "
+        f"medians {', '.join(f'{m:.3f}' for m in capture_meds)} ms: spread "
+        f"across captures {across:.3f} ms, "
+        f"{across / max(base_spread, 1e-9):.1f}x one capture's replay "
+        f"spread; the card after each: {clocks}")
     groups = bundle.objectives[key]["groups"]
     rows, lines = [], []
     for gi, (group, gains) in enumerate(zip(groups, bundle.objectives[key][
@@ -1511,18 +1834,92 @@ def measured_phase(torch, model, params, bundle) -> dict:
     log(f"per-group gain of the all-fp8 combo: min {all_fp8.min():+.3f} "
         f"median {np.median(all_fp8):+.3f} max {all_fp8.max():+.3f} ms; "
         f"{int((all_fp8 > 0).sum())} of {len(rows)} groups positive")
-    base_spread = float(spread.max() - spread.min())
     best = np.array([r["best_ms"] for r in rows])
     n_beyond = int((best > base_spread).sum())
-    log(f"{n_beyond} of {len(rows)} groups gain beyond the base forward's "
+    n_beyond_across = int((best > across).sum())
+    log(f"{n_beyond} of {len(rows)} groups gain beyond the base replay's "
         f"spread ({base_spread:.3f} ms) with their best combo; "
-        f"{int((all_fp8 > base_spread).sum())} with the all-fp8 combo")
+        f"{int((all_fp8 > base_spread).sum())} with the all-fp8 combo; "
+        f"{n_beyond_across} beyond the spread across captures "
+        f"({across:.3f} ms)")
+    plan = bundle.solve(TAU, "ET")
+    log(f"measured tier run {k}: ET plan at tau {TAU}: "
+        f"{plan.n_quantized} ops fp8 [{plan.meta['gain_tier']}], predicted "
+        f"gain {plan.predicted_gain * 1e3:.3f} ms; the tier took "
+        f"{seconds:.1f} s")
+    log(f"measured tier run {k}: ET assignment "
+        f"{sorted(plan.assignment)}")
     return {"seconds": seconds, "launches": counts, "n_forwards": n_runs,
-            "n_warmup": n_warmup, "n_iters": n_iters,
-            "weight_quantizations": n_wq, "base_spread_ms": base_spread,
-            "groups_beyond_spread": n_beyond,
+            "n_captures": n_captures, "n_warmup": n_warmup,
+            "n_iters": n_iters, "weight_quantizations": n_wq,
+            "base_spread_ms": base_spread, "groups_beyond_spread": n_beyond,
+            "base_capture_medians_ms": capture_meds,
+            "base_capture_clocks": fwds.clocks, "settle_replays": n_settle,
+            "spread_across_captures_ms": across,
+            "groups_beyond_spread_across_captures": n_beyond_across,
             "base_ms_tier": float(np.median(base_s)),
-            "base_ms_runs": spread.tolist(), "groups": rows}
+            "base_ms_runs": spread.tolist(), "groups": rows,
+            "et_plan": plan, "fwds": fwds}
+
+
+def fig3b(torch, fwds, plan) -> dict:
+    """Paper Fig. 3b (``benchmarks/fig3_validation.py:43-66``): the sum of
+    the ET plan's per-group measured gains against the plan's end-to-end
+    measured gain, both from graphed replays at the reference's repeats
+    (``fwds``: a fresh :class:`TierForwards`)."""
+    from repro_torch.core.timegain import WallClockGainModel
+    gm = WallClockGainModel(run_factory=fwds, **FIG3B_REPEATS)
+    total, n = 0.0, 0
+    for group in plan.groups:
+        sub = {op: plan.assignment[op] for op in group
+               if op in plan.assignment}
+        if not sub:
+            continue
+        total += gm.base_time() - gm._time(sub)
+        n += 1
+    full = gm.base_time() - gm._time(plan.assignment)
+    fwds.close()
+    log(f"Fig. 3b: sum of the ET plan's {n} per-group gains "
+        f"{total * 1e3:+.3f} ms against its end-to-end gain "
+        f"{full * 1e3:+.3f} ms (base {gm.base_time() * 1e3:.3f} ms, "
+        f"{FIG3B_REPEATS['n_warmup']} warm-up + {FIG3B_REPEATS['n_iters']} "
+        f"timed replays each)")
+    return {"sum_group_gains_ms": total * 1e3, "end_to_end_gain_ms":
+            full * 1e3, "groups_quantized": n,
+            "base_ms": gm.base_time() * 1e3}
+
+
+def measured_phase(torch, model, params, bundle) -> dict:
+    """Phase 7: the measured wall-clock tier through the fp8 kernels over
+    graphed forwards, at ``WallClockGainModel``'s own repeats, run twice
+    (the ET plan each gives, and whether they agree), then the capture
+    placement check and Fig. 3b on the second run's ET plan. The kernels'
+    launch counters are set to 0 just before each tabulation and read just
+    after."""
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    prompt = torch.randint(0, model.cfg.vocab_size, TIER_PROMPT, generator=g,
+                           device=DEVICE, dtype=torch.int32)
+    linear = {op.name for op in bundle.sens.ops if op.kind == "linear"}
+    runs = [tier_run(torch, model, params, bundle, prompt, linear, k)
+            for k in (1, 2)]
+    a, b = (set(r["et_plan"].assignment.items()) for r in runs)
+    sym = sorted(n for n, _ in a ^ b)
+    diff = f": {len(sym)} ops in their symmetric difference {sym}"
+    log(f"measured tier: ET plans of the two runs {len(a)} and {len(b)} "
+        f"ops; {'the same' if not sym else 'different' + diff}")
+    placement = capture_placement(torch, model, params, prompt)
+    fig = fig3b(torch, TierForwards(torch, model, params, prompt, linear),
+                runs[1]["et_plan"])
+    out = {k: v for k, v in runs[1].items() if k not in ("et_plan", "fwds")}
+    out.update(
+        runs=[{k: v for k, v in r.items() if k not in ("et_plan", "fwds",
+                                                       "groups")}
+              | {"et_n_fp8": r["et_plan"].n_quantized,
+                 "et_assignment": sorted(r["et_plan"].assignment)}
+              for r in runs],
+        plans_agree=not sym, plan_symmetric_difference=sym, fig3b=fig,
+        placement=placement)
+    return out
 
 
 def solve_and_serve_phase(torch, model, params, bundle, workdir: Path,
@@ -1626,88 +2023,201 @@ def fig3a_phase(torch, model, params, batches, plans) -> dict:
 # ---------------------------------------------------------------------------
 
 LLAMA8B = "llama3_8b"
+# phase 13 serves llama3_8b at 16 of its 32 layers since phase 7 times
+# graph replays twice and phase 22 was added (the script's time limit)
+LLAMA8B_DEPTH = 16
 # of the card's memory a calibration may take: a linear fit of the peak
 # over depths 1 and 3 underestimates deeper ones (depth 22 needed more than
 # 81.8 GB where 1 -> 2 layers predicted 71.3 GB, on an H100)
 CAL_MEMORY_SHARE = 0.75
 
 
-def _bytes_of(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_bytes_of(v) for v in tree.values())
-    return tree.numel() * tree.element_size()
+def expected_groups(cfg) -> int:
+    """The partition's group count, counted from the block kinds and not
+    from ``core.graphs``: a dense block (``attn`` or ``mla``) makes 4
+    groups (the attention's projections and BGEMMs; o_proj; gate and up;
+    down), an MoE block 5 (the same with the router on its own) or 3 with
+    shared experts (the router's fan-out and the shared path join one
+    group), and lm_head 1; the MTP block is in none."""
+    moe = 3 if cfg.moe is not None and cfg.moe.n_shared_experts else 5
+    return 1 + sum(moe if i in cfg.moe_layers else 4
+                   for i in range(cfg.n_layers))
 
 
-def fitted_calibration(torch, cfg, params, batches) -> dict:
-    """Algorithm 1's ``calibrate`` on ``cfg`` over phase 6's batches at
-    the largest depth whose probes and backward fit in
-    ``CAL_MEMORY_SHARE`` of the card: the peaks at depths 1 and 3 (every
-    layer's weights resident) give the per-layer cost of probes,
-    gradients and activations, and the depth counts each kept layer's
-    weights beside it; layers past the depth are freed first."""
-    import dataclasses
-    from repro_torch.core.pipeline import AMPOptions, calibrate
+def _layer_bytes(cfg) -> tuple:
+    """(bytes of each layer's own weights, bytes of the MTP module at each
+    depth d (its block takes layer d-1's kind; 0 without MTP))."""
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.spec import param_bytes
+    model = LM(cfg)                   # specs only: no weight is made
+    w = [param_bytes(model._layer_specs(cfg.layer_signature(i), "x"))
+         for i in range(cfg.n_layers)]
+    if not cfg.mtp_depth:
+        return w, [0] * (cfg.n_layers + 1)
+    head = 2 * cfg.d_model * cfg.d_model * 2 + cfg.d_model * 4
+    return w, [0] + [head + w[d - 1] for d in range(1, cfg.n_layers + 1)]
+
+
+def fitted_calibration(torch, arch: str, batches, n_layers=None) -> dict:
+    """Algorithm 1's ``calibrate`` on ``arch``'s configuration (its first
+    ``n_layers`` layers and its MTP module) over phase 6's batches at the
+    largest depth whose probes and backward fit in ``CAL_MEMORY_SHARE`` of
+    the card. Each depth is a model of its own, its random weights drawn
+    from a seeded generator (the serving model is freed first). The fit:
+    the peak at depth d is F + sum over the kept layers (and the MTP block,
+    one more layer of the last kept kind) of their own weights w_i plus a
+    per-kind cost c_k of probes, gradients and activations. F and c_k come
+    from the peaks at two depths whose added layers are of kind k; a kind
+    whose two depths cannot fit even at c_k's floor (an f32 probe and an
+    f32 gradient of every weight, 4 w_i) is not measured, and the depth
+    stops before its first layer (printed as a cut). Raises if the
+    measured peak at the chosen depth exceeds the budget."""
+    from repro_torch.core.pipeline import AMPOptions, build_groups, calibrate
     from repro_torch.hw.profiles import H100_SXM
-    from repro_torch.models.registry import build_model
-    n = len(params["layers"])
+    from repro_torch.models.registry import build_model, depth_overrides, \
+        get_config
+
+    def cut_cfg(depth):
+        return get_config(arch, **depth_overrides(arch, depth,
+                                                  keep_mtp=True))
+    cfg = cut_cfg(n_layers or get_config(arch).n_layers)
+    n = cfg.n_layers
+    kind = [cfg.layer_signature(i) for i in range(n)]
+    w, w_mtp = _layer_bytes(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = CAL_MEMORY_SHARE * total
 
     def run(depth):
-        model = build_model(dataclasses.replace(
-            cfg, n_layers=depth, block_types=cfg.block_types[:depth]))
-        cut = dict(params, layers={str(i): params["layers"][str(i)]
-                                   for i in range(depth)})
+        model = build_model(cut_cfg(depth))
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                            DEVICE)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        bundle = calibrate(model, cut, batches, AMPOptions(hw=H100_SXM))
+        bundle = calibrate(model, params, batches, AMPOptions(hw=H100_SXM))
         torch.cuda.synchronize()
-        return model, bundle, time.perf_counter() - t0, \
-            torch.cuda.max_memory_allocated()
+        out = (model, bundle, time.perf_counter() - t0,
+               torch.cuda.max_memory_allocated())
+        del params
+        gc.collect()
+        return out
 
-    total = torch.cuda.get_device_properties(0).total_memory
-    w_layer = _bytes_of(params["layers"]["0"])
-    d3 = min(3, n)
-    p1, p3 = run(1)[3], run(d3)[3]
-    per_layer = (p3 - p1) / max(d3 - 1, 1)
-    fixed = p1 - per_layer
-    budget = CAL_MEMORY_SHARE * total
-    need = fixed + n * per_layer
-    depth = n if need <= budget else max(1, min(n, int(
-        (budget - fixed + n * w_layer) // (per_layer + w_layer))))
-    log(f"{cfg.name} calibration depth: {depth} of {n} layers (peak at 1 / "
-        f"{d3} layers {p1 / 1e9:.2f} / {p3 / 1e9:.2f} GB, so all {n} would "
-        f"need about {need / 1e9:.1f} GB against {budget / 1e9:.1f} GB, "
-        f"{CAL_MEMORY_SHARE:.0%} of the card's {total / 1e9:.1f} GB)")
-    held = torch.cuda.memory_allocated()
-    for i in range(depth, n):
-        del params["layers"][str(i)]
-    gc.collect()
-    log(f"{cfg.name} layers {depth}-{n - 1} freed: {held / 1e9:.2f} -> "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
-        f"({(n - depth) * w_layer / 1e9:.2f} GB of their weights)")
+    cost: dict = {}                   # kind -> c_k
+    fixed = None
+    peaks = {}
+
+    def layers_need(depth) -> float:
+        layers = sum(w[i] + cost[kind[i]] for i in range(depth))
+        mtp = w_mtp[depth] + (cost[kind[depth - 1]] if cfg.mtp_depth else 0)
+        return layers + mtp
+
+    def need(depth) -> float:
+        return fixed + layers_need(depth)
+
+    depth, cut = n, None
+    for j in range(n):
+        k = kind[j]
+        if k in cost:
+            continue
+        run_len = next((r for r in range(n - j) if kind[j + r] != k), n - j)
+        d1, d2 = j + 1, j + min(run_len, 3)
+        if d2 == d1:
+            depth, cut = j, f"a single layer of kind {k}: no second depth"
+            break
+        if fixed is not None:
+            cost[k] = 4 * w[j]
+            lb = need(d2)
+            del cost[k]
+            if lb > budget:
+                depth = j
+                cut = (f"layers {j}-{d2 - 1} of kind {k} ({w[j] / 1e9:.2f} GB "
+                       f"of weights each) need at least {lb / 1e9:.1f} GB at "
+                       f"4x their weights in f32 probes and gradients, over "
+                       f"the {budget / 1e9:.1f} GB budget")
+                break
+        p1, p2 = run(d1)[3], run(d2)[3]
+        peaks[d1], peaks[d2] = p1, p2
+        added = sum(w[i] for i in range(d1, d2)) + w_mtp[d2] - w_mtp[d1]
+        cost[k] = max(0.0, (p2 - p1 - added) / (d2 - d1))
+        if fixed is None:
+            fixed = p1 - layers_need(d1)
+    if depth == 0:
+        raise AssertionError(f"{cfg.name}: no depth can be calibrated: {cut}")
+
+    def fit_depth(limit) -> int:
+        d = limit
+        while d > 1 and need(d) > budget:
+            d -= 1
+        return d
+
+    # the peak grows faster than the first depths show (their peak is the
+    # head's transient, a deep stack's its layers' probes and gradients),
+    # so the first kind's cost is refit from a third depth near the one
+    # the first two predict
+    k0 = kind[0]
+    first_run = next((r for r in range(n) if kind[r] != k0), n)
+    d2 = max(peaks)
+    if first_run > d2 and len([d for d in peaks if d <= first_run]) == 2:
+        d3 = min(first_run, max(d2 + 1, int(0.75 * fit_depth(depth))))
+        if d3 > d2:
+            peaks[d3] = run(d3)[3]
+            added = sum(w[i] for i in range(d2, d3)) + w_mtp[d3] - w_mtp[d2]
+            cost[k0] = max(0.0, (peaks[d3] - peaks[d2] - added) / (d3 - d2))
+            fixed = peaks[d2] - layers_need(d2)
+    depth = fit_depth(depth)
+    predicted = need(depth)
+    log(f"{cfg.name} calibration depth: {depth} of {n} layers (peaks at "
+        f"depths {', '.join(f'{d}: {p / 1e9:.2f}' for d, p in peaks.items())}"
+        f" GB; fixed {fixed / 1e9:.2f} GB, per-layer cost beside each "
+        f"layer's own weights "
+        f"{', '.join(f'{k}: {c / 1e9:.2f}' for k, c in cost.items())} GB; "
+        f"predicted peak {predicted / 1e9:.2f} GB against "
+        f"{budget / 1e9:.1f} GB, {CAL_MEMORY_SHARE:.0%} of the card's "
+        f"{total / 1e9:.1f} GB"
+        f"{'; MTP block included' if cfg.mtp_depth else ''})")
+    if depth < n:
+        log(f"CUT: {cfg.name} calibration depth cut to {depth} of {n} "
+            f"layers: {cut or 'all layers need ' + f'{need(n) / 1e9:.1f} GB'}")
     model, bundle, seconds, peak = run(depth)
     sens = np.array(sorted(bundle.sens.sensitivity.values()))
     n_groups = len(bundle.objectives["ET"]["groups"])
-    log(f"{cfg.name} calibrate at depth {depth}: {len(bundle.sens.ops)} ops, "
-        f"{n_groups} groups, {CAL_BATCHES} batches of {CAL_SHAPE} in "
-        f"{seconds:.1f} s; peak device memory {peak / 1e9:.2f} GB")
+    want_groups = len(build_groups(model, AMPOptions(),
+                                   quantizable=set(bundle.op_names))[1])
+    hand = expected_groups(model.cfg)
+    n_mtp = sum(1 for op in bundle.op_names if op.startswith("mtp/"))
+    log(f"{cfg.name} calibrate at depth {depth}: {len(bundle.sens.ops)} ops "
+        f"({n_mtp} of the MTP module, in no group), {n_groups} groups, "
+        f"{CAL_BATCHES} batches of {CAL_SHAPE} in {seconds:.1f} s; peak "
+        f"device memory {peak / 1e9:.2f} GB (predicted "
+        f"{predicted / 1e9:.2f} GB)")
     if not (np.isfinite(sens).all() and (sens > 0).all()
             and math.isfinite(bundle.sens.loss_mean)):
         raise AssertionError(f"{cfg.name} calibration gave a non-finite or "
                              "zero sensitivity")
-    if n_groups != 4 * depth + 1:
-        raise AssertionError(f"{n_groups} groups, expected {4 * depth + 1}")
+    if not n_groups == want_groups == hand:
+        raise AssertionError(f"{n_groups} groups, core.graphs gives "
+                             f"{want_groups}, the block kinds {hand}")
+    if cfg.mtp_depth and not n_mtp:
+        raise AssertionError(f"{cfg.name}: no MTP op was calibrated")
+    if peak > budget:
+        raise AssertionError(f"{cfg.name} calibration peak "
+                             f"{peak / 1e9:.2f} GB over the "
+                             f"{budget / 1e9:.1f} GB budget")
     plan = bundle.solve(TAU, "ET")
+    if any(op.startswith("mtp/") for op in plan.assignment):
+        raise AssertionError("the ET plan quantizes an MTP op")
     log(f"{cfg.name} ET plan at tau {TAU}: {plan.n_quantized} ops fp8 "
         f"[{plan.meta['gain_tier']}]")
-    return {"depth": depth, "of_layers": n, "seconds": seconds,
-            "peak_gb": peak / 1e9, "peak_depth1_gb": p1 / 1e9,
-            "peak_depth3_gb": p3 / 1e9, "full_depth_need_gb": need / 1e9,
-            "n_ops": len(bundle.sens.ops), "n_groups": n_groups,
-            "loss_mean": bundle.sens.loss_mean,
+    return {"depth": depth, "of_layers": n, "cut": cut, "seconds": seconds,
+            "peak_gb": peak / 1e9, "predicted_peak_gb": predicted / 1e9,
+            "fit_peaks_gb": {str(d): p / 1e9 for d, p in peaks.items()},
+            "budget_gb": budget / 1e9,
+            "n_ops": len(bundle.sens.ops), "n_mtp_ops": n_mtp,
+            "n_groups": n_groups, "loss_mean": bundle.sens.loss_mean,
             "s_min": float(sens[0]), "s_max": float(sens[-1]),
-            "et_plan_n_fp8": plan.n_quantized}
+            "et_plan_n_fp8": plan.n_quantized,
+            "et_gain_tier": plan.meta["gain_tier"]}
 
 
 def llama8b_phase(torch) -> dict:
@@ -1718,10 +2228,14 @@ def llama8b_phase(torch) -> dict:
     the lockstep one, then calibration."""
     from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
     from repro_torch.launch.serve import make_model_and_params
+    from repro_torch.models.registry import get_config
     t0 = time.perf_counter()
-    model, params = make_model_and_params(LLAMA8B, False, DEVICE, seed=0)
+    model, params = make_model_and_params(LLAMA8B, False, DEVICE, seed=0,
+                                          n_layers=LLAMA8B_DEPTH)
     torch.cuda.synchronize()
     cfg = model.cfg
+    log(f"CUT: {LLAMA8B} served at depth {LLAMA8B_DEPTH} of 32 (the "
+        f"script's time limit; calibration fits its depth on all 32)")
     log(f"{LLAMA8B}: {model.n_params() / 1e9:.3f}B params ({cfg.n_layers} "
         f"layers, d_model {cfg.d_model}, d_head {cfg.d_head}, untied head), "
         f"random init in {time.perf_counter() - t0:.1f} s, "
@@ -1735,9 +2249,10 @@ def llama8b_phase(torch) -> dict:
                                        batch=CAL_SHAPE[0],
                                        seq_len=CAL_SHAPE[1]), DEVICE)
     batches = list(data.batches(0, CAL_BATCHES))
-    del model                 # its decode graphs hold the params they read
+    del model, params         # its decode graphs hold the params they read
     gc.collect()
-    out["calibration"] = fitted_calibration(torch, cfg, params, batches)
+    torch.cuda.empty_cache()
+    out["calibration"] = fitted_calibration(torch, LLAMA8B, batches)
     return out
 
 
@@ -3413,7 +3928,423 @@ def robustness_phase(torch, model, params, plan, bundle) -> dict:
 # configs serve 8 of their 32, 40 and 64 layers at full width: their eager
 # twins (11.6 tokens/s for qwen2p5_32b at 64 layers) took up to 294 s of the
 # script, which ran 1089.9 s of its 1200 s in one run at full depth
-DENSE_CONFIGS = (("qwen2p5_3b", None), ("nemotron_4_15b", 8),
+# ---------------------------------------------------------------------------
+# phase 22: Mixture-of-Experts and multi-token prediction at full width
+# ---------------------------------------------------------------------------
+
+MOONLIGHT = "moonshot_v1_16b_a3b"
+# DeepSeek-V3 past its dense prefix: its three dense MLA layers and MoE
+# layers 3 and 4 at full width (26.6 B parameters), MTP off for serving
+# (the launcher's ``--n-layers 5``)
+DEEPSEEK_MOE_DEPTH = 5
+# a first divergence between two drains of an MoE model may sit at a
+# routing flip: a token whose top-k expert set differs between them, where
+# the k-th and (k+1)-th router probabilities lie within this gap
+ROUTE_FLIP_GAP = 2.0 ** -8
+ROUTER = None                         # the RouterRecorder while phase 22 runs
+
+
+class RouterRecorder:
+    """Each MoE layer's top-(k+1) router probabilities and top-k experts of
+    every row, written inside every serving step (its CUDA graph
+    included) into a static buffer per (layer, rows): ``nn.moe``'s
+    ``_one_chunk`` and ``route_top_k`` are wrapped while it is installed,
+    and ``record_steps`` clones the decode step's buffers after each call.
+    The wrapper takes the same stable sort as ``route_top_k``, so the
+    served values are unchanged."""
+
+    def __init__(self, torch):
+        from repro_torch.nn import moe
+        self.moe, self.bufs, self.scope = moe, {}, None
+        self._chunk, self._top_k = moe._one_chunk, moe.route_top_k
+
+        def one_chunk(p, ctx, scope, *a):
+            self.scope = scope
+            return self._chunk(p, ctx, scope, *a)
+
+        def top_k(probs, k):
+            vals, idx = torch.sort(probs, dim=-1, descending=True,
+                                   stable=True)
+            key = (self.scope, probs.shape[0])
+            buf = self.bufs.get(key)
+            if buf is None:
+                buf = self.bufs[key] = (
+                    torch.empty((probs.shape[0], k + 1), dtype=torch.float32,
+                                device=probs.device),
+                    torch.empty((probs.shape[0], k), dtype=torch.int64,
+                                device=probs.device))
+            with torch.no_grad():         # a buffer must not hold a graph
+                buf[0].copy_(vals[:, :k + 1])
+                buf[1].copy_(idx[:, :k])
+            return vals[..., :k], idx[..., :k]
+
+        moe._one_chunk, moe.route_top_k = one_chunk, top_k
+
+    def remove(self) -> None:
+        self.moe._one_chunk, self.moe.route_top_k = self._chunk, self._top_k
+
+    def rows(self, n: int) -> dict:
+        """scope -> (probabilities, experts) of a step over ``n`` rows."""
+        return {scope: (v.clone(), i.clone())
+                for (scope, r), (v, i) in self.bufs.items() if r == n}
+
+
+def continuous_routes(events, reqs) -> dict:
+    """rid -> per token of the drain: None for a prefill row (both drains
+    of a comparison prefill alike), else {layer scope: (top-(k+1)
+    probabilities, top-k experts)} of the decode row that gave it."""
+    owner, slot_rid, rows = {}, {}, {r.rid: [] for r in reqs}
+    for name, *rest in events:
+        if name == "tick":
+            owner = rest[0]
+            continue
+        if name == "prefill_chunk_step":
+            _, _, start, valid, *_ = rest
+            start, valid = start.cpu().numpy(), valid.cpu().numpy()
+            for s in np.nonzero(valid)[0]:
+                rid, eff_len = owner[s]
+                slot_rid[s] = rid
+                if start[s] + valid[s] == eff_len:
+                    rows[rid].append(None)
+        else:
+            _, slots, routes = rest
+            for s in slots:
+                rows[slot_rid[s]].append(
+                    {sc: (v[s].cpu().numpy(), i[s].cpu().numpy())
+                     for sc, (v, i) in routes.items()})
+    return rows
+
+
+def _layer_order(scope: str) -> int:
+    return int(scope.split("/")[1])
+
+
+def first_flip(ra: list, rb: list, upto: int):
+    """The first (token, layer) up to token ``upto`` whose top-k expert set
+    differs between two drains' routes: (token, scope, the smaller of the
+    two drains' k-th minus (k+1)-th probability, flipped (token, layer)
+    pairs up to ``upto``), or None."""
+    first, n_flips = None, 0
+    for j in range(min(upto + 1, len(ra), len(rb))):
+        if ra[j] is None or rb[j] is None:
+            continue
+        for sc in sorted(ra[j], key=_layer_order):
+            (va, ia), (vb, ib) = ra[j][sc], rb[j][sc]
+            if set(ia.tolist()) == set(ib.tolist()):
+                continue
+            n_flips += 1
+            if first is None:
+                k = ia.shape[0]
+                gap = min(va[k - 1] - va[k], vb[k - 1] - vb[k])
+                first = (j, sc, float(gap))
+    return None if first is None else first + (n_flips,)
+
+
+def compare_moe(name: str, got: dict, ref: dict, routes_got: dict,
+                routes_ref: dict, *, tol: float, bound: float,
+                failures: list) -> dict:
+    """:func:`compare` for an MoE model: up to each request's first token
+    divergence or first routing flip (a token whose top-k expert set
+    differs between the drains), whichever comes first, the logits agree
+    within ``tol``; the first flip's k-th to (k+1)-th probability gap must
+    lie below ``ROUTE_FLIP_GAP``; and a token divergence may sit only at a
+    near-tie of the reference's logits or at or after such a flip."""
+    agreed = total = n_near = n_flip_req = 0
+    err, problems = 0.0, []
+    for rid in sorted(ref):
+        (a, la), (r, lr) = got[rid], ref[rid]
+        a, r = np.asarray(a), np.asarray(r)
+        i = first_divergence(a, r)
+        flip = first_flip(routes_got[rid], routes_ref[rid], i)
+        stop = min(i + 1, len(r)) if flip is None else min(flip[0], i + 1)
+        if stop:
+            err = max(err, (la[:stop].float()
+                            - lr[:stop].float()).abs().max().item())
+        gaps = top2_gaps(lr)
+        n_near += int((gaps < bound).sum())
+        agreed += i
+        total += len(r)
+        if flip is not None:
+            n_flip_req += 1
+            j, sc, g, n_fl = flip
+            log(f"{name}: request {rid}: expert set of {sc} differs at token "
+                f"{j} (k-th / (k+1)-th probability gap {g:.3e}); "
+                f"{n_fl} (token, layer) flips up to token "
+                f"{min(i, len(r) - 1)}")
+            if not g < ROUTE_FLIP_GAP:
+                problems.append(f"request {rid}: routing flip at token {j} "
+                                f"in {sc} with a gap {g:.3e} >= "
+                                f"{ROUTE_FLIP_GAP:g}")
+        if i < len(r):
+            at_flip = flip is not None and flip[0] <= i
+            log(f"{name}: request {rid} diverges at token {i} where the "
+                f"reference's top-2 gap is {gaps[i]:.4f}"
+                f"{' (after a routing flip)' if at_flip else ''}")
+            if not (gaps[i] < bound or at_flip):
+                problems.append(f"request {rid} diverges at token {i} with a "
+                                f"top-2 gap {gaps[i]:.4f} >= {bound} and no "
+                                f"routing flip before it")
+    out = {"token_share": agreed / max(total, 1), "max_logit_err": err,
+           "near_tie_share": n_near / max(total, 1),
+           "requests_with_flips": n_flip_req}
+    log(f"{name}: {100 * out['token_share']:.2f}% of tokens agree before "
+        f"any divergence; logits before divergence or routing flip max abs "
+        f"err {err:.4f} (tol {tol}); {n_flip_req} requests with a routing "
+        f"flip; {100 * out['near_tie_share']:.2f}% of reference positions "
+        f"have a top-2 gap below {bound}")
+    if not err <= tol:
+        problems.append(f"logits differ by {err:.4f} > {tol}")
+    failures.extend(f"{name}: {p}" for p in problems)
+    return out
+
+
+def moe_plan(model, first: int, routed: bool = True):
+    """Phase 5's plan on an MoE model: fp8 on every linear op (router,
+    routed experts unless ``routed`` is False, shared experts, attention
+    projections) of layers ``first`` on, plus the last layer's attention
+    BGEMMs (which then gathers)."""
+    from repro_torch.core.mpconfig import MPPlan
+    last = model.cfg.n_layers - 1
+    assignment = {op: "fp8_e4m3" for op in model.serving_op_names()
+                  if op.startswith("layers/")
+                  and int(op.split("/")[1]) >= first
+                  and not op.endswith("_matmul")
+                  and (routed or "/moe/experts/" not in op)}
+    for op in ("qk_matmul", "av_matmul"):
+        assignment[f"layers/{last}/attn/{op}"] = "fp8_e4m3"
+    return MPPlan(assignment=assignment, groups=[], objective="ET", tau=0.0,
+                  budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
+
+
+def release_steps(model) -> None:
+    """Drop the graphs of every serving step memoized on ``model`` (each
+    holds its memory pool until the next drain rebinds it)."""
+    for step in model.__dict__.get("_serving_steps", {}).values():
+        step.release()
+
+
+def moe_serve_phase(torch, model, params, route: str, plan_first: int,
+                    routed: bool = True):
+    """Phase 4's cell on an MoE model, every drain graphed: fused (route
+    ``route``: every launch through it, decode steps x layers) against its
+    eager twin bit for bit and against its lockstep twin bit for bit; fused
+    against gather at the routing rule (:func:`compare_moe`); the same
+    fused and gather drains under :func:`moe_plan` from layer
+    ``plan_first`` (``routed``: with the routed experts). Vacant decode
+    rows and bucket padding are routed and take capacity, as in the
+    reference. Each drain's graphs are released after it."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.quant import weight_cache
+    cfg = model.cfg
+    n_layers = cfg.n_layers
+    reqs = phase4_requests(model)
+    failures: list = []
+    routes: dict = {}
+
+    def drain(label, **kw):
+        events: list = []
+        out = run_continuous(torch, model, params, reqs, steps_out=events,
+                             **kw)
+        routes[label] = continuous_routes(events, reqs)
+        release_steps(model)
+        gc.collect()
+        return out
+
+    fused, n_fused, fused_tl = drain("fused", paged_attn="fused",
+                                     route=route)
+    if n_fused != fused.n_steps * n_layers or n_fused == 0:
+        raise AssertionError(f"{cfg.name} fused launches {n_fused} != "
+                             f"{fused.n_steps} steps x {n_layers} layers")
+    hg = None
+    if route == "gqa_mma":
+        n_pages = -(-(SERVE["prompt_len"] + SERVE["new_tokens"])
+                    // SERVE["block_size"])
+        hg = pa.head_group(cfg.n_heads // cfg.n_kv_heads, cfg.d_head, 0,
+                           n_pages, SERVE["block_size"],
+                           rows=SERVE["n_slots"] * cfg.n_kv_heads,
+                           sms=pa._sm_count(torch.device(DEVICE)),
+                           route=route)
+    log(f"{cfg.name} fused: {fused.n_steps} decode steps, {n_fused} kernel "
+        f"launches, all through {route}"
+        f"{'' if hg is None else f' at a head group of {hg}'}")
+    _, _, eager_tl = drain("fused_eager", paged_attn="fused", route=route,
+                           eager=True)
+    graphs = {"fused": graph_vs_eager(f"{cfg.name} fused", fused_tl,
+                                      eager_tl, failures)}
+    lock, n_lock, lock_tl = drain("fused_lockstep", paged_attn="fused",
+                                  route=route, sync=True)
+    n_eq = bit_equal(fused_tl, lock_tl)
+    log(f"{cfg.name} fused: pipelined vs lockstep {n_eq} of {len(lock_tl)} "
+        f"requests bit-equal (launches {n_fused} / {n_lock})")
+    if n_eq != len(lock_tl) or n_lock != n_fused:
+        failures.append(f"{cfg.name}: pipelined vs lockstep {n_eq} of "
+                        f"{len(lock_tl)} bit-equal")
+    gather, n_gather, gather_tl = drain("gather", paged_attn="gather")
+    if n_gather:
+        raise AssertionError(f"gather drain launched the kernel {n_gather} "
+                             f"times")
+    agree = {"fused_vs_gather": compare_moe(
+        f"{cfg.name} fused vs gather", fused_tl, gather_tl, routes["fused"],
+        routes["gather"], tol=LOGIT_TOL, bound=MARGIN_BOUND,
+        failures=failures)}
+    plan = moe_plan(model, plan_first, routed)
+    mp_f, n_mp, mp_f_tl = drain("mp_fused", mp=plan, paged_attn="fused",
+                                route=route)
+    if n_mp != mp_f.n_steps * (n_layers - 1):
+        raise AssertionError(f"{cfg.name} MP launches {n_mp} != "
+                             f"{mp_f.n_steps} steps x {n_layers - 1} fused "
+                             f"layers")
+    kept, of = weight_cache.nbytes(torch.device(DEVICE))
+    mp_g, _, mp_g_tl = drain("mp_gather", mp=plan, paged_attn="gather")
+    agree["mp_fused_vs_mp_gather"] = compare_moe(
+        f"{cfg.name} MP fused vs MP gather", mp_f_tl, mp_g_tl,
+        routes["mp_fused"], routes["mp_gather"], tol=LOGIT_TOL_MP,
+        bound=MARGIN_BOUND_MP, failures=failures)
+    peak = max(mp_f.counters["peak_device_gb"],
+               mp_g.counters["peak_device_gb"])
+    log(f"{cfg.name} MP plan ({plan.n_quantized} fp8 ops, layers "
+        f"{plan_first}-{n_layers - 1}"
+        f"{'' if routed else ', routed experts left in bf16'}): weight "
+        f"cache {kept / 1e9:.2f} GB of fp8 codes for {of / 1e9:.2f} GB of "
+        f"bf16 weights; peak device memory {peak:.2f} GB")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    log(f"{cfg.name} tokens/s: fused {fused.tokens_per_s:.1f} (lockstep "
+        f"{lock.tokens_per_s:.1f}), gather {gather.tokens_per_s:.1f}, MP "
+        f"fused {mp_f.tokens_per_s:.1f}, MP gather {mp_g.tokens_per_s:.1f}")
+    return {"kernel_launches_main_path": n_fused, "head_group": hg,
+            "graph_vs_eager": graphs, "pipelined_vs_lockstep_bit_equal":
+            n_eq, "agreement": agree,
+            "mp_plan": {"fp8_ops": plan.n_quantized, "routed": routed,
+                        "layers": [plan_first, n_layers - 1]},
+            "weight_cache_gb": kept / 1e9,
+            "serving": {"fused": serving_numbers(fused),
+                        "fused_lockstep": serving_numbers(lock),
+                        "gather": serving_numbers(gather),
+                        "mp_fused": serving_numbers(mp_f),
+                        "mp_gather": serving_numbers(mp_g)}}
+
+
+def router_kernel_check(torch) -> dict:
+    """Kernels 1-3 on the router's form under an fp8 assignment with
+    ``impl="kernel"``: an f32 (tokens, d_model) activation times the f32
+    (experts, d_model) router weight, f32 out, at N = E of the smoke and
+    the two MoE configs, against the plain versions."""
+    from repro_torch.kernels import fp8_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_cast as qc
+    out = {}
+    for E, C in ((8, 2048), (64, 2048), (256, 7168)):
+        x = randn(torch, (512, C), 11, 1.0, torch.float32)
+        w = randn(torch, (E, C), 12, C ** -0.5, torch.float32)
+        n0 = (qc.launches["amax"], mm.launches)
+        got = ops.fp8_linear(x, w, out_dtype=torch.float32)
+        launched = (qc.launches["amax"] - n0[0], mm.launches - n0[1])
+        # the same call on CPU copies takes the plain versions
+        want = ops.fp8_linear(x.cpu(), w.cpu(),
+                              out_dtype=torch.float32).to(DEVICE)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"router form E {E} C {C}: fp8_linear (f32 in, f32 out) vs "
+            f"plain max abs err {err:.3e} of max {scale:.3f}; amax + "
+            f"fp8_matmul launches {launched}")
+        if got.dtype != torch.float32 or launched != (2, 1) or \
+                err > MM_TOL * scale:
+            raise AssertionError(f"router form E {E}: dtype {got.dtype}, "
+                                 f"launches {launched}, err {err:.3e}")
+        out[str(E)] = err
+    return out
+
+
+# phase 22's two configurations: (arch, depth (None: all layers), other
+# overrides, paged kernel route)
+MOE_CONFIGS = ((MOONLIGHT, None, {}, "gqa_mma"),
+               (DEEPSEEK, DEEPSEEK_MOE_DEPTH, dict(mla_absorb_decode=True),
+                "mla_mma"))
+
+
+def moe_config_phase(torch, arch: str, depth, extra: dict,
+                     route: str) -> dict:
+    """Phase 22 for one configuration: random weights from a seeded
+    generator on the card, served as :func:`moe_serve_phase` says (the
+    plan on the later half of Moonlight's layers, on DeepSeek's last
+    layer), then calibrated at the depth :func:`fitted_calibration` gives
+    with the configuration's own MTP module (DeepSeek's: depth 1)."""
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.launch.serve import make_model_and_params
+    from repro_torch.models.registry import depth_overrides, get_config
+    from repro_torch.quant import weight_cache
+    global ROUTER
+    t0 = time.perf_counter()
+    ov = dict(depth_overrides(arch, depth) if depth else {}, **extra)
+    model, params = make_model_and_params(arch, False, DEVICE, seed=0, **ov)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"{arch}: {model.n_params() / 1e9:.3f}B params ({cfg.n_layers} "
+        f"layers, MoE layers {cfg.moe_layers[0]}-{cfg.moe_layers[-1]} of "
+        f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+        f"{cfg.moe.n_shared_experts} shared, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads), random init in "
+        f"{time.perf_counter() - t0:.1f} s, {weights_gb:.2f} GB on the card")
+    full = get_config(arch)
+    if cfg.n_layers < full.n_layers:
+        log(f"CUT: {arch} served at depth {cfg.n_layers} of "
+            f"{full.n_layers} (its dense layers and MoE layers "
+            f"{cfg.moe_layers[0]}-{cfg.moe_layers[-1]}: all "
+            f"{full.n_layers} hold {lm_bytes(full) / 1e12:.2f} TB of bf16 "
+            f"weights)")
+    torch.cuda.reset_peak_memory_stats()
+    ROUTER = RouterRecorder(torch)
+    try:
+        # Moonlight: the later half of its layers; DeepSeek: its last
+        # layer without the routed experts, whose fp8 codes (11.3 GB) and
+        # dequantized operand (7.5 GB a use) do not fit beside 53 GB
+        if arch == MOONLIGHT:
+            rec = moe_serve_phase(torch, model, params, route,
+                                  cfg.n_layers // 2)
+        else:
+            rec = moe_serve_phase(torch, model, params, route,
+                                  cfg.n_layers - 1, routed=False)
+    finally:
+        ROUTER.remove()
+        ROUTER = None
+    rec.update(weights_gb=weights_gb, n_params=model.n_params(),
+               serving_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{arch}: peak device memory while serving "
+        f"{rec['serving_peak_gb']:.2f} GB")
+    del model, params
+    weight_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                       batch=CAL_SHAPE[0],
+                                       seq_len=CAL_SHAPE[1]), DEVICE)
+    rec["calibration"] = fitted_calibration(
+        torch, arch, list(data.batches(0, CAL_BATCHES)), depth)
+    return rec
+
+
+def lm_bytes(cfg) -> int:
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.spec import param_bytes
+    return param_bytes(LM(cfg).param_specs())
+
+
+def moe_phase(torch) -> dict:
+    """Phase 22: the fp8 kernels on the router's form, then Moonlight's
+    config at full width and depth (48 MoE layers) and DeepSeek-V3 at depth
+    5 (three dense MLA layers and MoE layers 3 and 4, MTP off for serving),
+    each freed before the next."""
+    out = {"router_kernels": router_kernel_check(torch)}
+    for arch, depth, extra, route in MOE_CONFIGS:
+        out[arch] = moe_config_phase(torch, arch, depth, extra, route)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+DENSE_CONFIGS = (("qwen2p5_3b", 8), ("nemotron_4_15b", 8),
                  ("starcoder2_15b", 8), ("qwen2p5_32b", 8))
 
 
@@ -3425,6 +4356,7 @@ def dense_config_phase(torch, arch: str, depth) -> dict:
     memory; for qwen2p5_3b also calibration over phase 6's batches at the
     largest depth that fits."""
     from repro_torch.launch.serve import make_model_and_params
+    from repro_torch.models.registry import get_config
     t0 = time.perf_counter()
     model, params = make_model_and_params(
         arch, False, DEVICE, seed=0,
@@ -3451,9 +4383,10 @@ def dense_config_phase(torch, arch: str, depth) -> dict:
                                            batch=CAL_SHAPE[0],
                                            seq_len=CAL_SHAPE[1]), DEVICE)
         batches = list(data.batches(0, CAL_BATCHES))
-        del model
+        del model, params
         gc.collect()
-        out["calibration"] = fitted_calibration(torch, cfg, params, batches)
+        torch.cuda.empty_cache()
+        out["calibration"] = fitted_calibration(torch, arch, batches)
     return out
 
 
@@ -3596,6 +4529,7 @@ def main() -> int:
                                       depth)
         gc.collect()                  # the model's graphs and weights
         torch.cuda.empty_cache()
+    report["moe"] = phase("MoE and MTP", moe_phase, torch)
 
     t = report["fp8_times"]
     launches = report["measured_tier"]["launches"]
@@ -3617,6 +4551,10 @@ def main() -> int:
                                        "chunked")},
         "launches_phase18": {a: r["kernel_launches_main_path"]
                              for a, r in report["dense"].items()},
+        "launches_phase22": report["moe"][MOONLIGHT][
+            "kernel_launches_main_path"],
+        "head_group_1": {k: report["gqa_times"]["d128_g1"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"],
         "kernel_ms": report["ms"],
@@ -3658,6 +4596,8 @@ def main() -> int:
         "launches": report["mla_kernel_launches_main_path"],
         "launches_phase15": {"shared_prefix":
                              report["prefix_mla"]["kernel_launches"]},
+        "launches_phase22": report["moe"][DEEPSEEK][
+            "kernel_launches_main_path"],
         "max_abs_err": report["mla_max_abs_err"],
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "bound_ms_f32": m["bound_ms_f32"],
@@ -3701,12 +4641,21 @@ def main() -> int:
         if k in r} | ({"calibration": r["calibration"]}
                       if "calibration" in r else {})
         for a, r in report["dense"].items()}}), flush=True)
+    print(json.dumps({"moe": {a: {k: r[k] for k in r if k != "serving"}
+                              if isinstance(r, dict) and "serving" in r
+                              else r for a, r in report["moe"].items()}}),
+          flush=True)
     mt = report["measured_tier"]
     print(json.dumps({"calibration": report["calibration"],
                       "measured_tier": {k: mt[k] for k in (
                           "seconds", "n_warmup", "n_iters", "n_forwards",
-                          "weight_quantizations", "base_ms_tier",
-                          "base_spread_ms", "groups_beyond_spread")},
+                          "n_captures", "weight_quantizations",
+                          "base_ms_tier", "base_spread_ms",
+                          "groups_beyond_spread",
+                          "spread_across_captures_ms",
+                          "groups_beyond_spread_across_captures", "runs",
+                          "plans_agree", "plan_symmetric_difference",
+                          "fig3b", "placement")},
                       "fp8_linear": t["fp8_linear"],
                       "plans": report["plan_serving"]["plans"],
                       "fig3a": report["fig3a"],

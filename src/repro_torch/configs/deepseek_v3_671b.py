@@ -4,13 +4,8 @@ top-8) + multi-token prediction; the same two configurations as
 
 61L d_model=7168 128H (MLA: q_lora=1536, kv_lora=512, nope=128, rope=64,
 v=128) expert d_ff=2048 vocab=129280. The first 3 layers are dense
-(d_ff=18432); MTP depth 1.
-
-The port builds MLA blocks with dense MLPs; MoE layers and multi-token
-prediction are not ported, so the published configuration raises when a
-model is built from it. Its dense prefix builds with
-``config(n_layers=3, block_types=("mla",) * 3, moe_layers=(),
-mtp_depth=0)``.
+(d_ff=18432); MTP depth 1. ``models.registry.dense_prefix_overrides``
+keeps the three dense layers and drops MTP.
 """
 from repro_torch.models.lm import LMConfig, MoEConfig
 

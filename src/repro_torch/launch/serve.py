@@ -17,6 +17,15 @@ solved at serve time from a calibration bundle.
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --continuous \
         --device cpu
 
+    # Mixture-of-Experts: Moonlight's config (48 MoE layers, 56 GB of
+    # bf16 weights) and DeepSeek-V3 at 5 of its 61 layers (its dense MLA
+    # layers and MoE layers 3-4, 53 GB), absorbed decode through the MLA
+    # form of the paged kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch moonshot_v1_16b_a3b --continuous
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek_v3_671b --n-layers 5 --mla-absorb-decode --continuous
+
     # DeepSeek-V3's dense MLA prefix, absorbed decode through the MLA form
     # of the paged kernel; a one-shot prompt past --flash-min-seq prefills
     # through the blocked flash attention
@@ -66,7 +75,8 @@ import torch
 from repro_torch.core.mpconfig import MPPlan
 from repro_torch.core.pipeline import CalibrationBundle
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.registry import dense_prefix_overrides, get_model
+from repro_torch.models.registry import (dense_prefix_overrides,
+                                         depth_overrides, get_model)
 from repro_torch.nn.spec import default_generator
 from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
 
@@ -86,6 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="keep only the layers before the first MoE layer "
                          "and drop multi-token prediction (DeepSeek-V3: its "
                          "three dense MLA layers)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="keep only the first N layers and drop multi-token "
+                         "prediction (DeepSeek-V3 past its dense prefix on "
+                         "one card: 5, its dense layers and MoE layers 3-4)")
     ap.add_argument("--mla-absorb-decode", action="store_true",
                     help="MLA decode in the latent space (the fused paged "
                          "kernel's MLA form)")
@@ -376,8 +390,12 @@ def profile_drain(eng, params, reqs, trace_path: Optional[str],
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    if args.dense_prefix and args.n_layers is not None:
+        raise SystemExit("--dense-prefix and --n-layers are exclusive")
     ov = dense_prefix_overrides(args.arch, args.smoke) \
         if args.dense_prefix else {}
+    if args.n_layers is not None:
+        ov = depth_overrides(args.arch, args.n_layers, args.smoke)
     if args.mla_absorb_decode:
         ov["mla_absorb_decode"] = True
     if args.flash_min_seq is not None:

@@ -23,12 +23,12 @@ import torch
 from repro_torch.core.mpconfig import as_assignment
 from repro_torch.quant.qops import QuantContext
 
-__all__ = ["make_prefill_step", "make_bucketed_prefill_step",
-           "make_chunked_prefill_step", "make_dense_chunked_prefill_step",
-           "make_decode_step", "make_paged_decode_step", "GraphedStep",
-           "get_serving_step", "greedy_next_token", "merge_first_tokens",
-           "nonfinite_rows", "shadow_logit_mse", "graph_captures",
-           "graph_replays"]
+__all__ = ["make_forward_step", "GraphedForward", "make_prefill_step",
+           "make_bucketed_prefill_step", "make_chunked_prefill_step",
+           "make_dense_chunked_prefill_step", "make_decode_step",
+           "make_paged_decode_step", "GraphedStep", "get_serving_step",
+           "greedy_next_token", "merge_first_tokens", "nonfinite_rows",
+           "shadow_logit_mse", "graph_captures", "graph_replays"]
 
 # CUDA graph captures and replays of serving steps in this process, by step
 # kind (``GraphedStep.kind``)
@@ -47,6 +47,41 @@ def _serving_ctx(mp) -> QuantContext:
 
 def _with_next(logits: torch.Tensor, caches: dict) -> tuple:
     return logits, caches, greedy_next_token(logits)
+
+
+def make_forward_step(model, ctx: QuantContext):
+    """(params, caches, tokens) -> (logits (B, T, V), caches, None): the
+    full forward ``model.apply`` under ``ctx`` as a step (``caches`` passes
+    through untouched; no greedy token)."""
+    def forward_step(params, caches, tokens):
+        with torch.no_grad():
+            return model.apply(params, tokens, ctx), caches, None
+    return forward_step
+
+
+class GraphedForward:
+    """``(params, tokens) -> logits``: the port's counterpart of the
+    reference's ``jax.jit(lambda p, t: model.apply(p, t, ctx))``, which
+    the measured tier times (``benchmarks/fig3_validation.py``). On CUDA a
+    :class:`GraphedStep` over :func:`make_forward_step`: one graph per
+    input shape, whose first call runs the forward eagerly on a side stream
+    (filling the weight cache) and captures it, later calls replay it and
+    add the launches the capture recorded to the kernels' counters; a
+    failed capture raises. On the CPU it runs eagerly. The logits are the
+    graph's static output, overwritten by the next replay. ``release()``
+    drops the graphs and the memory of the activations they hold (to
+    ``shared_pool``'s free blocks, when it was given and lives on)."""
+
+    def __init__(self, model, ctx: QuantContext, shared_pool=None):
+        self.step = GraphedStep(make_forward_step(model, ctx), "forward",
+                                max_captures=1, shared_pool=shared_pool)
+        self._caches: dict = {}
+
+    def __call__(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return self.step(params, self._caches, tokens)[0]
+
+    def release(self) -> None:
+        self.step.release()
 
 
 def make_prefill_step(model, mp: Optional[dict] = None):
@@ -192,7 +227,7 @@ class _Captured:
 
 class GraphedStep:
     """A serving step, ``(params, caches, *inputs) -> (logits, caches,
-    next_token)``.
+    next_token)`` (``next_token`` None for :func:`make_forward_step`).
 
     On the CPU it runs eagerly, as the caller asked for the CPU. On CUDA it
     is the port's counterpart of the reference's memoized ``jax.jit``,
@@ -208,7 +243,10 @@ class GraphedStep:
     it, so a graph is never replayed over other tensors or a stale
     quantized weight. ``max_captures`` bounds the table (the per-length
     one-shot prefill keeps one graph: a long prompt's graph holds
-    gigabytes); the captures of one step share one memory pool.
+    gigabytes); the captures of one step share one memory pool, which
+    ``shared_pool`` (another step's ``pool()``) makes that step's: a
+    series of graphs built and released one after another then reuses one
+    pool's blocks instead of allocating its own.
 
     A capture reads its inputs from the tensors of the call it was made in
     (a view, of another graph's output say, is copied into a buffer of its
@@ -225,10 +263,11 @@ class GraphedStep:
     ``kind``) and ``captures`` / ``replays`` (this step) count them."""
 
     def __init__(self, fn, kind: str = "step",
-                 max_captures: Optional[int] = None):
+                 max_captures: Optional[int] = None, shared_pool=None):
         self.fn = fn
         self.kind = kind
         self.max_captures = max_captures
+        self.shared_pool = shared_pool   # another graph's pool, or None
         self._table: dict = {}           # input signature -> _Captured
         self._roots = None               # (params, caches) of the table
         self.captures = 0
@@ -238,6 +277,24 @@ class GraphedStep:
         """Drop every graph (and so the memory pool they share)."""
         self._table.clear()
         self._roots = None
+
+    def pool(self):
+        """The memory pool this step's graphs share (None before its first
+        capture, and on the CPU)."""
+        if not self._table:
+            return None
+        return next(iter(self._table.values())).graph.pool()
+
+    def recorded(self) -> Counter:
+        """Kernel launches one replay of every kept graph adds, summed, by
+        kernel: ``amax`` and ``scale_cast`` (``quant_cast``),
+        ``fp8_matmul``, ``mp_attention`` and ``paged_attention``."""
+        out: Counter = Counter()
+        for cap in self._table.values():
+            for (mod, attr, k), n in cap.launches.items():
+                if attr == "launches":
+                    out[k if k is not None else mod] += n
+        return out
 
     def __call__(self, params, caches, *inputs):
         if not self._on_card(inputs):
@@ -274,7 +331,8 @@ class GraphedStep:
             logits, caches, nxt = self.fn(params, caches, *inputs)
         main.wait_stream(side)
         for t in (logits, nxt):
-            t.record_stream(main)
+            if t is not None:
+                t.record_stream(main)
         return logits, caches, nxt
 
     def _record(self, params, caches, static, pool) -> tuple:
@@ -297,8 +355,7 @@ class GraphedStep:
             roots = self._roots
             self.release()               # its graphs' memory goes first
             self._roots = roots
-        pool = next(iter(self._table.values())).graph.pool() \
-            if self._table else None
+        pool = self.pool() or self.shared_pool
         static = tuple(t if t._base is None else t.clone() for t in inputs)
         logits, caches, nxt = self._warm_up(params, caches, inputs)
         before = _read_counters()

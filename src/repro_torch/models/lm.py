@@ -2,13 +2,15 @@
 ``repro/models/lm.py``).
 
 Block types: ``attn`` (GQA, the llama family) and ``mla`` (DeepSeek-V3's
-multi-head latent attention), each followed by a dense MLP. ``LMConfig``
-keeps every field of the reference so that every configuration loads; the
-features the port does not have yet — MoE layers, mamba/hybrid blocks,
-``scan_layers``, ``prefix_embed`` and ``mtp_depth`` — raise
-``NotImplementedError`` when the model is built. Layers run unrolled in a
-Python loop, each with its own params and op names
-(``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged.
+multi-head latent attention), each followed by a dense MLP or, for the
+layers in ``moe_layers``, a Mixture-of-Experts layer
+(:mod:`repro_torch.nn.moe`); ``mtp_depth`` adds DeepSeek-V3's multi-token
+prediction module, which only :meth:`LM.loss` reads. ``LMConfig`` keeps
+every field of the reference so that every configuration loads; the
+features the port does not have yet — mamba/hybrid blocks, ``scan_layers``
+and ``prefix_embed`` — raise ``NotImplementedError`` when the model is
+built. Layers run unrolled in a Python loop, each with its own params and
+op names (``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged.
 
 Params are the nested dict of tensors that :meth:`LM.init` returns (or
 ``repro_torch.bridge.params_from_flat`` builds from reference weights);
@@ -21,9 +23,11 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn import layers as L
+from repro_torch.nn.moe import MoEConfig, apply_moe, moe_specs  # noqa: F401
 from repro_torch.nn.spec import ParamSpec, init_params, param_count
 from repro_torch.quant import qops
 from repro_torch.quant.formats import get_format
@@ -33,21 +37,6 @@ BIG_WINDOW = 1 << 30
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
-
-
-@dataclasses.dataclass(frozen=True)
-class MoEConfig:
-    """The reference's MoE configuration (``repro/nn/moe.py``), kept so that
-    MoE configurations load; a model with MoE layers is not built yet."""
-    n_experts: int
-    top_k: int
-    d_expert_ff: int
-    n_shared_experts: int = 0
-    d_shared_ff: int = 0
-    capacity_factor: float = 1.25
-    token_chunk: int = 1024
-    router_dtype: str = "float32"
-    aux_loss_weight: float = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +148,9 @@ class LMConfig:
                            absorb_decode=self.mla_absorb_decode,
                            kv_dequant_scales=self.kv_scales_for(i))
 
+    def layer_signature(self, i: int) -> tuple:
+        return (self.block_types[i], i in self.moe_layers)
+
     def window_for(self, i: int) -> Optional[int]:
         if self.sliding_window is None or i in self.global_attn_layers:
             return None
@@ -166,7 +158,7 @@ class LMConfig:
 
 
 # the ROADMAP.md item that ports each family of layers or option
-_ITEMS = {"scan_layers": "A9", "prefix_embed": "A8", "mtp_depth": "A6"}
+_ITEMS = {"scan_layers": "A9", "prefix_embed": "A8"}
 
 
 def _unsupported(cfg: LMConfig) -> list:
@@ -174,9 +166,7 @@ def _unsupported(cfg: LMConfig) -> list:
     other = sorted(set(cfg.block_types) - {"attn", "mla"})
     if other:
         out.append(f"block types {other} (mamba / hybrid: ROADMAP item A8)")
-    if cfg.moe_layers:
-        out.append("MoE layers (ROADMAP item A6)")
-    for flag in ("scan_layers", "prefix_embed", "mtp_depth"):
+    for flag in ("scan_layers", "prefix_embed"):
         if getattr(cfg, flag):
             out.append(f"{flag} (ROADMAP item {_ITEMS[flag]})")
     return out
@@ -199,8 +189,9 @@ class LM:
     # ------------------------------------------------------------------
     # specs
     # ------------------------------------------------------------------
-    def _layer_specs(self, block: str, prefix: str) -> dict:
+    def _layer_specs(self, sig: tuple, prefix: str) -> dict:
         cfg = self.cfg
+        block, is_moe = sig
         specs: dict = {}
         specs.update(L.norm_specs(f"{prefix}/attn_norm", cfg.d_model,
                                   cfg.norm))
@@ -208,7 +199,12 @@ class LM:
             specs.update(L.mla_specs(f"{prefix}/attn", cfg.mla_cfg))
         else:
             specs.update(L.attn_specs(f"{prefix}/attn", cfg.attn_cfg))
-        if cfg.d_ff > 0:
+        if is_moe:
+            specs.update(L.norm_specs(f"{prefix}/mlp_norm", cfg.d_model,
+                                      cfg.norm))
+            specs.update(moe_specs(f"{prefix}/moe", cfg.d_model, cfg.moe,
+                                   cfg.activation))
+        elif cfg.d_ff > 0:
             specs.update(L.norm_specs(f"{prefix}/mlp_norm", cfg.d_model,
                                       cfg.norm))
             specs.update(L.mlp_specs(f"{prefix}/mlp", cfg.d_model, cfg.d_ff,
@@ -239,8 +235,15 @@ class LM:
                                            ("vocab", "embed"),
                                            init="scaled_normal")
         for i in range(cfg.n_layers):
-            specs.update(self._layer_specs(cfg.block_types[i],
+            specs.update(self._layer_specs(cfg.layer_signature(i),
                                            f"layers/{i}"))
+        if cfg.mtp_depth > 0:
+            specs["mtp/proj/w"] = ParamSpec((cfg.d_model, 2 * cfg.d_model),
+                                            ("embed", None),
+                                            init="scaled_normal")
+            specs.update(L.norm_specs("mtp/norm", cfg.d_model, cfg.norm))
+            specs.update(self._layer_specs(
+                cfg.layer_signature(cfg.n_layers - 1), "mtp/block"))
         return self._apply_param_dtype(specs)
 
     def init(self, generator: torch.Generator,
@@ -262,17 +265,23 @@ class LM:
                              "qk_matmul", "av_matmul"),
                     "mla": ("q_a_proj", "q_b_proj", "kv_a_proj", "kv_b_proj",
                             "o_proj", "qk_matmul", "av_matmul")}
+        moe = ("router", "experts/gate_proj", "experts/up_proj",
+               "experts/down_proj")
         for i in range(self.cfg.n_layers):
             ops.update(f"layers/{i}/attn/{n}"
                        for n in attn_ops[self.cfg.block_types[i]])
-            if self.cfg.d_ff > 0:
+            if i in self.cfg.moe_layers:
+                ops.update(f"layers/{i}/moe/{n}" for n in moe)
+                if self.cfg.moe.n_shared_experts:
+                    ops.update(f"layers/{i}/moe/shared/{n}" for n in mlp)
+            elif self.cfg.d_ff > 0:
                 ops.update(f"layers/{i}/mlp/{n}" for n in mlp)
         return ops
 
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _block(self, p: dict, ctx: QuantContext, scope: str,
+    def _block(self, p: dict, ctx: QuantContext, scope: str, sig: tuple,
                h: torch.Tensor, positions: torch.Tensor, *, window="cfg",
                cache: Optional[dict] = None, cache_pos=None,
                block_tables: Optional[torch.Tensor] = None,
@@ -280,9 +289,15 @@ class LM:
                chunk_start: Optional[torch.Tensor] = None,
                chunk_ring: bool = False,
                layer_idx: Optional[int] = None, paged_attn: str = "fused"):
+        """One layer; returns (h, cache, aux), ``aux`` the MoE layer's
+        f32 load-balance loss (the float 0.0 for a dense MLP, so a dense
+        step launches nothing for it). ``layer_idx`` None (the MTP block)
+        takes the config-wide attention settings."""
         cfg = self.cfg
+        block, is_moe = sig
+        aux = 0.0
         hn = L.apply_norm(p["attn_norm"], h, cfg.norm)
-        if cfg.block_types[layer_idx] == "mla":
+        if block == "mla":
             y, cache = L.mla_attention(p["attn"], ctx, f"{scope}/attn",
                                        cfg.mla_cfg_for(layer_idx), hn,
                                        positions, cache=cache,
@@ -303,30 +318,38 @@ class LM:
                                    chunk_ring=chunk_ring, window=window,
                                    paged_attn=paged_attn)
         h = h + y
-        if cfg.d_ff > 0:
+        if is_moe:
+            hn2 = L.apply_norm(p["mlp_norm"], h, cfg.norm)
+            ym, aux = apply_moe(p["moe"], ctx, f"{scope}/moe", hn2, cfg.moe,
+                                cfg.activation)
+            h = h + ym
+        elif cfg.d_ff > 0:
             hn2 = L.apply_norm(p["mlp_norm"], h, cfg.norm)
             h = h + L.apply_mlp(p["mlp"], ctx, f"{scope}/mlp", hn2,
                                 cfg.activation)
-        return h, cache
+        return h, cache, aux
 
     def _backbone(self, params: dict, ctx: QuantContext, h: torch.Tensor,
                   positions: torch.Tensor, *, caches: Optional[dict] = None,
                   cache_pos=None, block_tables=None, chunk_valid=None,
                   chunk_start=None, chunk_ring: bool = False,
                   paged_attn: str = "fused"):
-        """Run every layer in a Python loop; caches are updated in place."""
+        """Run every layer in a Python loop; caches are updated in place.
+        Returns (final-normed h, the layers' summed MoE aux loss: 0.0
+        without MoE layers)."""
         cfg = self.cfg
+        aux_total = 0.0
         for i in range(cfg.n_layers):
             cache_i = None if caches is None else caches[f"layers/{i}"]
-            h, _ = self._block(params["layers"][str(i)], ctx, f"layers/{i}",
-                               h, positions, window=cfg.window_for(i),
-                               cache=cache_i, cache_pos=cache_pos,
-                               block_tables=block_tables,
-                               chunk_valid=chunk_valid,
-                               chunk_start=chunk_start,
-                               chunk_ring=chunk_ring, layer_idx=i,
-                               paged_attn=paged_attn)
-        return L.apply_norm(params["final_norm"], h, cfg.norm)
+            h, _, aux_i = self._block(
+                params["layers"][str(i)], ctx, f"layers/{i}",
+                cfg.layer_signature(i), h, positions,
+                window=cfg.window_for(i), cache=cache_i,
+                cache_pos=cache_pos, block_tables=block_tables,
+                chunk_valid=chunk_valid, chunk_start=chunk_start,
+                chunk_ring=chunk_ring, layer_idx=i, paged_attn=paged_attn)
+            aux_total = aux_total + aux_i
+        return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
 
     def _embed(self, params: dict, tokens: torch.Tensor) -> tuple:
         emb = params["embed"]["w"][tokens.long()].to(self.dtype)
@@ -345,24 +368,60 @@ class LM:
               ctx: QuantContext) -> torch.Tensor:
         """Full forward -> logits (B, T, V)."""
         h, positions = self._embed(params, tokens)
-        h = self._backbone(params, ctx, h, positions)
+        h, _ = self._backbone(params, ctx, h, positions)
         return self._head(params, ctx, h)
 
-    def loss(self, params: dict, batch: dict,
-             ctx: QuantContext) -> torch.Tensor:
+    def _ce(self, params: dict, ctx: QuantContext, h: torch.Tensor,
+            labels: torch.Tensor, weights) -> torch.Tensor:
         from repro_torch.nn.losses import chunked_ce_loss
-        h, positions = self._embed(params, batch["tokens"])
-        h = self._backbone(params, ctx, h, positions)
         # probe mode runs the head once over the whole sequence, so each op
         # is captured and probed once (as in the reference); so does an op
         # inventory trace, so its head operands have the probes' shapes (the
         # reference records one chunk there, and its calibration then fails
         # on a sequence longer than loss_chunk)
         return chunked_ce_loss(lambda hi: self._head(params, ctx, hi), h,
-                               batch["labels"], batch.get("weights"),
-                               self.cfg.loss_chunk,
+                               labels, weights, self.cfg.loss_chunk,
                                no_scan=(ctx.mode == "probe"
                                         or ctx.registry is not None))
+
+    def loss(self, params: dict, batch: dict,
+             ctx: QuantContext) -> torch.Tensor:
+        """Cross-entropy, plus ``mtp_weight`` x the multi-token prediction
+        loss when ``mtp_depth`` > 0, plus the MoE layers' aux loss."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        weights = batch.get("weights")
+        h, positions = self._embed(params, tokens)
+        h, aux = self._backbone(params, ctx, h, positions)
+        loss = self._ce(params, ctx, h, labels, weights)
+        if cfg.mtp_depth > 0:
+            if weights is None:
+                weights = torch.ones(tokens.shape, dtype=torch.float32,
+                                     device=h.device)
+            loss = loss + cfg.mtp_weight * self._mtp_loss(
+                params, ctx, h, tokens, labels, weights)
+        return loss + aux
+
+    def _mtp_loss(self, params: dict, ctx: QuantContext, h: torch.Tensor,
+                  tokens: torch.Tensor, labels: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction: predict t+2 from (h_t,
+        emb_{t+1}) through one more block of the last layer's kind."""
+        cfg = self.cfg
+        emb_next = params["embed"]["w"][labels.long()].to(self.dtype)
+        hcat = torch.cat([h, emb_next], dim=-1)
+        hm = qops.linear(ctx, "mtp/proj", hcat, params["mtp"]["proj"]["w"])
+        hm = L.apply_norm(params["mtp"]["norm"], hm, cfg.norm)
+        B, T = tokens.shape
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=hm.device)[None].expand(B, T)
+        hm, _, _ = self._block(params["mtp"]["block"], ctx, "mtp/block",
+                               cfg.layer_signature(cfg.n_layers - 1), hm,
+                               positions)
+        # targets: labels shifted by one more step
+        tgt = F.pad(labels[:, 1:], (0, 1))
+        w = F.pad(weights[:, 1:], (0, 1))
+        return self._ce(params, ctx, hm, tgt, w)
 
     # ------------------------------------------------------------------
     # serving
@@ -455,7 +514,7 @@ class LM:
         """Process the prompt into dense caches; returns (last-token logits,
         caches)."""
         h, positions = self._embed(params, tokens)
-        h = self._backbone(params, ctx, h, positions, caches=caches)
+        h, _ = self._backbone(params, ctx, h, positions, caches=caches)
         return self._head(params, ctx, h[:, -1:]), caches
 
     def prefill_chunk(self, params: dict, tokens: torch.Tensor, caches: dict,
@@ -479,7 +538,7 @@ class LM:
         ar = torch.arange(T, dtype=torch.int32, device=dev)[None]
         positions = start[:, None] + ar
         chunk_valid = ar < valid[:, None]
-        h = self._backbone(params, ctx, emb, positions, caches=caches,
+        h, _ = self._backbone(params, ctx, emb, positions, caches=caches,
                            chunk_valid=chunk_valid, chunk_start=start,
                            chunk_ring=chunk_ring, block_tables=block_tables)
         idx = torch.clamp_min(valid - 1, 0).long()   # inactive rows: garbage
@@ -500,7 +559,7 @@ class LM:
         pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         positions = (pos[:, None] if pos.dim() == 1
                      else pos.reshape(1, 1).expand(B, 1))
-        h = self._backbone(params, ctx, emb, positions, caches=caches,
+        h, _ = self._backbone(params, ctx, emb, positions, caches=caches,
                            cache_pos=pos, block_tables=block_tables,
                            paged_attn=paged_attn)
         return self._head(params, ctx, h), caches

@@ -36,7 +36,8 @@ from typing import Callable, Hashable, Optional
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-__all__ = ["cached", "quantizations", "quantize_count", "holding", "nbytes"]
+__all__ = ["cached", "quantizations", "quantize_count", "holding", "nbytes",
+           "clear"]
 
 quantizations = 0               # weight quantizations done in this process
 
@@ -151,3 +152,10 @@ def nbytes(device: Optional[torch.device] = None) -> tuple:
              if device is None or w.device.type == device.type]
     return (sum(_bytes(v) for _, v in items),
             sum(w.numel() * w.element_size() for w, _ in items))
+
+
+def clear() -> None:
+    """Drop every kept value (their memory goes once no CUDA graph holds
+    them); the next use of a weight quantizes it again."""
+    with _LOCK:
+        _ENTRIES.clear()

@@ -481,3 +481,47 @@ def test_launcher_serves_from_a_calibration_bundle(tmp_path, capsys,
         _launch(["--calibration", str(path), "--mp-plan", "p.json"], capsys)
     with pytest.raises(SystemExit, match="require --calibration"):
         _launch(["--tau", "0.1"], capsys)
+
+
+def test_graphed_forward_factory_drives_the_measured_tier(calibrated):
+    """The measured tier over ``launch.steps.GraphedForward``, the port's
+    counterpart of the reference's ``jax.jit(lambda p, t: model.apply(p,
+    t, ctx))`` (eager on the CPU, as the caller asked for the CPU): every
+    group's combos are timed and tabulated over the analytic table's
+    groups, each forward returns ``model.apply``'s logits under its
+    assignment, and a released forward runs again."""
+    from repro_torch.launch.steps import GraphedForward
+    _, _, _, tm, tp, batches, _, tb = calibrated
+    bundle = tpl.CalibrationBundle.from_dict(tb.to_dict())
+    # three of the smoke llama's groups of at most two ops: every kind of
+    # op the tier times, at a few forwards each
+    entry = bundle.objectives["ET"]
+    keep = [i for i, g in enumerate(entry["groups"]) if len(g) <= 2][-3:]
+    bundle.objectives = {"ET": {k: [entry[k][i] for i in keep]
+                                for k in ("groups", "gains")}}
+    prompt = torch.from_numpy(batches[0]["tokens"][:, :16])
+    seen = []
+
+    def factory(assignment):
+        ctx = TCtx(mode="mp", mp=dict(assignment), impl="kernel")
+        fwd = GraphedForward(tm, ctx)
+        seen.append((dict(assignment), fwd, ctx))
+
+        def run():
+            fwd(tp, prompt)
+        return run
+
+    key = tpl.tabulate_measured_gains(bundle, factory, n_iters=1,
+                                      n_warmup=1)
+    groups = bundle.objectives["ET"]["groups"]
+    assert bundle.objectives[key]["groups"] == groups
+    n_combos = sum(2 ** len(g) - 1 for g in groups)
+    assert len(seen) == n_combos + 1                # + the base forward
+    for assignment, fwd, ctx in seen[:3] + seen[-2:]:
+        with torch.no_grad():
+            want = tm.apply(tp, prompt, ctx)
+        assert torch.equal(fwd(tp, prompt), want)
+        fwd.release()
+        assert torch.equal(fwd(tp, prompt), want)
+        assert fwd.step.captures == 0                   # no graph on the CPU
+    assert bundle.solve(0.02, "ET").meta["gain_tier"] == "measured"

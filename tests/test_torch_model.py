@@ -185,12 +185,18 @@ def test_prefill_and_decode_logits_match_reference(pair, mp):
 
 def test_unported_features_raise():
     from repro_torch.configs import llama3_1b as tc
-    from repro_torch.models.lm import LM
-    for ov in ({"block_types": ("mamba", "attn")}, {"scan_layers": True},
-               {"moe_layers": (1,)}, {"mtp_depth": 1},
-               {"prefix_embed": True}):
-        with pytest.raises(NotImplementedError):
+    from repro_torch.models.lm import LM, MoEConfig
+    for ov, item in (({"block_types": ("mamba", "attn")}, "A8"),
+                     ({"scan_layers": True}, "A9"),
+                     ({"prefix_embed": True}, "A8")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             LM(tc.smoke_config(**ov))
+    # MoE layers and multi-token prediction are ported (ROADMAP A6)
+    moe = MoEConfig(n_experts=4, top_k=2, d_expert_ff=32)
+    m = LM(tc.smoke_config(moe_layers=(1,), moe=moe, mtp_depth=1))
+    assert "layers/1/moe/experts/up_proj/w" in m.param_specs()
+    assert "mtp/block/moe/router/w" in m.param_specs()
+    LM(tget("moonshot_v1_16b_a3b").cfg)
     # MLA blocks and prompts at or beyond flash_min_seq are ported
     LM(tc.smoke_config(block_types=("mla", "attn")))
     m = LM(tc.smoke_config(flash_min_seq=8))
@@ -201,7 +207,7 @@ def test_unported_features_raise():
         tget("mamba2_370m")
     assert ARCH_IDS == ["llama3_1b", "llama3_8b", "deepseek_v3_671b",
                         "qwen2p5_3b", "qwen2p5_32b", "nemotron_4_15b",
-                        "starcoder2_15b"]
+                        "starcoder2_15b", "moonshot_v1_16b_a3b"]
 
 
 def _jax_greedy(jm, jp, batch, n: int, jit: bool):

@@ -801,3 +801,43 @@ def test_poisoned_block_stays_nan_on_the_card(cuda, kv):
         for t in layer.values():
             assert torch.isnan(t[3].float()).all()
             assert (t[[1, 2, 4, 5]].float() == 0).all()
+
+
+@pytest.mark.parametrize("mp", [False, True], ids=["plain", "mp"])
+def test_graphed_forward_equals_eager(cuda, mp):
+    """``launch.steps.GraphedForward``, the forward the measured tier
+    times: its first call (eager warm-up, then the capture) and its
+    replays give the logits of ``model.apply`` run eagerly, bit for bit;
+    the capture adds nothing to the fp8 kernels' counters and each replay
+    adds what it recorded, 1 amax + 1 scale_cast + 1 fp8_matmul per fp8
+    linear op (the weights were quantized once, before)."""
+    from repro_torch.kernels import fp8_matmul as mm
+    model = _model("llama3_1b")
+    params = _params(model)
+    assign = ({"layers/3/mlp/up_proj": "fp8_e4m3", "lm_head": "fp8_e4m3",
+               "layers/5/attn/qk_matmul": "fp8_e4m3"} if mp else {})
+    n_fp8 = 2 if mp else 0
+    ctx = qops.QuantContext(mode="mp", mp=assign, impl="kernel")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, model.cfg.vocab_size, (2, 64), generator=g,
+                           device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        want = model.apply(params, prompt, ctx)
+    fwd = tsteps.GraphedForward(model, ctx)
+    counts = []
+    for _ in range(3):
+        n0 = (qc.launches["amax"], qc.launches["scale_cast"], mm.launches)
+        got = fwd(params, prompt)
+        torch.cuda.synchronize()
+        counts.append((qc.launches["amax"] - n0[0],
+                       qc.launches["scale_cast"] - n0[1],
+                       mm.launches - n0[2]))
+        assert torch.equal(got, want)
+    assert counts == [(n_fp8,) * 3] * 3
+    assert (fwd.step.captures, fwd.step.replays) == (1, 2)
+    rec = fwd.step.recorded()
+    assert (rec["amax"], rec["scale_cast"], rec["fp8_matmul"]) == \
+        (n_fp8,) * 3
+    fwd.release()
+    assert torch.equal(fwd(params, prompt), want)
+    assert fwd.step.captures == 2
