@@ -64,8 +64,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    every combo of every group, each assignment one graph
    (``launch.steps.GraphedForward``, the counterpart of the reference's
    ``jax.jit`` of ``model.apply``: captured at its first call, replayed
-   after, released when the next assignment is built). Run twice, each
-   run after 5 s of base replays that settle the card's clocks, with the
+   after, released when the next assignment is built). Run once (two
+   runs gave different ET plans: ROADMAP C3), after 5 s of base replays
+   that settle the card's clocks, with the
    base captured anew every 120 assignments: each run checks the fp8
    kernels' launches (1 amax + 1 scale_cast + 1 fp8_matmul per fp8
    linear op in each eager warm-up and in each capture, the capture's
@@ -73,12 +74,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    set to fp8: the weight cache), prints the base replay's spread over 20
    replays, the base captures' medians, their spread and the card's
    clocks after each, the groups whose best combo gains beyond either
-   spread, the run's seconds and its ET plan; then whether the two plans
-   agree (their symmetric difference if not), the capture placement
+   spread, the run's seconds and its ET plan; then the capture placement
    check (captures of the base kept side by side, in one pool and in
    their own, replayed in turns on the host clock and between CUDA
    events, and what a capture costs in each), and paper Fig. 3b on the
-   second run's plan: the sum of its per-group measured gains against
+   run's plan: the sum of its per-group measured gains against
    its end-to-end measured gain;
 8. solve the measured ET plan (and TT, M), serve it through
    ``python -m repro_torch.launch.serve --calibration`` at phase 4's cell,
@@ -226,7 +226,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     block takes the last kept layer's kind: dense at the depth the fit
     allows) at the depth ``fitted_calibration`` gives, its groups counted
     by ``core.graphs`` and from the block kinds;
-23. print the kernel table and the serving and calibration numbers as JSON
+23. Mamba-2 370M and Hymba 1.5B at full width and depth, random weights
+    from a seeded generator, each freed before the next: first kernels 1-3
+    at their linear shapes (Mamba-2's in_proj N 4384, Hymba's N 6482 at K
+    1600 and its tied head N 32001) and kernel 5 at Hymba's heads (D 64,
+    5 KV heads of 5) with its 1024-key window over tables longer than it,
+    against their plain versions; then phase 4's cell, every drain
+    graphed: paged (Hymba fused through ``gqa_mma``, decode steps x
+    layers) against its eager twin and its lockstep twin bit for bit,
+    Hymba fused against gather, dense rings against the paged drain, and
+    under a fixed plan (the later half's linears and the last layer's
+    BGEMMs, the SSD products among them) against its eager twin and
+    gather; Hymba's 1536-token request chunked at 256 (its windowed layers
+    then attend tables longer than the window) fused against gather; each
+    configuration calibrated at full depth (seconds, peak memory, groups
+    against ``core.graphs``), its ET plan solved, and the paper's Random
+    and Prefix baselines (Fig. 2) at the plan's budget with their predicted
+    gains and loss MSEs beside the IP's;
+24. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -280,6 +297,16 @@ MARGIN_BOUND_MP = 0.25
 # H100 against the llama bounds above, so 16 bf16 ulps at |logit| in [4, 8)
 LOGIT_TOL_MLA_MP = 0.5
 MARGIN_BOUND_MLA_MP = 0.5
+# Hymba's hybrid layers amplify a one-ulp difference in an attention output
+# more than attention layers do, and its SSM state carries it to later
+# steps (``hybrid_drift_probe.py``, teacher-forced, on an H100): fused and
+# gather logits part by 0.094 at the first decode step on identical caches
+# (the attention-only model of the same widths: 0.061) and by 0.14-0.20
+# over the next 31 steps (attention-only: 0.055-0.070), while each layer's
+# attention output differs by at most 0.016, as in attention-only models;
+# so twice the attention models' bounds, near-tie margins unchanged
+LOGIT_TOL_HYBRID = 0.25
+LOGIT_TOL_HYBRID_MP = 0.5
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12                  # dense tensor-core bf16 peak
 FP8_FLOPS = 1979e12                  # dense tensor-core fp8 peak
@@ -477,22 +504,29 @@ def live_nan_reaches_row(torch, name: str, out, clean, row: int) -> None:
 # phase 2's shapes for the GQA kernel beside the serving one: llama3_8b's
 # d_head, the group sizes of the repo's GQA configs that do not divide 8,
 # the D 128 groups of the configs phase 18 serves (qwen2p5_32b G 5,
-# nemotron_4_15b G 6, starcoder2_15b G 12 over 4 KV heads), and Moonlight's
+# nemotron_4_15b G 6, starcoder2_15b G 12 over 4 KV heads), Moonlight's
 # multi-head attention in phase 22 (G 1: 16 query heads over 16 KV heads)
+# and Hymba's in phase 23 (25 query heads over 5 KV heads of D 64)
 GQA_CHECKS = {"serving": dict(d=D, g=G), "d128": dict(d=128, g=G),
               "g5": dict(d=D, g=5), "g7": dict(d=D, g=7),
               "d128_g5": dict(d=128, g=5), "d128_g6": dict(d=128, g=6),
               "d128_g12": dict(d=128, g=12, hkv=4),
-              "d128_g1": dict(d=128, g=1, hkv=16)}
+              "d128_g1": dict(d=128, g=1, hkv=16),
+              "hymba": dict(d=64, g=5, hkv=5)}
 # the shapes the kernel is timed at: the serving cell's mid-drain decode
 # step, the same at llama3_8b's d_head, at starcoder2_15b's heads (4 KV
-# heads of 12 queries) and at Moonlight's (16 KV heads of 1 query), and a
+# heads of 12 queries), at Moonlight's (16 KV heads of 1 query) and at
+# Hymba's (5 KV heads of 5, D 64; also with its 1024-key window over
+# tables of 1552 keys, phase 23's long request at its last step), and a
 # long table (2048 keys a row)
 SERVING_KEYS = (160, 152, 144, 136)
 GQA_TIMES = {"serving": dict(d=D, lengths=SERVING_KEYS),
              "d128": dict(d=128, lengths=SERVING_KEYS),
              "d128_g12": dict(d=128, g=12, hkv=4, lengths=SERVING_KEYS),
              "d128_g1": dict(d=128, g=1, hkv=16, lengths=SERVING_KEYS),
+             "hymba": dict(d=64, g=5, hkv=5, lengths=SERVING_KEYS),
+             "hymba_window": dict(d=64, g=5, hkv=5, lengths=(1552,) * 4,
+                                  window=1024),
              "long": dict(d=D, lengths=(2048,) * 4)}
 
 
@@ -584,11 +618,12 @@ def time_kernel(torch) -> dict:
     for shape, dims in GQA_TIMES.items():
         d, lengths = dims["d"], dims["lengths"]
         g, hkv = dims.get("g", G), dims.get("hkv", HKV)
+        window = dims.get("window")
         q, k, v, bt, ln = paged_case(torch, 1, torch.bfloat16, 0.0, lengths,
                                      d=d, g=g, hkv=hkv)
         kw = dict(scale=math.sqrt(d), scale_mode="div",
                   score_dtype=torch.bfloat16, probs_dtype=torch.bfloat16,
-                  out_dtype=torch.bfloat16)
+                  out_dtype=torch.bfloat16, window=window)
 
         def kernel(*a):
             return pa.paged_decode_attention(*(a or (q, k, v, bt, ln)), **kw)
@@ -615,15 +650,19 @@ def time_kernel(torch) -> dict:
         vg = vg.repeat_interleave(g, dim=1).contiguous()
         qs = q.reshape(B, hkv * g, 1, d)
         S = kg.shape[2]
-        mask = (torch.arange(S, device="cuda")[None, :]
-                < ln[:, None]).reshape(B, 1, 1, S)
+        kpos = torch.arange(S, device="cuda")[None, :]
+        mask = kpos < ln[:, None]
+        if window is not None:
+            mask &= kpos > ln[:, None] - 1 - window
+        mask = mask.reshape(B, 1, 1, S)
 
         def library():
             return F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask)
 
         rec["library_ms"] = device_ms(torch, library)
         rec["library_ms_eager"] = eager_ms(torch, library, 500)
-        live = sum(lengths)
+        # the keys the function must read: those inside each row's window
+        live = sum(min(n, window or n) for n in lengths)
         nbytes = (q.numel() * 2 + live * hkv * 2 * d * 2 + bt.numel() * 4
                   + ln.numel() * 4 + B * hkv * g * d * 2)
         ops = 2 * live * hkv * g * 2 * d
@@ -631,13 +670,13 @@ def time_kernel(torch) -> dict:
         rec.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    bound_bytes=nbytes, bound_ops=ops, d=d, g=g, hkv=hkv,
-                   lengths=list(lengths),
+                   lengths=list(lengths), window=window,
                    head_group=pa.head_group(g, d, 0, bt.shape[1], BS,
                                             rows=B * hkv,
                                             sms=pa._sm_count(q.device),
                                             route="gqa_mma"))
         log(f"paged_decode_attention GQA {shape} (D {d}, {hkv} KV heads of "
-            f"{g}, keys {lengths}, "
+            f"{g}, keys {lengths}, window {window}, "
             f"head group {rec['head_group']}): kernel {rec['ms'] * 1e3:.2f} "
             f"us (inputs past L2 {rec['ms_cold'] * 1e3:.2f}) | CUDA-core "
             f"kernel {rec['cuda_core_ms'] * 1e3:.2f} us | plain "
@@ -1891,34 +1930,23 @@ def fig3b(torch, fwds, plan) -> dict:
 
 def measured_phase(torch, model, params, bundle) -> dict:
     """Phase 7: the measured wall-clock tier through the fp8 kernels over
-    graphed forwards, at ``WallClockGainModel``'s own repeats, run twice
-    (the ET plan each gives, and whether they agree), then the capture
-    placement check and Fig. 3b on the second run's ET plan. The kernels'
-    launch counters are set to 0 just before each tabulation and read just
+    graphed forwards, at ``WallClockGainModel``'s own repeats, run
+    once (two runs gave different ET plans: ROADMAP C3), then
+    the capture placement check and Fig. 3b on its ET plan. The kernels'
+    launch counters are set to 0 just before the tabulation and read just
     after."""
     g = torch.Generator(device=DEVICE).manual_seed(7)
     prompt = torch.randint(0, model.cfg.vocab_size, TIER_PROMPT, generator=g,
                            device=DEVICE, dtype=torch.int32)
     linear = {op.name for op in bundle.sens.ops if op.kind == "linear"}
-    runs = [tier_run(torch, model, params, bundle, prompt, linear, k)
-            for k in (1, 2)]
-    a, b = (set(r["et_plan"].assignment.items()) for r in runs)
-    sym = sorted(n for n, _ in a ^ b)
-    diff = f": {len(sym)} ops in their symmetric difference {sym}"
-    log(f"measured tier: ET plans of the two runs {len(a)} and {len(b)} "
-        f"ops; {'the same' if not sym else 'different' + diff}")
+    run = tier_run(torch, model, params, bundle, prompt, linear, 1)
     placement = capture_placement(torch, model, params, prompt)
     fig = fig3b(torch, TierForwards(torch, model, params, prompt, linear),
-                runs[1]["et_plan"])
-    out = {k: v for k, v in runs[1].items() if k not in ("et_plan", "fwds")}
-    out.update(
-        runs=[{k: v for k, v in r.items() if k not in ("et_plan", "fwds",
-                                                       "groups")}
-              | {"et_n_fp8": r["et_plan"].n_quantized,
-                 "et_assignment": sorted(r["et_plan"].assignment)}
-              for r in runs],
-        plans_agree=not sym, plan_symmetric_difference=sym, fig3b=fig,
-        placement=placement)
+                run["et_plan"])
+    out = {k: v for k, v in run.items() if k not in ("et_plan", "fwds")}
+    out.update(et_n_fp8=run["et_plan"].n_quantized,
+               et_assignment=sorted(run["et_plan"].assignment), fig3b=fig,
+               placement=placement)
     return out
 
 
@@ -4390,6 +4418,364 @@ def dense_config_phase(torch, arch: str, depth) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: Mamba-2 and Hymba (SSM and hybrid blocks), the paper's baselines
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2_370m"
+HYMBA = "hymba_1p5b"
+# Hymba's request whose prompt outruns its 1024-token window, chunked at a
+# multiple of its SSD chunk (256): its windowed layers read tables cut by
+# the window from the fifth chunk on
+WINDOW_CUT = dict(prompt_len=1536, chunk_len=256, new_tokens=16)
+# Fig. 2's second budget: this share of the loss MSE of every op in fp8
+FIG2_BINDING = 0.25
+
+
+def ssm_kernel_check(torch) -> dict:
+    """Kernels 1-3 at the SSM configs' linear shapes (``impl="kernel"``
+    form, bf16 in and out, 64 tokens): Mamba-2's in_proj (N 4384, K
+    1024), Hymba's (N 6482, K 1600: K is no multiple of the GEMM's 128-byte
+    slab) and Hymba's tied head (N 32001: bf16 output rows not 16-byte
+    aligned), against the plain versions on CPU copies; then kernel 5 at
+    Hymba's head shape (D 64, 5 KV heads of 5) with its 1024-key window
+    over tables longer than it, against its plain version."""
+    from repro_torch.kernels import fp8_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant_cast as qc
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    out = {"fp8_linear": {}}
+    for name, (N, K) in (("mamba2_in_proj", (4384, 1024)),
+                         ("hymba_in_proj", (6482, 1600)),
+                         ("hymba_lm_head", (32001, 1600))):
+        x = randn(torch, (64, K), 21, 1.0, torch.bfloat16)
+        w = randn(torch, (N, K), 22, K ** -0.5, torch.bfloat16)
+        n0 = (qc.launches["amax"], mm.launches)
+        got = ops.fp8_linear(x, w, out_dtype=torch.bfloat16)
+        launched = (qc.launches["amax"] - n0[0], mm.launches - n0[1])
+        want = ops.fp8_linear(x.cpu(), w.cpu(),
+                              out_dtype=torch.bfloat16).to(DEVICE)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        log(f"fp8_linear {name} (64 x {K} by {N} x {K}, bf16 out): kernel "
+            f"vs plain max abs err {err:.3e} of max {scale:.3f}; amax + "
+            f"fp8_matmul launches {launched}")
+        if got.shape != (64, N) or launched[1] != 1 or \
+                not err <= MM_TOL * scale:
+            raise AssertionError(f"fp8_linear {name}: shape "
+                                 f"{tuple(got.shape)}, launches {launched}, "
+                                 f"err {err:.3e}")
+        out["fp8_linear"][name] = err
+    kw = dict(scale=8.0, scale_mode="div", score_dtype=torch.bfloat16,
+              probs_dtype=torch.bfloat16, out_dtype=torch.bfloat16,
+              window=1024)
+    errs, bitwise = [], 0
+    for kv_name, kv_dtype in (("bf16", torch.bfloat16),
+                              ("fp8_e4m3", torch.float8_e4m3fn)):
+        args = paged_case(torch, 2, kv_dtype, 224.0,
+                          lengths=(1552, 1100, 1025, 0), d=64, g=5, hkv=5)
+        n0 = pa.launches_by_route["gqa_mma"]
+        got = pa.paged_decode_attention(*args, **kw)
+        want = paged_decode_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        if pa.launches_by_route["gqa_mma"] != n0 + 1:
+            raise AssertionError(f"Hymba window kv {kv_name}: not launched "
+                                 f"through gqa_mma")
+        err = (got.float() - want.float()).abs().max().item()
+        errs.append(err)
+        bitwise += int(torch.equal(got, want))
+        log(f"GQA kernel vs plain at Hymba's shape, window 1024 over tables "
+            f"of 1552/1100/1025 keys, kv {kv_name}: max abs err {err:.3e} "
+            f"(tol {KERNEL_TOL:g}), bitwise {bool(torch.equal(got, want))}")
+        if not torch.allclose(got.float(), want.float(), rtol=KERNEL_TOL,
+                              atol=KERNEL_TOL):
+            raise AssertionError(f"kernel disagrees with its plain version "
+                                 f"at Hymba's window, kv {kv_name}")
+    out.update(window_max_abs_err=max(errs), window_bitwise=bitwise)
+    return out
+
+
+def fused_layers(model, plan) -> int:
+    """Layers whose decode attention takes the kernel under ``plan``: the
+    attention layers whose ``qk_matmul`` and ``av_matmul`` stay unquantized
+    (``nn.layers.use_fused_paged``)."""
+    cfg, asg = model.cfg, plan.assignment if plan is not None else {}
+    return sum(1 for i, b in enumerate(cfg.block_types)
+               if b in ("attn", "hybrid")
+               and f"layers/{i}/attn/qk_matmul" not in asg
+               and f"layers/{i}/attn/av_matmul" not in asg)
+
+
+def ssm_serve_phase(torch, model, params, plan) -> dict:
+    """Phase 4's cell on an SSM or hybrid model, plain and under ``plan``
+    (the ET plan its calibration solved), every drain graphed: paged
+    (fused; Hymba's kernel launches all through ``gqa_mma``, decode steps
+    x the layers the plan leaves fused; Mamba-2 has no attention and
+    launches none) against its eager twin and its lockstep twin bit for
+    bit; Hymba fused against gather at the near-tie rule with the hybrid's
+    logit bounds (``LOGIT_TOL_HYBRID``), and its dense rings against the
+    paged gather drain (bit-equal requests counted).
+    Each drain's graphs are released after it."""
+    cfg = model.cfg
+    hybrid = "hybrid" in cfg.block_types
+    route = "gqa_mma" if hybrid else None
+    reqs = phase4_requests(model)
+    failures: list = []
+    out = {"graph_vs_eager": {}, "pipelined_vs_lockstep_bit_equal": {},
+           "agreement": {}, "serving": {}, "kernel_launches": {},
+           "mp_plan": {"fp8_ops": plan.n_quantized,
+                       "fused_layers": fused_layers(model, plan)}}
+
+    def drain(**kw):
+        res = run_continuous(torch, model, params, reqs, **kw)
+        release_steps(model)
+        gc.collect()
+        return res
+
+    for label, mp in (("plain", None), ("mp", plan)):
+        n_attn = fused_layers(model, mp)
+        fused, n_fused, fused_tl = drain(mp=mp, paged_attn="fused",
+                                         route=route)
+        if n_fused != fused.n_steps * n_attn:
+            raise AssertionError(f"{cfg.name} {label} fused launches "
+                                 f"{n_fused} != {fused.n_steps} steps x "
+                                 f"{n_attn} fused layers")
+        _, _, eager_tl = drain(mp=mp, paged_attn="fused", route=route,
+                               eager=True)
+        out["graph_vs_eager"][label] = graph_vs_eager(
+            f"{cfg.name} {label} fused", fused_tl, eager_tl, failures)
+        lock, n_lock, lock_tl = drain(mp=mp, paged_attn="fused", route=route,
+                                      sync=True)
+        n_eq = bit_equal(fused_tl, lock_tl)
+        log(f"{cfg.name} {label} fused: pipelined vs lockstep {n_eq} of "
+            f"{len(lock_tl)} requests bit-equal (launches {n_fused} / "
+            f"{n_lock})")
+        if n_eq != len(lock_tl) or n_lock != n_fused:
+            failures.append(f"{cfg.name} {label}: pipelined vs lockstep "
+                            f"{n_eq} of {len(lock_tl)} bit-equal")
+        out["pipelined_vs_lockstep_bit_equal"][label] = n_eq
+        out["kernel_launches"][label] = n_fused
+        out["serving"][f"{label}_fused"] = serving_numbers(fused)
+        out["serving"][f"{label}_fused_lockstep"] = serving_numbers(lock)
+        if not hybrid:
+            continue
+        bound = (dict(tol=LOGIT_TOL_HYBRID, bound=MARGIN_BOUND)
+                 if mp is None else
+                 dict(tol=LOGIT_TOL_HYBRID_MP, bound=MARGIN_BOUND_MP))
+        gather, n_gather, gather_tl = drain(mp=mp, paged_attn="gather")
+        if n_gather:
+            raise AssertionError(f"gather drain launched the kernel "
+                                 f"{n_gather} times")
+        out["agreement"][f"{label}_fused_vs_gather"] = compare(
+            f"{cfg.name} {label} fused vs gather", fused_tl, gather_tl,
+            failures=failures, **bound)
+        out["serving"][f"{label}_gather"] = serving_numbers(gather)
+        if mp is None:
+            dense, _, dense_tl = drain(paged_attn=None, paged=False,
+                                       name="dense")
+            agree = compare(f"{cfg.name} dense vs paged gather", dense_tl,
+                            gather_tl, failures=failures, **bound)
+            agree["bit_equal_requests"] = bit_equal(dense_tl, gather_tl)
+            out["agreement"]["dense_vs_paged_gather"] = agree
+            out["serving"]["dense"] = serving_numbers(dense)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    s = out["serving"]
+    log(f"{cfg.name} tokens/s: fused {s['plain_fused']['tokens_per_s']:.1f} "
+        f"(lockstep {s['plain_fused_lockstep']['tokens_per_s']:.1f}), under "
+        f"the ET plan ({plan.n_quantized} fp8 ops) "
+        f"{s['mp_fused']['tokens_per_s']:.1f}")
+    out["kernel_launches_main_path"] = out["kernel_launches"]["plain"]
+    return out
+
+
+def window_cut_phase(torch, model, params) -> dict:
+    """Hymba's ``WINDOW_CUT`` request, paged, chunked at 256 (the SSD
+    chunk), fused against gather: from its fifth prompt chunk on, its
+    windowed layers attend tables longer than their 1024-key window (the
+    kernel and the gather path each cut them); fused launches all through
+    ``gqa_mma``, decode steps x layers; logits at the near-tie rule."""
+    from repro_torch.serve import Request
+    spec = WINDOW_CUT
+    vocab = model.cfg.vocab_size
+    req = [Request(rid=0, tokens=random_prompt(vocab, spec["prompt_len"],
+                                               2323),
+                   max_new_tokens=spec["new_tokens"])]
+    warm = warm_request(vocab, spec["chunk_len"], 2)
+    kw = dict(chunk_len=spec["chunk_len"], warm=warm,
+              max_len=spec["prompt_len"] + spec["new_tokens"])
+    failures: list = []
+    fused, n_fused, f_tl = run_continuous(torch, model, params, req,
+                                          paged_attn="fused",
+                                          route="gqa_mma", **kw)
+    release_steps(model)
+    gather, _, g_tl = run_continuous(torch, model, params, req,
+                                     paged_attn="gather", **kw)
+    release_steps(model)
+    if n_fused != fused.n_steps * model.cfg.n_layers:
+        raise AssertionError(f"window cut: launches {n_fused} != "
+                             f"{fused.n_steps} x {model.cfg.n_layers}")
+    window = model.cfg.sliding_window
+    longest = spec["prompt_len"] + spec["new_tokens"] - 1
+    agree = compare(f"{model.cfg.name} {spec['prompt_len']}-token prompt "
+                    f"over a {window}-key window, fused vs gather", f_tl,
+                    g_tl, tol=LOGIT_TOL_HYBRID, bound=MARGIN_BOUND,
+                    failures=failures)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    n_windowed = model.cfg.n_layers - len(model.cfg.global_attn_layers)
+    log(f"window cut: {fused.counters['prefill_chunks']} prefill chunks of "
+        f"{spec['chunk_len']}, decode tables up to {longest} keys against "
+        f"a {window}-key window on {n_windowed} of {model.cfg.n_layers} "
+        f"layers; {n_fused} fused launches")
+    return {"agreement": agree, "kernel_launches": n_fused,
+            "prefill_chunks": fused.counters["prefill_chunks"],
+            "longest_table": longest,
+            "serving": {"fused": serving_numbers(fused),
+                        "gather": serving_numbers(gather)}}
+
+
+def table_gain(bundle, assignment: dict, objective: str = "ET") -> float:
+    """An assignment's predicted gain on ``bundle``'s gain tables: each
+    group's row for the combo the assignment gives its ops (ops in no
+    group gain nothing)."""
+    from repro_torch.core.timegain import enumerate_combos
+    entry = bundle.objectives[objective]
+    total = 0.0
+    for group, gains in zip(entry["groups"], entry["gains"]):
+        combo = tuple(assignment.get(n, bundle.ref_format) for n in group)
+        total += float(gains[enumerate_combos(len(group),
+                                              bundle.formats).index(combo)])
+    return total
+
+
+def ssm_calibration(torch, model, params) -> tuple:
+    """Algorithm 1 on the model at full depth (both configs fit the card
+    with room to spare): phase 6's batches, seconds and peak memory,
+    groups against ``core.graphs``, the ET plan at ``TAU``; then the
+    paper's Random and Prefix baselines (Sec. 3.1, Fig. 2) at the plan's
+    budget and at a budget that binds (``FIG2_BINDING``), each with its
+    predicted gain on the same tables and its predicted loss MSE beside the
+    IP's. Returns (record, the ET plan)."""
+    from repro_torch.core.baselines import prefix_strategy, random_strategy
+    from repro_torch.core.pipeline import AMPOptions, build_groups, calibrate
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.hw.profiles import H100_SXM
+    cfg = model.cfg
+    data = SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                       batch=CAL_SHAPE[0],
+                                       seq_len=CAL_SHAPE[1]), DEVICE)
+    batches = list(data.batches(0, CAL_BATCHES))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = calibrate(model, params, batches, AMPOptions(hw=H100_SXM))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sens = np.array(sorted(bundle.sens.sensitivity.values()))
+    n_groups = len(bundle.objectives["ET"]["groups"])
+    want = len(build_groups(model, AMPOptions(),
+                            quantizable=set(bundle.op_names))[1])
+    n_ssd = sum(1 for op in bundle.op_names if op.endswith((
+        "cb_matmul", "att_x_matmul", "bx_matmul", "c_state_matmul")))
+    log(f"{cfg.name} calibrate at full depth ({cfg.n_layers} layers): "
+        f"{len(bundle.sens.ops)} ops ({n_ssd} SSD products), {n_groups} "
+        f"groups, {CAL_BATCHES} batches of {CAL_SHAPE} in {seconds:.1f} s; "
+        f"peak device memory {peak / 1e9:.2f} GB")
+    if not (np.isfinite(sens).all() and (sens >= 0).all()
+            and math.isfinite(bundle.sens.loss_mean)):
+        raise AssertionError(f"{cfg.name}: non-finite sensitivity")
+    if n_groups != want or not n_ssd:
+        raise AssertionError(f"{cfg.name}: {n_groups} groups, core.graphs "
+                             f"gives {want}; {n_ssd} SSD ops")
+    plan = bundle.solve(TAU, "ET")
+    names = bundle.op_names                  # execution (topological) order
+    everything = bundle.sens.loss_mse(dict.fromkeys(names, "fp8_e4m3"))
+    # the plan's tau, and one whose budget binds (a quarter of the loss MSE
+    # of every op in fp8): at an ample budget every strategy takes all
+    tight = math.sqrt(FIG2_BINDING * everything / bundle.sens.loss_sq_mean)
+    fig2 = {}
+    for tau in (TAU, tight):
+        ip = plan if tau == TAU else bundle.solve(tau, "ET")
+        if abs(table_gain(bundle, ip.assignment) - ip.predicted_gain) > \
+                1e-9 * max(1.0, abs(ip.predicted_gain)):
+            raise AssertionError("the tables price the IP plan differently "
+                                 "from the solver")
+        rows = {}
+        for label, asg in (("IP-ET", ip.assignment),
+                           ("Random", random_strategy(names, bundle.sens,
+                                                      ip.budget, seed=1)),
+                           ("Prefix", prefix_strategy(names, bundle.sens,
+                                                      ip.budget))):
+            gain, mse = table_gain(bundle, asg), bundle.sens.loss_mse(asg)
+            rows[label] = {"n_fp8": len(asg), "predicted_gain": gain,
+                           "predicted_loss_mse": mse}
+            log(f"{cfg.name} Fig. 2 at tau {tau:.4g} (budget "
+                f"{ip.budget:.4e} of {everything:.4e} for every op in fp8; "
+                f"{ip.meta['gain_tier']} ET tables): {label:7s} "
+                f"{len(asg):4d} of {len(names)} ops fp8, predicted gain "
+                f"{gain * 1e3:.4f} ms, predicted loss MSE {mse:.4e}")
+            if mse > ip.budget * (1 + 1e-9):
+                raise AssertionError(f"{label} over the budget")
+        fig2[f"tau_{tau:.4g}"] = dict(rows, budget=ip.budget)
+    return {"seconds": seconds, "peak_gb": peak / 1e9,
+            "n_ops": len(bundle.sens.ops), "n_ssd_ops": n_ssd,
+            "n_groups": n_groups, "loss_mean": bundle.sens.loss_mean,
+            "et_plan_n_fp8": plan.n_quantized, "budget": plan.budget,
+            "fig2": fig2}, plan
+
+
+def ssm_config_phase(torch, arch: str) -> dict:
+    """Phase 23 for one configuration at full width and depth, random
+    weights from a seeded generator: calibrated with the baselines
+    (:func:`ssm_calibration`), served plain and under the solved ET plan
+    (:func:`ssm_serve_phase`), then Hymba's window cut
+    (:func:`window_cut_phase`)."""
+    from repro_torch.launch.serve import make_model_and_params
+    t0 = time.perf_counter()
+    model, params = make_model_and_params(arch, False, DEVICE, seed=0)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    ssm = cfg.ssm
+    log(f"{arch}: {model.n_params() / 1e9:.3f}B params ({cfg.n_layers} "
+        f"{cfg.block_types[0]} layers, d_model {cfg.d_model}, d_inner "
+        f"{ssm.d_inner}, {ssm.n_heads} SSM heads of {ssm.head_dim}, d_state "
+        f"{ssm.d_state}, SSD chunk {ssm.chunk}"
+        + (f", {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.d_head}, "
+           f"window {cfg.sliding_window} but layers "
+           f"{cfg.global_attn_layers}" if cfg.n_heads else "")
+        + f", vocab {cfg.vocab_size}), random init in "
+        f"{time.perf_counter() - t0:.1f} s, {weights_gb:.2f} GB on the card")
+    calibration, plan = ssm_calibration(torch, model, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = ssm_serve_phase(torch, model, params, plan)
+    if arch == HYMBA:
+        rec["window_cut"] = window_cut_phase(torch, model, params)
+    rec.update(weights_gb=weights_gb, n_params=model.n_params(),
+               serving_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               calibration=calibration)
+    log(f"{arch}: peak device memory while serving "
+        f"{rec['serving_peak_gb']:.2f} GB")
+    release_steps(model)
+    return rec
+
+
+def ssm_phase(torch) -> dict:
+    """Phase 23: the kernels at the SSM configs' shapes, then Mamba-2 370M
+    and Hymba 1.5B, each freed before the next."""
+    out = {"kernels": ssm_kernel_check(torch)}
+    for arch in (MAMBA, HYMBA):
+        out[arch] = ssm_config_phase(torch, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def no_silent_faults(engine_cls) -> None:
     """Every drain of ``engine_cls`` in this run: one served without a
     fault injector must report no kernel fault and no degradation (a real
@@ -4530,6 +4916,9 @@ def main() -> int:
         gc.collect()                  # the model's graphs and weights
         torch.cuda.empty_cache()
     report["moe"] = phase("MoE and MTP", moe_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["ssm"] = phase("Mamba-2 and Hymba", ssm_phase, torch)
 
     t = report["fp8_times"]
     launches = report["measured_tier"]["launches"]
@@ -4553,8 +4942,19 @@ def main() -> int:
                              for a, r in report["dense"].items()},
         "launches_phase22": report["moe"][MOONLIGHT][
             "kernel_launches_main_path"],
+        "launches_phase23": {
+            HYMBA: report["ssm"][HYMBA]["kernel_launches"],
+            "window_cut": report["ssm"][HYMBA]["window_cut"][
+                "kernel_launches"]},
         "head_group_1": {k: report["gqa_times"]["d128_g1"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "hymba": {k: report["gqa_times"]["hymba"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "hymba_window": {k: report["gqa_times"]["hymba_window"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "window", "lengths")},
+        "hymba_window_max_abs_err": report["ssm"]["kernels"][
+            "window_max_abs_err"],
         "max_abs_err": report["max_abs_err"],
         "ms": report["ms"],
         "kernel_ms": report["ms"],
@@ -4575,6 +4975,8 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/{line}",
             "launches": launches[name], "max_abs_err": err,
+            **({"max_abs_err_ssm_shapes": report["ssm"]["kernels"][
+                "fp8_linear"]} if name == "fp8_matmul" else {}),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
@@ -4645,6 +5047,7 @@ def main() -> int:
                               if isinstance(r, dict) and "serving" in r
                               else r for a, r in report["moe"].items()}}),
           flush=True)
+    print(json.dumps({"ssm": report["ssm"], "card": card}), flush=True)
     mt = report["measured_tier"]
     print(json.dumps({"calibration": report["calibration"],
                       "measured_tier": {k: mt[k] for k in (
@@ -4653,9 +5056,9 @@ def main() -> int:
                           "base_ms_tier", "base_spread_ms",
                           "groups_beyond_spread",
                           "spread_across_captures_ms",
-                          "groups_beyond_spread_across_captures", "runs",
-                          "plans_agree", "plan_symmetric_difference",
-                          "fig3b", "placement")},
+                          "groups_beyond_spread_across_captures",
+                          "et_n_fp8", "et_assignment", "fig3b",
+                          "placement")},
                       "fp8_linear": t["fp8_linear"],
                       "plans": report["plan_serving"]["plans"],
                       "fig3a": report["fig3a"],

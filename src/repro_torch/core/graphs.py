@@ -12,8 +12,8 @@ them (paper Fig. 6 note). The graph mirrors the *serving* (prefill)
 computation: the multi-token prediction block and training-only ops are
 left out, so MTP ops get sensitivities but no group, and are never
 quantized (the reference's ``pipeline.build_groups`` drops them alike). The
-port's ``LM`` builds attention and MLA blocks with dense MLPs or MoE
-layers, so the graph covers exactly those; a mamba or hybrid configuration
+graph covers every block the port's ``LM`` builds — attention, MLA, mamba
+and hybrid, each with a dense MLP, an MoE layer or neither; ``scan_layers``
 and the encoder-decoder family raise with the slice that ports them.
 """
 from __future__ import annotations
@@ -28,6 +28,11 @@ def _attn_subgraph(g: GraphSpec, s: str, entry: str) -> str:
     """Standard attention: returns exit node name."""
     norm = g.add(f"{s}/attn_norm")
     g.edge(entry, norm)
+    return _attn_shared_norm(g, s, norm)
+
+
+def _attn_shared_norm(g: GraphSpec, s: str, norm: str) -> str:
+    """Attention path when the input norm already exists (hybrid blocks)."""
     for proj in ("q_proj", "k_proj", "v_proj"):
         g.add(f"{s}/attn/{proj}", quantizable=True)
         g.edge(norm, f"{s}/attn/{proj}")
@@ -63,6 +68,54 @@ def _mla_subgraph(g: GraphSpec, s: str, entry: str) -> str:
     o = g.add(f"{s}/attn/o_proj", True)
     g.edge(av, o)
     return o
+
+
+def _mamba_subgraph(g: GraphSpec, s: str, entry: str) -> str:
+    norm = g.add(f"{s}/attn_norm")  # the shared input norm's name in LM
+    g.edge(entry, norm)
+    return _mamba_shared_norm(g, s, norm)
+
+
+def _mamba_shared_norm(g: GraphSpec, s: str, norm: str) -> str:
+    """Mamba path when the input norm already exists (hybrid blocks)."""
+    inp = g.add(f"{s}/mamba/in_proj", True)
+    g.edge(norm, inp)
+    conv = g.add(f"{s}/mamba/conv")
+    g.edge(inp, conv)
+    cb = g.add(f"{s}/mamba/cb_matmul", True)
+    g.edge(conv, cb)
+    ax = g.add(f"{s}/mamba/att_x_matmul", True)
+    g.edge(cb, ax)
+    g.edge(conv, ax)
+    bx = g.add(f"{s}/mamba/bx_matmul", True)
+    g.edge(conv, bx)
+    cs = g.add(f"{s}/mamba/c_state_matmul", True)
+    g.edge(bx, cs)
+    g.edge(conv, cs)
+    merge = g.add(f"{s}/mamba/merge")
+    g.edge(ax, merge)
+    g.edge(cs, merge)
+    gate = g.add(f"{s}/mamba/gate_norm")
+    g.edge(merge, gate)
+    out = g.add(f"{s}/mamba/out_proj", True)
+    g.edge(gate, out)
+    return out
+
+
+def _hybrid_subgraph(g: GraphSpec, s: str, entry: str) -> str:
+    """Hymba: attention and mamba paths from one shared norm, merged."""
+    norm = g.add(f"{s}/attn_norm")
+    g.edge(entry, norm)
+    o = _attn_shared_norm(g, s, norm)
+    m_out = _mamba_shared_norm(g, s, norm)
+    merge = g.add(f"{s}/hybrid_merge")
+    g.edge(o, merge)
+    g.edge(m_out, merge)
+    return merge
+
+
+_MIXERS = {"attn": _attn_subgraph, "mla": _mla_subgraph,
+           "mamba": _mamba_subgraph, "hybrid": _hybrid_subgraph}
 
 
 def _mlp_subgraph(g: GraphSpec, s: str, entry: str, activation: str,
@@ -120,23 +173,19 @@ def _moe_subgraph(g: GraphSpec, s: str, entry: str, activation: str,
 
 
 def build_lm_graph(cfg: LMConfig) -> GraphSpec:
-    """The DAG of a decoder of attention and MLA blocks, each with a dense
-    MLP or an MoE layer (no weights needed)."""
-    other = sorted(set(cfg.block_types) - {"attn", "mla"})
-    if other or cfg.scan_layers:
+    """The DAG of a decoder of attention, MLA, mamba and hybrid blocks, each
+    with a dense MLP, an MoE layer or neither (no weights needed)."""
+    if cfg.scan_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the graph of block types {other or ['attn/mla']} "
-            f"with scan_layers={cfg.scan_layers} lands with the port slice "
-            f"that ports them (mamba and hybrid: ROADMAP item A8; "
-            f"scan_layers: A9)")
+            f"{cfg.name}: the graph with scan_layers=True lands with the "
+            f"port slice that ports it (scan_layers: A9 in ROADMAP.md)")
     g = GraphSpec()
     prev = g.add("embed")
     for i in range(cfg.n_layers):
         s = f"layers/{i}"
         block, is_moe = cfg.layer_signature(i)
         block_in = prev
-        mix_out = (_mla_subgraph(g, s, prev) if block == "mla"
-                   else _attn_subgraph(g, s, prev))
+        mix_out = _MIXERS[block](g, s, prev)
         add1 = g.add(f"{s}/residual_1")
         g.edge(mix_out, add1)
         g.edge(block_in, add1, residual=True)

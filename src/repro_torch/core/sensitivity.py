@@ -196,8 +196,12 @@ def calibrate_sensitivity(loss_fn: Callable, params, batches: Iterable,
             ctx = QuantContext(mode="probe", probes=probes, captures={})
             loss = loss_fn(params, batch, ctx)
             names = list(probes)
+            # an op whose output the loss does not read (the SSD's last
+            # chunk state, without a cache) has no gradient: zero, as
+            # jax.grad gives it
             grads = torch.autograd.grad(
-                loss, [p for name in names for p in probes[name]])
+                loss, [p for name in names for p in probes[name]],
+                allow_unused=True, materialize_grads=True)
             loss_val = float(loss.detach())
             for i, name in enumerate(names):
                 z_lhs, z_rhs = ctx.captures[name]

@@ -74,9 +74,18 @@ def scale_cast_ref(x: torch.Tensor, scale, dtype=torch.float8_e4m3fn
 
 def fp8_matmul_ref(xq: torch.Tensor, wq: torch.Tensor, sx_inv, sw_inv,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``(Xq @ Wq^T) * sx_inv * sw_inv`` with exact f32 products and f32
-    sums; ``xq`` (M, K), ``wq`` (N, K) in fp8, scales f32 scalars."""
-    y = torch.matmul(xq.float(), wq.float().t())
+    """``(Xq @ Wq^T) * sx_inv * sw_inv``; ``xq`` (M, K), ``wq`` (N, K) in
+    fp8, scales f32 scalars. The products are summed exactly, in float64,
+    and the sum is rounded once to f32 before the f32 scaling. Every e4m3
+    value is a multiple of 2^-9 below 2^9, so a product is a multiple of
+    2^-18 below 2^18 and a sum of fewer than 2^15 of them needs at most 51
+    bits: exact in any order. (e5m2 spans 2^-16 to 2^16: its sums are exact
+    while the products' binades and log2 K together stay within 53 bits,
+    which holds unless tiny and huge values meet in one row.) The result
+    therefore does not depend on the order a BLAS picks for a given K, and
+    zero padding of K (exact zero products) leaves it bitwise unchanged;
+    it is within the f32-accumulating reference kernel's rounding bound."""
+    y = torch.matmul(xq.double(), wq.double().t()).float()
     return (y * sx_inv * sw_inv).to(out_dtype)
 
 # the reference path's mask fill (finfo(f32).min, not -inf: a fully masked

@@ -1,21 +1,27 @@
-"""Decoder-only LM with dense attention or MLA blocks (port of
-``repro/models/lm.py``).
+"""Decoder-only LM covering the dense, MoE, MLA, SSM and hybrid families
+(port of ``repro/models/lm.py``).
 
-Block types: ``attn`` (GQA, the llama family) and ``mla`` (DeepSeek-V3's
-multi-head latent attention), each followed by a dense MLP or, for the
-layers in ``moe_layers``, a Mixture-of-Experts layer
-(:mod:`repro_torch.nn.moe`); ``mtp_depth`` adds DeepSeek-V3's multi-token
-prediction module, which only :meth:`LM.loss` reads. ``LMConfig`` keeps
-every field of the reference so that every configuration loads; the
-features the port does not have yet — mamba/hybrid blocks, ``scan_layers``
-and ``prefix_embed`` — raise ``NotImplementedError`` when the model is
-built. Layers run unrolled in a Python loop, each with its own params and
-op names (``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged.
+Block types: ``attn`` (GQA, the llama family), ``mla`` (DeepSeek-V3's
+multi-head latent attention), ``mamba`` (a Mamba-2 SSD block,
+:mod:`repro_torch.nn.mamba`) and ``hybrid`` (Hymba: attention and mamba
+heads in parallel on the shared input norm, averaged), each followed by a
+dense MLP (none when ``d_ff`` is 0) or, for the layers in ``moe_layers``, a
+Mixture-of-Experts layer (:mod:`repro_torch.nn.moe`); ``mtp_depth`` adds
+DeepSeek-V3's multi-token prediction module, which only :meth:`LM.loss`
+reads. ``LMConfig`` keeps every field of the reference so that every
+configuration loads; the features the port does not have yet —
+``scan_layers`` and ``prefix_embed`` — raise ``NotImplementedError`` when
+the model is built. Layers run unrolled in a Python loop, each with its own
+params and op names (``layers/3/attn/q_proj``), so per-layer MP plans apply
+unchanged.
 
 Params are the nested dict of tensors that :meth:`LM.init` returns (or
-``repro_torch.bridge.params_from_flat`` builds from reference weights);
-caches are nested dicts ``{"layers/i": {"k", "v"[, "pos"]}}`` for attention
-layers and ``{"layers/i": {"ckv", "kr"[, "pos"]}}`` for MLA layers.
+``repro_torch.bridge.params_from_flat`` builds from reference weights).
+Caches are nested dicts keyed by layer, as the reference assembles them:
+``{"k", "v"[, "pos"]}`` for attention layers, ``{"ckv", "kr"[, "pos"]}``
+for MLA layers, ``{"conv", "state"}`` (slot-major) for mamba layers and
+``{"attn": {...}, "mamba": {...}}`` for hybrid layers. The flat spec keys
+are ``layers/i@<attn|mamba>/<leaf>``; :func:`cache_leaf` reads one.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn import layers as L
+from repro_torch.nn import mamba as M
+from repro_torch.nn.mamba import SSMConfig  # noqa: F401
 from repro_torch.nn.moe import MoEConfig, apply_moe, moe_specs  # noqa: F401
 from repro_torch.nn.spec import ParamSpec, init_params, param_count
 from repro_torch.quant import qops
@@ -161,14 +169,53 @@ class LMConfig:
 _ITEMS = {"scan_layers": "A9", "prefix_embed": "A8"}
 
 
+_BLOCKS = ("attn", "mla", "mamba", "hybrid")
+
+
 def _unsupported(cfg: LMConfig) -> list:
     out = []
-    other = sorted(set(cfg.block_types) - {"attn", "mla"})
+    other = sorted(set(cfg.block_types) - set(_BLOCKS))
     if other:
-        out.append(f"block types {other} (mamba / hybrid: ROADMAP item A8)")
+        raise ValueError(f"{cfg.name}: unknown block types {other}")
     for flag in ("scan_layers", "prefix_embed"):
         if getattr(cfg, flag):
             out.append(f"{flag} (ROADMAP item {_ITEMS[flag]})")
+    return out
+
+
+def cache_leaf(caches: dict, key: str) -> Optional[torch.Tensor]:
+    """The tensor of flat cache key ``layers/i@<sub>/<leaf>`` in a cache
+    tree (None where it has none): a hybrid layer nests its leaves under
+    ``sub``, a single-kind layer holds them directly."""
+    layer, rest = key.split("@", 1)
+    sub, leaf = rest.split("/", 1)
+    node = caches.get(layer)
+    if node is None:
+        return None
+    if isinstance(node.get(sub), dict):
+        node = node[sub]
+    return node.get(leaf)
+
+
+def cache_tensors(caches: dict):
+    """Every (leaf name, tensor) of a cache tree, nested or not."""
+    for name, v in caches.items():
+        if isinstance(v, dict):
+            yield from cache_tensors(v)
+        else:
+            yield name, v
+
+
+def ssm_tensors(caches: dict) -> list:
+    """The slot-major SSM leaves (``conv``, ``state``) of a cache tree, in
+    layer order: what a step that must not advance some rows' state (a
+    shadow step, a dense row between two prompt chunks) saves and puts
+    back."""
+    out = []
+    for node in caches.values():
+        node = node.get("mamba", node)
+        if "state" in node:
+            out += [node["conv"], node["state"]]
     return out
 
 
@@ -197,8 +244,10 @@ class LM:
                                   cfg.norm))
         if block == "mla":
             specs.update(L.mla_specs(f"{prefix}/attn", cfg.mla_cfg))
-        else:
+        elif block in ("attn", "hybrid"):
             specs.update(L.attn_specs(f"{prefix}/attn", cfg.attn_cfg))
+        if block in ("mamba", "hybrid"):
+            specs.update(M.mamba_specs(f"{prefix}/mamba", cfg.ssm))
         if is_moe:
             specs.update(L.norm_specs(f"{prefix}/mlp_norm", cfg.d_model,
                                       cfg.norm))
@@ -265,11 +314,16 @@ class LM:
                              "qk_matmul", "av_matmul"),
                     "mla": ("q_a_proj", "q_b_proj", "kv_a_proj", "kv_b_proj",
                             "o_proj", "qk_matmul", "av_matmul")}
+        attn_ops["hybrid"] = attn_ops["attn"]
+        mamba_ops = ("in_proj", "out_proj", "cb_matmul", "att_x_matmul",
+                     "bx_matmul", "c_state_matmul")
         moe = ("router", "experts/gate_proj", "experts/up_proj",
                "experts/down_proj")
         for i in range(self.cfg.n_layers):
-            ops.update(f"layers/{i}/attn/{n}"
-                       for n in attn_ops[self.cfg.block_types[i]])
+            block = self.cfg.block_types[i]
+            ops.update(f"layers/{i}/attn/{n}" for n in attn_ops.get(block, ()))
+            if block in ("mamba", "hybrid"):
+                ops.update(f"layers/{i}/mamba/{n}" for n in mamba_ops)
             if i in self.cfg.moe_layers:
                 ops.update(f"layers/{i}/moe/{n}" for n in moe)
                 if self.cfg.moe.n_shared_experts:
@@ -287,17 +341,48 @@ class LM:
                block_tables: Optional[torch.Tensor] = None,
                chunk_valid: Optional[torch.Tensor] = None,
                chunk_start: Optional[torch.Tensor] = None,
-               chunk_ring: bool = False,
+               chunk_ring: bool = False, decode: bool = False,
                layer_idx: Optional[int] = None, paged_attn: str = "fused"):
         """One layer; returns (h, cache, aux), ``aux`` the MoE layer's
         f32 load-balance loss (the float 0.0 for a dense MLP, so a dense
         step launches nothing for it). ``layer_idx`` None (the MTP block)
-        takes the config-wide attention settings."""
+        takes the config-wide attention settings. ``decode`` runs a mamba
+        layer's recurrent step; in a paged decode a block-table row of -1
+        (a vacant or mid-prefill slot) keeps its SSM state, as its K/V
+        writes go to the trash block."""
         cfg = self.cfg
         block, is_moe = sig
         aux = 0.0
         hn = L.apply_norm(p["attn_norm"], h, cfg.norm)
-        if block == "mla":
+        resume = None if chunk_start is None else chunk_start > 0
+        row_valid = (block_tables[:, 0] >= 0
+                     if decode and block_tables is not None else None)
+
+        def mamba(m_cache):
+            if decode:
+                return M.apply_mamba_decode(p["mamba"], ctx,
+                                            f"{scope}/mamba", cfg.ssm, hn,
+                                            m_cache, row_valid=row_valid)
+            return M.apply_mamba(p["mamba"], ctx, f"{scope}/mamba", cfg.ssm,
+                                 hn, m_cache, chunk_valid=chunk_valid,
+                                 resume=resume)
+
+        def attention(a_cache):
+            return L.attention(p["attn"], ctx, f"{scope}/attn",
+                               cfg.attn_cfg_for(layer_idx), hn, positions,
+                               cache=a_cache, cache_pos=cache_pos,
+                               block_tables=block_tables,
+                               chunk_valid=chunk_valid,
+                               chunk_start=chunk_start, chunk_ring=chunk_ring,
+                               window=window, paged_attn=paged_attn)
+
+        if block == "mamba":
+            y, cache = mamba(cache)
+        elif block == "hybrid":
+            ya, _ = attention(None if cache is None else cache["attn"])
+            ym, _ = mamba(None if cache is None else cache["mamba"])
+            y = 0.5 * (ya + ym)
+        elif block == "mla":
             y, cache = L.mla_attention(p["attn"], ctx, f"{scope}/attn",
                                        cfg.mla_cfg_for(layer_idx), hn,
                                        positions, cache=cache,
@@ -308,15 +393,7 @@ class LM:
                                        chunk_ring=chunk_ring,
                                        paged_attn=paged_attn)
         else:
-            y, cache = L.attention(p["attn"], ctx, f"{scope}/attn",
-                                   cfg.attn_cfg_for(layer_idx), hn,
-                                   positions, cache=cache,
-                                   cache_pos=cache_pos,
-                                   block_tables=block_tables,
-                                   chunk_valid=chunk_valid,
-                                   chunk_start=chunk_start,
-                                   chunk_ring=chunk_ring, window=window,
-                                   paged_attn=paged_attn)
+            y, cache = attention(cache)
         h = h + y
         if is_moe:
             hn2 = L.apply_norm(p["mlp_norm"], h, cfg.norm)
@@ -333,7 +410,7 @@ class LM:
                   positions: torch.Tensor, *, caches: Optional[dict] = None,
                   cache_pos=None, block_tables=None, chunk_valid=None,
                   chunk_start=None, chunk_ring: bool = False,
-                  paged_attn: str = "fused"):
+                  decode: bool = False, paged_attn: str = "fused"):
         """Run every layer in a Python loop; caches are updated in place.
         Returns (final-normed h, the layers' summed MoE aux loss: 0.0
         without MoE layers)."""
@@ -347,7 +424,8 @@ class LM:
                 window=cfg.window_for(i), cache=cache_i,
                 cache_pos=cache_pos, block_tables=block_tables,
                 chunk_valid=chunk_valid, chunk_start=chunk_start,
-                chunk_ring=chunk_ring, layer_idx=i, paged_attn=paged_attn)
+                chunk_ring=chunk_ring, decode=decode, layer_idx=i,
+                paged_attn=paged_attn)
             aux_total = aux_total + aux_i
         return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
 
@@ -431,54 +509,80 @@ class LM:
         return (torch.float8_e4m3fn if self.cfg.kv_cache_dtype == "fp8_e4m3"
                 else self.dtype)
 
+    def _assemble(self, one) -> dict:
+        """Flat ``layers/i@<sub>/<leaf>`` specs from ``one(block) -> {sub:
+        {leaf: spec}}``."""
+        specs = {}
+        for i, block in enumerate(self.cfg.block_types):
+            for sub, leaves in one(block).items():
+                for leaf, ps in leaves.items():
+                    specs[f"layers/{i}@{sub}/{leaf}"] = ps
+        return specs
+
     def cache_specs(self, batch: int, max_len: int, ring_window: bool = True,
                     chunk_extra: int = 0) -> dict:
-        """Flat ``layers/i@attn/<leaf>`` specs of the dense caches: KV rings
-        for attention layers, full-length latents for MLA layers.
+        """Flat ``layers/i@<attn|mamba>/<leaf>`` specs of the dense caches:
+        KV rings for attention layers, full-length latents for MLA layers,
+        conv history and state for mamba layers (both for hybrid ones).
         ``ring_window=False`` keeps ``max_len`` rows for windowed layers
         (the window is then enforced by the mask alone); ``chunk_extra``
         widens windowed rings to ``window + chunk_extra`` rows, so that
         dense chunked prefill never evicts keys still in a query's window
         (engines pass their ``chunk_len``)."""
         cfg = self.cfg
-        specs = {}
-        for i in range(cfg.n_layers):
-            leaves = (L.mla_cache_spec(cfg.mla_cfg, batch, max_len,
-                                       self.kv_dtype)
-                      if cfg.block_types[i] == "mla" else
-                      L.kv_cache_spec(cfg.attn_cfg, batch, max_len,
-                                      self.kv_dtype, ring=ring_window,
-                                      chunk_extra=chunk_extra))
-            for leaf, ps in leaves.items():
-                specs[f"layers/{i}@attn/{leaf}"] = ps
-        return specs
+
+        def one(block) -> dict:
+            out = {}
+            if block == "mla":
+                out["attn"] = L.mla_cache_spec(cfg.mla_cfg, batch, max_len,
+                                               self.kv_dtype)
+            elif block in ("attn", "hybrid"):
+                out["attn"] = L.kv_cache_spec(
+                    cfg.attn_cfg, batch, max_len, self.kv_dtype,
+                    ring=ring_window, chunk_extra=chunk_extra)
+            if block in ("mamba", "hybrid"):
+                out["mamba"] = M.mamba_cache_spec(cfg.ssm, batch, self.dtype)
+            return out
+
+        return self._assemble(one)
 
     def paged_cache_specs(self, n_slots: int, n_blocks: int,
                           block_size: int) -> dict:
-        """Flat specs of the block-major paged store: K/V for attention
-        layers, latents for MLA layers (neither keeps anything slot-major,
-        so ``n_slots`` does not enter)."""
+        """Flat specs for paged serving: attention K/V and MLA latents are
+        block-major ``(n_blocks, block_size, ...)`` shared storage; SSM
+        state has no sequence axis and stays slot-major ``(n_slots,
+        ...)``."""
         cfg = self.cfg
-        specs = {}
-        for i in range(cfg.n_layers):
-            leaves = (L.mla_page_spec(cfg.mla_cfg, n_blocks, block_size,
-                                      self.kv_dtype)
-                      if cfg.block_types[i] == "mla" else
-                      L.kv_page_spec(cfg.attn_cfg, n_blocks, block_size,
-                                     self.kv_dtype))
-            for leaf, ps in leaves.items():
-                specs[f"layers/{i}@attn/{leaf}"] = ps
-        return specs
+
+        def one(block) -> dict:
+            out = {}
+            if block == "mla":
+                out["attn"] = L.mla_page_spec(cfg.mla_cfg, n_blocks,
+                                              block_size, self.kv_dtype)
+            elif block in ("attn", "hybrid"):
+                out["attn"] = L.kv_page_spec(cfg.attn_cfg, n_blocks,
+                                             block_size, self.kv_dtype)
+            if block in ("mamba", "hybrid"):
+                out["mamba"] = M.mamba_cache_spec(cfg.ssm, n_slots,
+                                                  self.dtype)
+            return out
+
+        return self._assemble(one)
 
     @staticmethod
     def _materialize(specs: dict, device: torch.device) -> dict:
-        out: dict = {}
+        """The cache tree of flat specs, as the reference assembles it: a
+        layer of one kind holds its leaves directly, a hybrid layer under
+        ``"attn"`` and ``"mamba"``."""
+        tree: dict = {}
         for key, s in specs.items():
-            layer, leaf = key.split("@attn/")
+            layer, rest = key.split("@", 1)
+            sub, leaf = rest.split("/", 1)
             fill = -1 if leaf == "pos" else 0
-            out.setdefault(layer, {})[leaf] = torch.full(
-                s.shape, fill, dtype=s.dtype, device=device)
-        return out
+            tree.setdefault(layer, {}).setdefault(sub, {})[leaf] = \
+                torch.full(s.shape, fill, dtype=s.dtype, device=device)
+        return {layer: subs[next(iter(subs))] if len(subs) == 1 else subs
+                for layer, subs in tree.items()}
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = None,
                    *, ring_window: bool = True, chunk_extra: int = 0) -> dict:
@@ -495,16 +599,16 @@ class LM:
     def paged_copy_block(self, caches: dict, src: int, dst: int) -> dict:
         """Copy physical block ``src`` into block ``dst`` on every page-major
         cache leaf (attention K/V, MLA latents): the pool's copy-on-write
-        fork. In place, into the pool's own tensors: the paged decode step's
-        CUDA graph is bound to their identity, so a copy that returned new
-        tensors would force a capture on every fork. The copies run on the
+        fork (slot-major SSM state passes untouched). In place, into the
+        pool's own tensors: the paged decode step's CUDA graph is bound to
+        their identity, so a copy that returned new tensors would force a
+        capture on every fork. The copies run on the
         current stream, ordered after every step queued before them."""
         specs = self.paged_cache_specs(1, 1, 1)
         for key, spec in specs.items():
             if "kv_blocks" not in spec.logical_axes:
                 continue
-            layer, leaf = key.split("@attn/")
-            t = caches[layer][leaf]
+            t = cache_leaf(caches, key)
             ax = spec.logical_axes.index("kv_blocks")
             t.select(ax, int(dst)).copy_(t.select(ax, int(src)))
         return caches
@@ -524,12 +628,13 @@ class LM:
                       chunk_ring: bool = False):
         """One padded prompt chunk for every cache row: ``tokens`` (B, Lb)
         padded to a bucket, ``start_pos`` (B,) absolute position of
-        ``tokens[:, 0]`` (0 resets a dense row), ``valid_len`` (B,) real
-        tokens per row (0 = row untouched). ``block_tables`` selects the
-        paged layout; over dense rings ``chunk_ring`` attends the whole
-        ring in logical order, so a chunk can continue a prompt (windowed
-        rings need ``init_cache(chunk_extra=chunk_len)``). Returns (logits
-        (B, 1, V) at each row's last valid position, caches)."""
+        ``tokens[:, 0]`` (0 starts a row afresh: its dense ``pos`` ring and its
+        SSM state reset; a row past 0 resumes them), ``valid_len`` (B,) real
+        tokens per row (0 = row untouched). ``block_tables`` selects the paged
+        layout; over dense rings ``chunk_ring`` attends the whole ring in
+        logical order, so a chunk can continue a prompt (windowed rings need
+        ``init_cache(chunk_extra=chunk_len)``). Returns (logits (B, 1, V) at
+        each row's last valid position, caches)."""
         B, T = tokens.shape
         dev = tokens.device
         start = torch.as_tensor(start_pos, dtype=torch.int32, device=dev)
@@ -553,13 +658,15 @@ class LM:
         for a lock-step batch or (B,) per-row positions. ``block_tables``
         (B, max_blocks) switches to the paged layout, where
         ``paged_attn="fused"`` attends through the CUDA kernel and
-        ``"gather"`` through the reference path."""
+        ``"gather"`` through the reference path. Mamba layers take their
+        recurrent step; in the paged layout a row whose table starts with
+        -1 keeps its SSM state."""
         emb = params["embed"]["w"][token.long()].to(self.dtype)
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         positions = (pos[:, None] if pos.dim() == 1
                      else pos.reshape(1, 1).expand(B, 1))
         h, _ = self._backbone(params, ctx, emb, positions, caches=caches,
-                           cache_pos=pos, block_tables=block_tables,
-                           paged_attn=paged_attn)
+                              cache_pos=pos, block_tables=block_tables,
+                              decode=True, paged_attn=paged_attn)
         return self._head(params, ctx, h), caches

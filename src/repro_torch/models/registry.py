@@ -12,7 +12,7 @@ from repro_torch.models.lm import LM, LMConfig
 
 ARCH_IDS = ["llama3_1b", "llama3_8b", "deepseek_v3_671b", "qwen2p5_3b",
             "qwen2p5_32b", "nemotron_4_15b", "starcoder2_15b",
-            "moonshot_v1_16b_a3b"]
+            "moonshot_v1_16b_a3b", "mamba2_370m", "hymba_1p5b"]
 
 
 def canonical(arch: str) -> str:
@@ -53,6 +53,9 @@ def depth_overrides(arch: str, n_layers: int, smoke: bool = False,
                          f"{n_layers}")
     ov = dict(n_layers=n_layers, block_types=cfg.block_types[:n_layers],
               moe_layers=tuple(i for i in cfg.moe_layers if i < n_layers))
+    if cfg.global_attn_layers:
+        ov["global_attn_layers"] = tuple(i for i in cfg.global_attn_layers
+                                         if i < n_layers)
     return ov if keep_mtp else dict(ov, mtp_depth=0)
 
 

@@ -17,7 +17,9 @@ Usage::
                                            kv_dequant_scales=scales))
 
 The returned value is the per-layer tuple ``LMConfig.kv_dequant_scales``
-accepts: one ``(("k", s_k), ("v", s_v))`` pair-tuple per layer.
+accepts (one entry per layer: a pair-tuple for attention and MLA layers,
+the attention half of a hybrid layer included; None for SSM layers, whose
+state is not a paged KV cache).
 """
 from __future__ import annotations
 
@@ -35,13 +37,24 @@ __all__ = ["calibrate_kv_scales", "FP8_E4M3_MAX"]
 FP8_E4M3_MAX = 448.0
 
 
+def _layer_kv_node(node: dict):
+    """The attention-cache sub-dict of one layer's cache node, or None for
+    SSM-only layers. Hybrid layers nest {"attn": ..., "mamba": ...}."""
+    if "pos" in node:
+        return node
+    if isinstance(node.get("attn"), dict) and "pos" in node["attn"]:
+        return node["attn"]
+    return None
+
+
 def calibrate_kv_scales(model, params, batches: Iterable, *,
                         fp8_max: float = FP8_E4M3_MAX) -> tuple:
     """Per-layer amax tracking at cache-write time -> dequant scales.
 
     Runs :meth:`LM.prefill` over ``batches`` (dicts with ``"tokens"``, or
     bare token arrays) on a clone of ``model`` with a bf16 cache, reduces
-    each layer's cache entries ("k"/"v") to their absolute max across all
+    each layer's cache entries ("k"/"v", or "ckv"/"kr" for MLA) to their
+    absolute max across all
     batches, and returns ``amax / fp8_max`` per entry, rounded to f32.
     Entries that never exceed zero get unit scales.
     """
@@ -60,7 +73,10 @@ def calibrate_kv_scales(model, params, batches: Iterable, *,
             caches = bf16.init_cache(B, T, device)
             _, caches = bf16.prefill(params, tokens, caches, ctx)
             for lk, node in caches.items():
-                for name, leaf in node.items():
+                kv = _layer_kv_node(node)
+                if kv is None:
+                    continue
+                for name, leaf in kv.items():
                     if name == "pos":
                         continue
                     m = float(leaf.float().abs().max())

@@ -191,11 +191,17 @@ def einsum_f32acc(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
                   out_dtype: torch.dtype) -> torch.Tensor:
     """``einsum`` with float32 accumulation and one rounding to
     ``out_dtype`` — the reference's ``preferred_element_type=f32`` product.
-    On CUDA, when the result keeps the operand dtype, the operands stay as
-    they are: cuBLAS accumulates in f32 with reduced-precision reductions
-    off (see ``repro_torch.device``) and rounds once. Otherwise (and always
-    on the CPU) the operands are widened to f32 first, which is exact."""
-    if lhs.is_cuda and out_dtype == lhs.dtype:
+    When the result keeps a reduced-precision operand dtype, the operands
+    stay as they are: cuBLAS on CUDA (reduced-precision reductions off, see
+    ``repro_torch.device``) and the CPU's bf16 GEMM both accumulate in f32
+    and round once. Widening bf16 operands to f32 is exact, but the CPU's
+    f32 GEMM then sums in another order than XLA's CPU dot, and the f32
+    sums round to different bf16 values in about one output of a thousand
+    (a decode step's ``down_proj`` at M = 2); the bf16 GEMM agrees with the
+    reference there. Otherwise the operands are widened to f32 first."""
+    if out_dtype == lhs.dtype and (
+            lhs.is_cuda or (lhs.dtype in (torch.bfloat16, torch.float16)
+                            and rhs.dtype == lhs.dtype)):
         return torch.einsum(spec, lhs, rhs.to(lhs.dtype))
     return torch.einsum(spec, lhs.float(), rhs.float()).to(out_dtype)
 

@@ -1,4 +1,4 @@
-"""KV cache pools for continuous batching, one shard (port of
+"""KV/SSM cache pools for continuous batching, one shard (port of
 ``repro/serve/cache_pool.py``): dense slots and paged blocks.
 
 :class:`CachePool` (dense) owns one cache tree whose leading axis is the
@@ -8,6 +8,13 @@ Its memory scales with ``n_slots * max_len`` whatever the live tokens.
 
 :class:`PagedCachePool` replaces the per-slot rings with a shared store of
 fixed-size blocks.
+
+SSM state (mamba and hybrid layers) has no sequence axis and stays
+slot-major in both pools: ``(n_slots, ...)`` rows that a request's first
+prefill chunk (start 0) resets and later chunks resume. It is counted by
+``dense_slot_bytes`` and ``paged_slot_bytes``; forks, poisoned pages and
+quarantine touch only block-major leaves, and a quarantined slot's state is
+reset by the next admission's first chunk, as in the reference.
 
 Attention K/V lives in block-major tensors ``(n_blocks, block_size, Hkv,
 D)`` (MLA latents in ``(n_blocks, block_size, r)``); each slot maps its
@@ -54,6 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.lm import cache_leaf, cache_tensors
 from repro_torch.nn.spec import param_bytes
 from repro_torch.quant.formats import cast_to
 
@@ -76,8 +84,8 @@ def paged_block_bytes(model, block_size: int) -> int:
 
 def paged_slot_bytes(model, block_size: int) -> int:
     """Device bytes one slot pins under paging whatever its live tokens:
-    the slot-major leaves (SSM state in the reference's mamba and hybrid
-    archs; none in the attention and MLA models the port builds)."""
+    the slot-major leaves (SSM state on mamba and hybrid archs; none on
+    attention and MLA models)."""
     return (param_bytes(model.paged_cache_specs(2, 1, block_size))
             - param_bytes(model.paged_cache_specs(1, 1, block_size)))
 
@@ -108,13 +116,12 @@ class CachePool:
             specs = model.cache_specs(n_slots, max_len,
                                       chunk_extra=chunk_extra)
             for key, spec in specs.items():
-                layer, leaf = key.split("@attn/")
-                t = caches.get(layer, {}).get(leaf)
+                t = cache_leaf(caches, key)
                 if (t is None or tuple(t.shape) != tuple(spec.shape)
                         or t.dtype != spec.dtype):
                     raise ValueError(f"cache tensor {key} does not fit this "
                                      f"pool ({spec.shape}, {spec.dtype})")
-                t.fill_(-1 if leaf == "pos" else 0)
+                t.fill_(-1 if key.endswith("/pos") else 0)
         self.caches = caches
         self._free = list(range(n_slots - 1, -1, -1))  # pop() gives slot 0
 
@@ -146,9 +153,10 @@ class CachePool:
         row (its ``pos`` ring included). Not on the engine's path, which
         prefills the pool's rows in place; kept as the reference's cache
         injection API."""
-        for layer, leaves in request_cache.items():
-            for leaf, t in leaves.items():
-                dst = self.caches[layer][leaf]
+        for layer, node in request_cache.items():
+            pairs = zip(cache_tensors({layer: node}),
+                        cache_tensors({layer: self.caches[layer]}))
+            for (_, t), (_, dst) in pairs:
                 dst[slot].copy_(cast_to(t[0], dst.dtype))
 
     # dense slots carry no state across drains
@@ -229,16 +237,14 @@ class PagedCachePool:
         specs = model.paged_cache_specs(self.n_slots, self.n_blocks,
                                         self.block_size)
         for key, spec in specs.items():
-            layer, leaf = key.split("@attn/")
-            t = caches.get(layer, {}).get(leaf)
+            t = cache_leaf(caches, key)
             if (t is None or tuple(t.shape) != tuple(spec.shape)
                     or t.dtype != spec.dtype
                     or t.device.type != self.device.type):
                 raise ValueError(f"cache tensor {key} does not fit this "
                                  f"pool ({spec.shape}, {spec.dtype})")
-        for layer in caches.values():
-            for t in layer.values():
-                t.zero_()
+        for _, t in cache_tensors(caches):
+            t.zero_()
 
     def reset_counters(self) -> None:
         """Zero the per-drain tallies (the engine keeps one pool, and its
@@ -649,8 +655,7 @@ class PagedCachePool:
         for key, spec in self.model.paged_cache_specs(1, 1, 1).items():
             if "kv_blocks" not in spec.logical_axes:
                 continue
-            layer, leaf = key.split("@attn/")
-            t = self.caches[layer][leaf]
+            t = cache_leaf(self.caches, key)
             if t.is_floating_point():
                 t.select(spec.logical_axes.index("kv_blocks"),
                          int(blk)).fill_(float("nan"))

@@ -62,6 +62,7 @@ from repro_torch.launch import steps as _steps
 from repro_torch.launch.steps import (get_serving_step, greedy_next_token,
                                      merge_first_tokens, nonfinite_rows,
                                      shadow_logit_mse)
+from repro_torch.models.lm import cache_tensors, ssm_tensors
 from repro_torch.serve.cache_pool import (CachePool, PagedCachePool,
                                           dense_slot_bytes, host_to_device,
                                           paged_block_bytes, paged_slot_bytes)
@@ -171,9 +172,8 @@ class ServeEngine:
                             self.init_caches(batch, max_len))
             return self._caches[1]
         caches = self._caches[1]
-        for leaves in caches.values():
-            for leaf, t in leaves.items():
-                t.fill_(-1 if leaf == "pos" else 0)
+        for leaf, t in cache_tensors(caches):
+            t.fill_(-1 if leaf == "pos" else 0)
         return caches
 
     def _prefill(self, params, caches, tokens: torch.Tensor):
@@ -345,12 +345,16 @@ class ContinuousBatchingEngine:
     are refused, and preemption (which re-prefills through cached blocks)
     is off.
 
-    ``prefix_cache`` (None: on, as for every paged pure-attention model the
-    port builds) hashes each admitted prompt block by block against the
-    pool's index, maps matched blocks into the slot's table and starts its
-    prefill at the first unmatched token; a shared page in a chunk's write
-    range is forked first (copy-on-write). The pool and its index outlive
-    the drain, so a later drain hits what an earlier one indexed.
+    ``chunk_len`` must be a multiple of an SSM arch's ``ssm.chunk``.
+
+    ``prefix_cache`` (None: on for a paged pure-attention model, off for
+    mamba and hybrid archs, whose slot-major SSM state no shared block
+    holds; asking for it there raises) hashes each admitted prompt block
+    by block against the pool's index, maps matched blocks into the slot's
+    table and starts its prefill at the first unmatched token; a shared
+    page in a chunk's write range is forked first (copy-on-write). The pool
+    and its index outlive the drain, so a later drain hits what an earlier
+    one indexed.
 
     :meth:`cancel` and :meth:`shutdown` may be called from any thread (an
     ``on_token`` callback included); the drain applies them at the top of
@@ -415,6 +419,23 @@ class ContinuousBatchingEngine:
                              f"{paged_attn!r}")
         if chunk_len is not None and chunk_len < 1:
             raise ValueError(f"chunk_len must be >= 1, got {chunk_len}")
+        ssm = getattr(model.cfg, "ssm", None)
+        if chunk_len is not None and ssm is not None \
+                and chunk_len % ssm.chunk != 0:
+            raise ValueError(
+                f"chunk_len {chunk_len} must be a multiple of the SSD chunk "
+                f"({ssm.chunk}): engine chunk boundaries must align with "
+                f"the SSD state recurrence for bit-exact resume (override "
+                f"cfg.ssm.chunk or pick another chunk_len)")
+        # slot-major SSM state cannot be rebuilt from shared KV blocks, so
+        # a matched prefix could not skip prefill: SSM/hybrid archs turn
+        # the prefix cache off, and asking for it is an error
+        ssm_bytes = paged_slot_bytes(model, block_size) if paged else 0
+        if prefix_cache and ssm_bytes > 0:
+            raise ValueError(
+                "prefix_cache is unavailable for SSM/hybrid archs: "
+                "slot-major SSM state is not reconstructible from shared KV "
+                "blocks, so a matched prefix could not skip prefill")
         if chunk_budget < 1:
             raise ValueError(f"chunk_budget must be >= 1, got {chunk_budget}")
         self.model = model
@@ -435,11 +456,11 @@ class ContinuousBatchingEngine:
         self.min_bucket = min_bucket
         self.paged_attn = paged_attn
         self.paged = bool(paged)
-        # every model the port builds is pure attention (attn / mla blocks,
-        # no slot-major SSM state), so a paged engine caches prefixes unless
-        # refused; preemption resumes through the paged pool
-        self.prefix_cache = self.paged and (prefix_cache is None
-                                            or bool(prefix_cache))
+        # a paged pure-attention engine caches prefixes unless refused;
+        # preemption resumes through the paged pool
+        self.prefix_cache = self.paged and (
+            bool(prefix_cache) if prefix_cache is not None
+            else ssm_bytes == 0)
         self.preemption = bool(preemption) and self.paged
         self.prefill_cobatch = bool(prefill_cobatch)
         self.device = resolve_device(device)
@@ -1175,12 +1196,15 @@ class ContinuousBatchingEngine:
                         h = ring[k]
                         pos = h.pos.numpy()
                         pos[:] = 0
+                        held = ()
                         if not self.paged:
                             # a dense row between two chunks of its prompt
                             # decodes garbage into its own ring: at the
-                            # position its next chunk writes first
+                            # position its next chunk writes first; its SSM
+                            # state (no table marks the row) is put back
                             for slot, st in sched.prefilling.items():
                                 pos[slot] = st.prefill_pos
+                            held = sorted(sched.prefilling)
                         alloc_bad = []
                         for slot, st in sched.running.items():
                             pos[slot] = st.next_pos
@@ -1279,13 +1303,28 @@ class ContinuousBatchingEngine:
                                 "paged_decode" if self.paged else "decode",
                                 mp=None, paged_attn=(self.paged_attn
                                                      if self.paged else None))
+                            # the caches are written in place: the shadow
+                            # must not advance the SSM state the active
+                            # step advances
+                            kept = [t.clone() for t in ssm_tensors(
+                                pool.caches)]
                             s_logits, _, _ = ref_step(params, pool.caches,
                                                       *step_in)
+                            for t, k0 in zip(ssm_tensors(pool.caches), kept):
+                                t.copy_(k0)
                             shadow = (s_logits,
                                       rows[(n_steps // grail.every)
                                            % len(rows)])
+                        ssm_held = ssm_tensors(pool.caches) if held else []
+                        if ssm_held:
+                            held_rows = host_to_device(
+                                np.asarray(held, np.int64), self.device)
+                            ssm_held = [(t, t[held_rows].clone())
+                                        for t in ssm_held]
                         logits, pool.caches, nxt = self.decode_step(
                             params, pool.caches, *step_in)
+                        for t, k0 in ssm_held:
+                            t[held_rows] = k0
                         if shadow is not None:
                             # one blocking scalar read-back per check; a
                             # NaN MSE (a poison, not a quantization error)

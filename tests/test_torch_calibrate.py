@@ -124,11 +124,14 @@ def test_groups_match_reference(arch_cfg):
 
 def test_build_graph_refuses_unported_families():
     from repro_torch.configs import llama3_1b as tc
-    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
-        tgraphs.build_lm_graph(tc.smoke_config(block_types=("mamba",
-                                                            "attn")))
+    with pytest.raises(NotImplementedError, match="scan_layers: A9"):
+        tgraphs.build_lm_graph(tc.smoke_config(scan_layers=True))
     with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
         tgraphs.build_graph(object())
+    # mamba and hybrid blocks have their graph (ROADMAP A8's SSM half)
+    g = tgraphs.build_lm_graph(tc.smoke_config(block_types=("mamba",
+                                                            "hybrid")))
+    assert "layers/1/hybrid_merge" in g.nodes
 
 
 def test_probe_captures_and_gradients_match_reference():

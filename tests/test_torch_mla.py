@@ -425,16 +425,23 @@ def test_calibrate_groups_match_reference():
 def test_unmodified_configs_raise_naming_moe_and_mtp():
     """MoE layers and MTP are ported (ROADMAP A6): the unmodified DeepSeek
     configurations build, with their graph; what still raises names its
-    ROADMAP item (mamba: A8, scan_layers: A9)."""
+    ROADMAP item (prefix_embed: A8, scan_layers: A9); mamba blocks build
+    beside MLA ones since A8's SSM half."""
     full = tget("deepseek_v3_671b")
     assert full.cfg.moe_layers == tuple(range(3, 61))
     assert full.cfg.mtp_depth == 1
     smoke = tget("deepseek_v3_671b", smoke=True)
     assert "mtp/block/moe/router/w" in smoke.param_specs()
     assert "layers/1/moe/combine" in tgraphs.build_graph(smoke).nodes
-    with pytest.raises(NotImplementedError, match="mamba.*ROADMAP item A8"):
-        tget("deepseek_v3_671b", smoke=True, block_types=("mla", "mamba",
-                                                          "mla"), **DENSE)
+    from repro_torch.models.lm import SSMConfig
+    mixed = tget("deepseek_v3_671b", smoke=True, block_types=(
+        "mla", "mamba", "mla"), ssm=SSMConfig(d_model=128, d_inner=256,
+                                              d_state=16, head_dim=32),
+        **DENSE)
+    assert "layers/1/mamba/in_proj/w" in mixed.param_specs()
+    with pytest.raises(NotImplementedError,
+                       match="prefix_embed.*ROADMAP item A8"):
+        tget("deepseek_v3_671b", smoke=True, prefix_embed=True, **DENSE)
     with pytest.raises(NotImplementedError, match="scan_layers: A9"):
         tgraphs.build_lm_graph(tget.__globals__["get_smoke_config"](
             "deepseek_v3_671b", scan_layers=True))

@@ -186,11 +186,15 @@ def test_prefill_and_decode_logits_match_reference(pair, mp):
 def test_unported_features_raise():
     from repro_torch.configs import llama3_1b as tc
     from repro_torch.models.lm import LM, MoEConfig
-    for ov, item in (({"block_types": ("mamba", "attn")}, "A8"),
-                     ({"scan_layers": True}, "A9"),
+    for ov, item in (({"scan_layers": True}, "A9"),
                      ({"prefix_embed": True}, "A8")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             LM(tc.smoke_config(**ov))
+    # mamba and hybrid blocks are ported (ROADMAP A8's SSM half)
+    LM(tget("mamba2_370m").cfg)
+    LM(tget("hymba_1p5b").cfg)
+    with pytest.raises(ValueError, match="unknown block types"):
+        LM(tc.smoke_config(block_types=("conv", "attn")))
     # MoE layers and multi-token prediction are ported (ROADMAP A6)
     moe = MoEConfig(n_experts=4, top_k=2, d_expert_ff=32)
     m = LM(tc.smoke_config(moe_layers=(1,), moe=moe, mtp_depth=1))
@@ -204,10 +208,11 @@ def test_unported_features_raise():
     assert m.apply(p, torch.zeros((1, 8), dtype=torch.int32),
                    TCtx()).shape == (1, 8, m.cfg.vocab_size)
     with pytest.raises(KeyError, match="llama3_1b"):
-        tget("mamba2_370m")
+        tget("whisper_base")
     assert ARCH_IDS == ["llama3_1b", "llama3_8b", "deepseek_v3_671b",
                         "qwen2p5_3b", "qwen2p5_32b", "nemotron_4_15b",
-                        "starcoder2_15b", "moonshot_v1_16b_a3b"]
+                        "starcoder2_15b", "moonshot_v1_16b_a3b",
+                        "mamba2_370m", "hymba_1p5b"]
 
 
 def _jax_greedy(jm, jp, batch, n: int, jit: bool):
@@ -259,39 +264,6 @@ def _reference_ties_where_port_differs(jm, jp, batch, got, want):
         diff = np.nonzero(got[row] != want[row])[0]
         if diff.size:
             assert gaps[row, diff[0]] == 0.0, (row, diff[0], gaps[row])
-
-
-@pytest.mark.parametrize("arch", DENSE)
-def test_greedy_tokens_match_reference_and_continuous_matches_oneshot(arch):
-    """End to end on each dense model's smoke config, bf16 weights bridged
-    from the reference: the reference ``ServeEngine``'s greedy tokens equal
-    the port's one-shot engine's (where the engine's compiled steps tie
-    exactly, the port gives the reference model's op-by-op tokens:
-    ``_reference_ties_where_port_differs``), and the port's continuous
-    engine (paged pool, staggered arrivals through two slots, fused decode
-    attention's plain version) gives the one-shot tokens."""
-    from repro.serve import ServeEngine as JServeEngine
-    from repro_torch.serve import (ContinuousBatchingEngine, Request,
-                                   ServeEngine)
-    jm = jget(arch, smoke=True)
-    jp = jm.init(jax.random.key(0))
-    tm = tget(arch, smoke=True)
-    tp = params_from_flat({k: np.asarray(v) for k, v in
-                           flatten_paths(jp).items()}, tm.cfg, "cpu")
-    rng = np.random.default_rng(7)
-    batch = rng.integers(0, tm.cfg.vocab_size, (4, 12)).astype(np.int32)
-    want = np.asarray(JServeEngine(jm, donate=False).generate(
-        jp, {"tokens": jnp.asarray(batch)}, max_new_tokens=6).tokens)
-    got = ServeEngine(tm, device="cpu").generate(
-        tp, {"tokens": batch}, max_new_tokens=6).tokens
-    if not np.array_equal(got, want):
-        _reference_ties_where_port_differs(jm, jp, batch, got, want)
-    eng = ContinuousBatchingEngine(tm, n_slots=2, max_len=32, block_size=4,
-                                   device="cpu")
-    out = eng.serve(tp, [Request(rid=i, tokens=p, max_new_tokens=6,
-                                 arrival=2 * i) for i, p in enumerate(batch)])
-    for i in range(len(batch)):
-        np.testing.assert_array_equal(out.results[i].tokens, got[i])
 
 
 def test_serving_op_names_match_a_registry_trace():

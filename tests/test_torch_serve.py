@@ -35,11 +35,9 @@ from repro_torch.nn.spec import default_generator  # noqa: E402
 from repro_torch.serve import (ContinuousBatchingEngine, PagedCachePool,  # noqa: E402
                                Request, Scheduler, ServeEngine)
 
-MARGIN_BOUND = 0.125        # as chip_smoke.py: 8 bf16 ulps at |logit| ~ 2-4
-MARGIN_BOUND_MP = 0.25      # as chip_smoke.py under an fp8 MP plan
-MP_ASSIGNMENT = {"layers/0/attn/q_proj": "fp8_e4m3",
-                 "layers/1/mlp/down_proj": "fp8_e4m3",
-                 "layers/1/attn/qk_matmul": "fp8_e4m3", "lm_head": "fp8_e4m3"}
+from torch_serve_common import (  # noqa: E402
+    DENSE_MLA, DS, MARGIN_BOUND_MP, MP_ASSIGNMENT, _oneshot, _record_gaps,
+    _scenario, assert_agree)
 
 
 @pytest.fixture(scope="module")
@@ -69,48 +67,6 @@ def kernel_calls(monkeypatch):
 
     monkeypatch.setattr(tpa, "paged_decode_attention", counting)
     return calls
-
-
-def assert_agree(got, ref, ref_margins, bound=MARGIN_BOUND):
-    """Equal up to the first divergence; a divergence only at a near-tie."""
-    got, ref = np.asarray(got), np.asarray(ref)
-    assert got.shape == ref.shape
-    diff = np.nonzero(got != ref)[0]
-    if diff.size:
-        i = int(diff[0])
-        assert ref_margins[i] < bound, (i, ref_margins[i], got, ref)
-
-
-def _record_gaps(eng) -> list:
-    """Wrap a one-shot engine's step closures (instance attributes; the
-    shared memoized steps stay as they are) so that every call appends the
-    (B,) gap between the two largest last-position logits."""
-    gaps = []
-
-    def wrap(step):
-        def recorded(*args):
-            out = step(*args)
-            top = torch.topk(out[0][:, -1].float(), 2, dim=-1).values
-            gaps.append((top[:, 0] - top[:, 1]).numpy())
-            return out
-        return recorded
-
-    for name in ("prefill_step", "bucketed_prefill_step", "decode_step"):
-        setattr(eng, name, wrap(getattr(eng, name)))
-    return gaps
-
-
-def _oneshot(model, params, prompts, max_new, mp=None):
-    """(tokens, top-two gaps), each (max_new,), per prompt from the port's
-    one-shot engine, one prompt at a time."""
-    eng = ServeEngine(model, mp=mp, device="cpu")
-    gaps = _record_gaps(eng)
-    out = []
-    for p in prompts:
-        gaps.clear()
-        r = eng.generate(params, {"tokens": p[None]}, max_new_tokens=max_new)
-        out.append((r.tokens[0], np.concatenate(gaps)))
-    return out
 
 
 def _serve(model, params, prompts, max_new, **kw):
@@ -341,145 +297,6 @@ def test_launcher_runs_on_the_host(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 # prefix caching, priority preemption and chunked prefill
 # ---------------------------------------------------------------------------
-
-DS = "deepseek_v3_671b"
-DENSE_MLA = dict(moe_layers=(), mtp_depth=0, mla_absorb_decode=True)
-MLA_MP = {"layers/0/attn/q_b_proj": "fp8_e4m3",
-          "layers/1/attn/kv_b_proj": "fp8_e4m3",
-          "layers/1/mlp/down_proj": "fp8_e4m3",
-          "layers/2/attn/qk_matmul": "fp8_e4m3",
-          "layers/2/attn/av_matmul": "fp8_e4m3", "lm_head": "fp8_e4m3"}
-# what the reference engine counts and the port must count alike
-SCHEDULE_COUNTERS = ("prefix_hit_requests", "prefix_hit_tokens", "cow_forks",
-                     "preemptions", "prefill_chunks", "decode_stall_steps",
-                     "max_decode_stall_run", "blocked_admissions",
-                     "reclaimed_cached_blocks")
-_PAIRS: dict = {}
-
-
-def _pair(arch: str):
-    """(reference model, its params, port model, the same params bridged)
-    for the smoke llama3_1b ("attn") or DeepSeek-V3's smoke dense MLA
-    prefix with absorbed decode ("mla")."""
-    if arch not in _PAIRS:
-        name, kw = ("llama3_1b", {}) if arch == "attn" else (DS, DENSE_MLA)
-        jm = jget(name, smoke=True, **kw)
-        jp = jm.init(jax.random.key(0))
-        tm = get_model(name, smoke=True, **kw)
-        tp = params_from_flat({k: np.asarray(v) for k, v in
-                               flatten_paths(jp).items()}, tm.cfg, "cpu")
-        _PAIRS[arch] = (jm, jp, tm, tp)
-    return _PAIRS[arch]
-
-
-def _scenario(name: str):
-    """(engine kwargs, [(rid, prompt, max_new, arrival, priority)]).
-
-    * share: three prompts on one 16-token base (4 blocks of 4) plus 4 own
-      tokens, then the first prompt again (a full-prompt hit: its tail
-      chunk forks the last shared block);
-    * preempt: each request's worst case takes all 5 allocatable blocks,
-      and a priority-1 request arrives while a priority-0 one decodes;
-    * chunked: prompts of 5 to 29 tokens in chunks of 8, one chunk step
-      between decode steps, arriving while others decode."""
-    rng = np.random.default_rng({"share": 31, "preempt": 29,
-                                 "chunked": 19}[name])
-    if name == "share":
-        base = rng.integers(0, 200, size=16).astype(np.int32)
-        ps = [np.concatenate([base, rng.integers(0, 200, size=4)
-                              .astype(np.int32)]) for _ in range(3)]
-        reqs = [(i, p, 4, i, 0) for i, p in enumerate(ps + ps[:1])]
-        return dict(n_slots=2, max_len=40, block_size=4), reqs
-    if name == "preempt":
-        ps = [rng.integers(0, 200, size=12).astype(np.int32)
-              for _ in range(3)]
-        reqs = [(0, ps[0], 8, 0, 0), (1, ps[1], 8, 1, 0), (2, ps[2], 8, 2, 1)]
-        return dict(n_slots=2, max_len=32, block_size=4, n_blocks=6), reqs
-    lens = (13, 29, 5, 21)
-    reqs = [(i, rng.integers(0, 200, size=n).astype(np.int32), 4, 2 * i, 0)
-            for i, n in enumerate(lens)]
-    return dict(n_slots=3, max_len=40, block_size=4, chunk_len=8,
-                chunk_budget=1), reqs
-
-
-def _drain(cls, req_cls, model, params, spec, **kw):
-    """The lockstep drain of ``spec`` on engine class ``cls``."""
-    ekw, reqs = spec
-    eng = cls(model, **dict(ekw, **kw))
-    rs = [req_cls(rid=rid, tokens=p, max_new_tokens=m, arrival=a,
-                  priority=pr) for rid, p, m, a, pr in reqs]
-    return eng.serve(params, rs, sync=True)
-
-
-@pytest.mark.parametrize("scenario", ["share", "preempt", "chunked"])
-@pytest.mark.parametrize("arch", ["attn", "mla"])
-def test_continuous_engine_matches_reference_engine(arch, scenario):
-    """The port's drain and the reference's lockstep drain of the same
-    requests on the same weights: equal schedule counters (prefix hits,
-    forks, preemptions, chunks, stalls) and decode steps; greedy tokens
-    agree with the port's one-shot engine (bit for bit in the port, up to
-    a near-tie in the reference)."""
-    from repro.serve import ContinuousBatchingEngine as JEngine
-    jm, jp, tm, tp = _pair(arch)
-    spec = _scenario(scenario)
-    want = _drain(JEngine, JRequest, jm, jp, spec)
-    got = _drain(ContinuousBatchingEngine, Request, tm, tp, spec,
-                 device="cpu")
-    for key in SCHEDULE_COUNTERS:
-        assert got.counters[key] == want.counters[key], key
-    assert got.n_steps == want.n_steps
-    c = got.counters
-    if scenario == "share":
-        assert c["prefix_hit_requests"] == 3 and c["cow_forks"] == 1
-    elif scenario == "preempt":
-        assert c["preemptions"] >= 1
-        assert got.results[2].finished_step < got.results[0].finished_step
-    else:
-        assert c["prefill_chunks"] > len(spec[1])
-        assert c["max_decode_stall_run"] == 1 and c["decode_stall_steps"] > 0
-    ref = _oneshot(tm, tp, [p for _, p, *_ in spec[1]], spec[1][0][2])
-    for (rid, *_), (tok, gaps) in zip(spec[1], ref):
-        assert got.results[rid].status == "ok"
-        np.testing.assert_array_equal(got.results[rid].tokens, tok)
-        assert_agree(np.asarray(want.results[rid].tokens), tok, gaps)
-
-
-# the twin each scenario is held to, bit for bit, inside the port
-_TWIN = {"share": dict(prefix_cache=False), "preempt": dict(preemption=False),
-         "chunked": dict(chunk_len=None)}
-
-
-@pytest.mark.parametrize("mp", [False, True], ids=["plain", "mp"])
-@pytest.mark.parametrize("scenario", ["share", "preempt", "chunked"])
-@pytest.mark.parametrize("arch", ["attn", "mla"])
-def test_port_drain_bit_equal_to_its_twin(arch, scenario, mp):
-    """On the CPU, within the port, plain and under an MP plan: sharing on
-    gives the tokens of sharing off, a preempted request those of its
-    uninterrupted run, chunked prefill those of one-chunk prefill — bit
-    for bit (K/V under the serving policy is a function of the tokens at
-    or before each position, and every CPU product here is an f32 sum over
-    the same operands)."""
-    _, _, tm, tp = _pair(arch)
-    plan = (MLA_MP if arch == "mla" else MP_ASSIGNMENT) if mp else None
-    spec = _scenario(scenario)
-    got = _drain(ContinuousBatchingEngine, Request, tm, tp, spec,
-                 device="cpu", mp=plan)
-    twin = _drain(ContinuousBatchingEngine, Request, tm, tp, spec,
-                  device="cpu", mp=plan, **_TWIN[scenario])
-    c, t = got.counters, twin.counters
-    if scenario == "share":
-        assert c["prefix_hit_tokens"] > 0 and c["cow_forks"] == 1
-        assert c["prefill_tokens"] == t["prefill_tokens"] - \
-            c["prefix_hit_tokens"]
-    elif scenario == "preempt":
-        assert c["preemptions"] >= 1 and t["preemptions"] == 0
-    else:
-        assert c["prefill_chunks"] > t["prefill_chunks"]
-    assert got.results.keys() == twin.results.keys()
-    for rid in twin.results:
-        np.testing.assert_array_equal(got.results[rid].tokens,
-                                      twin.results[rid].tokens)
-
 
 def test_uniform_priority_never_preempts(model, params, prompts):
     """At uniform priority the preemption path is inert: block pressure

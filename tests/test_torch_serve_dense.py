@@ -42,8 +42,8 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.nn import layers as TL  # noqa: E402
 from repro_torch.serve import (CachePool, ContinuousBatchingEngine,  # noqa: E402
                                Request, ServeEngine)
-from test_torch_serve import (MLA_MP, MP_ASSIGNMENT, _drain, _oneshot,  # noqa: E402
-                              _pair, _scenario, assert_agree)
+from torch_serve_common import (MLA_MP, MP_ASSIGNMENT, _drain, _oneshot,  # noqa: E402
+                                _pair, _scenario, assert_agree)
 
 DENSE_COUNTERS = ("prefill_chunks", "prefill_tokens", "decode_stall_steps",
                   "max_decode_stall_run", "blocked_admissions", "preemptions",

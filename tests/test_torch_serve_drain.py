@@ -21,7 +21,7 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.nn.spec import default_generator  # noqa: E402
 from repro_torch.serve import (ContinuousBatchingEngine, Request,  # noqa: E402
                                ServeEngine)
-from test_torch_serve import SCHEDULE_COUNTERS, _pair, _scenario  # noqa: E402
+from torch_serve_common import SCHEDULE_COUNTERS, _pair, _scenario  # noqa: E402
 
 
 @pytest.fixture(scope="module")
