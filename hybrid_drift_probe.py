@@ -7,7 +7,7 @@ kernel and one through the gather path, teacher-forced with the fused
 path's tokens, eagerly. Prints each layer's attention-output difference at
 the first step (identical inputs) and each step's max logit difference:
 llama3_1b (the yardstick), Hymba 1.5B, Hymba's widths with attention-only
-blocks, and Hymba at 8 layers. ``chip_smoke.py``'s ``LOGIT_TOL_HYBRID``
+blocks, and Hymba at 8 layers. ``chip_smoke.py``'s ``LOGIT_TOL_HYBRID_MP``
 rests on it. About 100 s with the kernels' build:
 
     python3 hybrid_drift_probe.py

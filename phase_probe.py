@@ -18,6 +18,12 @@ builds it. The phases run in the order given:
   allocated and the objects the garbage collector tracks; after them, the
   collections each generation ran during the drains.
 
+- ``ARCH@DEPTH``: ``llama3_8b`` (phase 13, ``llama8b_phase``) or one of
+  ``DENSE_CONFIGS``' archs (phase 18, ``dense_config_phase``) served at
+  ``DEPTH`` layers, the whole phase timed: two depths of one arch give
+  the seconds a depth cut saves. llama3_1b is built only for ``tier`` and
+  ``drains``.
+
 Prints ``chip_smoke.py``'s lines for each phase, one JSON line with every
 drain's numbers, and last the card's name and power limit; ``--out`` gets
 the JSON too. Compare two checkouts within one call, in the order parent,
@@ -93,11 +99,20 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     cs.log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
-    model, params = make_model_and_params("llama3_1b", False, "cuda", seed=0)
+    phases = args.phases.split(",")
+    if {"tier", "drains"} & set(phases):
+        model, params = make_model_and_params("llama3_1b", False, "cuda",
+                                              seed=0)
     out: dict = {"root": str(root), "phases": {}, "drains": []}
-    for name in args.phases.split(","):
+    for name in phases:
         t0 = time.perf_counter()
-        if name == "tier":
+        arch, _, depth = name.partition("@")
+        if arch == cs.LLAMA8B and depth:
+            cs.LLAMA8B_DEPTH = int(depth)
+            cs.llama8b_phase(torch)
+        elif arch in dict(cs.DENSE_CONFIGS) and depth:
+            cs.dense_config_phase(torch, arch, int(depth))
+        elif name == "tier":
             with tempfile.TemporaryDirectory(prefix="phase_probe_") as tmp:
                 bundle, _, _ = cs.calibration_phase(torch, model, params,
                                                     Path(tmp))
@@ -109,6 +124,8 @@ def main() -> int:
             raise SystemExit(f"unknown phase {name!r}")
         torch.cuda.synchronize()
         out["phases"][name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
         cs.log(f"phase {name}: {out['phases'][name]:.1f} s")
     card = cs.card_line()
     out["card"] = card

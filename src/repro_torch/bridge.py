@@ -2,7 +2,9 @@
 
 ``params_from_flat`` takes ``{path: array}`` keyed by the flat param paths
 both packages share (``embed/w``, ``layers/3/attn/q_proj/w``, ...) and
-returns the nested tensor tree the port's ``LM`` consumes. It raises on any
+returns the nested tensor tree the port's ``LM`` (or, for an
+``EncDecConfig``, ``EncDec``: ``embed/w``, ``enc/*``, ``dec/*`` and the two
+``*_final_norm`` paths) consumes. It raises on any
 missing or extra path and on any shape mismatch, so weights meant for another
 configuration never load silently.
 
@@ -13,10 +15,13 @@ dtype.
 """
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.encdec import EncDec, EncDecConfig
 from repro_torch.models.lm import LM, LMConfig
 from repro_torch.nn.spec import tree_from_flat
 
@@ -35,12 +40,13 @@ def _to_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
-def params_from_flat(flat: dict, cfg: LMConfig,
+def params_from_flat(flat: dict, cfg: Union[LMConfig, EncDecConfig],
                      device: DeviceLike = None) -> dict:
     """Build the nested param tree for ``cfg`` from ``flat`` (path -> array).
     """
     device = resolve_device(device)
-    specs = LM(cfg).param_specs()
+    model = EncDec(cfg) if isinstance(cfg, EncDecConfig) else LM(cfg)
+    specs = model.param_specs()
     missing = sorted(set(specs) - set(flat))
     extra = sorted(set(flat) - set(specs))
     if missing or extra:

@@ -1,5 +1,5 @@
 """Computation DAG of the port's models (port of
-``repro/core/graphs.py``, the decoder-only LM part).
+``repro/core/graphs.py``).
 
 Node names of quantizable ops match the ``qops`` op names exactly (and hence
 the param paths), so the partition output indexes straight into sensitivity
@@ -13,15 +13,18 @@ computation: the multi-token prediction block and training-only ops are
 left out, so MTP ops get sensitivities but no group, and are never
 quantized (the reference's ``pipeline.build_groups`` drops them alike). The
 graph covers every block the port's ``LM`` builds — attention, MLA, mamba
-and hybrid, each with a dense MLP, an MoE layer or neither; ``scan_layers``
-and the encoder-decoder family raise with the slice that ports them.
+and hybrid, each with a dense MLP, an MoE layer or neither — and the
+encoder-decoder (``build_encdec_graph``, the reference's graph node for
+node, its cross ``k_proj``/``v_proj`` fed by ``cross_norm`` as there);
+``scan_layers`` raises with the slice that ports it.
 """
 from __future__ import annotations
 
 from repro_torch.core.partition import GraphSpec
+from repro_torch.models.encdec import EncDec, EncDecConfig
 from repro_torch.models.lm import LM, LMConfig
 
-__all__ = ["build_graph", "build_lm_graph"]
+__all__ = ["build_graph", "build_lm_graph", "build_encdec_graph"]
 
 
 def _attn_subgraph(g: GraphSpec, s: str, entry: str) -> str:
@@ -208,10 +211,62 @@ def build_lm_graph(cfg: LMConfig) -> GraphSpec:
     return g
 
 
+def _residual(g: GraphSpec, name: str, out: str, block_in: str) -> str:
+    add = g.add(name)
+    g.edge(out, add)
+    g.edge(block_in, add, residual=True)
+    return add
+
+
+def build_encdec_graph(cfg: EncDecConfig) -> GraphSpec:
+    """The DAG of the encoder stack, then the decoder stack (the decoder
+    embedding consumes the encoder output, which makes the two one
+    sequence), each decoder layer's cross-attention a branch off
+    ``cross_norm``."""
+    g = GraphSpec()
+    prev = g.add("frames")
+    for i in range(cfg.n_enc_layers):
+        s = f"enc/{i}"
+        add1 = _residual(g, f"{s}/residual_1", _attn_subgraph(g, s, prev),
+                         prev)
+        prev = _residual(g, f"{s}/residual_2",
+                         _mlp_subgraph(g, s, add1, cfg.activation), add1)
+    enc_out = g.add("enc_final_norm")
+    g.edge(prev, enc_out)
+    prev = g.add("dec_embed")
+    g.edge(enc_out, prev)
+    for i in range(cfg.n_dec_layers):
+        s = f"dec/{i}"
+        add1 = _residual(g, f"{s}/residual_1", _attn_subgraph(g, s, prev),
+                         prev)
+        cn = g.add(f"{s}/cross_norm")
+        g.edge(add1, cn)
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            g.add(f"{s}/cross/{proj}", True)
+            g.edge(cn, f"{s}/cross/{proj}")
+        qk = g.add(f"{s}/cross/qk_matmul", True)
+        g.edge(f"{s}/cross/q_proj", qk)
+        g.edge(f"{s}/cross/k_proj", qk)
+        smx = g.add(f"{s}/cross/softmax")
+        g.edge(qk, smx)
+        av = g.add(f"{s}/cross/av_matmul", True)
+        g.edge(smx, av)
+        g.edge(f"{s}/cross/v_proj", av)
+        o2 = g.add(f"{s}/cross/o_proj", True)
+        g.edge(av, o2)
+        add_c = _residual(g, f"{s}/residual_cross", o2, add1)
+        prev = _residual(g, f"{s}/residual_2",
+                         _mlp_subgraph(g, s, add_c, cfg.activation), add_c)
+    fn = g.add("dec_final_norm")
+    g.edge(prev, fn)
+    head = g.add("lm_head", True)
+    g.edge(fn, head)
+    return g
+
+
 def build_graph(model) -> GraphSpec:
+    if isinstance(model, EncDec):
+        return build_encdec_graph(model.cfg)
     if isinstance(model, LM):
         return build_lm_graph(model.cfg)
-    raise NotImplementedError(
-        f"no computation graph for {type(model).__name__}: the port builds "
-        f"decoder-only LMs; the encoder-decoder family lands with ROADMAP "
-        f"item A8")
+    raise TypeError(type(model))

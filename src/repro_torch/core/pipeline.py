@@ -291,7 +291,10 @@ def _calib_hash(batches) -> Optional[str]:
     """Content hash of the calibration set (array bytes, order-sensitive).
 
     Keys registry lookups and cache validation: two bundles for the same
-    checkpoint calibrated on different data are different artifacts."""
+    checkpoint calibrated on different data are different artifacts. A
+    bf16 tensor (``frames``, ``prefix_embeds``), which numpy cannot hold,
+    is hashed through its bytes, as the reference hashes its bf16 arrays:
+    the same batch hashes alike in both packages."""
     if batches is None:
         return None
     import hashlib
@@ -299,8 +302,13 @@ def _calib_hash(batches) -> Optional[str]:
     for batch in batches:
         for key in sorted(batch):
             v = batch[key]
-            v = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                 else np.asarray(v))
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu()
+                if v.dtype == torch.bfloat16:
+                    v = v.view(torch.int16)
+                v = v.numpy()
+            else:
+                v = np.asarray(v)
             h.update(key.encode("utf-8"))
             h.update(str(v.shape).encode("utf-8"))
             h.update(np.ascontiguousarray(v).tobytes())

@@ -31,7 +31,7 @@ from repro_torch.quant.formats import get_format
 from repro_torch.quant.qops import OpInfo, QuantContext
 
 __all__ = ["SensitivityResult", "collect_ops", "calibrate_sensitivity",
-           "params_device", "batch_to"]
+           "params_device", "as_tensor", "batch_to"]
 
 
 @dataclasses.dataclass
@@ -96,13 +96,22 @@ def params_device(params) -> torch.device:
     return node.device
 
 
+def as_tensor(v, device: torch.device) -> torch.Tensor:
+    """A tensor or an array (numpy, or anything ``np.asarray`` takes) as a
+    tensor on ``device``, in its own dtype; a bf16 array
+    (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) through
+    its bytes."""
+    if not isinstance(v, torch.Tensor):
+        a = np.ascontiguousarray(np.asarray(v))
+        v = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+             if a.dtype.name == "bfloat16" else torch.from_numpy(a))
+    return v.to(device)
+
+
 def batch_to(batch: dict, device: torch.device) -> dict:
-    """A batch of tensors or arrays (numpy, or anything ``np.asarray``
-    takes) as tensors on ``device``."""
-    return {k: (v.to(device) if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
-                .to(device))
-            for k, v in batch.items()}
+    """A batch of tensors or arrays (bf16 ``frames`` and ``prefix_embeds``
+    included) as tensors on ``device``."""
+    return {k: as_tensor(v, device) for k, v in batch.items()}
 
 
 def _trace_ops(loss_fn: Callable, params, batch: dict) -> list:

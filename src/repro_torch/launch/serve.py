@@ -224,11 +224,26 @@ def make_requests(vocab_size: int, n: int, prompt_len: int, new_tokens: int,
             for i in range(n)]
 
 
+def _serving_op_names(model) -> Optional[set]:
+    """The op names a serving step runs, or None for an encoder-decoder,
+    whose serving keeps its own op namespace (as in the reference)."""
+    from repro_torch.models.encdec import EncDec
+    if isinstance(model, EncDec):
+        return None
+    return model.serving_op_names()
+
+
+def _unknown_ops(model, artifact) -> set:
+    """The ops of a plan or bundle that this model's serving lacks."""
+    known = _serving_op_names(model)
+    return set() if known is None else artifact.unknown_ops(known)
+
+
 def load_plan(path: str, model) -> MPPlan:
     plan = MPPlan.load(path)
     print(f"[serve] MP plan: {plan.n_quantized} ops quantized "
           f"(objective {plan.objective}, tau {plan.tau})")
-    unknown = plan.unknown_ops(model.serving_op_names())
+    unknown = _unknown_ops(model, plan)
     if unknown:
         print(f"[serve] WARNING: {len(unknown)} plan ops not in this model "
               f"(e.g. {sorted(unknown)[:3]}) — they will NOT apply; was the "
@@ -238,7 +253,7 @@ def load_plan(path: str, model) -> MPPlan:
 
 def check_bundle_ops(model, bundle: CalibrationBundle, src: str) -> None:
     """Refuse a bundle calibrated on another model's op namespace."""
-    unknown = bundle.unknown_ops(model.serving_op_names())
+    unknown = _unknown_ops(model, bundle)
     if unknown:
         raise SystemExit(
             f"[serve] calibration bundle ({src}) has {len(unknown)} ops not "

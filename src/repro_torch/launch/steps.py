@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.mpconfig import as_assignment
+from repro_torch.models.encdec import EncDec
 from repro_torch.quant.qops import QuantContext
 
 __all__ = ["make_forward_step", "GraphedForward", "make_prefill_step",
@@ -50,17 +51,26 @@ def _with_next(logits: torch.Tensor, caches: dict) -> tuple:
 
 
 def make_forward_step(model, ctx: QuantContext):
-    """(params, caches, tokens) -> (logits (B, T, V), caches, None): the
-    full forward ``model.apply`` under ``ctx`` as a step (``caches`` passes
-    through untouched; no greedy token)."""
-    def forward_step(params, caches, tokens):
-        with torch.no_grad():
-            return model.apply(params, tokens, ctx), caches, None
+    """(params, caches, tokens[, frames]) -> (logits (B, T, V), caches,
+    None): the full forward ``model.apply`` under ``ctx`` as a step
+    (``caches`` passes through untouched; no greedy token). An
+    encoder-decoder's step takes its batch's ``frames`` after the
+    tokens."""
+    if isinstance(model, EncDec):
+        def forward_step(params, caches, tokens, frames):
+            with torch.no_grad():
+                return model.apply(params, {"frames": frames,
+                                            "tokens": tokens}, ctx), \
+                    caches, None
+    else:
+        def forward_step(params, caches, tokens):
+            with torch.no_grad():
+                return model.apply(params, tokens, ctx), caches, None
     return forward_step
 
 
 class GraphedForward:
-    """``(params, tokens) -> logits``: the port's counterpart of the
+    """``(params, tokens[, frames]) -> logits``: the port's counterpart of the
     reference's ``jax.jit(lambda p, t: model.apply(p, t, ctx))``, which
     the measured tier times (``benchmarks/fig3_validation.py``). On CUDA a
     :class:`GraphedStep` over :func:`make_forward_step`: one graph per
@@ -77,19 +87,30 @@ class GraphedForward:
                                 max_captures=1, shared_pool=shared_pool)
         self._caches: dict = {}
 
-    def __call__(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return self.step(params, self._caches, tokens)[0]
+    def __call__(self, params, tokens: torch.Tensor,
+                 *frames: torch.Tensor) -> torch.Tensor:
+        """``frames``: an encoder-decoder's (B, T_enc, d_model) batch."""
+        return self.step(params, self._caches, tokens, *frames)[0]
 
     def release(self) -> None:
         self.step.release()
 
 
 def make_prefill_step(model, mp: Optional[dict] = None):
-    """(params, caches, tokens) -> (last-token logits, caches, next_token)."""
+    """(params, caches, tokens, frames) -> (last-token logits, caches,
+    next_token) for an encoder-decoder (``frames`` to ``EncDec.prefill``);
+    (params, caches, tokens[, prefix_embeds]) for a decoder-only LM
+    (``prefix_embeds`` to ``LM.prefill``)."""
     ctx = _serving_ctx(mp)
 
-    def prefill_step(params, caches, tokens):
-        return _with_next(*model.prefill(params, tokens, caches, ctx))
+    if isinstance(model, EncDec):
+        def prefill_step(params, caches, tokens, frames):
+            return _with_next(*model.prefill(params, frames, tokens, caches,
+                                             ctx))
+    else:
+        def prefill_step(params, caches, tokens, prefix_embeds=None):
+            return _with_next(*model.prefill(params, tokens, caches, ctx,
+                                             prefix_embeds=prefix_embeds))
     return prefill_step
 
 

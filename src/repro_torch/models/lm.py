@@ -8,10 +8,12 @@ heads in parallel on the shared input norm, averaged), each followed by a
 dense MLP (none when ``d_ff`` is 0) or, for the layers in ``moe_layers``, a
 Mixture-of-Experts layer (:mod:`repro_torch.nn.moe`); ``mtp_depth`` adds
 DeepSeek-V3's multi-token prediction module, which only :meth:`LM.loss`
-reads. ``LMConfig`` keeps every field of the reference so that every
-configuration loads; the features the port does not have yet —
-``scan_layers`` and ``prefix_embed`` — raise ``NotImplementedError`` when
-the model is built. Layers run unrolled in a Python loop, each with its own
+reads; ``prefix_embed`` (LLaVA) prepends a batch's ``prefix_embeds``
+(precomputed patch embeddings) to the text tokens' embeddings in
+``apply``, ``loss`` (whose cross-entropy covers the text positions only) and
+``prefill``. ``LMConfig`` keeps every field of the reference so that every
+configuration loads; ``scan_layers``, which the port does not have yet,
+raises ``NotImplementedError`` when the model is built. Layers run unrolled in a Python loop, each with its own
 params and op names (``layers/3/attn/q_proj``), so per-layer MP plans apply
 unchanged.
 
@@ -166,7 +168,7 @@ class LMConfig:
 
 
 # the ROADMAP.md item that ports each family of layers or option
-_ITEMS = {"scan_layers": "A9", "prefix_embed": "A8"}
+_ITEMS = {"scan_layers": "A9"}
 
 
 _BLOCKS = ("attn", "mla", "mamba", "hybrid")
@@ -177,7 +179,7 @@ def _unsupported(cfg: LMConfig) -> list:
     other = sorted(set(cfg.block_types) - set(_BLOCKS))
     if other:
         raise ValueError(f"{cfg.name}: unknown block types {other}")
-    for flag in ("scan_layers", "prefix_embed"):
+    for flag in _ITEMS:
         if getattr(cfg, flag):
             out.append(f"{flag} (ROADMAP item {_ITEMS[flag]})")
     return out
@@ -429,8 +431,13 @@ class LM:
             aux_total = aux_total + aux_i
         return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
 
-    def _embed(self, params: dict, tokens: torch.Tensor) -> tuple:
+    def _embed(self, params: dict, tokens: torch.Tensor,
+               prefix_embeds: Optional[torch.Tensor] = None) -> tuple:
+        """Token embeddings (B, T, d) with ``prefix_embeds`` (B, P, d)
+        prepended, and their positions 0 .. P + T - 1."""
         emb = params["embed"]["w"][tokens.long()].to(self.dtype)
+        if prefix_embeds is not None:
+            emb = torch.cat([prefix_embeds.to(self.dtype), emb], dim=1)
         B, T = emb.shape[0], emb.shape[1]
         positions = torch.arange(T, dtype=torch.int32,
                                  device=emb.device)[None].expand(B, T)
@@ -442,10 +449,11 @@ class LM:
              else params["lm_head"]["w"])
         return qops.linear(ctx, "lm_head", h, w)
 
-    def apply(self, params: dict, tokens: torch.Tensor,
-              ctx: QuantContext) -> torch.Tensor:
-        """Full forward -> logits (B, T, V)."""
-        h, positions = self._embed(params, tokens)
+    def apply(self, params: dict, tokens: torch.Tensor, ctx: QuantContext,
+              *, prefix_embeds: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+        """Full forward -> logits (B, P + T, V), P the prefix length."""
+        h, positions = self._embed(params, tokens, prefix_embeds)
         h, _ = self._backbone(params, ctx, h, positions)
         return self._head(params, ctx, h)
 
@@ -465,12 +473,17 @@ class LM:
     def loss(self, params: dict, batch: dict,
              ctx: QuantContext) -> torch.Tensor:
         """Cross-entropy, plus ``mtp_weight`` x the multi-token prediction
-        loss when ``mtp_depth`` > 0, plus the MoE layers' aux loss."""
+        loss when ``mtp_depth`` > 0, plus the MoE layers' aux loss. With
+        ``prefix_embeds`` in the batch the loss covers the text positions
+        only."""
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         weights = batch.get("weights")
-        h, positions = self._embed(params, tokens)
+        prefix = batch.get("prefix_embeds")
+        h, positions = self._embed(params, tokens, prefix)
         h, aux = self._backbone(params, ctx, h, positions)
+        if prefix is not None:
+            h = h[:, -tokens.shape[1]:]
         loss = self._ce(params, ctx, h, labels, weights)
         if cfg.mtp_depth > 0:
             if weights is None:
@@ -614,10 +627,11 @@ class LM:
         return caches
 
     def prefill(self, params: dict, tokens: torch.Tensor, caches: dict,
-                ctx: QuantContext):
-        """Process the prompt into dense caches; returns (last-token logits,
-        caches)."""
-        h, positions = self._embed(params, tokens)
+                ctx: QuantContext, *,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """Process the prompt (``prefix_embeds`` first, then ``tokens``) into
+        dense caches; returns (last-token logits, caches)."""
+        h, positions = self._embed(params, tokens, prefix_embeds)
         h, _ = self._backbone(params, ctx, h, positions, caches=caches)
         return self._head(params, ctx, h[:, -1:]), caches
 

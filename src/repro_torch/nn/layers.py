@@ -37,7 +37,10 @@ order, and windowed rings are widened by the chunk length
 has shapes fixed by its inputs' shapes (no boolean indexing), so the step
 can be captured as a CUDA graph.
 
-Not ported: cross-attention and the mesh branch of the paged kernel call.
+Cross-attention (the encoder-decoder's, ``attention(..., cross=True)``)
+takes K/V from the encoder output ``kv_x`` or from the cache that
+:func:`cross_kv` precomputes at prefill; it is bidirectional and has no
+RoPE. Not ported: the mesh branch of the paged kernel call.
 """
 from __future__ import annotations
 
@@ -57,7 +60,7 @@ __all__ = ["norm_specs", "row_mean", "apply_norm", "rope_table",
            "apply_rope", "mlp_specs", "apply_mlp", "AttnConfig", "attn_specs",
            "kv_cache_spec", "kv_page_spec", "paged_write", "paged_write_chunk",
            "paged_gather", "use_fused_paged", "paged_update_attend",
-           "attention", "MLAConfig", "mla_specs", "mla_cache_spec",
+           "attention", "cross_kv", "MLAConfig", "mla_specs", "mla_cache_spec",
            "mla_page_spec", "mla_attention"]
 
 # ---------------------------------------------------------------------------
@@ -507,6 +510,7 @@ def _mask_from_pos(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
               x: torch.Tensor, positions: torch.Tensor, *,
+              kv_x: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None,
               cache_pos: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
@@ -514,8 +518,8 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
               chunk_start: Optional[torch.Tensor] = None,
               chunk_ring: bool = False,
               window: Union[None, int, str] = "cfg",
-              paged_attn: str = "fused"):
-    """Self-attention; returns (y, cache).
+              cross: bool = False, paged_attn: str = "fused"):
+    """Self- or cross-attention; returns (y, cache).
 
     * no cache: training / full forward;
     * dense cache: prefill (``cache_pos`` None) or decode (``cache_pos``
@@ -529,7 +533,14 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
       token is scattered into its page and, with ``paged_attn="fused"``,
       attended in place by the CUDA kernel; ``"gather"`` keeps the reference
       path. Layers whose attention BGEMMs carry an MP format always gather.
+    * cross-attention: ``cross=True``; K/V from ``kv_x`` (the encoder
+      output) or from a precomputed ``cache`` ``{"k", "v"}`` (decode),
+      which is returned as it came; bidirectional, no RoPE, every encoder
+      frame attended.
     """
+    if cross:
+        return _cross_attention(p, ctx, scope, cfg, x, positions, kv_x,
+                                cache)
     B, T, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if isinstance(window, str) and window == "cfg":
@@ -603,6 +614,58 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
     y = y.reshape(B, T, H * D)
     y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
     return y, cache
+
+
+def _kv_proj(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
+             src: torch.Tensor) -> tuple:
+    """The heads of ``k_proj`` and ``v_proj`` applied to ``src``."""
+    Hkv, D = cfg.n_kv_heads, cfg.d_head
+    k = _split_heads(qops.linear(ctx, f"{scope}/k_proj", src,
+                                 p["k_proj"]["w"], p["k_proj"].get("b")),
+                     Hkv, D)
+    v = _split_heads(qops.linear(ctx, f"{scope}/v_proj", src,
+                                 p["v_proj"]["w"], p["v_proj"].get("b")),
+                     Hkv, D)
+    return k, v
+
+
+def _cross_attention(p, ctx, scope, cfg: AttnConfig, x, positions, kv_x,
+                     cache):
+    """Cross-attention of ``x`` over the encoder's K/V (see
+    :func:`attention`): the materialized-scores path, or the blocked flash
+    attention, unmasked, for decoder sequences at or beyond
+    ``flash_min_seq`` over ``kv_x`` (as in the reference)."""
+    B, T, _ = x.shape
+    H, D = cfg.n_heads, cfg.d_head
+    q = _split_heads(qops.linear(ctx, f"{scope}/q_proj", x, p["q_proj"]["w"],
+                                 p["q_proj"].get("b")), H, D)
+    if kv_x is not None:
+        k, v = _kv_proj(p, ctx, scope, cfg, kv_x)
+    else:
+        k, v = cache["k"], cache["v"]
+    S = k.shape[1]
+    use_flash = (kv_x is not None and T >= cfg.flash_min_seq
+                 and ctx.mode != "probe")
+    if use_flash:
+        from repro_torch.nn.flash import flash_attention
+        y = flash_attention(ctx, scope, q, k, v, positions, causal=False,
+                            window=None, block=cfg.flash_block)
+    else:
+        kp = torch.arange(S, dtype=torch.int32,
+                          device=x.device)[None].expand(B, S)
+        mask = _mask_from_pos(torch.clamp_min(positions, 0), kp, False, None,
+                              None)
+        y = _reference_attention(ctx, scope, q, k, v, mask)
+    y = y.reshape(B, T, H * D)
+    return qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"]), cache
+
+
+def cross_kv(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
+             enc_out: torch.Tensor) -> dict:
+    """The encoder's K/V for decode-time cross-attention, ``{"k", "v"}``
+    of (B, S, Hkv, D) each."""
+    k, v = _kv_proj(p, ctx, scope, cfg, enc_out)
+    return {"k": k, "v": v}
 
 
 def _reference_attention(ctx, scope, q, k, v, mask):

@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.mpconfig import as_assignment
+from repro_torch.core.sensitivity import as_tensor
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import paged_attention as _paged_kernel
 from repro_torch.launch import steps as _steps
@@ -125,8 +126,7 @@ class ServeSummary:
 
 
 def _tokens(batch: dict, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(batch["tokens"]),
-                           dtype=torch.int32).to(device)
+    return as_tensor(batch["tokens"], device).to(torch.int32)
 
 
 class ServeEngine:
@@ -135,7 +135,10 @@ class ServeEngine:
     Prefill is length-bucketed (the prompt padded to a power of two and
     masked: one step per bucket, shared with the dense continuous engine);
     a prompt whose bucket reaches ``flash_min_seq`` takes the per-length
-    step, which attends through the blocked flash attention.
+    step, which attends through the blocked flash attention, and so do an
+    encoder-decoder's batches (``frames``, encoded at prefill) and a VLM's
+    (``prefix_embeds``, prepended to the prompt), as in the reference. A
+    batch key that the model does not take raises.
     :meth:`generate` and :meth:`ttft` prefill into caches the engine keeps
     for the last (batch, max_len) and resets in place, so that on CUDA the
     steps' graphs stay bound to one set of tensors; :meth:`init_caches`
@@ -146,46 +149,80 @@ class ServeEngine:
         self.mp = as_assignment(mp)
         self.device = resolve_device(device)
         self.prefill_step = get_serving_step(model, "prefill", mp=self.mp)
-        self.bucketed_prefill_step = get_serving_step(
-            model, "bucketed_prefill", mp=self.mp)
+        # an encoder-decoder's caches hold the cross K/V of enc_len frames
+        self._encdec = getattr(model, "cache_needs_enc_len", False)
+        self._bucketed = getattr(model, "supports_prefill_chunk", False)
+        if self._bucketed:
+            self.bucketed_prefill_step = get_serving_step(
+                model, "bucketed_prefill", mp=self.mp)
         self.decode_step = get_serving_step(model, "decode", mp=self.mp)
         # which prefill steps this engine needed (a bucket, or ("legacy",
         # length)) against the prompt lengths it served
         self.prefill_compile_keys: set = set()
         self.prompt_lens_seen: set = set()
-        self._caches = None       # ((batch, max_len), the kept caches)
+        self._caches = None       # ((batch, max_len, enc_len), the caches)
         self._pos = None          # the decode step's position, on the device
 
     def init_caches(self, batch: int, max_len: int, enc_len: int = 0) -> dict:
-        """Fresh dense caches for ``batch`` sequences of ``max_len`` tokens.
-        ``enc_len`` sizes an encoder-decoder model's cross-attention cache in
-        the reference; the port builds decoder-only models, whose caches do
-        not take it."""
+        """Fresh dense caches for ``batch`` sequences of ``max_len`` tokens;
+        a model that declares ``cache_needs_enc_len`` (the encoder-decoder)
+        also sizes its cross-attention K/V by ``enc_len`` frames."""
+        if self._encdec:
+            return self.model.init_cache(batch, max_len, enc_len,
+                                         self.device)
         return self.model.init_cache(batch, max_len, self.device)
 
-    def _kept_caches(self, batch: int, max_len: int) -> dict:
-        """The engine's caches for (batch, max_len), reset in place: K/V
-        zeroed and positions -1, as :meth:`init_caches` makes them."""
-        if self._caches is None or self._caches[0] != (batch, max_len):
+    def _kept_caches(self, batch: int, max_len: int,
+                     enc_len: int = 0) -> dict:
+        """The engine's caches for (batch, max_len, enc_len), reset in
+        place: K/V zeroed and positions -1, as :meth:`init_caches` makes
+        them."""
+        key = (batch, max_len, enc_len)
+        if self._caches is None or self._caches[0] != key:
             self._caches = None            # free the old ones first
-            self._caches = ((batch, max_len),
-                            self.init_caches(batch, max_len))
+            self._caches = (key, self.init_caches(batch, max_len, enc_len))
             return self._caches[1]
         caches = self._caches[1]
         for leaf, t in cache_tensors(caches):
             t.fill_(-1 if leaf == "pos" else 0)
         return caches
 
-    def _prefill(self, params, caches, tokens: torch.Tensor):
+    def _inputs(self, batch: dict) -> tuple:
+        """(tokens, the per-length prefill step's other inputs: an
+        encoder-decoder's ``frames`` or a VLM's ``prefix_embeds``, on the
+        engine's device). A key the model does not take raises: such a
+        batch is never served as text alone."""
+        tokens = _tokens(batch, self.device)
+        if self._encdec:
+            if batch.get("prefix_embeds") is not None:
+                raise ValueError(f"{self.model.cfg.name} is an "
+                                 f"encoder-decoder: it takes frames, not "
+                                 f"prefix_embeds")
+            if batch.get("frames") is None:
+                raise KeyError(f"{self.model.cfg.name} is an "
+                               f"encoder-decoder: its batches carry frames")
+            return tokens, (as_tensor(batch["frames"], self.device),)
+        if batch.get("frames") is not None:
+            raise ValueError(f"{self.model.cfg.name} is decoder-only: it "
+                             f"takes no frames")
+        if batch.get("prefix_embeds") is not None:
+            return tokens, (as_tensor(batch["prefix_embeds"],
+                                      self.device),)
+        return tokens, ()
+
+    def _prefill(self, params, caches, tokens: torch.Tensor,
+                 extra: tuple = ()):
         """Bucketed prefill, or the per-length step once the bucket reaches
-        ``flash_min_seq``. Returns (last-token logits, caches, next
+        ``flash_min_seq`` and for batches with ``extra`` inputs (frames,
+        prefix embeddings). Returns (last-token logits, caches, next
         token)."""
         B, T0 = tokens.shape
         self.prompt_lens_seen.add(int(T0))
         Lb = prefill_bucket(T0)
-        if Lb >= self.model.cfg.flash_min_seq:
+        if (extra or not self._bucketed
+                or Lb >= self.model.cfg.flash_min_seq):
             self.prefill_compile_keys.add(("legacy", int(T0)))
-            return self.prefill_step(params, caches, tokens)
+            return self.prefill_step(params, caches, tokens, *extra)
         self.prefill_compile_keys.add(Lb)
         tok = F.pad(tokens, (0, Lb - T0))
         start = torch.zeros((B,), dtype=torch.int32, device=self.device)
@@ -199,14 +236,15 @@ class ServeEngine:
         included; on CUDA the warm-ups capture the step's graph and the
         timed runs replay it."""
         _check_params(params, self.device)
-        tokens = _tokens(batch, self.device)
+        tokens, extra = self._inputs(batch)
+        enc_len = extra[0].shape[1] if self._encdec else 0
         times = []
         with torch.no_grad():
             for i in range(n_warmup + n_iters):
-                caches = self._kept_caches(tokens.shape[0], max_len)
+                caches = self._kept_caches(tokens.shape[0], max_len, enc_len)
                 _sync(self.device)
                 t0 = time.perf_counter()
-                self._prefill(params, caches, tokens)
+                self._prefill(params, caches, tokens, extra)
                 _sync(self.device)
                 if i >= n_warmup:
                     times.append(time.perf_counter() - t0)
@@ -215,12 +253,17 @@ class ServeEngine:
 
     def generate(self, params, batch: dict, max_new_tokens: int,
                  max_len: Optional[int] = None) -> GenResult:
-        """``batch["tokens"]`` (B, T) prompts of one length -> greedy tokens."""
+        """``batch["tokens"]`` (B, T) prompts of one length -> greedy
+        tokens; an encoder-decoder's batch also carries ``frames`` (B,
+        T_enc, d_model), a VLM's may carry ``prefix_embeds`` (B, P,
+        d_model), which precede the prompt (decode starts at T + P)."""
         _check_params(params, self.device)
-        tokens = _tokens(batch, self.device)
+        tokens, extra = self._inputs(batch)
         B, T0 = tokens.shape
-        max_len = max_len or (T0 + max_new_tokens)
-        caches = self._kept_caches(B, max_len)
+        n_extra = extra[0].shape[1] if extra else 0
+        enc_len, prefix = (n_extra, 0) if self._encdec else (0, n_extra)
+        max_len = max_len or (T0 + prefix + max_new_tokens)
+        caches = self._kept_caches(B, max_len, enc_len)
         if self._pos is None:
             self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
         toks = torch.empty((B, max_new_tokens), dtype=torch.int32,
@@ -228,7 +271,7 @@ class ServeEngine:
         with torch.no_grad():
             _sync(self.device)
             t0 = time.perf_counter()
-            _, caches, nxt = self._prefill(params, caches, tokens)
+            _, caches, nxt = self._prefill(params, caches, tokens, extra)
             toks[:, 0] = nxt
             _sync(self.device)
             ttft = time.perf_counter() - t0
@@ -237,7 +280,7 @@ class ServeEngine:
                 # one graph serves every position: the step reads it from
                 # the device, and a step's token outputs are copied out
                 # before the next replay overwrites them
-                self._pos.fill_(T0 + i)
+                self._pos.fill_(T0 + prefix + i)
                 _, caches, nxt = self.decode_step(params, caches,
                                                   toks[:, i:i + 1], self._pos)
                 toks[:, i + 1] = nxt
@@ -390,6 +433,9 @@ class ContinuousBatchingEngine:
                  adaptive=None, faults=None, max_retries: int = 1,
                  guardrail=None, kernel_fault_limit: int = 2,
                  device: DeviceLike = None):
+        if getattr(model, "cache_needs_enc_len", False):
+            raise NotImplementedError(
+                "continuous batching currently serves decoder-only LMs")
         if mesh is not None:
             _refuse("mesh")
         if adaptive is not None:

@@ -126,7 +126,12 @@ def test_build_graph_refuses_unported_families():
     from repro_torch.configs import llama3_1b as tc
     with pytest.raises(NotImplementedError, match="scan_layers: A9"):
         tgraphs.build_lm_graph(tc.smoke_config(scan_layers=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item A8"):
+    # the encoder-decoder has its graph (ROADMAP A8); other objects are
+    # refused as the reference refuses them
+    from repro_torch.models.registry import get_model
+    g = tgraphs.build_graph(get_model("whisper_base", smoke=True))
+    assert "dec/1/cross/qk_matmul" in g.quantizable_nodes()
+    with pytest.raises(TypeError):
         tgraphs.build_graph(object())
     # mamba and hybrid blocks have their graph (ROADMAP A8's SSM half)
     g = tgraphs.build_lm_graph(tc.smoke_config(block_types=("mamba",

@@ -186,10 +186,12 @@ def test_prefill_and_decode_logits_match_reference(pair, mp):
 def test_unported_features_raise():
     from repro_torch.configs import llama3_1b as tc
     from repro_torch.models.lm import LM, MoEConfig
-    for ov, item in (({"scan_layers": True}, "A9"),
-                     ({"prefix_embed": True}, "A8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            LM(tc.smoke_config(**ov))
+    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
+        LM(tc.smoke_config(scan_layers=True))
+    # prefix embeddings and the encoder-decoder are ported (ROADMAP A8)
+    assert LM(tc.smoke_config(prefix_embed=True)).cfg.prefix_embed
+    LM(tget("llava_next_34b").cfg)
+    assert type(tget("whisper_base")).__name__ == "EncDec"
     # mamba and hybrid blocks are ported (ROADMAP A8's SSM half)
     LM(tget("mamba2_370m").cfg)
     LM(tget("hymba_1p5b").cfg)
@@ -208,11 +210,14 @@ def test_unported_features_raise():
     assert m.apply(p, torch.zeros((1, 8), dtype=torch.int32),
                    TCtx()).shape == (1, 8, m.cfg.vocab_size)
     with pytest.raises(KeyError, match="llama3_1b"):
-        tget("whisper_base")
+        tget("whisper_large")
     assert ARCH_IDS == ["llama3_1b", "llama3_8b", "deepseek_v3_671b",
                         "qwen2p5_3b", "qwen2p5_32b", "nemotron_4_15b",
                         "starcoder2_15b", "moonshot_v1_16b_a3b",
-                        "mamba2_370m", "hymba_1p5b"]
+                        "mamba2_370m", "hymba_1p5b", "whisper_base",
+                        "llava_next_34b"]
+    from repro.models.registry import ARCH_IDS as JARCH_IDS
+    assert sorted(ARCH_IDS) == sorted(JARCH_IDS)
 
 
 def _jax_greedy(jm, jp, batch, n: int, jit: bool):
