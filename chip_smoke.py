@@ -256,10 +256,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     up to N 64000 and K 20480) against their plain versions, and timed
     beside ``torch._scaled_mm`` (phase 3's checks and timings);
     Whisper calibrated over 4 batches of (2, 1500, 512) frames and (2,
-    256) tokens, its peak held against a fit from 1 and 3 layer pairs and
+    256) tokens, its peak held against a fit from 1 and 2 layer pairs and
     its groups counted by ``core.graphs`` and from the layer kinds; the
     measured tier over graphed forwards of one request's row of such a
-    batch through kernels 1-3 (their launches checked), Fig. 3b and Fig. 2 on its ET plan; then
+    batch through kernels 1-3 (their launches checked) on the fit's model
+    of 2 layer pairs (the cut is printed), Fig. 3b and Fig. 2
+    on its ET plan; then
     4 requests of 1500 frames, a 4-token prompt and 64 new tokens through
     ``ServeEngine.generate``, graphed against eager bit for bit, plain (its
     logits also against full forwards) and under the ET plan, with TTFT
@@ -270,7 +272,26 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     one-shot requests of a 576-position image prefix and 128 tokens, 32
     new (the first token's logits against a full forward); then
     ``fitted_calibration`` over batches that carry the prefix;
-25. print the kernel table and the serving and calibration numbers as JSON
+25. (run after phase 21, before phase 13) training: llama3_1b at full
+    width and depth (random weights from a seeded generator), AdamW from
+    ``select_optimizer``, 30 steps of (8, 256) synthetic tokens through
+    ``Trainer.run``, the mean of the last 5 losses at least 0.5 nat below
+    the first; the step's wall and device times (CUDA events), tokens/s,
+    the model-FLOP share of the bf16 dense peak (3 x 2 x the forward MACs
+    of ``analysis.analytic``) and the peak memory beside its arithmetic.
+    Before training, an engine serves the random weights under an fp8
+    plan on every linear op. Then the last step's checkpoint restored
+    through ``launch.serve``'s ``--ckpt-dir`` path (bit-equal to the
+    trained params), calibrated as phase 6 does, its TT plan at tau 0.01
+    held to the reference's 5% on the eval loss, and 4 requests served
+    under it and under the all-linear plan on that engine (its graphs and
+    the weight cache saw every weight change in place) and on a fresh one
+    over a copy of the params: tokens equal. Then the first 2 of the 16
+    layers at full width: 20 steps checkpointed every 10, resumed at 20 to
+    30, against a straight 30 (bitwise or the largest difference printed,
+    bound 2e-2), the newest checkpoint corrupted and the resume walking
+    back to the one before; every save and restore timed;
+26. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -285,6 +306,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4900,6 +4922,10 @@ WHISPER_SERVE = dict(requests=4, frames=1500, prompt_len=4, new_tokens=64)
 # request: (1, 1500, 512) frames, 256 tokens)
 WHISPER_CAL_FRAMES = 1500
 WHISPER_TIER_ROWS = 1
+# the measured tier tabulates Whisper cut to its first 2 of 6 layer pairs
+# (the depth fit's calibrated model): its assignments scale with the
+# groups, 21 of the full depth's 61 (the script's time limit)
+WHISPER_TIER_DEPTH = 2
 # LLaVA is served at 8 of its 60 layers (the script's limit: 34.4 B
 # parameters, 68.8 GB in bf16, at all 60)
 LLAVA_DEPTH = 8
@@ -4960,11 +4986,14 @@ def whisper_batches(torch, cfg, n: int, B: int, frames: int, T: int,
 
 def whisper_calibration(torch, batches) -> tuple:
     """Algorithm 1 on Whisper at full width and depth over ``batches``,
-    with the depth fit: fresh models of 1 and 3 encoder and decoder layers
+    with the depth fit: fresh models of 1 and ``WHISPER_TIER_DEPTH``
+    encoder and decoder layers
     (random weights from the seed the served model uses) give the peak's
     fixed part and per-layer-pair cost, which predict the full depth's
     peak; then the full model is built the same way, calibrated, and
-    returned with its params, bundle and record. Its groups are counted by
+    returned with its params, bundle, the fit's ``WHISPER_TIER_DEPTH``
+    model, params and bundle (the measured tier's), and the record. Its
+    groups are counted by
     ``core.graphs`` and from the layer kinds (an encoder layer makes 4, a
     decoder layer 6: self-attention's projections and BGEMMs, o_proj,
     cross-attention's, its o_proj, up, down; the head 1)."""
@@ -4989,11 +5018,15 @@ def whisper_calibration(torch, batches) -> tuple:
         return (model, params, bundle, time.perf_counter() - t0,
                 torch.cuda.max_memory_allocated())
 
-    peaks = {}
-    for d in (1, 3):
-        peaks[d] = run(d)[4]
+    peaks, tier = {}, None
+    for d in (1, WHISPER_TIER_DEPTH):
+        res = run(d)
+        peaks[d] = res[4]
+        if d == WHISPER_TIER_DEPTH:
+            tier = res[:3]          # the measured tier's model
+        del res
         gc.collect()
-    per = (peaks[3] - peaks[1]) / 2
+    per = (peaks[WHISPER_TIER_DEPTH] - peaks[1]) / (WHISPER_TIER_DEPTH - 1)
     predicted = peaks[1] + (n - 1) * per
     model, params, bundle, seconds, peak = run(n)
     sens = np.array(sorted(bundle.sens.sensitivity.values()))
@@ -5007,8 +5040,9 @@ def whisper_calibration(torch, batches) -> tuple:
         f"(core.graphs {graph_groups}, the layer kinds {hand}), "
         f"{len(batches)} batches of {shapes} in {seconds:.1f} s; peak "
         f"device memory {peak / 1e9:.2f} GB against the depth fit's "
-        f"{predicted / 1e9:.2f} GB (peaks at 1 and 3 layer pairs "
-        f"{peaks[1] / 1e9:.2f}, {peaks[3] / 1e9:.2f} GB)")
+        f"{predicted / 1e9:.2f} GB (peaks at 1 and {WHISPER_TIER_DEPTH} "
+        f"layer pairs {peaks[1] / 1e9:.2f}, "
+        f"{peaks[WHISPER_TIER_DEPTH] / 1e9:.2f} GB)")
     if not (np.isfinite(sens).all() and (sens > 0).all()
             and math.isfinite(bundle.sens.loss_mean)):
         raise AssertionError(f"{WHISPER} calibration gave a non-finite or "
@@ -5016,7 +5050,7 @@ def whisper_calibration(torch, batches) -> tuple:
     if not n_groups == graph_groups == hand:
         raise AssertionError(f"{n_groups} groups, core.graphs gives "
                              f"{graph_groups}, the layer kinds {hand}")
-    return model, params, bundle, {
+    return model, params, bundle, tier, {
         "seconds": seconds, "peak_gb": peak / 1e9,
         "predicted_peak_gb": predicted / 1e9,
         "fit_peaks_gb": {str(d): p / 1e9 for d, p in peaks.items()},
@@ -5114,32 +5148,40 @@ def whisper_phase(torch) -> dict:
     """Phase 24's Whisper: calibrated at full width and depth with its
     depth fit (:func:`whisper_calibration`), the measured tier over graphed
     forwards of one row of a calibration batch (``WHISPER_TIER_ROWS``:
-    frames and tokens) through kernels
-    1-3 under ``impl="kernel"`` (:func:`tier_run`), Fig. 3b on its ET
-    plan, Random and Prefix beside the IP on the measured tables (Fig. 2),
-    then served plain and under that plan (:func:`whisper_serve`)."""
+    frames and tokens) through kernels 1-3 under ``impl="kernel"``
+    (:func:`tier_run`) on the fit's model of ``WHISPER_TIER_DEPTH`` layer
+    pairs, Fig. 3b on its ET plan, Random and Prefix beside the IP on the
+    measured tables (Fig. 2), then the full model served plain and under
+    that plan (whose ops are those of its first layer pairs and the head:
+    :func:`whisper_serve`)."""
     from repro_torch.models.registry import get_config
     cfg = get_config(WHISPER)
     failures: list = []
     batches = whisper_batches(torch, cfg, CAL_BATCHES, CAL_SHAPE[0],
                               WHISPER_CAL_FRAMES, CAL_SHAPE[1], 0)
-    model, params, bundle, cal = whisper_calibration(torch, batches)
+    model, params, bundle, (tmodel, tparams, tbundle), cal = \
+        whisper_calibration(torch, batches)
     log(f"{WHISPER}: {model.n_params() / 1e9:.4f}B params ({cfg.n_enc_layers}"
         f" encoder + {cfg.n_dec_layers} decoder layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, d_ff "
         f"{cfg.d_ff}, {cfg.activation}, {cfg.norm}, vocab {cfg.vocab_size}, "
-        f"tied head); nothing cut")
+        f"tied head); calibrated and served at full depth")
+    log(f"CUT: {WHISPER}'s measured tier at {WHISPER_TIER_DEPTH} of "
+        f"{cfg.n_enc_layers} layer pairs ({len(tbundle.objectives['ET']['groups'])}"
+        f" of {len(bundle.objectives['ET']['groups'])} groups; the script's "
+        f"time limit)")
     gc.collect()
     torch.cuda.empty_cache()
     prompt = (batches[0]["tokens"][:WHISPER_TIER_ROWS],
               batches[0]["frames"][:WHISPER_TIER_ROWS])
-    linear = {op.name for op in bundle.sens.ops if op.kind == "linear"}
-    run = tier_run(torch, model, params, bundle, prompt, linear, 1)
+    linear = {op.name for op in tbundle.sens.ops if op.kind == "linear"}
+    run = tier_run(torch, tmodel, tparams, tbundle, prompt, linear, 1)
     plan = run["et_plan"]
-    fig = fig3b(torch, TierForwards(torch, model, params, prompt, linear),
+    fig = fig3b(torch, TierForwards(torch, tmodel, tparams, prompt, linear),
                 plan)
-    fig2 = fig2_rows(bundle, plan, WHISPER, objective="ET_wall")
-    del batches
+    fig2 = fig2_rows(tbundle, plan, WHISPER, objective="ET_wall")
+    release_steps(tmodel)
+    del batches, tmodel, tparams, tbundle
     gc.collect()
     torch.cuda.empty_cache()
     serving = {"plain": whisper_serve(torch, model, params, None, "plain",
@@ -5151,7 +5193,7 @@ def whisper_phase(torch) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     tier = {k: v for k, v in run.items() if k not in ("et_plan", "fwds")}
-    tier.update(et_n_fp8=plan.n_quantized,
+    tier.update(et_n_fp8=plan.n_quantized, depth=WHISPER_TIER_DEPTH,
                 et_assignment=sorted(plan.assignment), fig3b=fig)
     return {"n_params": model.n_params(), "calibration": cal,
             "measured_tier": tier, "fig2": fig2, "serving": serving}
@@ -5294,6 +5336,406 @@ def encdec_vlm_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: training
+# ---------------------------------------------------------------------------
+
+# the loss leg: llama3_1b at full width and depth, AdamW from
+# select_optimizer, 30 steps of (8, 256) synthetic tokens through
+# Trainer.run; the mean of the last 5 losses must sit TRAIN_DROP nats below
+# the first
+TRAIN_LOSS = dict(batch=8, seq_len=256, steps=30, lr=6e-4, warmup=5)
+TRAIN_DROP = 0.5
+# the checkpoint leg: the first 2 of llama3_1b's 16 layers at full width
+# (0.39 B parameters, 3.9 GB of checkpoint; 16 layers hold 12.4 GB), 20
+# steps checkpointed every 10, resumed to 30, against a straight 30; the
+# reference's own bound on the two (tests/test_train.py)
+TRAIN_CKPT_DEPTH = 2
+TRAIN_RESUME_TOL = 2e-2
+# the loop leg: the trained model calibrated as phase 6 does, its TT plan at
+# tau 0.01 held to the reference's 5% on the eval loss
+# (tests/test_system.py), then 4 requests served under it
+TRAIN_TAU = 0.01
+TRAIN_EVAL_TOL = 0.05
+TRAIN_EVAL_BATCHES = 2
+TRAIN_SERVE = dict(requests=4, prompt_len=64, new_tokens=16, arrival_every=0)
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet), FLOP/s
+BF16_DENSE_PEAK = 989e12
+
+
+def train_data(cfg):
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    return SyntheticLM(SyntheticConfig(vocab_size=cfg.vocab_size,
+                                       batch=TRAIN_LOSS["batch"],
+                                       seq_len=TRAIN_LOSS["seq_len"]), DEVICE)
+
+
+def train_trainer(model, ckpt_dir: Path, total: int, every: int,
+                  log_every: int = 1000):
+    from repro_torch.train.optim import OptConfig, select_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    opt = select_optimizer(model.n_params(), OptConfig(
+        lr=TRAIN_LOSS["lr"], warmup_steps=TRAIN_LOSS["warmup"],
+        total_steps=TRAIN_LOSS["steps"]))
+    return Trainer(model, opt, None, TrainerConfig(
+        total_steps=total, ckpt_every=every, ckpt_dir=str(ckpt_dir),
+        log_every=log_every, metrics_path=str(ckpt_dir / "metrics.jsonl")),
+        device=DEVICE)
+
+
+@contextlib.contextmanager
+def timed_checkpoints(out: list):
+    """Every ``CheckpointManager.save`` and ``restore`` in the block, timed
+    (seconds, kind, step, bytes of the arrays)."""
+    from repro_torch.checkpoint import manager as cm
+    save, restore = cm.CheckpointManager.save, cm.CheckpointManager.restore
+
+    def timed_save(self, step, tree, extra=None):
+        t0 = time.perf_counter()
+        path = save(self, step, tree, extra)
+        n = os.path.getsize(os.path.join(path, "arrays.npz"))
+        out.append(("save", step, n, time.perf_counter() - t0))
+        return path
+
+    def timed_restore(self, step=None, device=None, only=None):
+        t0 = time.perf_counter()
+        res = restore(self, step, device, only)
+        torch_sync()
+        n = sum(t.numel() * t.element_size()
+                for t in flat_tensors(res[1]))
+        out.append(("restore", res[0], n, time.perf_counter() - t0))
+        return res
+
+    cm.CheckpointManager.save = timed_save
+    cm.CheckpointManager.restore = timed_restore
+    try:
+        yield out
+    finally:
+        cm.CheckpointManager.save = save
+        cm.CheckpointManager.restore = restore
+
+
+def torch_sync() -> None:
+    import torch
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def flat_tensors(tree: dict) -> list:
+    from repro_torch.nn.spec import flatten_paths
+    return list(flatten_paths(tree).values())
+
+
+def ckpt_numbers(events: list) -> list:
+    rows = [{"kind": k, "step": s, "gb": n / 1e9, "seconds": t,
+             "gb_per_s": n / 1e9 / t} for k, s, n, t in events]
+    for r in rows:
+        log(f"checkpoint {r['kind']} of step {r['step']}: {r['gb']:.2f} GB "
+            f"in {r['seconds']:.2f} s ({r['gb_per_s']:.2f} GB/s; "
+            f"{'SHA-256 and fsync included' if r['kind'] == 'save' else 'the newest valid step found by its digests, read and moved to the card'})")
+    return rows
+
+
+def all_linear_plan(model) -> dict:
+    """fp8 on every linear op of every layer and on the head: every weight
+    of the model then has quantized codes in the weight cache."""
+    return {n: "fp8_e4m3" for n in model.serving_op_names()
+            if not n.endswith(("qk_matmul", "av_matmul"))}
+
+
+def train_serve(eng, params, mp, reqs) -> dict:
+    """One lockstep drain of ``reqs`` on ``eng`` switched to the plan
+    ``mp`` (the engine's own plan swap): rid -> greedy tokens."""
+    eng._swap_plan(mp)
+    out = eng.serve(params, reqs, sync=True)
+    toks = {}
+    for r in reqs:
+        res = out.results[r.rid]
+        if res.status != "ok" or len(res.tokens) != r.max_new_tokens:
+            raise AssertionError(f"training: request {r.rid} did not "
+                                 f"complete under the plan")
+        toks[r.rid] = np.asarray(res.tokens)
+    return toks
+
+
+def training_loss_leg(torch, workdir: Path) -> tuple:
+    """The loss leg (module comment at ``TRAIN_LOSS``). Before training, an
+    engine serves the random weights under an all-linear fp8 plan, so the
+    weight cache holds codes of every weight and the engine's graphs are
+    bound to the very tensors the step then updates in place; the loop leg
+    serves on it again."""
+    from repro_torch.analysis.analytic import analytic_costs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import ContinuousBatchingEngine
+    spec = TRAIN_LOSS
+    model = get_model("llama3_1b")
+    n_params = model.n_params()
+    tr = train_trainer(model, workdir / "loss", spec["steps"], spec["steps"],
+                       log_every=10)
+    step0, params, opt_state = tr.init_or_resume(0)
+    s = TRAIN_SERVE
+    reqs = make_requests(model.cfg.vocab_size, s["requests"],
+                         s["prompt_len"], s["new_tokens"], s["arrival_every"])
+    eng = ContinuousBatchingEngine(
+        model, n_slots=s["requests"], max_len=s["prompt_len"]
+        + s["new_tokens"], mp=all_linear_plan(model), device=DEVICE,
+        prefix_cache=False)
+    eng.serve(params, reqs, sync=True)
+    data = train_data(model.cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpts: list = []
+    t0 = time.perf_counter()
+    with timed_checkpoints(ckpts):
+        tr.run(data, step0, params, opt_state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.history
+    losses = [h["loss"] for h in hist]
+    wall = np.array([h["dt"] for h in hist[1:]]) * 1e3
+    dev = np.array([h["device_ms"] if h["device_ms"] is not None
+                    else h["dt"] * 1e3 for h in hist[1:]])   # CPU: wall
+    tokens = spec["batch"] * spec["seq_len"]
+    flops = analytic_costs("llama3_1b", ShapeCell(
+        "train_loss_leg", "train", spec["seq_len"], spec["batch"]))["flops"]
+    wall_ms, dev_ms = float(np.median(wall)), float(np.median(dev))
+    share = flops / (wall_ms / 1e3) / BF16_DENSE_PEAK
+    gb = 1e9
+    p_bytes = 2 * n_params
+    state = {"params_gb": p_bytes / gb, "grads_gb": p_bytes / gb,
+             "moments_gb": 8 * n_params / gb}
+    first, tail = losses[0], float(np.mean(losses[-5:]))
+    log(f"training loss leg: {model.cfg.name} at full width and depth "
+        f"({n_params / 1e9:.3f}B params), AdamW (select_optimizer: "
+        f"{tr.opt_cfg.name}, lr {spec['lr']:g}, warm-up {spec['warmup']}), "
+        f"{spec['steps']} steps of {(spec['batch'], spec['seq_len'])} "
+        f"tokens through Trainer.run in {seconds:.1f} s: loss {first:.4f} "
+        f"first (ln {model.cfg.vocab_size} = "
+        f"{math.log(model.cfg.vocab_size):.2f}), {tail:.4f} the mean of the "
+        f"last 5 (drop {first - tail:.4f}, needed {TRAIN_DROP})")
+    log(f"training step (eager, steps 2-{spec['steps']}): wall median "
+        f"{wall_ms:.2f} ms (min {wall.min():.2f}, max {wall.max():.2f}), "
+        f"device {dev_ms:.2f} ms between CUDA events (min {dev.min():.2f}, "
+        f"max {dev.max():.2f}); {tokens / (wall_ms / 1e3):.0f} tokens/s; "
+        f"model FLOPs {flops / 1e12:.2f} T a step (3 x 2 x forward MACs, "
+        f"analysis.analytic), {share * 100:.1f}% of the bf16 dense peak "
+        f"{BF16_DENSE_PEAK / 1e12:.0f} TFLOP/s at the wall median "
+        f"({flops / (dev_ms / 1e3) / BF16_DENSE_PEAK * 100:.1f}% at the "
+        f"device median)")
+    log(f"training peak device memory {peak / gb:.2f} GB: bf16 params "
+        f"{state['params_gb']:.2f} + bf16 grads {state['grads_gb']:.2f} + "
+        f"f32 moments {state['moments_gb']:.2f} = "
+        f"{sum(state.values()):.2f} GB of state; the rest activations, the "
+        f"serving engine's pool and graphs, and the update's f32 "
+        f"temporaries")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training: non-finite loss {losses}")
+    if not tail <= first - TRAIN_DROP:
+        raise AssertionError(f"training: the last 5 losses' mean {tail:.4f} "
+                             f"is not {TRAIN_DROP} below the first "
+                             f"{first:.4f}")
+    rec = {"n_params": n_params, "losses": losses, "seconds": seconds,
+           "step_wall_ms": wall_ms, "step_device_ms": dev_ms,
+           "step_wall_ms_all": [h["dt"] * 1e3 for h in hist],
+           "step_device_ms_all": [h["device_ms"] for h in hist],
+           "tokens_per_s": tokens / (wall_ms / 1e3),
+           "model_flops_per_step": flops, "model_flop_share": share,
+           "model_flop_share_device": flops / (dev_ms / 1e3)
+           / BF16_DENSE_PEAK, "peak_gb": peak / gb, **state,
+           "checkpoints": ckpt_numbers(ckpts)}
+    return model, params, eng, reqs, tr, rec
+
+
+def training_ckpt_leg(torch, workdir: Path) -> dict:
+    """The checkpoint leg (module comment at ``TRAIN_CKPT_DEPTH``): 20
+    steps through ``Trainer.fit`` (checkpoints at 10 and 20), a new trainer
+    resuming at 20 and running to 30 (checkpoint 30), against the trainer's
+    step run 30 times straight; then the newest arrays.npz corrupted and the
+    run resumed from the one before."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.registry import depth_overrides, get_model
+    model = get_model("llama3_1b", **depth_overrides("llama3_1b",
+                                                     TRAIN_CKPT_DEPTH))
+    data = train_data(model.cfg)
+    a, b = workdir / "resume", workdir / "straight"
+    ckpts: list = []
+    t0 = time.perf_counter()
+    with timed_checkpoints(ckpts):
+        train_trainer(model, a, 20, 10).fit(data, 0)
+        tr = train_trainer(model, a, 30, 10)
+        step, p, o = tr.init_or_resume(0)
+        if step != 20:
+            raise AssertionError(f"training: resumed at step {step}, not 20")
+        p2, o2, _ = tr.run(data, step, p, o)
+        # the straight run: the trainer's own step, 30 times, from the same
+        # init, without checkpoints
+        straight = train_trainer(model, b, 30, 30)
+        _, p3, o3 = straight.init_or_resume(0)
+        for s in range(30):
+            p3, o3, _ = straight.train_step(p3, o3, data.batch_at(s))
+        diffs = {}
+        for name, x, y in (("params", p2, p3), ("optimizer", o2, o3)):
+            fx, fy = flat_tensors(x), flat_tensors(y)
+            diffs[name] = max((u.float() - v.float()).abs().max().item()
+                              for u, v in zip(fx, fy))
+        bitwise = all(torch.equal(u, v) for u, v in zip(
+            flat_tensors(p2) + flat_tensors(o2),
+            flat_tensors(p3) + flat_tensors(o3)))
+        del p, o, p2, o2, p3, o3
+        steps = CheckpointManager(str(a)).all_steps()
+        path = a / f"step_{steps[-1]:010d}" / "arrays.npz"
+        with open(path, "r+b") as f:
+            f.seek(200)
+            f.write(b"\xde\xad\xbe\xef" * 8)
+        back, _, _ = train_trainer(model, a, 30, 10).init_or_resume(0)
+    seconds = time.perf_counter() - t0
+    log(f"training checkpoint leg: {model.cfg.name} at {TRAIN_CKPT_DEPTH} "
+        f"of 16 layers, full width ({model.n_params() / 1e9:.3f}B params): "
+        f"20 steps checkpointed every 10, resumed at 20 to 30, against a "
+        f"straight 30: {'bitwise equal' if bitwise else 'NOT bitwise'}; "
+        f"largest difference params {diffs['params']:.3g}, optimizer state "
+        f"{diffs['optimizer']:.3g} (bound {TRAIN_RESUME_TOL} on params, the "
+        f"reference's); newest of steps {steps} corrupted: the trainer "
+        f"resumes at {back}; {seconds:.1f} s")
+    if diffs["params"] > TRAIN_RESUME_TOL:
+        raise AssertionError(f"training: resumed params differ from the "
+                             f"straight run by {diffs['params']:.3g}")
+    if steps != [10, 20, 30] or back != 20:
+        raise AssertionError(f"training: steps {steps}, after corrupting "
+                             f"the newest resumed at {back}; expected 20")
+    return {"n_params": model.n_params(), "resume_bitwise": bitwise,
+            "resume_max_diff": diffs, "seconds": seconds,
+            "quarantine": {"steps": steps, "resumed_at": back},
+            "checkpoints": ckpt_numbers(ckpts)}
+
+
+def training_loop_leg(torch, model, params, eng, reqs, tr,
+                      workdir: Path) -> dict:
+    """The loop leg: the loss leg's checkpoint restored through the serve
+    launcher's ``--ckpt-dir`` path (``launch.serve.restore_params``), equal
+    to the trained params bit for bit; calibrated as phase 6 does; the TT
+    plan at ``TRAIN_TAU`` solved and held to the reference's 5% on the eval
+    loss; then served on the engine that served before training (its
+    graphs and the weight cache saw every weight change in place) and on a
+    fresh engine over a copy of the restored params: greedy tokens equal,
+    under the TT plan and under the all-linear plan the first engine served
+    before training."""
+    from repro_torch.core.pipeline import AMPOptions, calibrate
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticLM
+    from repro_torch.hw.profiles import H100_SXM
+    from repro_torch.launch.serve import restore_params
+    from repro_torch.launch.steps import make_eval_step
+    from repro_torch.nn.spec import flatten_paths, tree_from_flat
+    from repro_torch.serve import ContinuousBatchingEngine
+    ckpts: list = []
+    t0 = time.perf_counter()
+    with timed_checkpoints(ckpts):
+        step, restored = restore_params(model, tr.cfg.ckpt_dir, DEVICE)
+    fr, fp = flatten_paths(restored), flatten_paths(params)
+    if step != TRAIN_LOSS["steps"] or not all(
+            torch.equal(fr[k], fp[k]) for k in fp):
+        raise AssertionError(f"training: --ckpt-dir restored step {step}, "
+                             f"params not the trained ones")
+    cal = SyntheticLM(SyntheticConfig(vocab_size=model.cfg.vocab_size,
+                                      batch=CAL_SHAPE[0],
+                                      seq_len=CAL_SHAPE[1]), DEVICE)
+    batches = list(cal.batches(0, CAL_BATCHES))
+    tc = time.perf_counter()
+    bundle = calibrate(model, restored, batches, AMPOptions(hw=H100_SXM))
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - tc
+    plan = bundle.solve(TRAIN_TAU, "TT")
+    data = train_data(model.cfg)
+    evals = [data.batch_at(2000 + i) for i in range(TRAIN_EVAL_BATCHES)]
+    plain = float(np.mean([make_eval_step(model)(restored, b).item()
+                           for b in evals]))
+    mp = float(np.mean([make_eval_step(model, plan.assignment)(
+        restored, b).item() for b in evals]))
+    rel = abs(mp - plain) / plain
+    log(f"training loop leg: step {step} restored through launch.serve's "
+        f"--ckpt-dir path in {ckpts[0][3]:.2f} s, bit-equal to the trained "
+        f"params; calibrated ({CAL_BATCHES} batches of {CAL_SHAPE}) in "
+        f"{cal_s:.1f} s: E[g] {bundle.sens.loss_mean:.4f} (phase 6 on random "
+        f"weights: ~12.2); TT plan at tau {TRAIN_TAU}: {plan.n_quantized} ops "
+        f"fp8, predicted loss MSE {plan.predicted_loss_mse:.4g} of budget "
+        f"{plan.budget:.4g}; eval loss over {TRAIN_EVAL_BATCHES} batches "
+        f"of {(TRAIN_LOSS['batch'], TRAIN_LOSS['seq_len'])}: plain "
+        f"{plain:.4f}, under the plan {mp:.4f} ({rel * 100:.3f}%, bound "
+        f"{TRAIN_EVAL_TOL * 100:.0f}%)")
+    if plan.n_quantized == 0 or plan.predicted_loss_mse > plan.budget * (
+            1 + 1e-9):
+        raise AssertionError(f"training: TT plan quantizes "
+                             f"{plan.n_quantized} ops, predicted "
+                             f"{plan.predicted_loss_mse} over {plan.budget}")
+    if not rel < TRAIN_EVAL_TOL:
+        raise AssertionError(f"training: eval loss under the plan moved "
+                             f"{rel * 100:.2f}%")
+    ts = time.perf_counter()
+    copy = tree_from_flat({k: v.clone() for k, v in fr.items()})
+    fresh = ContinuousBatchingEngine(
+        model, n_slots=eng.n_slots, max_len=eng.max_len, mp=None,
+        device=DEVICE, prefix_cache=False)
+    same = {}
+    for name, assignment in (("TT", plan.assignment),
+                             ("all-linear", all_linear_plan(model))):
+        got = {}
+        for label, e, p in (("trained", eng, params), ("fresh", fresh, copy)):
+            got[label] = train_serve(e, p, assignment, reqs)
+        same[name] = all(np.array_equal(got["trained"][r], got["fresh"][r])
+                         for r in got["trained"])
+        log(f"training: {len(reqs)} requests under the {name} plan on the "
+            f"engine that served before training and on a fresh one over a "
+            f"copy of the restored params: greedy tokens "
+            f"{'equal' if same[name] else 'DIFFER'}")
+    serve_s = time.perf_counter() - ts
+    log(f"training loop leg: {time.perf_counter() - t0:.1f} s, of which the "
+        f"restore {ckpts[0][3]:.1f}, calibration {cal_s:.1f}, the four "
+        f"drains (their captures included) {serve_s:.1f}")
+    if not all(same.values()):
+        raise AssertionError(f"training: served tokens differ from a fresh "
+                             f"engine's: {same}")
+    return {"restore": ckpt_numbers(ckpts), "calibration_s": cal_s,
+            "serve_s": serve_s, "seconds": time.perf_counter() - t0,
+            "loss_mean": bundle.sens.loss_mean,
+            "tt_n_fp8": plan.n_quantized, "eval_plain": plain,
+            "eval_mp": mp, "eval_rel": rel, "tokens_equal": same}
+
+
+def training_phase(torch) -> dict:
+    """Phase 25 (after phase 21, on a model of its own): the loss, the
+    checkpoint and the loop legs."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        workdir = Path(tmp)
+        model, params, eng, reqs, tr, loss = training_loss_leg(torch,
+                                                                workdir)
+        t1 = time.perf_counter()
+        loop = training_loop_leg(torch, model, params, eng, reqs, tr,
+                                 workdir)
+        t2 = time.perf_counter()
+        release_steps(model)
+        del model, params, eng, tr
+        shutil.rmtree(workdir / "loss")       # 12.4 GB of checkpoint
+        gc.collect()
+        torch.cuda.empty_cache()
+        t3 = time.perf_counter()
+        ckpt = training_ckpt_leg(torch, workdir)
+        t4 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs = {"loss_leg": t1 - t0, "loop_leg": t2 - t1, "release": t3 - t2,
+            "checkpoint_leg": t4 - t3, "cleanup": time.perf_counter() - t4}
+    log("training phase by leg (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + f"; the loss leg's "
+        f"training {loss['seconds']:.1f} of it")
+    return {"loss_leg": loss, "checkpoint_leg": ckpt, "loop_leg": loop,
+            "leg_seconds": legs}
+
+
 def no_silent_faults(engine_cls) -> None:
     """Every drain of ``engine_cls`` in this run: one served without a
     fault injector must report no kernel fault and no degradation (a real
@@ -5417,6 +5859,7 @@ def main() -> int:
     del model, params, bundle, batches
     gc.collect()                      # the model's decode graphs go with it
     torch.cuda.empty_cache()
+    report["training"] = phase("training", training_phase, torch)
     report["llama3_8b"] = phase("llama3_8b", llama8b_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5592,6 +6035,8 @@ def main() -> int:
                               else r for a, r in report["moe"].items()}}),
           flush=True)
     print(json.dumps({"ssm": report["ssm"], "card": card}), flush=True)
+    print(json.dumps({"training": report["training"], "card": card}),
+          flush=True)
     print(json.dumps({"encdec_vlm": {
         WHISPER: {k: v for k, v in ev[WHISPER].items()},
         LLAVA: {k: v for k, v in ev[LLAVA].items() if k != "serving"},

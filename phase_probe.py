@@ -22,7 +22,23 @@ builds it. The phases run in the order given:
   ``DENSE_CONFIGS``' archs (phase 18, ``dense_config_phase``) served at
   ``DEPTH`` layers, the whole phase timed: two depths of one arch give
   the seconds a depth cut saves. llama3_1b is built only for ``tier`` and
-  ``drains``.
+  ``drains``;
+- ``whisper``: phase 24's Whisper (``whisper_phase``: calibration, the
+  measured tier, Fig. 3b, serving) as that checkout has it;
+- ``training``: phase 25 (``training_phase``), where the checkout has it;
+- ``checkpoint_io``: where a checkpoint's seconds go, on one tree of
+  ``--gb`` gigabytes on the card (bf16 and f32 leaves of 2^26 elements, as
+  a model's params and moments), written under ``$TMPDIR``: the copy to
+  the host, SHA-256 of every leaf in one thread and in a pool, zlib's
+  CRC-32 (what the zip writer and reader compute), ``np.savez`` with and
+  without its fsync, ``np.load`` of every member, then the checkout's
+  ``CheckpointManager.save``, ``restore`` (every digest checked) and
+  ``restore(only="params")``;
+- ``train_step``: phase 25's eager training step alone (llama3_1b at full
+  width and depth, AdamW, ``TRAIN_LOSS``' batch): ``--reps`` steps timed
+  on the host clock, then the same number under ``torch.profiler``; the
+  device's busy share is the device time of the profiled steps' kernels
+  and copies over the unprofiled steps' wall time.
 
 Prints ``chip_smoke.py``'s lines for each phase, one JSON line with every
 drain's numbers, and last the card's name and power limit; ``--out`` gets
@@ -79,11 +95,125 @@ def drains(torch, cs, model, params, reps: int) -> list:
     return out
 
 
+def checkpoint_io(torch, cs, gb: float) -> dict:
+    import concurrent.futures
+    import hashlib
+    import os
+    import zlib
+
+    import numpy as np
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _to_numpy
+    leaf = 1 << 26
+    n = max(1, int(gb * 1e9 / (leaf * 6)))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"params": {f"w{i}": torch.randn(leaf, generator=g, device="cuda")
+                       .to(torch.bfloat16) for i in range(n)},
+            "opt": {f"m{i}": torch.randn(leaf, generator=g, device="cuda")
+                    for i in range(n)}}
+    flat = [t for sub in tree.values() for t in sub.values()]
+    size = sum(t.numel() * t.element_size() for t in flat) / 1e9
+    rows: dict = {"gb": size, "cpus": os.cpu_count()}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        sec = time.perf_counter() - t0
+        rows[name] = {"seconds": sec, "gb_per_s": size / sec}
+        cs.log(f"checkpoint_io {name}: {sec:.2f} s, {size / sec:.2f} GB/s "
+               f"over {size:.2f} GB")
+        return res
+
+    arrays = timed("device to host", lambda: [_to_numpy(t)[0] for t in flat])
+    timed("sha256, one thread", lambda: [
+        hashlib.sha256(a.data).hexdigest() for a in arrays])
+    with concurrent.futures.ThreadPoolExecutor(
+            min(8, os.cpu_count() or 1)) as ex:
+        timed("sha256, a pool", lambda: list(ex.map(
+            lambda a: hashlib.sha256(a.data).hexdigest(), arrays)))
+    timed("crc32", lambda: [zlib.crc32(a.data) for a in arrays])
+    with tempfile.TemporaryDirectory(prefix="phase_probe_") as tmp:
+        named = {f"a{i}": a for i, a in enumerate(arrays)}
+
+        def savez(sync):
+            path = os.path.join(tmp, f"x{int(sync)}.npz")
+            with open(path, "wb") as f:
+                np.savez(f, **named)
+                f.flush()
+                if sync:
+                    os.fsync(f.fileno())
+            return path
+
+        timed("np.savez, no fsync", lambda: savez(False))
+        path = timed("np.savez + fsync", lambda: savez(True))
+
+        def load():
+            with np.load(path) as z:
+                return [z[k].nbytes for k in z.files]
+
+        timed("np.load", load)
+        del arrays, named
+        cm = CheckpointManager(os.path.join(tmp, "ck"))
+        timed("CheckpointManager.save", lambda: cm.save(1, tree))
+        timed("CheckpointManager.restore", lambda: cm.restore(device="cuda"))
+        timed("CheckpointManager.restore(only='params')",
+              lambda: cm.restore(device="cuda", only="params"))
+    return rows
+
+
+def train_step(torch, cs, reps: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.spec import default_generator
+    from repro_torch.train import optim
+    hp = cs.TRAIN_LOSS
+    model = get_model("llama3_1b")
+    params = model.init(default_generator(0, "cuda"), "cuda")
+    cfg = optim.select_optimizer(model.n_params(), optim.OptConfig(
+        lr=hp["lr"], warmup_steps=hp["warmup"], total_steps=hp["steps"]))
+    state = optim.init_state(model.param_specs(), cfg, "cuda")
+    data = cs.train_data(model.cfg)
+    step = make_train_step(model, cfg)
+    for i in range(2):                                   # warm-up
+        step(params, state, data.batch_at(i))
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        step(params, state, data.batch_at(2 + i))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            step(params, state, data.batch_at(2 + reps + i))
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) * 1e-6
+    wall = sum(walls)
+    rec = {"steps": reps, "step_wall_ms": [w * 1e3 for w in walls],
+           "device_busy_ms_per_step": busy / reps * 1e3,
+           "profiled_step_ms": profiled / reps * 1e3,
+           "busy_share": busy / wall}
+    cs.log(f"train_step: {reps} eager steps, wall "
+           f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; under the "
+           f"profiler {rec['profiled_step_ms']:.2f} ms a step, device busy "
+           f"{rec['device_busy_ms_per_step']:.2f} ms a step: "
+           f"{100 * rec['busy_share']:.1f}% of the unprofiled wall")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--phases", default="drains")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--gb", type=float, default=4.0,
+                    help="checkpoint_io's tree size")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -120,6 +250,19 @@ def main() -> int:
             del bundle
         elif name == "drains":
             out["drains"] += drains(torch, cs, model, params, args.reps)
+        elif name == "whisper":
+            out["whisper"] = cs.whisper_phase(torch)["measured_tier"][
+                "seconds"]
+        elif name == "training" and hasattr(cs, "training_phase"):
+            rec = cs.training_phase(torch)
+            out["training"] = {"step_wall_ms": rec["loss_leg"][
+                "step_wall_ms"], "checkpoints": [
+                c for leg in ("loss_leg", "checkpoint_leg")
+                for c in rec[leg]["checkpoints"]]}
+        elif name == "checkpoint_io":
+            out["checkpoint_io"] = checkpoint_io(torch, cs, args.gb)
+        elif name == "train_step":
+            out["train_step"] = train_step(torch, cs, args.reps)
         else:
             raise SystemExit(f"unknown phase {name!r}")
         torch.cuda.synchronize()

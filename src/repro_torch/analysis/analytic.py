@@ -102,12 +102,14 @@ def _trace_ops(model, cell: ShapeCell) -> list:
     return out
 
 
-def analytic_costs(arch: str, shape_name: str, overrides=None) -> dict:
-    """Global analytic costs for one cell: flops, bytes, param traffic.
+def analytic_costs(arch: str, shape_name, overrides=None) -> dict:
+    """Global analytic costs for one cell (a name of ``SHAPES`` or a
+    ``ShapeCell``): flops, bytes, param traffic.
 
     Also returns a compact per-op table so that the terms can be re-priced
     under an MP assignment without tracing again."""
-    cell = SHAPES[shape_name]
+    cell = (shape_name if isinstance(shape_name, ShapeCell)
+            else SHAPES[shape_name])
     model = counting_twin(arch, cell, overrides)
     ops = _trace_ops(model, cell)
     fwd_flops = sum(2.0 * op.macs for op in ops)

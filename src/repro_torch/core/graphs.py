@@ -181,7 +181,7 @@ def build_lm_graph(cfg: LMConfig) -> GraphSpec:
     if cfg.scan_layers:
         raise NotImplementedError(
             f"{cfg.name}: the graph with scan_layers=True lands with the "
-            f"port slice that ports it (scan_layers: A9 in ROADMAP.md)")
+            f"port slice that ports it (scan_layers: A9c in ROADMAP.md)")
     g = GraphSpec()
     prev = g.add("embed")
     for i in range(cfg.n_layers):

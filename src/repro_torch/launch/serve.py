@@ -36,9 +36,16 @@ solved at serve time from a calibration bundle.
         --arch deepseek_v3_671b --dense-prefix --flash-min-seq 64 \
         --prompt-len 96 --batch 1
 
-Weights are random, drawn from a ``torch.Generator`` seeded with 0 (no
-checkpoint is in the repository); prompts come from numpy seeded with 1, as
-in the reference launcher. An ``--mp-plan`` JSON saved by either package's
+Weights are random, drawn from a ``torch.Generator`` seeded with 0, or,
+with ``--ckpt-dir``, the params of the newest valid checkpoint there (one
+written by ``python -m repro_torch.launch.train`` or by the reference's
+trainer); prompts come from numpy seeded with 1, as in the reference
+launcher::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --continuous --ckpt-dir /tmp/ck
+
+An ``--mp-plan`` JSON saved by either package's
 ``MPPlan.save`` flows into either engine; ``--calibration`` loads a
 ``CalibrationBundle`` saved by either package, and ``--registry`` picks the
 freshest bundle filed for this arch and these weights; both run the cheap IP
@@ -77,10 +84,11 @@ from repro_torch.core.pipeline import CalibrationBundle
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import (dense_prefix_overrides,
                                          depth_overrides, get_model)
-from repro_torch.nn.spec import default_generator
+from repro_torch.nn.spec import default_generator, flatten_paths
 from repro_torch.serve import ContinuousBatchingEngine, Request, ServeEngine
 
-__all__ = ["build_parser", "make_model_and_params", "make_requests",
+__all__ = ["build_parser", "make_model_and_params", "restore_params",
+           "make_requests",
            "load_plan", "check_bundle_ops", "solve_from_bundle",
            "registry_bundle", "report_continuous", "profile_drain", "main"]
 
@@ -106,6 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--flash-min-seq", type=int, default=None,
                     help="prompt length from which prefill takes the "
                          "blocked flash attention (default: the config's)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest valid checkpoint "
+                         "in this directory instead of random ones")
     ap.add_argument("--mp-plan", default=None, help="MPPlan json path")
     ap.add_argument("--calibration", default=None,
                     help="CalibrationBundle path (json/npz): solve the IP at "
@@ -212,6 +223,25 @@ def make_model_and_params(arch: str, smoke: bool, device: DeviceLike,
     model = get_model(arch, smoke=smoke, **overrides)
     params = model.init(default_generator(seed, device), device)
     return model, params
+
+
+def restore_params(model, ckpt_dir: str, device: DeviceLike) -> tuple:
+    """(step, params): the ``params`` subtree of the newest valid
+    checkpoint in ``ckpt_dir`` on ``device``, held to ``model``'s param
+    paths and shapes (a checkpoint of another configuration raises)."""
+    from repro_torch.checkpoint import CheckpointManager
+    step, tree, _ = CheckpointManager(ckpt_dir).restore(
+        device=resolve_device(device), only="params")
+    params = tree.get("params", {})
+    flat = flatten_paths(params)
+    specs = model.param_specs()
+    wrong = sorted(set(specs) ^ set(flat)) + sorted(
+        p for p in set(specs) & set(flat)
+        if tuple(flat[p].shape) != tuple(specs[p].shape))
+    if wrong:
+        raise ValueError(f"checkpoint step {step} in {ckpt_dir} does not "
+                         f"hold {model.cfg.name}'s params: {wrong[:8]}")
+    return step, params
 
 
 def make_requests(vocab_size: int, n: int, prompt_len: int, new_tokens: int,
@@ -415,10 +445,17 @@ def main(argv=None) -> None:
         ov["mla_absorb_decode"] = True
     if args.flash_min_seq is not None:
         ov["flash_min_seq"] = args.flash_min_seq
-    model, params = make_model_and_params(args.arch, args.smoke, device,
-                                          **ov)
-    print(f"[serve] {model.cfg.name} on {device}: random-init params "
-          f"({model.n_params() / 1e6:.1f}M)")
+    if args.ckpt_dir:
+        model = get_model(args.arch, smoke=args.smoke, **ov)
+        step, params = restore_params(model, args.ckpt_dir, device)
+        print(f"[serve] {model.cfg.name} on {device}: params of step {step} "
+              f"restored from {args.ckpt_dir} "
+              f"({model.n_params() / 1e6:.1f}M)")
+    else:
+        model, params = make_model_and_params(args.arch, args.smoke, device,
+                                              **ov)
+        print(f"[serve] {model.cfg.name} on {device}: random-init params "
+              f"({model.n_params() / 1e6:.1f}M)")
     if sum(map(bool, (args.mp_plan, args.calibration, args.registry))) > 1:
         raise SystemExit("--mp-plan, --calibration and --registry are "
                          "mutually exclusive")

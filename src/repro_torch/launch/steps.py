@@ -1,7 +1,19 @@
-"""Serving step builders (port of the serving half of
-``repro/launch/steps.py``).
+"""Step builders (port of ``repro/launch/steps.py``): the train and eval
+steps, and the serving steps.
 
-A step is a closure over the model and one ``QuantContext`` that returns
+:func:`make_train_step` is ``(params, opt_state, batch) -> (params,
+opt_state, metrics)``: the loss and its gradients through plain
+``torch.autograd`` (f32 gradient sums over microbatches, the losses
+averaged), then :func:`repro_torch.train.optim.apply_updates` in place. It
+runs eagerly; the reference jits it. Under an MP plan it runs
+``QuantContext(mode="mp", mp=...)`` with the default ``impl``
+(``"simulate"``), as the reference does, so gradients flow through fake
+quant as through the reference's: through the fp8 casts as through a dtype
+conversion (the cotangent itself is cast to the fp8 type and back, in both
+packages), through the amax scales, and with zero gradient through the
+emulated formats' ``round``.
+
+A serving step is a closure over the model and one ``QuantContext`` that returns
 ``(logits, caches, next_token)``; ``next_token`` is the (B,) int32 greedy
 token of :func:`greedy_next_token`, computed inside the step so that on the
 card it is part of the step's graph. :func:`get_serving_step` memoizes the
@@ -22,9 +34,12 @@ import torch
 
 from repro_torch.core.mpconfig import as_assignment
 from repro_torch.models.encdec import EncDec
+from repro_torch.nn.spec import flatten_paths, tree_from_flat
+from repro_torch.quant.formats import true_div
 from repro_torch.quant.qops import QuantContext
+from repro_torch.train import optim
 
-__all__ = ["make_forward_step", "GraphedForward", "make_prefill_step",
+__all__ = ["make_train_step", "make_eval_step", "make_forward_step", "GraphedForward", "make_prefill_step",
            "make_bucketed_prefill_step", "make_chunked_prefill_step",
            "make_dense_chunked_prefill_step", "make_decode_step",
            "make_paged_decode_step", "GraphedStep", "get_serving_step",
@@ -35,6 +50,78 @@ __all__ = ["make_forward_step", "GraphedForward", "make_prefill_step",
 # kind (``GraphedStep.kind``)
 graph_captures: Counter = Counter()
 graph_replays: Counter = Counter()
+
+
+def _split_micro(batch: dict, n_micro: int) -> list:
+    """``batch`` as ``n_micro`` microbatches along the batch axis (each
+    leaf (B, ...) -> n_micro x (B / n_micro, ...) views)."""
+    def r(x):
+        assert x.shape[0] % n_micro == 0, (tuple(x.shape), n_micro)
+        return x.reshape(n_micro, x.shape[0] // n_micro, *x.shape[1:])
+    split = {k: r(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n_micro)]
+
+
+def _mp_ctx(mp) -> QuantContext:
+    mp = as_assignment(mp)
+    return QuantContext(mode="mp", mp=mp) if mp else QuantContext()
+
+
+def make_train_step(model, opt_cfg: optim.OptConfig,
+                    n_microbatches: int = 1, mp: Optional[dict] = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), params
+    and state updated in place; ``metrics`` holds 0-d tensors ``loss``,
+    ``lr`` and ``grad_norm``. Gradients are taken with respect to detached
+    leaves of ``params`` (whose weights the fp8 weight cache then leaves
+    alone: a weight that requires grad is quantized per call)."""
+    ctx = _mp_ctx(mp)
+
+    def value_and_grad(params: dict, batch: dict) -> tuple:
+        flat = {k: v.detach().requires_grad_(True)
+                for k, v in flatten_paths(params).items()}
+        loss = model.loss(tree_from_flat(flat), batch, ctx)
+        gs = torch.autograd.grad(loss, list(flat.values()),
+                                 allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(v) if g is None else g
+                               for (k, v), g in zip(flat.items(), gs)}
+
+    def train_step(params, opt_state, batch):
+        if n_microbatches > 1:
+            loss, grads = None, None
+            for mb in _split_micro(batch, n_microbatches):
+                loss_i, g = value_and_grad(params, mb)
+                if grads is None:
+                    loss = torch.zeros((), dtype=torch.float32,
+                                       device=loss_i.device)
+                    grads = {k: torch.zeros(v.shape, dtype=torch.float32,
+                                            device=v.device)
+                             for k, v in g.items()}
+                loss = loss + loss_i
+                for k, v in g.items():
+                    grads[k] += v.float()
+                del g
+            loss = true_div(loss, float(n_microbatches))
+            grads = {k: true_div(v, float(n_microbatches))
+                     for k, v in grads.items()}
+        else:
+            loss, grads = value_and_grad(params, batch)
+        params, opt_state, metrics = optim.apply_updates(
+            params, tree_from_flat(grads), opt_state, opt_cfg)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(model, mp: Optional[dict] = None):
+    """(params, batch) -> the loss (a 0-d f32 tensor), without gradients."""
+    ctx = _mp_ctx(mp)
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return model.loss(params, batch, ctx)
+
+    return eval_step
 
 
 def _serving_ctx(mp) -> QuantContext:

@@ -23,6 +23,10 @@ assembles them: ``{"dec/i/self": {"k", "v", "pos"}, "dec/i/cross": {"k",
 "v"}}``, the self-attention a dense ring of ``max_len`` rows and the cross
 K/V of ``enc_len`` frames. They are written in place: the self ring by
 the attention, the cross K/V copied in at prefill.
+
+With ``remat`` each encoder layer, and each decoder layer run without
+caches, runs under ``torch.utils.checkpoint`` when gradients are taken (the
+reference's ``jax.checkpoint`` of the same bodies).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm import _DTYPES
+from repro_torch.models.lm import _DTYPES, _remat
 from repro_torch.nn import layers as L
 from repro_torch.nn.spec import ParamSpec, init_params, param_count
 from repro_torch.quant import qops
@@ -156,14 +160,16 @@ class EncDec:
         h = (frames.to(self.dtype)
              + _sinusoid(positions, cfg.d_model).to(self.dtype))
         for i in range(cfg.n_enc_layers):
-            p = params["enc"][str(i)]
-            hn = L.apply_norm(p["attn_norm"], h, cfg.norm)
-            y, _ = L.attention(p["attn"], ctx, f"enc/{i}/attn", cfg.enc_attn,
-                               hn, positions)
-            h = h + y
-            hn = L.apply_norm(p["mlp_norm"], h, cfg.norm)
-            h = h + L.apply_mlp(p["mlp"], ctx, f"enc/{i}/mlp", hn,
-                                cfg.activation)
+            def body(p, h_, i=i):
+                hn = L.apply_norm(p["attn_norm"], h_, cfg.norm)
+                y, _ = L.attention(p["attn"], ctx, f"enc/{i}/attn",
+                                   cfg.enc_attn, hn, positions)
+                h_ = h_ + y
+                hn = L.apply_norm(p["mlp_norm"], h_, cfg.norm)
+                return h_ + L.apply_mlp(p["mlp"], ctx, f"enc/{i}/mlp", hn,
+                                        cfg.activation)
+
+            h = _remat(body, cfg.remat, params["enc"][str(i)], h)
         return L.apply_norm(params["enc_final_norm"], h, cfg.norm)
 
     # ------------------------------------------------------------------
@@ -190,32 +196,36 @@ class EncDec:
         h = params["embed"]["w"][tokens.long()].to(self.dtype)
         h = h + _sinusoid(positions, cfg.d_model).to(self.dtype)
         for i in range(cfg.n_dec_layers):
-            p = params["dec"][str(i)]
             self_c = None if caches is None else caches[f"dec/{i}/self"]
             cross_c = None if caches is None else caches[f"dec/{i}/cross"]
-            hn = L.apply_norm(p["attn_norm"], h, cfg.norm)
-            y, _ = L.attention(p["attn"], ctx, f"dec/{i}/attn", cfg.dec_attn,
-                               hn, positions, cache=self_c,
-                               cache_pos=cache_pos)
-            h = h + y
-            hn = L.apply_norm(p["cross_norm"], h, cfg.norm)
-            if enc_out is not None:
-                y, _ = L.attention(p["cross"], ctx, f"dec/{i}/cross",
-                                   cfg.enc_attn, hn, positions, kv_x=enc_out,
-                                   cross=True)
-                if cross_c is not None:
-                    kv = L.cross_kv(p["cross"], ctx, f"dec/{i}/cross",
-                                    cfg.enc_attn, enc_out)
-                    for name, t in kv.items():
-                        cross_c[name].copy_(t)
-            else:
-                y, _ = L.attention(p["cross"], ctx, f"dec/{i}/cross",
-                                   cfg.enc_attn, hn, positions,
-                                   cache=cross_c, cross=True)
-            h = h + y
-            hn = L.apply_norm(p["mlp_norm"], h, cfg.norm)
-            h = h + L.apply_mlp(p["mlp"], ctx, f"dec/{i}/mlp", hn,
-                                cfg.activation)
+
+            def body(p, h_, i=i, self_c=self_c, cross_c=cross_c):
+                hn = L.apply_norm(p["attn_norm"], h_, cfg.norm)
+                y, _ = L.attention(p["attn"], ctx, f"dec/{i}/attn",
+                                   cfg.dec_attn, hn, positions, cache=self_c,
+                                   cache_pos=cache_pos)
+                h_ = h_ + y
+                hn = L.apply_norm(p["cross_norm"], h_, cfg.norm)
+                if enc_out is not None:
+                    y, _ = L.attention(p["cross"], ctx, f"dec/{i}/cross",
+                                       cfg.enc_attn, hn, positions,
+                                       kv_x=enc_out, cross=True)
+                    if cross_c is not None:
+                        kv = L.cross_kv(p["cross"], ctx, f"dec/{i}/cross",
+                                        cfg.enc_attn, enc_out)
+                        for name, t in kv.items():
+                            cross_c[name].copy_(t)
+                else:
+                    y, _ = L.attention(p["cross"], ctx, f"dec/{i}/cross",
+                                       cfg.enc_attn, hn, positions,
+                                       cache=cross_c, cross=True)
+                h_ = h_ + y
+                hn = L.apply_norm(p["mlp_norm"], h_, cfg.norm)
+                return h_ + L.apply_mlp(p["mlp"], ctx, f"dec/{i}/mlp", hn,
+                                        cfg.activation)
+
+            h = _remat(body, cfg.remat and caches is None,
+                       params["dec"][str(i)], h)
         return L.apply_norm(params["dec_final_norm"], h, cfg.norm), caches
 
     def _head(self, params: dict, ctx: QuantContext,

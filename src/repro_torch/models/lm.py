@@ -13,9 +13,13 @@ reads; ``prefix_embed`` (LLaVA) prepends a batch's ``prefix_embeds``
 ``apply``, ``loss`` (whose cross-entropy covers the text positions only) and
 ``prefill``. ``LMConfig`` keeps every field of the reference so that every
 configuration loads; ``scan_layers``, which the port does not have yet,
-raises ``NotImplementedError`` when the model is built. Layers run unrolled in a Python loop, each with its own
-params and op names (``layers/3/attn/q_proj``), so per-layer MP plans apply
-unchanged.
+raises ``NotImplementedError`` when the model is built. Layers run unrolled
+in a Python loop, each with its own params and op names
+(``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged. With
+``remat`` each layer's body (and the MTP loss) runs under
+``torch.utils.checkpoint`` whenever gradients are taken without caches, as
+the reference's unscanned path wraps it in ``jax.checkpoint``;
+``remat_group`` belongs to the scanned path.
 
 Params are the nested dict of tensors that :meth:`LM.init` returns (or
 ``repro_torch.bridge.params_from_flat`` builds from reference weights).
@@ -32,6 +36,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn import layers as L
@@ -168,7 +173,18 @@ class LMConfig:
 
 
 # the ROADMAP.md item that ports each family of layers or option
-_ITEMS = {"scan_layers": "A9"}
+_ITEMS = {"scan_layers": "A9c"}
+
+
+def _remat(fn, on: bool, *args):
+    """``fn(*args)``; with ``on`` and gradients enabled, under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass instead of kept, as the reference's
+    ``jax.checkpoint`` of a layer's body. The gradients are the same."""
+    if on and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 _BLOCKS = ("attn", "mla", "mamba", "hybrid")
@@ -420,14 +436,18 @@ class LM:
         aux_total = 0.0
         for i in range(cfg.n_layers):
             cache_i = None if caches is None else caches[f"layers/{i}"]
-            h, _, aux_i = self._block(
-                params["layers"][str(i)], ctx, f"layers/{i}",
-                cfg.layer_signature(i), h, positions,
-                window=cfg.window_for(i), cache=cache_i,
-                cache_pos=cache_pos, block_tables=block_tables,
-                chunk_valid=chunk_valid, chunk_start=chunk_start,
-                chunk_ring=chunk_ring, decode=decode, layer_idx=i,
-                paged_attn=paged_attn)
+
+            def body(p_i, h_, i=i, cache_i=cache_i):
+                return self._block(
+                    p_i, ctx, f"layers/{i}", cfg.layer_signature(i), h_,
+                    positions, window=cfg.window_for(i), cache=cache_i,
+                    cache_pos=cache_pos, block_tables=block_tables,
+                    chunk_valid=chunk_valid, chunk_start=chunk_start,
+                    chunk_ring=chunk_ring, decode=decode, layer_idx=i,
+                    paged_attn=paged_attn)
+
+            h, _, aux_i = _remat(body, cfg.remat and caches is None,
+                                 params["layers"][str(i)], h)
             aux_total = aux_total + aux_i
         return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
 
@@ -489,8 +509,9 @@ class LM:
             if weights is None:
                 weights = torch.ones(tokens.shape, dtype=torch.float32,
                                      device=h.device)
-            loss = loss + cfg.mtp_weight * self._mtp_loss(
-                params, ctx, h, tokens, labels, weights)
+            loss = loss + cfg.mtp_weight * _remat(
+                lambda h_: self._mtp_loss(params, ctx, h_, tokens, labels,
+                                          weights), cfg.remat, h)
         return loss + aux
 
     def _mtp_loss(self, params: dict, ctx: QuantContext, h: torch.Tensor,

@@ -15,6 +15,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 __all__ = ["ParamSpec", "init_params", "tree_from_flat", "flatten_paths",
+           "sorted_leaves",
            "param_count", "param_bytes", "dtype_bytes", "default_generator"]
 
 
@@ -69,6 +70,19 @@ def flatten_paths(tree: dict, prefix: str = "") -> dict:
         else:
             flat[path] = v
     return flat
+
+
+def sorted_leaves(tree: dict, prefix: str = "") -> list:
+    """(path, leaf) pairs in the reference's ``jax.tree.leaves`` order:
+    dict keys sorted at every level (``layers/0``, ``layers/1``,
+    ``layers/10``, ...)."""
+    out = []
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        v = tree[k]
+        out += (sorted_leaves(v, path) if isinstance(v, dict)
+                else [(path, v)])
+    return out
 
 
 def init_params(gen: torch.Generator, specs: dict,

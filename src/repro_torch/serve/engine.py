@@ -293,7 +293,7 @@ class ServeEngine:
 # options of the reference engine that the port does not have yet, by the
 # ROADMAP.md item that brings them
 _LATER = {
-    "mesh": "mesh-sharded serving lands with ROADMAP item A9, the "
+    "mesh": "mesh-sharded serving lands with ROADMAP item A9b, the "
             "multi-GPU port slice",
 }
 

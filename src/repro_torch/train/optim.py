@@ -1,0 +1,255 @@
+"""Optimizers with spec-aware state (port of ``repro/train/optim.py``).
+
+AdamW for standard scales; Adafactor (factored second moment, no first
+moment) from 100 B parameters, where full Adam state does not fit — the rule
+lives in :func:`select_optimizer`. State layouts are derived from the
+model's ``ParamSpec`` s (:func:`state_specs`), with the reference's flat
+paths (``step``, ``mu/<path>``, ``nu/<path>``, ``vr/<path>``, ``vc/<path>``,
+``v/<path>``), so a checkpoint's optimizer state moves between the two
+packages by path.
+
+:func:`apply_updates` updates params and state **in place** under
+``torch.no_grad()`` (``Tensor.copy_`` and in-place arithmetic), so every
+weight's ``_version`` moves and the fp8 weight cache
+(:mod:`repro_torch.quant.weight_cache`) never serves codes of the weights
+before the step.
+
+Numerics follow the reference's f32 array math: the learning rate, the bias
+corrections ``b1 ** t`` / ``b2 ** t`` and Adafactor's ``step ** -0.8`` are
+f32 tensors, divisions by host scalars go through
+:func:`repro_torch.quant.formats.true_div` (one rounding, as the reference
+divides), the global gradient norm adds the leaves' sums in the
+reference's leaf order (dict keys sorted at every level), and the cosine of
+the schedule is :func:`_cosf`, the CPU's libm ``cosf`` that the reference's
+schedule calls op by op, evaluated in float64 tensor arithmetic (on the CPU
+the schedule is then the reference's bit for bit).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.spec import (ParamSpec, flatten_paths, sorted_leaves,
+                                 tree_from_flat)
+from repro_torch.quant.formats import true_div
+
+__all__ = ["OptConfig", "select_optimizer", "init_state", "state_specs",
+           "apply_updates", "lr_at"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    name: str = "adamw"            # adamw | adafactor
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    grad_clip: float = 1.0
+    # adafactor
+    decay_offset: float = 1e-30
+
+
+def select_optimizer(n_params: int,
+                     base: Optional[OptConfig] = None) -> OptConfig:
+    base = base or OptConfig()
+    if n_params >= 100e9 and base.name == "adamw":
+        return dataclasses.replace(base, name="adafactor")
+    return base
+
+
+# glibc's single-precision sine/cosine (sysdeps/ieee754/flt-32): 2/pi
+# scaled by 2^24, pi/2, the cosine and the sine polynomials
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")
+_HPI = float.fromhex("0x1.921FB54442D18p0")
+_C = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+
+
+def _cosf(y: torch.Tensor) -> torch.Tensor:
+    """``cosf`` of f32 ``y`` (|y| < 120) as the CPU's libm computes it: the
+    argument reduced by pi/2 and a cosine or sine polynomial evaluated in
+    float64, rounded once to f32. ``torch.cos`` on f32 takes another
+    approximation and parts from it by an ulp in about one value of twenty,
+    enough to move the schedule's learning rate. The schedule's argument
+    lies in [0, pi]; larger ones take another reduction in libm."""
+    x = y.double()
+    # the quadrant n sits in bits 24..31 of the truncated x * 2^24 * 2/pi;
+    # below 0.75 (libm compares the top 12 bits of |y| with pi/4's) there
+    # is no reduction
+    n = torch.div(torch.trunc(x * _HPI_INV).long() + 0x800000, 1 << 24,
+                  rounding_mode="floor")
+    n = torch.where(y.abs() < 0.75, torch.zeros_like(n), n)
+    r = x - n.double() * _HPI
+    r2 = r * r
+    # cosine polynomial (n even), negated in quadrants 2 and 3
+    neg = (1 - 2 * ((n >> 1) & 1)).double()
+    c = [k * neg for k in _C]
+    x4 = r2 * r2
+    c2 = c[3] + r2 * c[4]
+    c1 = c[0] + r2 * c[1]
+    x6 = x4 * r2
+    cos = (c1 + x4 * c[2]) + x6 * c2
+    # sine polynomial (n odd) of the reduced argument, signed by quadrant:
+    # + in 0 and 3, - in 1 and 2
+    rs = r * (1 - 2 * ((n ^ (n >> 1)) & 1)).double()
+    x3 = rs * r2
+    s1 = _S[1] + r2 * _S[2]
+    x7 = x3 * r2
+    sin = (rs + x3 * _S[0]) + x7 * s1
+    out = torch.where((n & 1) == 0, cos, sin).float()
+    return torch.where(y.abs() < 2.0 ** -12, torch.ones_like(out), out)
+
+
+def lr_at(cfg: OptConfig, step) -> torch.Tensor:
+    """Warm-up then cosine decay to ``min_lr_ratio``: an f32 0-d tensor on
+    ``step`` 's device (a Python int steps on the CPU)."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp_max(true_div(step, float(max(cfg.warmup_steps, 1))),
+                           1.0)
+    prog = torch.clamp(true_div(step - cfg.warmup_steps,
+                                float(max(cfg.total_steps - cfg.warmup_steps,
+                                          1))), 0.0, 1.0)
+    cos = 0.5 * (1 + _cosf(math.pi * prog))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+# ---------------------------------------------------------------------------
+# state
+# ---------------------------------------------------------------------------
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def state_specs(param_specs: dict, cfg: OptConfig) -> dict:
+    """Flat path -> ParamSpec dict of optimizer-state tensors."""
+    out: dict = {"step": ParamSpec((), (), torch.int32, "zeros")}
+    f32 = torch.float32
+    for path, ps in param_specs.items():
+        if cfg.name == "adamw":
+            out[f"mu/{path}"] = ParamSpec(ps.shape, ps.logical_axes, f32,
+                                          "zeros")
+            out[f"nu/{path}"] = ParamSpec(ps.shape, ps.logical_axes, f32,
+                                          "zeros")
+        elif _factored(ps.shape):      # adafactor: row/col factors
+            out[f"vr/{path}"] = ParamSpec(ps.shape[:-1],
+                                          ps.logical_axes[:-1], f32, "zeros")
+            out[f"vc/{path}"] = ParamSpec(
+                ps.shape[:-2] + ps.shape[-1:],
+                ps.logical_axes[:-2] + ps.logical_axes[-1:], f32, "zeros")
+        else:
+            out[f"v/{path}"] = ParamSpec(ps.shape, ps.logical_axes, f32,
+                                         "zeros")
+    return out
+
+
+def init_state(param_specs: dict, cfg: OptConfig,
+               device: DeviceLike = None) -> dict:
+    """Zeroed optimizer state on ``device`` (nested, as the reference's)."""
+    device = resolve_device(device)
+    return tree_from_flat({
+        path: torch.zeros(ps.shape, dtype=ps.dtype, device=device)
+        for path, ps in state_specs(param_specs, cfg).items()})
+
+
+# ---------------------------------------------------------------------------
+# update
+# ---------------------------------------------------------------------------
+
+
+def _global_norm(tree: dict) -> torch.Tensor:
+    """The leaves' f32 sums of squares added in the reference's leaf order."""
+    total = 0
+    for _, x in sorted_leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+# leaves larger than this (of rank >= 3) are updated one slice of their
+# leading (stacked) dim at a time, bounding the f32 temporaries to a slice
+_CHUNKED_UPDATE_BYTES = 256 * 1024 * 1024
+
+
+def _update_one(cfg: OptConfig, step: torch.Tensor, lr: torch.Tensor, scale,
+                p: torch.Tensor, g: torch.Tensor, st: dict) -> None:
+    """The optimizer's elementwise math for one param (or one slice of a
+    stacked one), written into ``p`` and the tensors of ``st``."""
+    g = g.float() * scale
+    pf = p.float()
+    if cfg.name == "adamw":
+        mu, nu = st["mu"], st["nu"]
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        t = step.float()
+        one = torch.ones((), dtype=torch.float32, device=t.device)
+        bc1 = 1 - torch.pow(one * cfg.b1, t)
+        bc2 = 1 - torch.pow(one * cfg.b2, t)
+        upd = torch.div(mu, bc1).div_(torch.div(nu, bc2).sqrt_().add_(
+            cfg.eps))
+    else:  # adafactor (no first moment)
+        b2 = 1.0 - step.float() ** -0.8
+        g2 = torch.square(g) + cfg.decay_offset
+        if "vr" in st:
+            vr, vc = st["vr"], st["vc"]
+            vr.copy_(b2 * vr + (1 - b2) * torch.mean(g2, dim=-1))
+            vc.copy_(b2 * vc + (1 - b2) * torch.mean(g2, dim=-2))
+            rmean = torch.mean(vr, dim=-1, keepdim=True)
+            vhat = (torch.div(vr, torch.clamp_min(rmean, 1e-30))[..., None]
+                    * vc[..., None, :])
+        else:
+            v = st["v"]
+            v.copy_(b2 * v + (1 - b2) * g2)
+            vhat = v
+        upd = g * torch.rsqrt(torch.clamp_min(vhat, 1e-30))
+        # relative update clipping (Adafactor d=1.0; per slice when chunked)
+        rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-30)
+        upd = torch.div(upd, torch.clamp_min(rms, 1.0))
+    if cfg.weight_decay and p.dim() >= 2:
+        upd = upd + cfg.weight_decay * pf
+    p.copy_((pf - lr * upd).to(p.dtype))
+
+
+@torch.no_grad()
+def apply_updates(params: dict, grads: dict, state: dict,
+                  cfg: OptConfig) -> tuple:
+    """One optimizer step, in place on ``params`` and ``state``. Returns
+    ``(params, state, metrics)`` — the same trees, updated — with
+    ``metrics`` ``{"lr", "grad_norm"}`` (0-d f32 tensors), as the
+    reference returns its new trees."""
+    step = state["step"] + 1
+    lr = lr_at(cfg, step)
+    gnorm = _global_norm(grads)
+    scale = (torch.clamp_max(true_div(cfg.grad_clip,
+                                      torch.clamp_min(gnorm, 1e-12)), 1.0)
+             if cfg.grad_clip else 1.0)
+    fg = flatten_paths(grads)
+    fs = flatten_paths(state)
+    for path, p in flatten_paths(params).items():
+        st = {pre: fs[f"{pre}/{path}"] for pre in ("mu", "nu", "vr", "vc",
+                                                   "v")
+              if f"{pre}/{path}" in fs}
+        # vr/vc state only counts as factored if the slice stays >= 2-D
+        chunk = (p.numel() * p.element_size() > _CHUNKED_UPDATE_BYTES
+                 and p.dim() >= 3 and p.shape[0] > 1
+                 and all(s.shape[:1] == p.shape[:1] for s in st.values()))
+        if chunk:
+            for i in range(p.shape[0]):
+                _update_one(cfg, step, lr, scale, p[i], fg[path][i],
+                            {k: v[i] for k, v in st.items()})
+        else:
+            _update_one(cfg, step, lr, scale, p, fg[path], st)
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gnorm}

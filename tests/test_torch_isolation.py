@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor anything of
-the reference package ``repro``."""
+the reference package ``repro``, nor ``ml_dtypes`` (the card's machine has
+none: checkpoints store bf16 and fp8 as raw bytes)."""
 import os
 import re
 import subprocess
@@ -12,7 +13,12 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-_FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)")
+_FORBIDDEN = re.compile(
+    r"^\s*(from|import)\s+(jax|repro|ml_dtypes)(\.|\s|$)")
+# the training slice's modules, which must be among those checked
+_TRAINING = ("repro_torch.train.optim", "repro_torch.train.trainer",
+             "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+             "repro_torch.distributed.grad_compress")
 
 
 def _port_modules() -> list:
@@ -29,13 +35,16 @@ def _port_modules() -> list:
 def test_every_port_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and len(mods) >= 20
+    assert set(_TRAINING) <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'ml_dtypes')\n"
+        "       and sys.modules[m]\n"
         "       or m.startswith(('jax.', 'jaxlib', 'repro.'))]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
