@@ -291,7 +291,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     30, against a straight 30 (bitwise or the largest difference printed,
     bound 2e-2), the newest checkpoint corrupted and the resume walking
     back to the one before; every save and restore timed;
-26. print the kernel table and the serving and calibration numbers as JSON
+26. (run after phase 5, on its model) serving over a 1x1 (data, model)
+    mesh: ``ContinuousBatchingEngine(mesh=make_local_mesh(1, 1))`` over an
+    NCCL group of one rank (an in-memory store, no network; a group that
+    fails to start fails the run) at phase 4's cell, plain and under
+    phase 5's plan: every step graphed with its collectives, every fused
+    launch of kernel 5 made through the layers' mesh branch (its counter
+    equal to the drain's launches: 1088 plain, 1020 under the plan) and the
+    tokens equal, bit for bit, to phases 4 and 5's engine without a mesh;
+    the phase's seconds, the weights' bytes per rank and the captures are
+    printed, and the process group is destroyed at its end;
+27. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -1224,7 +1234,7 @@ def warm_buckets(torch, eng, params, longest: int) -> list:
     writes the trash block, a dense one nothing): on the card each bucket
     captures here, so the drains after it replay only, as a drain whose
     buckets all came before does. The engine's pool must exist (a drain
-    made it)."""
+    made it). The step runs over the params the engine's drains serve."""
     from repro_torch.serve.cache_pool import host_to_device
     pool, n = eng._pool, eng.n_slots
     buckets = prefill_buckets(eng, longest)
@@ -1234,7 +1244,9 @@ def warm_buckets(torch, eng, params, longest: int) -> list:
                       np.zeros(n, np.int32)]
             if eng.paged:
                 inputs.append(np.full((n, pool.max_blocks), -1, np.int32))
-            eng.prefill_chunk_step(params, pool.caches,
+            # the params the engine's drains serve (a mesh engine's: its
+            # rank's shard), so the graphs stay bound to them
+            eng.prefill_chunk_step(eng._local_params(params), pool.caches,
                                    *(host_to_device(a, eng.device)
                                      for a in inputs))
     return buckets
@@ -1417,6 +1429,11 @@ def fixed_plan(model):
                   budget=0.0, predicted_loss_mse=0.0, predicted_gain=0.0)
 
 
+# phases 4 and 5's tokens, fused launches and tokens/s by model name, for
+# phase 26
+SERVED_TOKENS: dict = {}
+
+
 def serve_phase(torch, model, params, gather_eager=True) -> dict:
     """Phases 4 and 5 at full width on the card (phases 13 and 18 run them
     on the larger configs): every drain graphed, and held bit for bit
@@ -1505,6 +1522,11 @@ def serve_phase(torch, model, params, gather_eager=True) -> dict:
                           failures=failures)
     if failures:
         raise AssertionError("; ".join(failures))
+    SERVED_TOKENS[model.cfg.name] = {
+        "plain": ({rid: tl[0] for rid, tl in fused_tl.items()}, n_fused,
+                  fused.tokens_per_s),
+        "mp": ({rid: tl[0] for rid, tl in mp_tl.items()}, n_mp,
+               mp_out.tokens_per_s)}
     log(f"{model.cfg.name} tokens/s graphed / eager: fused "
         f"{fused.tokens_per_s:.1f} / {eager.tokens_per_s:.1f}, MP fused "
         f"{mp_out.tokens_per_s:.1f} / {mp_eager.tokens_per_s:.1f}")
@@ -1530,6 +1552,95 @@ def serve_phase(torch, model, params, gather_eager=True) -> dict:
             "mp_gather": serving_numbers(mp_gather),
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 26: serving over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# the time budgets this script is held to by its maintainers (printed, not
+# enforced: the run's own limit is 1200 s)
+MESH_PHASE_BUDGET_S = 45.0
+SCRIPT_BUDGET_S = 900.0
+
+
+def mesh_phase(torch, model, params) -> dict:
+    """Phase 26: phase 4's cell and phase 5's plan through the continuous
+    engine over a 1x1 mesh of one NCCL rank, against phases 4 and 5's
+    engine without a mesh (tokens bit for bit, the same fused launches, all
+    made through the mesh branch)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.launch.steps import release_mesh_steps
+    from repro_torch.nn.spec import flatten_paths
+    from repro_torch.serve.parallel import shard_serving_params
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1, device=DEVICE)
+    try:
+        backend = dist.get_backend()
+        if DEVICE == "cuda" and backend != "nccl":
+            raise AssertionError(f"mesh process group on {backend}, not "
+                                 f"NCCL")
+        local = shard_serving_params(model, params, mesh)
+        rank_bytes = sum(t.numel() * t.element_size()
+                         for t in flatten_paths(local).values())
+        reqs = make_requests(model.cfg.vocab_size, SERVE["requests"],
+                             SERVE["prompt_len"], SERVE["new_tokens"],
+                             SERVE["arrival_every"])
+        ref = SERVED_TOKENS[model.cfg.name]
+        out = {"backend": backend, "mesh": [1, 1],
+               "weights_bytes_per_rank": rank_bytes}
+        for name, mp in (("plain", None), ("mp", fixed_plan(model))):
+            res, launches, tl = run_continuous(
+                torch, model, params, reqs, mp=mp, paged_attn="fused",
+                route="gqa_mma", name="mesh 1x1", mesh=mesh)
+            c = res.counters
+            want_tokens, want_launches, want_tps = ref[name]
+            if c["mesh"] != {"data": 1, "model": 1, "shard_pages": False}:
+                raise AssertionError(f"mesh {name}: layout {c['mesh']}")
+            if launches != want_launches or c["mesh_kernel_launches"] != \
+                    launches or (launches == 0 and DEVICE == "cuda"):
+                raise AssertionError(
+                    f"mesh {name}: {launches} kernel launches, "
+                    f"{c['mesh_kernel_launches']} through the mesh branch; "
+                    f"the engine without a mesh made {want_launches}")
+            differ = [rid for rid in want_tokens
+                      if not np.array_equal(tl[rid][0], want_tokens[rid])]
+            if differ:
+                raise AssertionError(f"mesh {name}: tokens of requests "
+                                     f"{differ} differ from the engine "
+                                     f"without a mesh")
+            out[name] = {
+                "kernel_launches": launches,
+                "mesh_kernel_launches": c["mesh_kernel_launches"],
+                "decode_steps": res.n_steps,
+                "warm_graph_captures_by_kind":
+                    c["warm_graph_captures_by_kind"],
+                "graph_captures": c["graph_captures"],
+                "graph_replays": c["graph_replays"],
+                "tokens_equal_no_mesh": True,
+                "tokens_per_s": res.tokens_per_s,
+                "tokens_per_s_no_mesh": want_tps,
+                "wall_tokens_per_s": c["wall_tokens_per_s"]}
+            log(f"mesh 1x1 {name}: {launches} kernel launches, all through "
+                f"the mesh branch; tokens of all {len(want_tokens)} requests "
+                f"equal to the engine without a mesh; captures in the "
+                f"warm-ups {kinds(c['warm_graph_captures_by_kind'])}, "
+                f"{c['graph_replays']} replays; {res.tokens_per_s:.1f} "
+                f"tokens/s against {want_tps:.1f} without a mesh "
+                f"({res.tokens_per_s / want_tps:.3f}x)")
+    finally:
+        # the mesh steps' graphs hold the group's collectives: they go first
+        release_mesh_steps(model)
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 26 (mesh 1x1 over {backend}): {out['seconds']:.1f} s "
+        f"(budget {MESH_PHASE_BUDGET_S:.0f} s), weights "
+        f"{rank_bytes / 1e9:.3f} GB per rank"
+        f"{'; ' + card_line() if DEVICE == 'cuda' else ''}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5816,6 +5927,7 @@ def main() -> int:
     log(f"{model.cfg.name}: {model.n_params() / 1e9:.3f}B params, "
         f"random init in {time.perf_counter() - t0:.1f} s")
     report.update(phase("serving", serve_phase, torch, model, params))
+    report["mesh"] = phase("mesh serving", mesh_phase, torch, model, params)
 
     failures: list = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6035,6 +6147,7 @@ def main() -> int:
                               else r for a, r in report["moe"].items()}}),
           flush=True)
     print(json.dumps({"ssm": report["ssm"], "card": card}), flush=True)
+    print(json.dumps({"mesh": report["mesh"], "card": card}), flush=True)
     print(json.dumps({"training": report["training"], "card": card}),
           flush=True)
     print(json.dumps({"encdec_vlm": {
@@ -6056,8 +6169,11 @@ def main() -> int:
                       "plans": report["plan_serving"]["plans"],
                       "fig3a": report["fig3a"],
                       "phase_seconds": report["phase_seconds"]}), flush=True)
-    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all, the "
-        f"kernels' build included")
+    total_s = time.perf_counter() - T_START
+    log(f"chip_smoke: {total_s:.1f} s in all, the kernels' build included "
+        f"(budget {SCRIPT_BUDGET_S:.0f} s); phase 26: "
+        f"{report['mesh']['seconds']:.1f} s (budget "
+        f"{MESH_PHASE_BUDGET_S:.0f} s)")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

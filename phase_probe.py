@@ -34,6 +34,9 @@ builds it. The phases run in the order given:
   without its fsync, ``np.load`` of every member, then the checkout's
   ``CheckpointManager.save``, ``restore`` (every digest checked) and
   ``restore(only="params")``;
+- ``mesh``: phase 26 (``mesh_phase``: llama3_1b at phase 4's cell over a
+  1x1 NCCL mesh, plain and under phase 5's plan), after the two drains
+  without a mesh it is held to (fused, plain and under the plan);
 - ``train_step``: phase 25's eager training step alone (llama3_1b at full
   width and depth, AdamW, ``TRAIN_LOSS``' batch): ``--reps`` steps timed
   on the host clock, then the same number under ``torch.profiler``; the
@@ -161,6 +164,23 @@ def checkpoint_io(torch, cs, gb: float) -> dict:
     return rows
 
 
+def mesh(torch, cs, model, params) -> dict:
+    """Phase 26 and the fused drains without a mesh (phases 4 and 5's
+    first) whose tokens and launches it is held to."""
+    from repro_torch.launch.serve import make_requests
+    reqs = make_requests(model.cfg.vocab_size, cs.SERVE["requests"],
+                         cs.SERVE["prompt_len"], cs.SERVE["new_tokens"],
+                         cs.SERVE["arrival_every"])
+    ref = {}
+    for name, mp in (("plain", None), ("mp", cs.fixed_plan(model))):
+        out, n, tl = cs.run_continuous(torch, model, params, reqs, mp=mp,
+                                       paged_attn="fused", route="gqa_mma")
+        ref[name] = ({rid: t[0] for rid, t in tl.items()}, n,
+                     out.tokens_per_s)
+    cs.SERVED_TOKENS[model.cfg.name] = ref
+    return cs.mesh_phase(torch, model, params)
+
+
 def train_step(torch, cs, reps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -230,7 +250,7 @@ def main() -> int:
     _build.build()
     cs.log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
     phases = args.phases.split(",")
-    if {"tier", "drains"} & set(phases):
+    if {"tier", "drains", "mesh"} & set(phases):
         model, params = make_model_and_params("llama3_1b", False, "cuda",
                                               seed=0)
     out: dict = {"root": str(root), "phases": {}, "drains": []}
@@ -259,6 +279,8 @@ def main() -> int:
                 "step_wall_ms"], "checkpoints": [
                 c for leg in ("loss_leg", "checkpoint_leg")
                 for c in rec[leg]["checkpoints"]]}
+        elif name == "mesh" and hasattr(cs, "mesh_phase"):
+            out["mesh"] = mesh(torch, cs, model, params)
         elif name == "checkpoint_io":
             out["checkpoint_io"] = checkpoint_io(torch, cs, args.gb)
         elif name == "train_step":

@@ -48,5 +48,6 @@ def compressed_psum(x: torch.Tensor, axis_name: str,
                     fmt_name: str = "fp8_e4m3") -> torch.Tensor:
     """All-reduce with an fp8 wire format: needs the port's mesh."""
     raise NotImplementedError(
-        "compressed_psum needs the port's mesh, which lands with ROADMAP "
-        "item A9b; compress_decompress / compress_tree work on one device")
+        "compressed_psum is the sharded trainer's all-reduce, which lands "
+        "with the training half of ROADMAP item A9b; compress_decompress / "
+        "compress_tree work on one device")

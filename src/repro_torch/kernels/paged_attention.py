@@ -48,7 +48,9 @@ wider table to the CUDA-core kernel (54,448).
 A CPU tensor takes the plain version (``kernels/ref.py``). A CUDA tensor
 launches a kernel or raises — nothing falls back. ``launches`` counts the
 launches of this process, so a run can show the main path went through the
-kernels; ``launches_by_route`` splits them by kernel.
+kernels; ``launches_by_route`` splits them by kernel and ``mesh_launches``
+counts those the layers' mesh branch made on a serving mesh's shard
+(``nn.layers.paged_kernel_call``).
 """
 from __future__ import annotations
 
@@ -63,11 +65,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 __all__ = ["paged_decode_attention", "launches", "launches_by_route",
+           "mesh_launches",
            "route", "ROUTES", "BIG_WINDOW", "smem_bytes", "gqa_slots",
            "mla_slots", "mla_split", "head_group", "max_context"]
 
 BIG_WINDOW = 1 << 30            # "no window" sentinel (fits int32)
 launches = 0                    # kernel launches in this process
+mesh_launches = 0               # of them, made on a serving mesh's shard
 ROUTES = ("gqa_mma", "mla_mma", "cuda_core")
 launches_by_route = dict.fromkeys(ROUTES, 0)
 

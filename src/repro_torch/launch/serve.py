@@ -74,6 +74,8 @@ profile::
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 from typing import Optional
 
 import numpy as np
@@ -191,6 +193,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="max prefill chunk steps between decode steps "
                          "(bounds per-request decode stall while a long "
                          "prompt prefills)")
+    ap.add_argument("--mesh", default=None, metavar="data=N,model=M",
+                    help="serve the continuous engine over a (data, model) "
+                         "mesh: one process a rank, started by torchrun "
+                         "(NCCL on CUDA, gloo on the CPU); 1x1 is the "
+                         "single-rank engine, as in the reference; rank 0 "
+                         "prints")
     ap.add_argument("--dense-slots", action="store_true",
                     help="use monolithic per-slot rings instead of paged "
                          "KV blocks (continuous mode)")
@@ -434,7 +442,34 @@ def profile_drain(eng, params, reqs, trace_path: Optional[str],
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.mesh is not None and not args.continuous:
+        raise SystemExit("--mesh shards the continuous engine; pass "
+                         "--continuous")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import mesh_from_spec
+        # before the weights: it picks this rank's card
+        mesh = mesh_from_spec(args.mesh, device)
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.launch.steps import release_mesh_steps
+        model = None
+        try:
+            quiet = (contextlib.redirect_stdout(io.StringIO())
+                     if dist.get_rank() != 0 else contextlib.nullcontext())
+            with quiet:
+                model = _serve(args, device, mesh)
+        finally:
+            if model is not None:     # its graphs hold the group's
+                release_mesh_steps(model)     # collectives
+            dist.destroy_process_group()
+    else:
+        _serve(args, device, None)
+
+
+def _serve(args, device, mesh):
+    """Serve as ``main`` says; returns the model."""
     if args.dense_prefix and args.n_layers is not None:
         raise SystemExit("--dense-prefix and --n-layers are exclusive")
     ov = dense_prefix_overrides(args.arch, args.smoke) \
@@ -510,8 +545,8 @@ def main(argv=None) -> None:
             profile = [(args.prompt_len, args.new_tokens)] * args.requests
             n_blocks = PagedCachePool.size_n_blocks(
                 profile, args.n_slots, args.block_size)
-            worst = PagedCachePool.plan_blocks(args.n_slots, max_len,
-                                               args.block_size)
+            worst, _, _ = PagedCachePool.plan_blocks(args.n_slots, max_len,
+                                                     args.block_size)
             print(f"[serve] auto-sized paged pool: {n_blocks} blocks "
                   f"(worst case {worst}) from {args.requests}-request "
                   f"profile at p95 live demand x1.25 headroom")
@@ -541,7 +576,7 @@ def main(argv=None) -> None:
             prefix_cache=False if args.no_prefix_cache else None,
             paged_attn=args.paged_attn, adaptive=controller,
             faults=injector, max_retries=args.max_retries,
-            guardrail=guardrail, device=device)
+            guardrail=guardrail, device=device, mesh=mesh)
         reqs = make_requests(model.cfg.vocab_size, args.requests,
                              args.prompt_len, args.new_tokens,
                              args.arrival_every)
@@ -553,6 +588,13 @@ def main(argv=None) -> None:
         eng.faults, eng.guardrail = injector, guardrail
         out = eng.serve(params, reqs, sync=sync)
         report_continuous(out, args.requests, args.n_slots)
+        if mesh is not None:
+            m = out.counters["mesh"]
+            print(f"[serve] mesh: data {m['data']} x model {m['model']} "
+                  f"({'pages sharded' if m['shard_pages'] else 'pages whole'}"
+                  f") | weights per rank {eng.rank_param_bytes / 1e6:.2f} MB"
+                  f" | paged kernel launches on the shard "
+                  f"{out.counters['mesh_kernel_launches']}")
         if args.profile:
             profile_drain(eng, params, reqs, args.profile, out.total_s,
                           sync=sync)
@@ -571,6 +613,7 @@ def main(argv=None) -> None:
               f"{args.new_tokens} new tokens")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    return model
 
 
 if __name__ == "__main__":

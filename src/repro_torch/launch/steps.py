@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.mpconfig import as_assignment
+from repro_torch.distributed.sharding import dp_gather, serving_layout_scope
 from repro_torch.models.encdec import EncDec
 from repro_torch.nn.spec import flatten_paths, tree_from_flat
 from repro_torch.quant.formats import true_div
@@ -271,6 +272,7 @@ def make_paged_decode_step(model, mp: Optional[dict] = None,
 # every kernel launch counter of the port: (module, attribute)
 _COUNTERS = (("paged_attention", "launches"),
              ("paged_attention", "launches_by_route"),
+             ("paged_attention", "mesh_launches"),
              ("quant_cast", "launches"), ("fp8_matmul", "launches"),
              ("mp_attention", "launches"))
 
@@ -508,19 +510,46 @@ def _mp_cache_key(mp):
     return None if mp is None else tuple(sorted(mp.items()))
 
 
+def mesh_step(fn, layout):
+    """A slot-major serving step run over a serving mesh: inside the
+    layout's scope (the layers' collectives and block-id translation see
+    it), on this rank's rows of every input (slot ``s`` lives on data
+    shard ``s // slots_per_shard``), with the logits and greedy tokens of
+    every shard gathered back in slot order, so every rank reads the same
+    tokens and schedules the same next step."""
+    def step(params, caches, *inputs):
+        with serving_layout_scope(layout):
+            n = layout.slots_per_shard
+            start = layout.data_index * n
+            local = tuple(t.narrow(0, start, n) for t in inputs)
+            logits, caches, nxt = fn(params, caches, *local)
+            logits = dp_gather(logits)
+            if nxt is not None:
+                nxt = dp_gather(nxt)
+        return logits, caches, nxt
+    return step
+
+
 def get_serving_step(model, kind: str, mp=None,
-                     paged_attn: Optional[str] = None) -> GraphedStep:
+                     paged_attn: Optional[str] = None,
+                     mesh_layout=None) -> GraphedStep:
     """Memoized serving step for ``model``. ``kind`` is one of
     ``prefill`` / ``bucketed_prefill`` / ``chunked_prefill`` /
     ``dense_chunked_prefill`` / ``decode`` / ``paged_decode``; ``mp`` an
     assignment dict or an ``MPPlan``. Every kind is a :class:`GraphedStep`
     (one graph per input shape on CUDA; ``prefill``, the per-length
-    one-shot step, keeps one at a time)."""
+    one-shot step, keeps one at a time). ``mesh_layout`` (a
+    ``ServingMeshLayout``) gives the step of that layout
+    (:func:`mesh_step`), memoized per layout; a captured step then holds
+    its collectives (NCCL's may be captured in a CUDA graph)."""
     if kind not in _BUILDERS:
         raise ValueError(f"unknown serving step kind {kind!r}")
     if paged_attn is not None and kind != "paged_decode":
         raise ValueError("paged_attn only applies to kind='paged_decode'")
-    key = (kind, _mp_cache_key(mp), paged_attn)
+    if mesh_layout is not None and kind == "prefill":
+        raise ValueError("the one-shot prefill step is not slot-major; "
+                         "mesh serving runs the continuous engine's steps")
+    key = (kind, _mp_cache_key(mp), paged_attn, mesh_layout)
     with _SERVING_STEPS_LOCK:
         steps = model.__dict__.setdefault(_STEPS_ATTR, {})
         fn = steps.get(key)
@@ -530,15 +559,32 @@ def get_serving_step(model, kind: str, mp=None,
                                              paged_attn=paged_attn or "fused")
             else:
                 raw = _BUILDERS[kind](model, mp=mp)
+            if mesh_layout is not None:
+                raw = mesh_step(raw, mesh_layout)
             fn = GraphedStep(raw, kind,
                              max_captures=1 if kind == "prefill" else None)
             steps[key] = fn
     return fn
 
 
+def release_mesh_steps(model) -> int:
+    """Drop ``model``'s memoized mesh steps and their graphs, whose captured
+    collectives belong to a process group: call it before the group is
+    destroyed. Returns how many steps were dropped."""
+    with _SERVING_STEPS_LOCK:
+        steps = model.__dict__.get(_STEPS_ATTR, {})
+        keys = [k for k in steps if k[-1] is not None]
+        for k in keys:
+            steps.pop(k).release()
+    return len(keys)
+
+
 def greedy_next_token(logits: torch.Tensor) -> torch.Tensor:
     """(B, T, V) logits -> (B,) int32 greedy token of the last position
-    (first index on ties, as in the reference)."""
+    (first index on ties, as in the reference). Mesh steps hand every
+    logits reader (this, :func:`nonfinite_rows`, :func:`shadow_logit_mse`)
+    the whole vocabulary: ``LM._head`` gathers a vocab-sharded head's
+    blocks first, so the tie-break is ``torch.argmax``'s own."""
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 

@@ -53,8 +53,8 @@ def main(argv=None):
     if (args.mesh_data, args.mesh_model) != (1, 1):
         raise NotImplementedError(
             f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model}: "
-            "the sharded trainer lands with ROADMAP item A9b; the port "
-            "trains on one device (both 1)")
+            "the sharded trainer lands with the training half of ROADMAP "
+            "item A9b; the port trains on one device (both 1)")
     device = resolve_device(args.device)
     model = get_model(args.arch, smoke=args.smoke)
     print(f"[train] arch={args.arch} params={model.n_params():,} "

@@ -39,6 +39,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import (current_serving_layout,
+                                              tp_gather, tp_sum)
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba as M
 from repro_torch.nn.mamba import SSMConfig  # noqa: F401
@@ -421,7 +423,7 @@ class LM:
         elif cfg.d_ff > 0:
             hn2 = L.apply_norm(p["mlp_norm"], h, cfg.norm)
             h = h + L.apply_mlp(p["mlp"], ctx, f"{scope}/mlp", hn2,
-                                cfg.activation)
+                                cfg.activation, d_ff=cfg.d_ff)
         return h, cache, aux
 
     def _backbone(self, params: dict, ctx: QuantContext, h: torch.Tensor,
@@ -455,7 +457,7 @@ class LM:
                prefix_embeds: Optional[torch.Tensor] = None) -> tuple:
         """Token embeddings (B, T, d) with ``prefix_embeds`` (B, P, d)
         prepended, and their positions 0 .. P + T - 1."""
-        emb = params["embed"]["w"][tokens.long()].to(self.dtype)
+        emb = self._lookup(params, tokens)
         if prefix_embeds is not None:
             emb = torch.cat([prefix_embeds.to(self.dtype), emb], dim=1)
         B, T = emb.shape[0], emb.shape[1]
@@ -463,11 +465,29 @@ class LM:
                                  device=emb.device)[None].expand(B, T)
         return emb, positions
 
+    def _lookup(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings. Under a serving mesh whose model axis splits
+        the vocabulary, each rank looks up the ids of its block (zeros for
+        the others) and the blocks are summed: one nonzero term, exact."""
+        w = params["embed"]["w"]
+        V = self.cfg.vocab_size
+        layout = current_serving_layout()
+        if layout is None or w.shape[0] * layout.model != V:
+            return w[tokens.long()].to(self.dtype)
+        ids = tokens.long() - layout.model_index * w.shape[0]
+        mine = (ids >= 0) & (ids < w.shape[0])
+        emb = w[ids.clamp(0, w.shape[0] - 1)].to(self.dtype)
+        emb = torch.where(mine[..., None], emb, torch.zeros_like(emb))
+        return tp_sum(emb)
+
     def _head(self, params: dict, ctx: QuantContext,
               h: torch.Tensor) -> torch.Tensor:
+        """Logits over the whole vocabulary (a mesh's blocks of it
+        gathered over ``model``)."""
         w = (params["embed"]["w"] if self.cfg.tie_embeddings
              else params["lm_head"]["w"])
-        return qops.linear(ctx, "lm_head", h, w)
+        return tp_gather(qops.linear(ctx, "lm_head", h, w),
+                         self.cfg.vocab_size)
 
     def apply(self, params: dict, tokens: torch.Tensor, ctx: QuantContext,
               *, prefix_embeds: Optional[torch.Tensor] = None
@@ -604,19 +624,27 @@ class LM:
         return self._assemble(one)
 
     @staticmethod
-    def _materialize(specs: dict, device: torch.device) -> dict:
-        """The cache tree of flat specs, as the reference assembles it: a
-        layer of one kind holds its leaves directly, a hybrid layer under
-        ``"attn"`` and ``"mamba"``."""
+    def assemble_cache_tree(flat: dict) -> dict:
+        """Flat ``layers/i@<sub>/<leaf>`` keys -> the nested cache tree the
+        engines carry, as the reference assembles it: a layer of one kind
+        holds its leaves directly, a hybrid layer under ``"attn"`` and
+        ``"mamba"``. The same structure for any leaf values (specs,
+        tensors, placements)."""
         tree: dict = {}
-        for key, s in specs.items():
+        for key, v in flat.items():
             layer, rest = key.split("@", 1)
             sub, leaf = rest.split("/", 1)
-            fill = -1 if leaf == "pos" else 0
-            tree.setdefault(layer, {}).setdefault(sub, {})[leaf] = \
-                torch.full(s.shape, fill, dtype=s.dtype, device=device)
+            tree.setdefault(layer, {}).setdefault(sub, {})[leaf] = v
         return {layer: subs[next(iter(subs))] if len(subs) == 1 else subs
                 for layer, subs in tree.items()}
+
+    @classmethod
+    def _materialize(cls, specs: dict, device: torch.device) -> dict:
+        """The cache tree of flat specs (``pos`` rings at -1, the rest 0)."""
+        return cls.assemble_cache_tree({
+            key: torch.full(s.shape, -1 if key.endswith("/pos") else 0,
+                            dtype=s.dtype, device=device)
+            for key, s in specs.items()})
 
     def init_cache(self, batch: int, max_len: int, device: DeviceLike = None,
                    *, ring_window: bool = True, chunk_extra: int = 0) -> dict:
@@ -674,7 +702,7 @@ class LM:
         dev = tokens.device
         start = torch.as_tensor(start_pos, dtype=torch.int32, device=dev)
         valid = torch.as_tensor(valid_len, dtype=torch.int32, device=dev)
-        emb = params["embed"]["w"][tokens.long()].to(self.dtype)
+        emb = self._lookup(params, tokens)
         ar = torch.arange(T, dtype=torch.int32, device=dev)[None]
         positions = start[:, None] + ar
         chunk_valid = ar < valid[:, None]
@@ -696,7 +724,7 @@ class LM:
         ``"gather"`` through the reference path. Mamba layers take their
         recurrent step; in the paged layout a row whose table starts with
         -1 keeps its SSM state."""
-        emb = params["embed"]["w"][token.long()].to(self.dtype)
+        emb = self._lookup(params, token)
         B = token.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         positions = (pos[:, None] if pos.dim() == 1

@@ -51,6 +51,8 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (current_serving_layout,
+                                              tp_gather, tp_slice, tp_sum)
 from repro_torch.nn.spec import ParamSpec
 from repro_torch.quant import qops
 from repro_torch.quant.formats import cast_to, get_format, true_div
@@ -62,6 +64,87 @@ __all__ = ["norm_specs", "row_mean", "apply_norm", "rope_table",
            "paged_gather", "use_fused_paged", "paged_update_attend",
            "attention", "cross_kv", "MLAConfig", "mla_specs", "mla_cache_spec",
            "mla_page_spec", "mla_attention"]
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over a serving mesh (identities without one)
+# ---------------------------------------------------------------------------
+
+
+def row_linear(ctx: QuantContext, name: str, x: torch.Tensor,
+               w: torch.Tensor, full_in: int,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``qops.linear`` for a weight whose input features (``full_in`` of
+    them) a serving mesh may split over ``model``: ``x`` holds the whole
+    features or this rank's block of them; the block's partial product is
+    summed over ``model`` (in f32 when the axis has several ranks, so the
+    sum rounds once) and the bias added after the sum. A weight the rules
+    leave whole runs as without a mesh."""
+    layout = current_serving_layout()
+    k = w.shape[-1]
+    if layout is None or k * layout.model != full_in:
+        return qops.linear(ctx, name, tp_gather(x, full_in), w, b)
+    x = tp_slice(x, k)
+    if layout.model == 1:
+        y = tp_sum(qops.linear(ctx, name, x, w))
+    else:
+        y = tp_sum(qops.linear(ctx, name, x, w,
+                               out_dtype=torch.float32)).to(x.dtype)
+    return y if b is None else y + b.to(y.dtype)
+
+
+def _shard_like(t: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Fresh ``(B, T, ...)`` values cut to the feature block a cache leaf
+    (``(rows, positions, ...)``) holds on this rank."""
+    for d in range(2, t.dim()):
+        t = tp_slice(t, leaf.shape[d], d)
+    return t
+
+
+def _fresh_for(cache: dict, tensors: dict) -> dict:
+    """:func:`_shard_like` of every fresh tensor against its cache leaf."""
+    return {name: _shard_like(t, cache[name]) for name, t in tensors.items()}
+
+
+def _unshard(t: torch.Tensor, full: tuple) -> torch.Tensor:
+    """A ``(B, S, ...)`` read of a cache leaf gathered back to the feature
+    widths ``full`` (the trailing dims) the layer works at."""
+    for d, n in enumerate(full, start=2):
+        t = tp_gather(t, n, d)
+    return t
+
+
+def shard_block_tables(bt: torch.Tensor) -> torch.Tensor:
+    """Global block ids -> this data shard's local ones under a serving mesh
+    (``bt - d * blocks_per_shard`` where ``bt >= 0``; -1 stays -1 and lands
+    on the shard's own trash block, local 0). The offset is 0 when the
+    pages are not sharded (a 1x1 mesh, say): the same branch runs."""
+    layout = current_serving_layout()
+    if layout is None:
+        return bt
+    off = layout.block_offset()
+    return torch.where(bt >= 0, bt - off, bt)
+
+
+def _mesh_fused_ok(batch: int, n_kv_heads: int) -> bool:
+    """Mesh leg of the fused-paged dispatch: the kernel runs per shard when
+    the decode rows divide ``data`` and the KV heads divide ``model``;
+    otherwise the layer gathers. ``batch`` is this rank's rows."""
+    layout = current_serving_layout()
+    return layout is None or layout.fused_ok(batch * layout.data, n_kv_heads)
+
+
+def paged_kernel_call(*args, **kw) -> torch.Tensor:
+    """``kernels.paged_attention.paged_decode_attention`` on this rank's
+    shard: its decode rows, its KV heads and (sharded pages) its pages,
+    through block tables already made shard-local. Launches made here
+    under a mesh also count in the kernel module's ``mesh_launches``."""
+    from repro_torch.kernels import paged_attention as pa
+    before = pa.launches
+    out = pa.paged_decode_attention(*args, **kw)
+    if current_serving_layout() is not None:
+        pa.mesh_launches += pa.launches - before
+    return out
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -169,7 +252,9 @@ def mlp_specs(prefix: str, d_model: int, d_ff: int, activation: str,
 
 
 def apply_mlp(p: dict, ctx: QuantContext, scope: str, x: torch.Tensor,
-              activation: str) -> torch.Tensor:
+              activation: str, d_ff: Optional[int] = None) -> torch.Tensor:
+    """``d_ff`` (the whole ffn width) is needed under a serving mesh, where
+    the weights may hold this rank's block of it."""
     if activation == "swiglu":
         g = qops.linear(ctx, f"{scope}/gate_proj", x, p["gate_proj"]["w"])
         u = qops.linear(ctx, f"{scope}/up_proj", x, p["up_proj"]["w"])
@@ -178,8 +263,10 @@ def apply_mlp(p: dict, ctx: QuantContext, scope: str, x: torch.Tensor,
         u = qops.linear(ctx, f"{scope}/up_proj", x, p["up_proj"]["w"],
                         p["up_proj"].get("b"))
         h = _act(activation, u.float()).to(x.dtype)
-    return qops.linear(ctx, f"{scope}/down_proj", h, p["down_proj"]["w"],
-                       p["down_proj"].get("b"))
+    if d_ff is None:
+        d_ff = p["down_proj"]["w"].shape[-1]
+    return row_linear(ctx, f"{scope}/down_proj", h, p["down_proj"]["w"],
+                      d_ff, p["down_proj"].get("b"))
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +431,10 @@ def paged_update_attend(cache: dict, tensors: dict, block_tables, positions,
     ``(B, S)`` layout (``(cache, g, kp)``), or for a fused decode step return
     ``(cache, None, None)``. Non-unit ``scales`` divide the fresh K/V in f32
     before the storage cast; fp8 storage saturates at the format's finite
-    max (e4m3fn has no inf; an overflow would store NaN)."""
+    max (e4m3fn has no inf; an overflow would store NaN). Under a serving
+    mesh ``block_tables`` are shard-local, the writes take this rank's
+    block of the fresh values' features and ``g`` is gathered back to their
+    widths."""
     if scales:
         tensors = {name: (t if float(scales.get(name, 1.0)) == 1.0
                           else true_div(t.float(), float(scales[name])))
@@ -358,6 +448,8 @@ def paged_update_attend(cache: dict, tensors: dict, block_tables, positions,
         return t
 
     tensors = {name: _saturate(name, t) for name, t in tensors.items()}
+    widths = {name: tuple(t.shape[2:]) for name, t in tensors.items()}
+    tensors = _fresh_for(cache, tensors)
     if chunk_valid is not None:
         cache = paged_write_chunk(cache, tensors, block_tables, positions,
                                   chunk_valid)
@@ -367,23 +459,23 @@ def paged_update_attend(cache: dict, tensors: dict, block_tables, positions,
         if fused:
             return cache, None, None
     g, kp = paged_gather(cache, block_tables, dtype, scales)
+    g = {name: _unshard(t, widths[name]) for name, t in g.items()}
     return cache, g, kp
 
 
-def _fused_paged_attention(cfg: AttnConfig, q: torch.Tensor, cache: dict,
+def _fused_paged_attention(q: torch.Tensor, Hkv: int, cache: dict,
                            block_tables: torch.Tensor,
                            positions: torch.Tensor, window,
                            scales: Optional[dict] = None) -> torch.Tensor:
     """GQA decode against block-major K/V: one kernel call per layer, no
-    ``(B, S)`` gather. Returns (B, 1, H, Dv)."""
-    from repro_torch.kernels.paged_attention import paged_decode_attention
+    ``(B, S)`` gather. ``q`` (B, 1, H, D) and the pages hold this rank's
+    ``Hkv`` KV heads under a mesh. Returns (B, 1, H, Dv)."""
     B, T, H, D = q.shape
     assert T == 1, "fused paged attention is single-query decode"
-    Hkv = cfg.n_kv_heads
     qk = q.reshape(B, Hkv, H // Hkv, D)
     lengths = (positions[:, 0] + 1).to(torch.int32)
     sc = scales or {}
-    o = paged_decode_attention(
+    o = paged_kernel_call(
         qk, cache["k"], cache["v"], block_tables.to(torch.int32), lengths,
         window=window, scale=math.sqrt(D), scale_mode="div",
         score_dtype=q.dtype, probs_dtype=q.dtype,
@@ -545,47 +637,60 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if isinstance(window, str) and window == "cfg":
         window = cfg.window
-    q = _split_heads(qops.linear(ctx, f"{scope}/q_proj", x, p["q_proj"]["w"],
-                                 p["q_proj"].get("b")), H, D)
-    k = _split_heads(qops.linear(ctx, f"{scope}/k_proj", x, p["k_proj"]["w"],
-                                 p["k_proj"].get("b")), Hkv, D)
-    v = _split_heads(qops.linear(ctx, f"{scope}/v_proj", x, p["v_proj"]["w"],
-                                 p["v_proj"].get("b")), Hkv, D)
+    # under a serving mesh whose model axis divides the KV heads, this rank
+    # works on its block of the heads; otherwise it gathers them all
+    layout = current_serving_layout()
+    if layout is not None and Hkv % layout.model == 0:
+        H, Hkv = H // layout.model, Hkv // layout.model
+    q = _split_heads(tp_gather(qops.linear(
+        ctx, f"{scope}/q_proj", x, p["q_proj"]["w"], p["q_proj"].get("b")),
+        H * D), H, D)
+    k = _split_heads(tp_gather(qops.linear(
+        ctx, f"{scope}/k_proj", x, p["k_proj"]["w"], p["k_proj"].get("b")),
+        Hkv * D), Hkv, D)
+    v = _split_heads(tp_gather(qops.linear(
+        ctx, f"{scope}/v_proj", x, p["v_proj"]["w"], p["v_proj"].get("b")),
+        Hkv * D), Hkv, D)
     if cfg.rope_theta is not None:
         sin, cos = rope_table(positions, D, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
+    if block_tables is not None:
+        block_tables = shard_block_tables(block_tables)
 
     y_fused = None
     if cache is not None and block_tables is not None:
         fused = (chunk_valid is None and cfg.causal
-                 and use_fused_paged(ctx, scope, paged_attn))
+                 and use_fused_paged(ctx, scope, paged_attn)
+                 and _mesh_fused_ok(B, cfg.n_kv_heads))
         kv_scales = dict(cfg.kv_dequant_scales or ())
         cache, g, kp = paged_update_attend(
             cache, {"k": k, "v": v}, block_tables, positions, cache_pos,
             chunk_valid, x.dtype, fused=fused, scales=kv_scales)
         if g is None:
-            y_fused = _fused_paged_attention(cfg, q, cache, block_tables,
+            y_fused = _fused_paged_attention(q, Hkv, cache, block_tables,
                                              positions, window,
                                              scales=kv_scales)
         else:
             k, v = g["k"], g["v"]
     elif cache is not None and chunk_valid is not None:
-        cache = _cache_write_chunk(cache, {"k": k, "v": v}, positions,
-                                   chunk_valid, chunk_start)
+        cache = _cache_write_chunk(cache, _fresh_for(cache, {"k": k, "v": v}),
+                                   positions, chunk_valid, chunk_start)
         if chunk_ring:
             g, kp = _ring_logical_gather(cache, ("k", "v"), x.dtype,
                                          chunk_start, chunk_valid)
-            k, v = g["k"], g["v"]
+            k, v = (_unshard(g["k"], (Hkv, D)), _unshard(g["v"], (Hkv, D)))
         else:
             k = _cache_roundtrip(k, cache["k"], x.dtype)
             v = _cache_roundtrip(v, cache["v"], x.dtype)
             kp = positions
     elif cache is not None:
-        cache = _cache_write(cache, {"k": k, "v": v}, positions, cache_pos)
+        cache = _cache_write(cache, _fresh_for(cache, {"k": k, "v": v}),
+                             positions, cache_pos)
         if cache_pos is not None:
             # decode: attend over the ring buffer (upcast fp8 caches)
-            k, v = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+            k = _unshard(cache["k"].to(x.dtype), (Hkv, D))
+            v = _unshard(cache["v"].to(x.dtype), (Hkv, D))
             kp = cache["pos"]
         else:
             k = _cache_roundtrip(k, cache["k"], x.dtype)
@@ -612,7 +717,8 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
         mask = _mask_from_pos(positions, kp, cfg.causal, window, None)
         y = _reference_attention(ctx, scope, q, k, v, mask)
     y = y.reshape(B, T, H * D)
-    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    y = row_linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"],
+                   cfg.n_heads * D)
     return y, cache
 
 
@@ -781,6 +887,17 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
     B, T, _ = x.shape
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    layout = current_serving_layout()
+    if layout is not None and layout.model > 1:
+        # this rank's block of the heads: the rules split q_b, kv_b and
+        # o_proj at head boundaries only when the heads divide the axis
+        if H % layout.model:
+            raise NotImplementedError(
+                f"{scope}: MLA over a model axis of {layout.model} needs the "
+                f"{H} heads to divide it (see ROADMAP.md, C)")
+        H //= layout.model
+    if block_tables is not None:
+        block_tables = shard_block_tables(block_tables)
 
     qa = qops.linear(ctx, f"{scope}/q_a_proj", x, p["q_a_proj"]["w"])
     qa = apply_norm(p["q_norm"], qa)
@@ -803,7 +920,8 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
         unit_scales = all(float(kv_scales.get(n, 1.0)) == 1.0
                           for n in ("ckv", "kr"))
         fused = (chunk_valid is None and cfg.absorb_decode and unit_scales
-                 and use_fused_paged(ctx, scope, paged_attn))
+                 and use_fused_paged(ctx, scope, paged_attn)
+                 and _mesh_fused_ok(B, 1))
         cache, g, kp = paged_update_attend(
             cache, {"ckv": ckv, "kr": kr}, block_tables, positions,
             cache_pos, chunk_valid, x.dtype, fused=fused, scales=kv_scales)
@@ -816,23 +934,25 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
             return _mla_decode_absorbed(p, ctx, scope, cfg, qn, qr, ckv, kr,
                                         positions, kp, cache)
     elif cache is not None and chunk_valid is not None:
-        cache = _cache_write_chunk(cache, {"ckv": ckv, "kr": kr}, positions,
-                                   chunk_valid, chunk_start)
+        cache = _cache_write_chunk(cache,
+                                   _fresh_for(cache, {"ckv": ckv, "kr": kr}),
+                                   positions, chunk_valid, chunk_start)
         if chunk_ring:
             # MLA latent caches are full length (W = max_len)
             g, kp = _ring_logical_gather(cache, ("ckv", "kr"), x.dtype,
                                          chunk_start, chunk_valid)
-            ckv, kr = g["ckv"], g["kr"]
+            ckv = _unshard(g["ckv"], (cfg.kv_lora_rank,))
+            kr = _unshard(g["kr"], (dr,))
         else:
             ckv = _cache_roundtrip(ckv, cache["ckv"], x.dtype)
             kr = _cache_roundtrip(kr, cache["kr"], x.dtype)
             kp = positions
     elif cache is not None:
-        cache = _cache_write(cache, {"ckv": ckv, "kr": kr}, positions,
-                             cache_pos)
+        cache = _cache_write(cache, _fresh_for(cache, {"ckv": ckv, "kr": kr}),
+                             positions, cache_pos)
         if cache_pos is not None:
-            ckv = cache["ckv"].to(x.dtype)
-            kr = cache["kr"].to(x.dtype)
+            ckv = _unshard(cache["ckv"].to(x.dtype), (cfg.kv_lora_rank,))
+            kr = _unshard(cache["kr"].to(x.dtype), (dr,))
             kp = cache["pos"]
             if cfg.absorb_decode:
                 return _mla_decode_absorbed(p, ctx, scope, cfg, qn, qr, ckv,
@@ -861,15 +981,18 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
         mask = _mask_from_pos(positions, kp, True, None, None)
         y = _reference_attention(ctx, scope, qf, kf, v, mask)
     y = y.reshape(B, T, H * dv)
-    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    y = row_linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"],
+                   cfg.n_heads * dv)
     return y, cache
 
 
 def _absorb_weights(p: dict, cfg: MLAConfig) -> tuple:
-    """W_uk (H, dn, r) and W_uv (H, dv, r) in f32 from ``kv_b_proj``."""
-    H, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    wkv = p["kv_b_proj"]["w"].reshape(H, dn + dv,
-                                      cfg.kv_lora_rank).float()
+    """W_uk (H, dn, r) and W_uv (H, dv, r) in f32 from ``kv_b_proj`` (this
+    rank's H heads under a mesh)."""
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    w = p["kv_b_proj"]["w"]
+    wkv = w.reshape(w.shape[0] // (dn + dv), dn + dv,
+                    cfg.kv_lora_rank).float()
     return wkv[:, :dn, :], wkv[:, dn:, :]
 
 
@@ -896,7 +1019,8 @@ def _mla_decode_absorbed(p, ctx, scope, cfg: MLAConfig, qn, qr, ckv, kr,
     y = qops.qeinsum(ctx, f"{scope}/v_absorb", "BTHr,Hvr->BTHv", ctx_lat,
                      w_uv, kind="linear")
     y = y.reshape(B, T, H * cfg.v_head_dim).to(qn.dtype)
-    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    y = row_linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"],
+                   cfg.n_heads * cfg.v_head_dim)
     return y, cache
 
 
@@ -908,7 +1032,6 @@ def _mla_decode_absorbed_paged(p, ctx, scope, cfg: MLAConfig, qn, qr, cache,
     of the paged kernel against the block-major latents — one shared KV
     "head", H query heads, values read from the same ``ckv`` blocks as the
     keys. The absorb products stay on ``qops``."""
-    from repro_torch.kernels.paged_attention import paged_decode_attention
     B, T, H, dn = qn.shape
     if T != 1:
         raise ValueError("fused paged MLA is single-query decode")
@@ -922,7 +1045,7 @@ def _mla_decode_absorbed_paged(p, ctx, scope, cfg: MLAConfig, qn, qr, cache,
     q_lat = qops.qeinsum(ctx, f"{scope}/q_absorb", "BTHh,Hhr->BTHr",
                          qn.float(), w_uk, kind="linear")
     lengths = (positions[:, 0] + 1).to(torch.int32)
-    ctx_lat = paged_decode_attention(
+    ctx_lat = paged_kernel_call(
         q_lat.reshape(B, 1, H, r).contiguous(),          # (B, Hkv=1, G=H, r)
         cache["ckv"][:, :, None, :], None,               # v = ckv
         block_tables.to(torch.int32), lengths,
@@ -934,5 +1057,6 @@ def _mla_decode_absorbed_paged(p, ctx, scope, cfg: MLAConfig, qn, qr, cache,
     y = qops.qeinsum(ctx, f"{scope}/v_absorb", "BTHr,Hvr->BTHv", ctx_lat,
                      w_uv, kind="linear")
     y = y.reshape(B, T, H * cfg.v_head_dim).to(qn.dtype)
-    y = qops.linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"])
+    y = row_linear(ctx, f"{scope}/o_proj", y, p["o_proj"]["w"],
+                   cfg.n_heads * cfg.v_head_dim)
     return y, cache

@@ -14,6 +14,14 @@ The recurrence over chunks is a Python loop over a count fixed by the
 input's shape, with no host sync, so a step that runs it records into a
 CUDA graph. Decode is the O(1) recurrent update.
 
+Under a serving mesh the block is tensor-parallel with what the rules
+split over ``model``: ``in_proj``'s output is gathered whole (its packed
+z/x/B/C/dt split does not fall on block boundaries), each rank runs the
+depthwise conv over its block of channels and the recurrence over its
+block of heads (the conv history and state hold those), the gated norm
+over the gathered row, and ``out_proj`` on its block of ``d_inner``,
+summed over ``model``.
+
 Caches are ``{"conv": (B, d_conv - 1, conv_dim), "state": (B, H, P, N)
 f32}``, slot-major, and updated in place (the engines' graphs are bound to
 the pool's tensors). One departure that changes no value: the intra-chunk
@@ -31,7 +39,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.nn.layers import apply_norm
+from repro_torch.distributed.sharding import tp_gather, tp_slice
+from repro_torch.nn.layers import apply_norm, row_linear, row_mean
 from repro_torch.nn.spec import ParamSpec
 from repro_torch.quant import qops
 from repro_torch.quant.qops import QuantContext
@@ -81,6 +90,41 @@ def mamba_specs(prefix: str, cfg: SSMConfig) -> dict:
         f"{prefix}/out_proj/w": ParamSpec((dm, di), ("embed", "ssm_inner"),
                                           init="scaled_normal"),
     }
+
+
+def _in_proj(p: dict, ctx: QuantContext, scope: str, cfg: SSMConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    """The whole packed projection (gathered over a mesh's model axis)."""
+    di, G, N = cfg.d_inner, cfg.n_groups, cfg.d_state
+    return tp_gather(qops.linear(ctx, f"{scope}/in_proj", x,
+                                 p["in_proj"]["w"]),
+                     2 * di + 2 * G * N + cfg.n_heads)
+
+
+def _my_heads(p: dict, cfg: SSMConfig, dim: int, xs: torch.Tensor,
+              dt: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor) -> tuple:
+    """This rank's block of the heads: ``xs`` / ``dt`` sliced along
+    ``dim`` / the last dim, ``B_`` / ``C_`` expanded from groups to heads
+    and sliced (then one group a head). The whole of them without a
+    mesh."""
+    Hl = p["A_log"].shape[0]
+    if Hl == cfg.n_heads:
+        return xs, dt, B_, C_
+    rep = cfg.n_heads // cfg.n_groups
+    return (tp_slice(xs, Hl, dim), tp_slice(dt, Hl, -1),
+            tp_slice(torch.repeat_interleave(B_, rep, dim=dim), Hl, dim),
+            tp_slice(torch.repeat_interleave(C_, rep, dim=dim), Hl, dim))
+
+
+def _gated_norm(pn: dict, y: torch.Tensor) -> torch.Tensor:
+    """``apply_norm`` of the whole row; with a norm scale that is a mesh
+    rank's block, that block of the normed row (the same values)."""
+    scale = pn["scale"]
+    if scale.shape[-1] == y.shape[-1]:
+        return apply_norm(pn, y)
+    xf = y.float()
+    yn = xf * torch.rsqrt(row_mean(xf.square()) + 1e-6)
+    return (tp_slice(yn, scale.shape[-1]) * scale).to(y.dtype)
 
 
 def _split_proj(cfg: SSMConfig, zxbcdt: torch.Tensor) -> tuple:
@@ -192,8 +236,9 @@ def apply_mamba(p: dict, ctx: QuantContext, scope: str, cfg: SSMConfig,
     refuses other ``chunk_len``)."""
     B, T, _ = x.shape
     H, P, G, N = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
-    zxbcdt = qops.linear(ctx, f"{scope}/in_proj", x, p["in_proj"]["w"])
+    zxbcdt = _in_proj(p, ctx, scope, cfg, x)
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
+    xbc_raw = tp_slice(xbc_raw, p["conv"]["w"].shape[1])   # my channels
     hist = None
     if chunk_valid is not None:
         assert cache is not None and resume is not None
@@ -201,11 +246,13 @@ def apply_mamba(p: dict, ctx: QuantContext, scope: str, cfg: SSMConfig,
                            cache["conv"].to(xbc_raw.dtype),
                            torch.zeros((), dtype=xbc_raw.dtype,
                                        device=x.device))
-    xbc = _causal_conv(xbc_raw, p["conv"]["w"], p["conv"]["b"], hist=hist)
+    xbc = tp_gather(_causal_conv(xbc_raw, p["conv"]["w"], p["conv"]["b"],
+                                 hist=hist), cfg.conv_dim)
     di = cfg.d_inner
-    xs = xbc[..., :di].reshape(B, T, H, P)
-    B_ = xbc[..., di:di + G * N].reshape(B, T, G, N)
-    C_ = xbc[..., di + G * N:].reshape(B, T, G, N)
+    xs, dt, B_, C_ = _my_heads(
+        p, cfg, 2, xbc[..., :di].reshape(B, T, H, P), dt,
+        xbc[..., di:di + G * N].reshape(B, T, G, N),
+        xbc[..., di + G * N:].reshape(B, T, G, N))
     dt = _softplus(dt.float() + p["dt_bias"])
     if chunk_valid is not None:
         dt = torch.where(chunk_valid[..., None], dt, 0.0)
@@ -217,10 +264,10 @@ def apply_mamba(p: dict, ctx: QuantContext, scope: str, cfg: SSMConfig,
     y, state = _ssd_chunked(ctx, scope, cfg, xs, dt, B_, C_, A,
                             init_state=init_state)
     y = y + xs * p["D"][:, None].to(x.dtype)
-    y = y.reshape(B, T, di)
+    y = tp_gather(y.reshape(B, T, -1), di)
     y = y * _silu_f32(z, x.dtype)
-    y = apply_norm(p["norm"], y)
-    out = qops.linear(ctx, f"{scope}/out_proj", y, p["out_proj"]["w"])
+    y = _gated_norm(p["norm"], y)
+    out = row_linear(ctx, f"{scope}/out_proj", y, p["out_proj"]["w"], di)
 
     if cache is not None:
         k1 = cfg.d_conv - 1
@@ -261,20 +308,23 @@ def apply_mamba_decode(p: dict, ctx: QuantContext, scope: str,
     continuous decode batch)."""
     B = x.shape[0]
     H, P, G, N = cfg.n_heads, cfg.head_dim, cfg.n_groups, cfg.d_state
-    zxbcdt = qops.linear(ctx, f"{scope}/in_proj", x, p["in_proj"]["w"])
+    zxbcdt = _in_proj(p, ctx, scope, cfg, x)
     z, xbc, dt = _split_proj(cfg, zxbcdt)                  # (B, 1, *)
-    conv_hist = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
     w, b = p["conv"]["w"], p["conv"]["b"]
+    xbc = tp_slice(xbc, w.shape[1])                        # my channels
+    conv_hist = torch.cat([cache["conv"].to(xbc.dtype), xbc], dim=1)
     k = w.shape[0]
     conv_out = sum(conv_hist[:, i, :] * w[i] for i in range(k)) + b
-    xbc1 = _silu_f32(conv_out, x.dtype)                    # (B, Cc)
+    xbc1 = tp_gather(_silu_f32(conv_out, x.dtype), cfg.conv_dim)  # (B, Cc)
     di = cfg.d_inner
-    xs = xbc1[:, :di].reshape(B, H, P)
-    B_ = torch.repeat_interleave(xbc1[:, di:di + G * N].reshape(B, G, N),
-                                 H // G, dim=1)
-    C_ = torch.repeat_interleave(xbc1[:, di + G * N:].reshape(B, G, N),
-                                 H // G, dim=1)
-    dt = _softplus(dt[:, 0].float() + p["dt_bias"])        # (B, H)
+    xs, dt, B_, C_ = _my_heads(p, cfg, 1, xbc1[:, :di].reshape(B, H, P),
+                               dt[:, 0],
+                               xbc1[:, di:di + G * N].reshape(B, G, N),
+                               xbc1[:, di + G * N:].reshape(B, G, N))
+    if B_.shape[1] != xs.shape[1]:             # groups -> heads
+        B_ = torch.repeat_interleave(B_, H // G, dim=1)
+        C_ = torch.repeat_interleave(C_, H // G, dim=1)
+    dt = _softplus(dt.float() + p["dt_bias"])              # (B, H)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A)
 
@@ -285,10 +335,10 @@ def apply_mamba_decode(p: dict, ctx: QuantContext, scope: str,
     y = qops.bgemm(ctx, f"{scope}/c_state_matmul", "bhn,bhpn->bhp",
                    C_.float(), state)
     y = y + xs.float() * p["D"][:, None]
-    y = y.reshape(B, 1, di).to(x.dtype)
+    y = tp_gather(y.reshape(B, 1, -1).to(x.dtype), di)
     y = y * _silu_f32(z, x.dtype)
-    y = apply_norm(p["norm"], y)
-    out = qops.linear(ctx, f"{scope}/out_proj", y, p["out_proj"]["w"])
+    y = _gated_norm(p["norm"], y)
+    out = row_linear(ctx, f"{scope}/out_proj", y, p["out_proj"]["w"], di)
     new_conv = conv_hist[:, 1:]
     if row_valid is not None:
         state = torch.where(row_valid[:, None, None, None], state,

@@ -225,9 +225,11 @@ def _kernel_linear(lhs: torch.Tensor, rhs: torch.Tensor, fmt_name: str,
 
 
 def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
-            rhs: torch.Tensor, kind: str = KIND_LINEAR) -> torch.Tensor:
-    """Quantizable einsum — the single entry point for L_lin and L_BGEMM."""
-    out_dtype = lhs.dtype
+            rhs: torch.Tensor, kind: str = KIND_LINEAR,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Quantizable einsum — the single entry point for L_lin and L_BGEMM.
+    The product is rounded once to ``out_dtype`` (default: ``lhs``'s)."""
+    out_dtype = out_dtype or lhs.dtype
     if ctx.mode == "probe":
         if ctx.probes is not None and name in ctx.probes:
             p_lhs, p_rhs = ctx.probes[name]
@@ -267,16 +269,20 @@ def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
 
 
 def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+           b: Optional[torch.Tensor] = None,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """y = x @ w^T (+ b); w: (K, C) per eq. (8). ``x`` may have any leading
-    dims; a 3-D ``w`` is an expert-grouped GEMM aligned with ``x``."""
+    dims; a 3-D ``w`` is an expert-grouped GEMM aligned with ``x``.
+    ``out_dtype`` (default ``x``'s) is the product's one rounding (a
+    row-parallel shard's partial sums stay f32 until they are summed)."""
     if w.dtype != x.dtype and w.element_size() == 1:
         w = w.to(x.dtype)            # fp8-stored weights: dequant at use
     if w.ndim == 2:
         xl = "BC" if x.ndim == 2 else "BSC" if x.ndim == 3 else None
         if xl is None:                # flatten exotic ranks
             lead = x.shape[:-1]
-            y = linear(ctx, name, x.reshape(-1, x.shape[-1]), w, b)
+            y = linear(ctx, name, x.reshape(-1, x.shape[-1]), w, b,
+                       out_dtype)
             return y.reshape(*lead, w.shape[0])
         spec = f"{xl},KC->{xl[:-1]}K"
     elif w.ndim == 3 and x.ndim == 3:
@@ -284,7 +290,7 @@ def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     else:
         raise ValueError(f"unsupported linear ranks x={tuple(x.shape)} "
                          f"w={tuple(w.shape)}")
-    y = qeinsum(ctx, name, spec, x, w, kind=KIND_LINEAR)
+    y = qeinsum(ctx, name, spec, x, w, kind=KIND_LINEAR, out_dtype=out_dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

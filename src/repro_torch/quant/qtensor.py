@@ -12,6 +12,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from repro_torch.distributed.sharding import (current_serving_layout,
+                                              tp_max)
 from repro_torch.quant.formats import Format, cast_to, get_format, true_div
 
 __all__ = ["QTensor", "compute_scale", "quantize", "dequantize", "fake_quant"]
@@ -48,7 +50,9 @@ def compute_scale(x: torch.Tensor, fmt: Format, axis: Axis = None,
                   margin: float = 1.0) -> torch.Tensor:
     """amax-based scale: ``scale = fmt.max_value / amax``. ``axis=None`` gives
     a per-tensor scalar; otherwise the reduced axes are kept with size 1. An
-    empty ``axis`` tuple gives one scale per element."""
+    empty ``axis`` tuple gives one scale per element. Inside a serving mesh
+    step the amax is maxed over the ``model`` axis (see
+    ``distributed.sharding``)."""
     axes = _norm_axes(axis, x.ndim)
     if fmt.max_value is None:
         shape = () if axis is None else tuple(
@@ -61,6 +65,11 @@ def compute_scale(x: torch.Tensor, fmt: Format, axis: Axis = None,
         amax = ax.amax(dim=axes, keepdim=True)
     else:
         amax = ax
+    if (axis is None or axes) and current_serving_layout() is not None:
+        # a serving mesh: x is this rank's block of an operand split over
+        # ``model`` along a reduced axis, or the whole operand; either way
+        # the max over ``model`` is the whole operand's
+        amax = tp_max(amax)
     amax = torch.clamp_min(amax, 1e-12)
     return true_div(fmt.max_value * margin, amax)
 

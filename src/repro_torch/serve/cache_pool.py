@@ -48,8 +48,11 @@ the cached LRU again), so the pool's capacity shrinks by one block each;
 settles the books after a drain that raised. :meth:`size_n_blocks` sizes a
 pool from a request profile instead of the worst case.
 
-Not ported: mesh sharding of the pool (one shard: block 0 is the one trash
-block, as in the reference's single-shard layout).
+Mesh sharding, as in the reference: under a serving mesh layout (or with
+``data_shards`` for the host accounting alone) the paged pool splits into
+per-shard books over the ``data`` axis (:class:`PagedCachePool`), and both
+pools hold this rank's shard of the cache tensors
+(``serve.parallel.local_specs``).
 """
 from __future__ import annotations
 
@@ -102,19 +105,22 @@ class CachePool:
 
     def __init__(self, model, n_slots: int, max_len: int,
                  chunk_extra: int = 0, device: DeviceLike = None,
-                 caches: Optional[dict] = None):
+                 caches: Optional[dict] = None, mesh_layout=None):
         if n_slots < 1 or max_len < 1:
             raise ValueError((n_slots, max_len))
         self.n_slots = n_slots
         self.max_len = max_len
         self.chunk_extra = chunk_extra
+        self.layout = mesh_layout
         self.device = resolve_device(device)
+        specs = model.cache_specs(n_slots, max_len, chunk_extra=chunk_extra)
+        if mesh_layout is not None:
+            # this rank's slots (over data) and KV heads (over model)
+            from repro_torch.serve.parallel import local_specs
+            specs = local_specs(specs, mesh_layout)
         if caches is None:
-            caches = model.init_cache(n_slots, max_len, self.device,
-                                      chunk_extra=chunk_extra)
+            caches = model._materialize(specs, self.device)
         else:
-            specs = model.cache_specs(n_slots, max_len,
-                                      chunk_extra=chunk_extra)
             for key, spec in specs.items():
                 t = cache_leaf(caches, key)
                 if (t is None or tuple(t.shape) != tuple(spec.shape)
@@ -152,7 +158,11 @@ class CachePool:
         """Copy a batch-1 cache tree into ``slot``, overwriting the whole
         row (its ``pos`` ring included). Not on the engine's path, which
         prefills the pool's rows in place; kept as the reference's cache
-        injection API."""
+        injection API. Not under a mesh, whose rows are split over ranks."""
+        if self.layout is not None:
+            raise NotImplementedError(
+                "CachePool.insert copies a whole batch-1 cache tree; a mesh "
+                "pool's rows and heads are split over ranks")
         for layer, node in request_cache.items():
             pairs = zip(cache_tensors({layer: node}),
                         cache_tensors({layer: self.caches[layer]}))
@@ -172,7 +182,7 @@ class PagedCachePool:
     decode rows through per-slot block tables.
 
     Invariants the attention kernel relies on: a block has one writer at a
-    time (block 0 none — it is the trash sink) but may have many readers: a
+    time (a trash block none — it is the sink) but may have many readers: a
     refcounted prefix block sits in several slots' tables, and its contents
     are what each sharer's own prefill would have written there (per-token
     quant scales make K/V a function of the tokens at and before each
@@ -185,58 +195,100 @@ class PagedCachePool:
     Admission: :meth:`alloc_slot` reserves the request's worst-case block
     count less the matched blocks (plus one for the fork a full-prompt hit
     needs); :meth:`ensure_block` / :meth:`ensure_range` draw on the
-    reservation as prefill and decode cross block boundaries."""
+    reservation as prefill and decode cross block boundaries.
+
+    Shards, as in the reference: with pages sharded over a mesh's ``data``
+    axis (``mesh_layout.shard_pages``, or ``data_shards`` for the host
+    accounting alone) the pool splits into equal shards. Shard ``d`` owns
+    pages ``[d*bps, (d+1)*bps)`` with its own trash block at ``d*bps``, and
+    slot ``s`` lives on shard ``s // slots_per_shard`` and draws blocks
+    from it alone. Free lists, reservations, the prefix index, the cached
+    LRU and quarantine are per shard: a prefix resident on another shard is
+    a miss. :meth:`_plan_admission` gates on each shard's own budget and
+    places a request on the shard with the longest match (then the most
+    free capacity, then the lowest shard). Block tables keep global ids;
+    the layers translate them to shard-local ones. With one shard the
+    allocator is today's single-device one bit for bit (same lists, same
+    pop order). Under a mesh the books are the same on every rank (each
+    runs the same scheduler) and ``caches`` holds this rank's shard: its
+    data shard's pages (all pages when they are not sharded), its model
+    shard of the KV heads, its slots' SSM rows."""
 
     def __init__(self, model, n_slots: int, max_len: int,
                  block_size: int = 16, n_blocks=None,
-                 device: DeviceLike = None, caches: Optional[dict] = None):
+                 device: DeviceLike = None, caches: Optional[dict] = None,
+                 mesh_layout=None, data_shards: int = 1):
         if n_slots < 1 or max_len < 1 or block_size < 1:
             raise ValueError((n_slots, max_len, block_size))
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
         self.block_size = block_size
+        self.layout = mesh_layout
         self.max_blocks = -(-max_len // block_size)     # table width per slot
-        self.n_blocks = self.plan_blocks(n_slots, max_len, block_size,
-                                         n_blocks)
+        data = mesh_layout.data if mesh_layout is not None else data_shards
+        n_blocks, shard_pages, bps = self.plan_blocks(
+            n_slots, max_len, block_size, n_blocks=n_blocks, data_shards=data)
+        if mesh_layout is not None and (n_blocks, shard_pages) != (
+                mesh_layout.n_blocks, mesh_layout.shard_pages):
+            raise ValueError("pool geometry disagrees with the serving mesh "
+                             "layout")
+        self.n_blocks = n_blocks
+        self.n_shards = data if shard_pages else 1
+        self.blocks_per_shard = bps
+        self.slots_per_shard = n_slots // self.n_shards
         self.device = resolve_device(device)
         if caches is None:
-            caches = model.init_paged_cache(n_slots, self.n_blocks,
-                                            block_size, self.device)
+            caches = model._materialize(self._specs(), self.device)
         else:
-            self._reuse(model, caches)
+            self._reuse(caches)
         self.caches = caches
-        # pop() yields block 1 and slot 0 first, as in the reference
-        self._free_blocks = list(range(self.n_blocks - 1, 0, -1))
-        self._free_slots = list(range(n_slots - 1, -1, -1))
-        self._reserved = 0
+        # per-shard free lists; shard d's trash block d*bps is never listed
+        # (one shard: blocks [1, n_blocks), trash 0). pop() yields a
+        # shard's first block and slot first, as in the reference
+        self._free_blocks_by_shard = [
+            list(range((d + 1) * bps - 1, d * bps, -1))
+            for d in range(self.n_shards)]
+        self._free_slots_by_shard = [
+            list(range((d + 1) * self.slots_per_shard - 1,
+                       d * self.slots_per_shard - 1, -1))
+            for d in range(self.n_shards)]
+        self._reserved_by_shard = [0] * self.n_shards
         self._slot_reserve: dict = {}       # slot -> outstanding reservation
         self._slot_blocks: dict = {}        # slot -> [referenced block ids]
         self.block_tables = np.full((n_slots, self.max_blocks), -1, np.int32)
         # ---- prefix sharing ----
         self._ref: dict = {}                # block -> refcount (materialized)
-        self._index: dict = {}              # digest -> block
-        self._block_digest: dict = {}       # block -> digest
-        self._cached: OrderedDict = OrderedDict()   # refcount-0 indexed, LRU
+        self._index_by_shard = [dict() for _ in range(self.n_shards)]
+        self._block_digest: dict = {}       # block -> (shard, digest)
+        self._cached_by_shard = [OrderedDict()      # refcount-0 indexed,
+                                 for _ in range(self.n_shards)]    # LRU
         self._slot_digests: dict = {}       # slot -> prompt block digests
         self._slot_borrowed: dict = {}      # slot -> {shared page indices}
         self._slot_matched: dict = {}       # slot -> matched prefix tokens
         self._slot_registered: dict = {}    # slot -> pages indexed so far
         # ---- fault containment: poisoned blocks out of circulation ----
-        self._quarantined: set = set()
+        self._quarantined_by_shard = [set() for _ in range(self.n_shards)]
         # blocks awaiting quarantine: still mapped by a borrower that could
         # not be forked off (pool dry); _release quarantines them when the
         # last reference drops
         self._quarantine_pending: set = set()
         self.reset_counters()
 
-    def _reuse(self, model, caches: dict) -> None:
+    def _specs(self) -> dict:
+        """This rank's cache specs (the whole pool's without a mesh)."""
+        specs = self.model.paged_cache_specs(self.n_slots, self.n_blocks,
+                                             self.block_size)
+        if self.layout is None:
+            return specs
+        from repro_torch.serve.parallel import local_specs
+        return local_specs(specs, self.layout)
+
+    def _reuse(self, caches: dict) -> None:
         """Take another pool's cache tensors (the engine keeps them, so its
         decode step's CUDA graph stays bound to them), zeroed: this pool's
         index is empty, so nothing may point at what they held."""
-        specs = model.paged_cache_specs(self.n_slots, self.n_blocks,
-                                        self.block_size)
-        for key, spec in specs.items():
+        for key, spec in self._specs().items():
             t = cache_leaf(caches, key)
             if (t is None or tuple(t.shape) != tuple(spec.shape)
                     or t.dtype != spec.dtype
@@ -257,28 +309,77 @@ class PagedCachePool:
         self.quarantined_blocks = 0          # this drain's; the set stays
 
     def invalidate_prefix_index(self) -> None:
-        """Forget every indexed block: cached ones return to the free list,
+        """Forget every indexed block: cached ones return to the free lists,
         ones still mapped by live slots are de-indexed (they rejoin the free
         list on release) and live slots stop registering their pages."""
         for blk in list(self._block_digest):
+            d, _ = self._block_digest[blk]
             self._deindex(blk)
-            if blk in self._cached:
-                del self._cached[blk]
-                self._free_blocks.append(blk)
-        self._index.clear()
+            if blk in self._cached_by_shard[d]:
+                del self._cached_by_shard[d][blk]
+                self._free_blocks_by_shard[d].append(blk)
+        for idx in self._index_by_shard:
+            idx.clear()
         for slot in self._slot_digests:
             self._slot_digests[slot] = []
 
+    # the single-shard books under their old names (tests and callers
+    # that predate the shards); with several shards, merged copies
+    @property
+    def _free_blocks(self) -> list:
+        if self.n_shards == 1:
+            return self._free_blocks_by_shard[0]
+        return [b for lst in self._free_blocks_by_shard for b in lst]
+
+    @property
+    def _cached(self) -> OrderedDict:
+        if self.n_shards == 1:
+            return self._cached_by_shard[0]
+        out: OrderedDict = OrderedDict()
+        for c in self._cached_by_shard:
+            out.update(c)
+        return out
+
+    @property
+    def _index(self) -> dict:
+        if self.n_shards == 1:
+            return self._index_by_shard[0]
+        out: dict = {}
+        for idx in self._index_by_shard:
+            out.update(idx)
+        return out
+
+    @property
+    def _reserved(self) -> int:
+        return sum(self._reserved_by_shard)
+
+    @property
+    def _quarantined(self) -> set:
+        return set().union(*self._quarantined_by_shard)
+
     @staticmethod
     def plan_blocks(n_slots: int, max_len: int, block_size: int,
-                    n_blocks=None) -> int:
-        """Pool size incl. the trash block; the default is the worst case
-        (every slot decodes to ``max_len``), which never backpressures."""
+                    n_blocks=None, data_shards: int = 1) -> tuple:
+        """The pool geometry ``(n_blocks, shard_pages, blocks_per_shard)``,
+        which the pool and ``serve.parallel.make_serving_layout`` share.
+        The default size is the worst case (every slot decodes to
+        ``max_len``), which never backpressures; a sharded default gives
+        every shard its own trash block. Pages shard over ``data`` only
+        when the slots and the blocks both split evenly (at least two
+        blocks a shard); otherwise the pool stays whole, with the one trash
+        block 0, as the ``kv_blocks`` rule's fallback replicates it."""
+        max_blocks = -(-max_len // block_size)
+        slots_ok = data_shards > 1 and n_slots % data_shards == 0
         if n_blocks is None:
-            n_blocks = 1 + n_slots * -(-max_len // block_size)
+            n_blocks = (data_shards * (1 + (n_slots // data_shards)
+                                       * max_blocks)
+                        if slots_ok else 1 + n_slots * max_blocks)
+        n_blocks = int(n_blocks)
+        shard = (slots_ok and n_blocks % data_shards == 0
+                 and n_blocks >= 2 * data_shards)
         if n_blocks < 2:
             raise ValueError("need at least the trash block plus one")
-        return int(n_blocks)
+        return n_blocks, shard, n_blocks // (data_shards if shard else 1)
 
     @staticmethod
     def size_n_blocks(profile, n_slots: int, block_size: int, *,
@@ -321,32 +422,41 @@ class PagedCachePool:
     # ---- budget / accounting ----
     @property
     def n_free_slots(self) -> int:
-        return len(self._free_slots)
+        return sum(len(s) for s in self._free_slots_by_shard)
 
     @property
     def n_free_blocks(self) -> int:
         """Allocatable blocks: free plus cached (refcount-0 indexed blocks
         are resident prefix content, reclaimed on demand)."""
-        return len(self._free_blocks) + len(self._cached)
+        return (sum(len(b) for b in self._free_blocks_by_shard)
+                + self.n_cached_blocks)
 
     @property
     def n_cached_blocks(self) -> int:
-        return len(self._cached)
+        return sum(len(c) for c in self._cached_by_shard)
 
     @property
     def n_quarantined_blocks(self) -> int:
-        return len(self._quarantined)
+        return sum(len(q) for q in self._quarantined_by_shard)
 
     @property
     def blocks_in_use(self) -> int:
-        return ((self.n_blocks - 1 - self.n_quarantined_blocks)
+        return ((self.n_blocks - self.n_shards - self.n_quarantined_blocks)
                 - self.n_free_blocks)
 
     @property
     def allocatable_blocks(self) -> int:
         """Largest single-request reservation the pool can ever satisfy:
-        every block but the trash block and the quarantined ones."""
-        return self.n_blocks - 1 - self.n_quarantined_blocks
+        one shard's blocks but its trash block and its quarantined ones
+        (the least quarantined shard's)."""
+        return (self.blocks_per_shard - 1
+                - min(len(q) for q in self._quarantined_by_shard))
+
+    def _shard_of(self, slot: int) -> int:
+        return slot // self.slots_per_shard if self.n_shards > 1 else 0
+
+    def _shard_of_block(self, blk: int) -> int:
+        return blk // self.blocks_per_shard if self.n_shards > 1 else 0
 
     def blocks_for(self, n_tokens: int) -> int:
         return max(-(-n_tokens // self.block_size), 1)
@@ -369,11 +479,13 @@ class PagedCachePool:
             out.append(h)
         return out
 
-    def _match_blocks(self, digests) -> list:
-        """The longest resident chain: blocks for digests[0..m)."""
+    def _match_blocks(self, digests, d: int = 0) -> list:
+        """The longest chain resident on shard ``d``: blocks for
+        digests[0..m)."""
         blks = []
+        idx = self._index_by_shard[d]
         for h in digests:
-            b = self._index.get(h)
+            b = idx.get(h)
             if b is None:
                 break
             blks.append(b)
@@ -381,30 +493,39 @@ class PagedCachePool:
 
     def _plan_admission(self, prompt_len: int, max_new_tokens: int,
                         digests=None) -> Optional[tuple]:
-        """``(matched blocks, matched tokens, net need)``, or None when the
-        request cannot be admitted now. The net need is the worst case less
-        the matched blocks, plus one for the fork a full-prompt hit's tail
-        chunk needs; it must fit the free + cached blocks less the ones this
-        request claims from the cache and less every reservation."""
-        if not self._free_slots:
-            return None
+        """``(shard, matched blocks, matched tokens, net need)``, or None
+        when no shard can admit the request now. For every shard with a
+        free slot: the net need is the worst case less the blocks matched
+        there, plus one for the fork a full-prompt hit's tail chunk needs;
+        it must fit the shard's free + cached blocks less the ones this
+        request claims from its cache and less its reservations. The
+        longest match wins, then the most free capacity, then the lowest
+        shard."""
         total = self.blocks_for_request(prompt_len, max_new_tokens)
-        blks = self._match_blocks(digests) if digests else []
-        m = len(blks)
-        matched = m * self.block_size
-        cow = 0
-        if m and matched >= prompt_len:
-            # full-prompt hit: the tail chunk still runs (it produces the
-            # first token) and must fork the last shared block
-            matched = prompt_len - 1
-            cow = 1
-        need = total - m + cow
-        claim_from_cached = sum(1 for b in blks if b in self._cached)
-        avail = (len(self._free_blocks) + len(self._cached)
-                 - claim_from_cached - self._reserved)
-        if need > avail:
-            return None
-        return blks, matched, need
+        best = None
+        for d in range(self.n_shards):
+            if not self._free_slots_by_shard[d]:
+                continue
+            blks = self._match_blocks(digests, d) if digests else []
+            m = len(blks)
+            matched = m * self.block_size
+            cow = 0
+            if m and matched >= prompt_len:
+                # full-prompt hit: the tail chunk still runs (it produces
+                # the first token) and must fork the last shared block
+                matched = prompt_len - 1
+                cow = 1
+            need = total - m + cow
+            cached = self._cached_by_shard[d]
+            claim_from_cached = sum(1 for b in blks if b in cached)
+            avail = (len(self._free_blocks_by_shard[d]) + len(cached)
+                     - claim_from_cached - self._reserved_by_shard[d])
+            if need > avail:
+                continue
+            key = (m, avail, -d)
+            if best is None or key > best[0]:
+                best = (key, (d, blks, matched, need))
+        return None if best is None else best[1]
 
     def can_admit(self, prompt_len: int, max_new_tokens: int,
                   digests=None) -> bool:
@@ -426,13 +547,14 @@ class PagedCachePool:
         if total > self.allocatable_blocks:
             raise ValueError(f"request needs {total} blocks but the pool only "
                              f"has {self.allocatable_blocks} allocatable "
-                             f"blocks")
+                             f"blocks"
+                             + (" per shard" if self.n_shards > 1 else ""))
         plan = self._plan_admission(prompt_len, max_new_tokens, digests)
         if plan is None:
             raise RuntimeError("paged cache pool exhausted")
-        blks, matched, need = plan
-        slot = self._free_slots.pop()
-        self._reserved += need
+        d, blks, matched, need = plan
+        slot = self._free_slots_by_shard[d].pop()
+        self._reserved_by_shard[d] += need
         self._slot_reserve[slot] = need
         self._slot_blocks[slot] = []
         self._slot_digests[slot] = list(digests) if digests else []
@@ -440,7 +562,7 @@ class PagedCachePool:
         self._slot_matched[slot] = matched
         self._slot_registered[slot] = 0
         for j, b in enumerate(blks):
-            self._claim(b)
+            self._claim(d, b)
             self.block_tables[slot, j] = b
             self._slot_blocks[slot].append(b)
             self._slot_borrowed[slot].add(j)
@@ -454,24 +576,27 @@ class PagedCachePool:
         """Return the slot and drop its block references (refcount-0 indexed
         blocks stay cached, others rejoin the free list), with any unused
         reservation."""
-        if slot in self._free_slots or not 0 <= slot < self.n_slots:
+        if not 0 <= slot < self.n_slots:
+            raise ValueError(f"slot {slot} is not in use")
+        d = self._shard_of(slot)
+        if slot in self._free_slots_by_shard[d]:
             raise ValueError(f"slot {slot} is not in use")
         for b in reversed(self._slot_blocks.pop(slot, [])):
-            self._release(b)
-        self._reserved -= self._slot_reserve.pop(slot, 0)
+            self._release(d, b)
+        self._reserved_by_shard[d] -= self._slot_reserve.pop(slot, 0)
         for per_slot in (self._slot_digests, self._slot_borrowed,
                          self._slot_matched, self._slot_registered):
             per_slot.pop(slot, None)
         self.block_tables[slot] = -1
-        self._free_slots.append(slot)
+        self._free_slots_by_shard[d].append(slot)
 
     # ---- refcounted block lifecycle ----
-    def _claim(self, blk: int) -> None:
+    def _claim(self, d: int, blk: int) -> None:
         """Take a reference on a resident block (a prefix hit)."""
         self._ref[blk] = self._ref.get(blk, 0) + 1
-        self._cached.pop(blk, None)                 # in use again
+        self._cached_by_shard[d].pop(blk, None)     # in use again
 
-    def _release(self, blk: int) -> None:
+    def _release(self, d: int, blk: int) -> None:
         self._ref[blk] -= 1
         if self._ref[blk] < 0:
             raise RuntimeError(f"block {blk} released more than claimed")
@@ -480,55 +605,65 @@ class PagedCachePool:
             if blk in self._quarantine_pending:
                 # a poisoned block whose last borrower let go
                 self._quarantine_pending.discard(blk)
-                self._quarantine(blk)
+                self._quarantine(d, blk)
             elif blk in self._block_digest:
-                self._cached[blk] = None    # resident until reclaimed
-            else:
-                self._free_blocks.append(blk)
+                self._cached_by_shard[d][blk] = None   # resident until
+            else:                                      # reclaimed
+                self._free_blocks_by_shard[d].append(blk)
 
     def _deindex(self, blk: int) -> None:
-        h = self._block_digest.pop(blk)
-        if self._index.get(h) == blk:
-            del self._index[h]
+        d, h = self._block_digest.pop(blk)
+        if self._index_by_shard[d].get(h) == blk:
+            del self._index_by_shard[d][h]
 
-    def _alloc_block(self, slot: int) -> int:
-        if self._free_blocks:
-            blk = self._free_blocks.pop()
-        elif self._cached:
-            # reclaim the least recently released cached block; de-indexing
-            # it cuts every chain through it (a hit needs every link)
-            blk, _ = self._cached.popitem(last=False)
+    def _pop_block(self, d: int) -> Optional[int]:
+        """A block of shard ``d``: a free one, else the least recently
+        released cached one (de-indexing it cuts every chain through it: a
+        hit needs every link); None when the shard is dry."""
+        if self._free_blocks_by_shard[d]:
+            return self._free_blocks_by_shard[d].pop()
+        if self._cached_by_shard[d]:
+            blk, _ = self._cached_by_shard[d].popitem(last=False)
             self._deindex(blk)
             self.reclaimed_cached_blocks += 1
-        else:
+            return blk
+        return None
+
+    def _alloc_block(self, slot: int) -> int:
+        d = self._shard_of(slot)
+        blk = self._pop_block(d)
+        if blk is None:
             raise RuntimeError("paged cache pool out of blocks")
         if self._slot_reserve.get(slot, 0) > 0:
             self._slot_reserve[slot] -= 1
-            self._reserved -= 1
+            self._reserved_by_shard[d] -= 1
         self._ref[blk] = 1
         self._slot_blocks[slot].append(blk)
         return blk
 
     def register_prefix(self, slot: int, upto_tokens: int) -> None:
         """Index ``slot``'s fully written prompt blocks (logical positions
-        ``[0, upto_tokens)``) under their chain digests. Incremental: call
-        after each prefill chunk with the cumulative length. The first
-        writer wins: a digest already indexed (a block this slot borrowed)
-        is skipped. Safe right after the chunk is queued: a later reader's
-        chunk is queued after it on the same stream."""
+        ``[0, upto_tokens)``) under their chain digests, in its shard's
+        index. Incremental: call after each prefill chunk with the
+        cumulative length. The first writer wins: a digest already indexed
+        (a block this slot borrowed) is skipped. Safe right after the chunk
+        is queued: a later reader's chunk is queued after it on the same
+        stream."""
         digests = self._slot_digests.get(slot)
         if not digests:
             return
+        d = self._shard_of(slot)
+        idx = self._index_by_shard[d]
         done = self._slot_registered.get(slot, 0)
         end = min(int(upto_tokens) // self.block_size, len(digests))
         for j in range(done, end):
             h = digests[j]
             blk = int(self.block_tables[slot, j])
-            if blk < 1:
+            if blk < 0 or blk % self.blocks_per_shard == 0:
                 raise RuntimeError(f"slot {slot} page {j} is not allocated")
-            if h not in self._index:
-                self._index[h] = blk
-                self._block_digest[blk] = h
+            if h not in idx:
+                idx[h] = blk
+                self._block_digest[blk] = (d, h)
         self._slot_registered[slot] = max(done, end)
 
     def _cow_fork(self, slot: int, page: int) -> None:
@@ -536,17 +671,31 @@ class PagedCachePool:
         the device, point the table at the copy and drop the shared
         reference. The parent block, and the chain through it, stay as they
         were."""
+        d = self._shard_of(slot)
         src = int(self.block_tables[slot, page])
         dst = self._alloc_block(slot)       # before the release: the fork
         self._copy_block_device(src, dst)   # must never reclaim its source
         self.block_tables[slot, page] = dst
         self._slot_blocks[slot].remove(src)
-        self._release(src)
+        self._release(d, src)
         self._slot_borrowed[slot].discard(page)
         self.cow_forks += 1
 
+    def _local_block(self, blk: int) -> Optional[int]:
+        """``blk``'s id in this rank's ``caches``: itself without a mesh or
+        with unsharded pages, else its shard-local id when this rank holds
+        its shard, else None (another data shard's page)."""
+        if self.layout is None or not self.layout.shard_pages:
+            return int(blk)
+        off = self.layout.block_offset()
+        if not off <= blk < off + self.blocks_per_shard:
+            return None
+        return int(blk) - off
+
     def _copy_block_device(self, src: int, dst: int) -> None:
-        self.caches = self.model.paged_copy_block(self.caches, src, dst)
+        s, t = self._local_block(src), self._local_block(dst)
+        if s is not None and t is not None:
+            self.caches = self.model.paged_copy_block(self.caches, s, t)
 
     def ensure_block(self, slot: int, pos: int) -> None:
         """Materialize the page for decode write position ``pos`` when it
@@ -575,27 +724,21 @@ class PagedCachePool:
                 self._cow_fork(slot, page)
 
     # ---- fault containment: quarantine, poison, reconcile ----
-    def _quarantine(self, blk: int) -> None:
+    def _quarantine(self, d: int, blk: int) -> None:
         """Take ``blk`` out of circulation for good; no table maps it."""
         if blk in self._block_digest:
             self._deindex(blk)
-        self._quarantined.add(blk)
+        self._quarantined_by_shard[d].add(blk)
         self.quarantined_blocks += 1
 
-    def _alloc_block_unreserved(self) -> Optional[int]:
-        """A block for a quarantine fork-off, charged to no reservation (the
-        copy was never part of the borrower's admission budget); None when
-        the pool is dry. A later ``_alloc_block`` may then raise, which the
-        engine contains as an allocation fault."""
-        if self._free_blocks:
-            blk = self._free_blocks.pop()
-        elif self._cached:
-            blk, _ = self._cached.popitem(last=False)
-            self._deindex(blk)
-            self.reclaimed_cached_blocks += 1
-        else:
-            return None
-        self._ref[blk] = 1
+    def _alloc_block_unreserved(self, d: int) -> Optional[int]:
+        """A block of shard ``d`` for a quarantine fork-off, charged to no
+        reservation (the copy was never part of the borrower's admission
+        budget); None when the shard is dry. A later ``_alloc_block`` may
+        then raise, which the engine contains as an allocation fault."""
+        blk = self._pop_block(d)
+        if blk is not None:
+            self._ref[blk] = 1
         return blk
 
     def _fork_off(self, slot: int, page: int) -> bool:
@@ -604,15 +747,16 @@ class PagedCachePool:
         poison too: then the borrower's own tripwire fires). False when the
         pool is dry: the borrower keeps the page, quarantined on its last
         release."""
+        d = self._shard_of(slot)
         src = int(self.block_tables[slot, page])
-        dst = self._alloc_block_unreserved()
+        dst = self._alloc_block_unreserved(d)
         if dst is None:
             return False
         self._slot_blocks[slot].append(dst)
         self._copy_block_device(src, dst)
         self.block_tables[slot, page] = dst
         self._slot_blocks[slot].remove(src)
-        self._release(src)
+        self._release(d, src)
         borrowed = self._slot_borrowed.get(slot)
         if borrowed is not None:
             borrowed.discard(page)
@@ -627,6 +771,7 @@ class PagedCachePool:
         was poisoned. Returns the blocks newly quarantined (a borrowed
         block whose fork failed follows on its last release). Call before
         ``free_slot``."""
+        d = self._shard_of(slot)
         before = self.quarantined_blocks
         borrowed = self._slot_borrowed.get(slot, set())
         for page in range(self.max_blocks):
@@ -644,33 +789,49 @@ class PagedCachePool:
             self.block_tables[slot, page] = -1
             self._slot_blocks[slot].remove(blk)
             borrowed.discard(page)
-            self._release(blk)
+            self._release(d, blk)
         return self.quarantined_blocks - before
 
     def poison_block(self, blk: int) -> None:
         """Fill physical block ``blk`` with NaN in every block-major
         floating-point cache leaf, fp8 ones included (NaN stays NaN in
         e4m3fn and e5m2): the fault injector's NaN page. In place, on the
-        current stream."""
+        current stream; a page of another data shard is not this rank's."""
+        local = self._local_block(blk)
+        if local is None:
+            return
         for key, spec in self.model.paged_cache_specs(1, 1, 1).items():
             if "kv_blocks" not in spec.logical_axes:
                 continue
             t = cache_leaf(self.caches, key)
             if t.is_floating_point():
                 t.select(spec.logical_axes.index("kv_blocks"),
-                         int(blk)).fill_(float("nan"))
+                         local).fill_(float("nan"))
+
+    def _trash_blocks(self) -> set:
+        return {d * self.blocks_per_shard for d in range(self.n_shards)}
 
     def check_consistency(self) -> dict:
         """Cross-check the books against the block tables: the multiset of
         table entries equals the refcounts, free, cached and quarantined
         blocks are mapped by no table and quarantined ones are neither free
-        nor cached, and the trash block is nowhere. Returns a report with
-        ``ok`` and the mismatches."""
+        nor cached, no trash block is anywhere, and every block sits in
+        its slot's (or its list's) shard. Returns a report with ``ok`` and
+        the mismatches."""
         mat = Counter(int(b) for row in self.block_tables for b in row
                       if b >= 0)
-        free, cached, mapped = (set(self._free_blocks), set(self._cached),
-                                set(mat))
-        quarantined = set(self._quarantined)
+        free = set(self._free_blocks)
+        cached = set(self._cached)
+        mapped = set(mat)
+        quarantined = self._quarantined
+        wrong_shard = sorted(
+            {int(b) for s, row in enumerate(self.block_tables) for b in row
+             if b >= 0 and self._shard_of_block(int(b)) != self._shard_of(s)}
+            | {b for d in range(self.n_shards)
+               for b in (set(self._free_blocks_by_shard[d])
+                         | set(self._cached_by_shard[d])
+                         | self._quarantined_by_shard[d])
+               if self._shard_of_block(b) != d})
         report = {
             "tables_vs_ref": mat == Counter(self._ref),
             "free_mapped": sorted(free & mapped),
@@ -678,15 +839,18 @@ class PagedCachePool:
             "quarantined_mapped": sorted(quarantined & mapped),
             "quarantined_free": sorted(quarantined & (free | cached)),
             "free_cached": sorted(free & cached),
-            "trash_used": 0 in (mapped | free | cached | quarantined
-                                | set(self._block_digest)),
+            "trash_used": bool(self._trash_blocks() & (
+                mapped | free | cached | quarantined
+                | set(self._block_digest))),
+            "wrong_shard": wrong_shard,
         }
         report["ok"] = (report["tables_vs_ref"] and not report["free_mapped"]
                         and not report["cached_mapped"]
                         and not report["quarantined_mapped"]
                         and not report["quarantined_free"]
                         and not report["free_cached"]
-                        and not report["trash_used"])
+                        and not report["trash_used"]
+                        and not report["wrong_shard"])
         return report
 
     def reconcile(self) -> dict:
@@ -706,16 +870,17 @@ class PagedCachePool:
         orphans = 0
         for blk in [b for b in self._ref if b not in mat]:
             del self._ref[blk]
-            self._cached.pop(blk, None)
-            if blk in self._free_blocks:
+            d = self._shard_of_block(blk)
+            self._cached_by_shard[d].pop(blk, None)
+            if blk in self._free_blocks_by_shard[d]:
                 continue
             if blk in self._quarantine_pending:
                 self._quarantine_pending.discard(blk)
-                self._quarantine(blk)
+                self._quarantine(d, blk)
             elif blk in self._block_digest:
-                self._cached[blk] = None
+                self._cached_by_shard[d][blk] = None
             else:
-                self._free_blocks.append(blk)
+                self._free_blocks_by_shard[d].append(blk)
             orphans += 1
         return {"ref_fixed": fixed, "orphans_rerouted": orphans,
                 "consistent": self.check_consistency()["ok"]}
@@ -724,7 +889,7 @@ class PagedCachePool:
         # hand the device a private copy: torch.from_numpy aliases the host
         # array, and the pool mutates block_tables in place
         # (ensure_block/ensure_range/free_slot) while a step may still read
-        # it
+        # it. Global ids: a mesh step's layers translate them per shard
         return host_to_device(self.block_tables.copy(), self.device)
 
 

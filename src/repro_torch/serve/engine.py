@@ -38,7 +38,16 @@ each step's tokens; bounded retries through the resume path, poisoned-page
 quarantine, fused -> gather degradation after repeated kernel faults),
 holds an MP plan to its loss-MSE budget with a shadow step
 (``guardrail``) and walks a ladder of plans under load (``adaptive``).
-Mesh serving raises ``NotImplementedError`` naming its ROADMAP.md item.
+
+``ContinuousBatchingEngine(mesh=...)`` serves over a (data, model)
+``DeviceMesh`` as the reference does: the layout is planned once
+(``serve.parallel``), each ``serve()`` serves this rank's shard of the
+params, the pool holds this rank's shard of the caches (slots and, when
+they split evenly, pages over ``data``; KV heads over ``model``), and
+every step runs through ``launch.steps.mesh_step``. Every rank runs the
+same host scheduler and pool books; each step's tokens are gathered to
+every rank, so their decisions agree. ``adaptive`` (host timings) and
+expert layers are refused with a mesh.
 
 Both engines accept ``mp`` as an op->format dict or an ``MPPlan``.
 """
@@ -64,10 +73,13 @@ from repro_torch.launch.steps import (get_serving_step, greedy_next_token,
                                      merge_first_tokens, nonfinite_rows,
                                      shadow_logit_mse)
 from repro_torch.models.lm import cache_tensors, ssm_tensors
+from repro_torch.nn.spec import flatten_paths
 from repro_torch.serve.cache_pool import (CachePool, PagedCachePool,
                                           dense_slot_bytes, host_to_device,
                                           paged_block_bytes, paged_slot_bytes)
 from repro_torch.serve.faults import InjectedFault, poison_logit_rows
+from repro_torch.serve.parallel import (make_serving_layout,
+                                        shard_serving_params)
 from repro_torch.serve.scheduler import (DONE, PREFILLING, RUNNING, WAITING,
                                          Request, Scheduler)
 
@@ -144,10 +156,14 @@ class ServeEngine:
     steps' graphs stay bound to one set of tensors; :meth:`init_caches`
     hands out fresh ones."""
 
-    def __init__(self, model, mp=None, device: DeviceLike = None):
+    def __init__(self, model, mp=None, device: DeviceLike = None,
+                 mesh=None):
         self.model = model
         self.mp = as_assignment(mp)
         self.device = resolve_device(device)
+        # kept, unused, as in the reference: one-shot batches are served on
+        # one rank; mesh serving is the continuous engine's
+        self.mesh = mesh
         self.prefill_step = get_serving_step(model, "prefill", mp=self.mp)
         # an encoder-decoder's caches hold the cross K/V of enc_len frames
         self._encdec = getattr(model, "cache_needs_enc_len", False)
@@ -290,14 +306,6 @@ class ServeEngine:
                          tokens_per_s=B * max_new_tokens / max(dt, 1e-9))
 
 
-# options of the reference engine that the port does not have yet, by the
-# ROADMAP.md item that brings them
-_LATER = {
-    "mesh": "mesh-sharded serving lands with ROADMAP item A9b, the "
-            "multi-GPU port slice",
-}
-
-
 class _ImpossibleRequest(Exception):
     """Raised by the paged admission gate when a request's worst-case block
     need exceeds what the pool can ever hold. The engine decides whether
@@ -329,10 +337,6 @@ def _same_weights(a: tuple, b: tuple) -> bool:
     return len(a) == len(b) and all(
         ra() is not None and ra() is rb() and va == vb
         for (ra, va), (rb, vb) in zip(a, b))
-
-
-def _refuse(name: str):
-    raise NotImplementedError(f"{name}: {_LATER[name]} (see ROADMAP.md)")
 
 
 @dataclasses.dataclass
@@ -436,8 +440,16 @@ class ContinuousBatchingEngine:
         if getattr(model, "cache_needs_enc_len", False):
             raise NotImplementedError(
                 "continuous batching currently serves decoder-only LMs")
-        if mesh is not None:
-            _refuse("mesh")
+        if mesh is not None and adaptive is not None:
+            raise ValueError(
+                "adaptive MP decides on host timings, which differ between "
+                "a mesh's ranks (every rank must schedule the same steps)")
+        if mesh is not None and any(
+                model.cfg.layer_signature(i)[1]
+                for i in range(model.cfg.n_layers)):
+            raise NotImplementedError(
+                "mesh serving of expert (MoE) layers: expert parallelism "
+                "over a mesh is not ported yet (see ROADMAP.md, C)")
         if adaptive is not None:
             if mp is not None:
                 raise ValueError(
@@ -510,14 +522,21 @@ class ContinuousBatchingEngine:
         self.preemption = bool(preemption) and self.paged
         self.prefill_cobatch = bool(prefill_cobatch)
         self.device = resolve_device(device)
+        # the mesh's layout, planned once (the pool's geometry with it)
+        self.mesh = mesh
+        self.mesh_layout = make_serving_layout(
+            mesh, n_slots=n_slots, max_len=max_len, block_size=block_size,
+            n_blocks=n_blocks, paged=self.paged)
+        if self.mesh_layout is not None and self.paged:
+            self.n_blocks = self.mesh_layout.n_blocks
+        self._sharded = None      # (the weights, this rank's shard of them)
         self._prefill_kind = ("chunked_prefill" if self.paged else
                               "dense_chunked_prefill" if chunk_len is not None
                               else "bucketed_prefill")
-        self.prefill_chunk_step = get_serving_step(model, self._prefill_kind,
-                                                   mp=self.mp)
-        self.decode_step = get_serving_step(
-            model, "paged_decode" if self.paged else "decode", mp=self.mp,
-            paged_attn=paged_attn if self.paged else None)
+        self.prefill_chunk_step = self._step(self._prefill_kind)
+        self.decode_step = self._step(
+            "paged_decode" if self.paged else "decode",
+            paged_attn if self.paged else None)
         # which prefill buckets this engine ran, against the prompt lengths
         # it served (kept across drains, as the graphs are)
         self.prefill_compile_keys: set = set()
@@ -545,6 +564,37 @@ class ContinuousBatchingEngine:
         with self._ctl_lock:
             self._shutdown_flag = True
 
+    def _step(self, kind: str, paged_attn: Optional[str] = None,
+              mp="engine"):
+        """The memoized step of ``kind`` under the engine's plan (or
+        ``mp``) and mesh layout."""
+        return get_serving_step(self.model, kind,
+                                mp=self.mp if mp == "engine" else mp,
+                                paged_attn=paged_attn,
+                                mesh_layout=self.mesh_layout)
+
+    def _local_params(self, params):
+        """This rank's shard of ``params`` under a mesh, as the reference
+        shards them at each ``serve()``: cut once per set of weights (the
+        same tensors, unchanged in place, give the same shard, so the
+        steps' graphs and the weight cache stay bound to it)."""
+        if self.mesh is None:
+            return params
+        weights = _weights_of(params)
+        if self._sharded is None or not _same_weights(self._sharded[0],
+                                                      weights):
+            self._sharded = (weights, shard_serving_params(
+                self.model, params, self.mesh))
+        return self._sharded[1]
+
+    @property
+    def rank_param_bytes(self) -> Optional[int]:
+        """Bytes of the weights this rank holds (after a mesh ``serve``)."""
+        if self._sharded is None:
+            return None
+        return sum(t.numel() * t.element_size()
+                   for t in flatten_paths(self._sharded[1]).values())
+
     def _make_pool(self, params):
         """The engine's one pool, kept across drains with its prefix index
         (a prefix indexed by one drain is a hit in the next) and its cache
@@ -565,12 +615,14 @@ class ContinuousBatchingEngine:
             pool = PagedCachePool(self.model, self.n_slots, self.max_len,
                                   block_size=self.block_size,
                                   n_blocks=self.n_blocks, device=self.device,
-                                  caches=caches)
+                                  caches=caches,
+                                  mesh_layout=self.mesh_layout)
             self._pool = pool
         else:
             pool = CachePool(self.model, self.n_slots, self.max_len,
                              chunk_extra=self.chunk_len or 0,
-                             device=self.device, caches=caches)
+                             device=self.device, caches=caches,
+                             mesh_layout=self.mesh_layout)
             self._pool = pool
         self._weights = weights
         return pool
@@ -582,11 +634,10 @@ class ContinuousBatchingEngine:
         blocks written under the old plan hold other K/V bytes."""
         self.mp = as_assignment(plan)
         self._mp_plan = plan
-        self.prefill_chunk_step = get_serving_step(
-            self.model, self._prefill_kind, mp=self.mp)
-        self.decode_step = get_serving_step(
-            self.model, "paged_decode" if self.paged else "decode",
-            mp=self.mp, paged_attn=self.paged_attn if self.paged else None)
+        self.prefill_chunk_step = self._step(self._prefill_kind)
+        self.decode_step = self._step(
+            "paged_decode" if self.paged else "decode",
+            self.paged_attn if self.paged else None)
         if self._pool is not None:
             self._pool.invalidate_prefix_index()
 
@@ -828,6 +879,7 @@ class ContinuousBatchingEngine:
             raise ValueError(f"max_in_flight must be >= 1, got "
                              f"{max_in_flight}")
         _check_params(params, self.device)
+        params = self._local_params(params)
         pool = self._make_pool(params)
         step_in, ring = self._staging(pool, 1 if sync else max_in_flight + 1)
         tok_in, pos_in = step_in[:2]
@@ -851,6 +903,7 @@ class ContinuousBatchingEngine:
         stall_run_times = []      # prefill chunk times since the last step
         stall_times = []          # per decode step: its chunks' times
         launches0 = _paged_kernel.launches
+        mesh_launches0 = _paged_kernel.mesh_launches
         graphs0 = (_steps.graph_captures.copy(), _steps.graph_replays.copy())
         adaptive_swaps = []       # plan swaps applied in this drain
         # ---- fault containment's books ----
@@ -1059,9 +1112,7 @@ class ContinuousBatchingEngine:
                     and kernel_faults >= self.kernel_fault_limit):
                 degraded = True
                 self.paged_attn = "gather"
-                self.decode_step = get_serving_step(
-                    self.model, "paged_decode", mp=self.mp,
-                    paged_attn="gather")
+                self.decode_step = self._step("paged_decode", "gather")
 
         def contain(st, kind=None, quarantine=None):
             """Contain one faulted request: settle its deliveries in flight,
@@ -1344,11 +1395,10 @@ class ContinuousBatchingEngine:
                             # every cache slot the shadow wrote before its
                             # attention reads one
                             rows = sorted(sched.running)
-                            ref_step = get_serving_step(
-                                self.model,
+                            ref_step = self._step(
                                 "paged_decode" if self.paged else "decode",
-                                mp=None, paged_attn=(self.paged_attn
-                                                     if self.paged else None))
+                                self.paged_attn if self.paged else None,
+                                mp=None)
                             # the caches are written in place: the shadow
                             # must not advance the SSM state the active
                             # step advances
@@ -1454,11 +1504,18 @@ class ContinuousBatchingEngine:
         statuses = [st.result_status for st in retired]
         captures = _steps.graph_captures - graphs0[0]
         replays = _steps.graph_replays - graphs0[1]
+        layout = self.mesh_layout
         counters = {
             "paged": self.paged,
+            "mesh": (None if layout is None else
+                     {"data": layout.data, "model": layout.model,
+                      "shard_pages": layout.shard_pages}),
             "sync": bool(sync),
             "n_decode_steps": n_steps,
             "kernel_launches": _paged_kernel.launches - launches0,
+            # of them, launched on this rank's shard by the mesh branch
+            "mesh_kernel_launches": (_paged_kernel.mesh_launches
+                                     - mesh_launches0),
             # CUDA graph captures and replays of every step kind
             "graph_captures": sum(captures.values()),
             "graph_replays": sum(replays.values()),

@@ -62,8 +62,9 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "Trainer(mesh=...) shards params and optimizer state over a "
-                "mesh, which lands with ROADMAP item A9b; pass mesh=None "
-                "(one device)")
+                "mesh, which lands with the training half of ROADMAP item "
+                "A9b (its serving half is ContinuousBatchingEngine(mesh=)); "
+                "pass mesh=None (one device)")
         self.model = model
         self.opt_cfg = opt_cfg
         self.mesh = mesh

@@ -19,6 +19,9 @@ _FORBIDDEN = re.compile(
 _TRAINING = ("repro_torch.train.optim", "repro_torch.train.trainer",
              "repro_torch.checkpoint.manager", "repro_torch.launch.train",
              "repro_torch.distributed.grad_compress")
+# the mesh serving slice's modules, likewise
+_MESH = ("repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+         "repro_torch.serve.parallel")
 
 
 def _port_modules() -> list:
@@ -36,6 +39,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and len(mods) >= 20
     assert set(_TRAINING) <= set(mods)
+    assert set(_MESH) <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.paged_attention import (  # noqa: E402

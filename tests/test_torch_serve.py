@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -236,8 +237,12 @@ def test_oneshot_matches_reference_serve_engine(prompts):
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}])
 def test_later_slices_refuse(model, kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        ContinuousBatchingEngine(model, device="cpu", **kw)
+    """The engine serves over a mesh since A9b's serving half; the trainer
+    still refuses one, naming A9b's training half."""
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    with pytest.raises(NotImplementedError, match="training half of ROADMAP"):
+        Trainer(model, OptConfig(), kw["mesh"], TrainerConfig())
 
 
 def test_pipelined_drain_refused(model, params):

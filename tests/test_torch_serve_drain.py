@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.nn.spec import default_generator  # noqa: E402
@@ -461,8 +462,8 @@ def test_drain_after_a_raised_drain_starts_over_a_clean_pool(model, params,
 
 # the port's own counters: kernel launches, graph captures and replays (in
 # all and by step kind), the step count and the TTFT median
-PORT_ONLY = {"n_decode_steps", "kernel_launches", "graph_captures",
-             "graph_replays", "graph_captures_by_kind",
+PORT_ONLY = {"n_decode_steps", "kernel_launches", "mesh_kernel_launches",
+             "graph_captures", "graph_replays", "graph_captures_by_kind",
              "graph_replays_by_kind", "ttft_p50_s"}
 
 

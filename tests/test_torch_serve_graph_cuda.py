@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.core.mpconfig import MPPlan  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro_torch.serve import ContinuousBatchingEngine, Request  # noqa: E402
 from torch_serve_common import (MLA_MP, MP_ASSIGNMENT, _TWIN,  # noqa: E402

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_intra_op_thread  # noqa: E402,F401
 
 from repro.serve.scheduler import Request as JRequest  # noqa: E402
 from repro_torch.serve import ContinuousBatchingEngine, Request  # noqa: E402
