@@ -111,10 +111,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     attention) against the same prompt at a threshold of 2^30 (reference
     attention): prefill logits, first tokens and TTFT;
 13. Llama-3.1-8B at its published widths (d_head 128, untied head),
-    served at 8 of its 32 layers (the cut is printed): phases 4 and 5 at
+    served at 4 of its 32 layers (the cut is printed): phases 4 and 5 at
     phase 4's cell (every fused launch through ``gqa_mma`` at D 128; the
-    fixed plan puts fp8 on the linear ops of layers 4-7 and the BGEMMs of
-    layer 7), phase 17's pipelined drain against the lockstep one, then
+    fixed plan puts fp8 on the linear ops of layers 2-3 and the BGEMMs of
+    layer 3), phase 17's pipelined drain against the lockstep one, then
     ``calibrate`` over phase 6's batches on all 32 layers' config at the
     largest depth whose probes and backward fit in 75% of the card
     (``fitted_calibration``: the depth, a cut, the predicted and measured
@@ -162,7 +162,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 18. the four other dense configs at their published widths, random weights
     (qwen2p5_3b: QKV bias, tied head, G 8; nemotron_4_15b: relu2 MLP,
     layernorm, 256000-entry head, G 6; starcoder2_15b: gelu MLP, layernorm,
-    G 12; qwen2p5_32b: G 5, QKV bias), each served at 4 layers
+    G 12; qwen2p5_32b: G 5, QKV bias), each served at 2 layers
     (``DENSE_CONFIGS``: the script's time limit): phases 4 and 5's
     checks at phase 4's cell (every fused launch through ``gqa_mma``; the
     gather drains without eager twins), the fixed plan on the later half
@@ -177,8 +177,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     near-tie rule, with the bit-equal requests counted;
 20. (run after phase 19) the serving cell's TTFT: phase 4's cell with the
     prefill step eager beside the decode graph (the serving path before
-    prefill was graphed) and with every step graphed, in turns (eager,
-    graphed, graphed, eager): TTFT p50 and p99, wall tokens/s, the p99
+    prefill was graphed) and with every step graphed, one arm each (eager,
+    then graphed): TTFT p50 and p99, wall tokens/s, the p99
     decode stall and the device busy share of a profiled drain; then
     ``ServeEngine.ttft`` at 1 and 4 prompts of 128 tokens, graphed and
     eager;
@@ -265,7 +265,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     4 requests of 1500 frames, a 4-token prompt and 64 new tokens through
     ``ServeEngine.generate``, graphed against eager bit for bit, plain (its
     logits also against full forwards) and under the ET plan, with TTFT
-    and decode tokens/s. LLaVA at 8 of its 60 layers (the cut printed):
+    and decode tokens/s. LLaVA at 4 of its 60 layers (the cut printed):
     phase 4's cell on text, fused (every launch through ``gqa_mma`` at G
     7) against its eager twin and its lockstep twin bit for bit and
     against gather and one-shot, plain and under the later-half plan; 4
@@ -287,8 +287,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     under it and under the all-linear plan on that engine (its graphs and
     the weight cache saw every weight change in place) and on a fresh one
     over a copy of the params: tokens equal. Then the first 2 of the 16
-    layers at full width: 20 steps checkpointed every 10, resumed at 20 to
-    30, against a straight 30 (bitwise or the largest difference printed,
+    layers at full width: 10 steps checkpointed, resumed at 10 to 20,
+    against a straight 20 (bitwise or the largest difference printed,
     bound 2e-2), the newest checkpoint corrupted and the resume walking
     back to the one before; every save and restore timed;
 26. (run after phase 5, on its model) serving over a 1x1 (data, model)
@@ -301,7 +301,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     tokens equal, bit for bit, to phases 4 and 5's engine without a mesh;
     the phase's seconds, the weights' bytes per rank and the captures are
     printed, and the process group is destroyed at its end;
-27. print the kernel table and the serving and calibration numbers as JSON
+27. (run after phase 25) training over a 1x1 (data, model) mesh of one
+    NCCL rank (a new group, destroyed at the phase's end):
+    ``Trainer(mesh=make_local_mesh(1, 1))`` on llama3_1b at full width and
+    depth takes phase 25's first 5 loss-leg steps, each loss and grad norm
+    bit-equal to phase 25's; then, at 2 of 16 layers, 10 steps on the mesh
+    and its checkpoint (gathered and written by the mesh's origin rank),
+    resumed by the single-rank trainer: steps 11-20 bit-equal to phase
+    25's straight run. Its seconds are printed beside the card's name and
+    power limit (budget 30 s);
+28. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -2235,9 +2244,9 @@ def fig3a_phase(torch, model, params, batches, plans) -> dict:
 # ---------------------------------------------------------------------------
 
 LLAMA8B = "llama3_8b"
-# phase 13 serves llama3_8b at 8 of its 32 layers (the script's time
-# limit; 16 before phase 24 was added)
-LLAMA8B_DEPTH = 8
+# phase 13 serves llama3_8b at 4 of its 32 layers (the script's time
+# limit; 16 before phase 24 was added, 8 before phase 27)
+LLAMA8B_DEPTH = 4
 # of the card's memory a calibration may take: a linear fit of the peak
 # over depths 1 and 3 underestimates deeper ones (depth 22 needed more than
 # 81.8 GB where 1 -> 2 layers predicted 71.3 GB, on an H100)
@@ -3626,11 +3635,16 @@ def dense_phase(torch, model, params) -> dict:
     return rec
 
 
+# phase 20's arms, in order (eager, graphed, graphed, eager before phase
+# 27 was added: the repeats went to pay for it)
+TTFT_ARMS = ("prefill_eager", "graphed")
+
+
 def ttft_phase(torch, model, params) -> dict:
     """Phase 20 on llama3_1b at full width. Phase 4's cell (fused, graphed
     decode) with the prefill step run eagerly, as it ran before it was
-    graphed, against every step graphed, in the order eager, graphed,
-    graphed, eager; each arm drains pipelined and then lockstep: TTFT p50
+    graphed, against every step graphed, in the order of ``TTFT_ARMS``;
+    each arm drains pipelined and then lockstep: TTFT p50
     and p99 over the 8 requests (p99 of 8 is their maximum), wall
     tokens/s, the p99 decode stall; the first arm of each kind also
     profiles a pipelined drain for the device's busy share (device time
@@ -3643,7 +3657,7 @@ def ttft_phase(torch, model, params) -> dict:
     reqs = phase4_requests(model)
     longest = SERVE["prompt_len"] + SERVE["new_tokens"]
     rec = {"prefill_eager": [], "graphed": []}
-    for arm in ("prefill_eager", "graphed", "graphed", "prefill_eager"):
+    for arm in TTFT_ARMS:
         eng = ContinuousBatchingEngine(
             model, paged_attn="fused", device=DEVICE, prefix_cache=False,
             n_slots=SERVE["n_slots"], max_len=longest,
@@ -4571,10 +4585,10 @@ def moe_phase(torch) -> dict:
     return out
 
 
-# served at 4 layers each (the script's time limit; 8 before phase 24 was
-# added)
-DENSE_CONFIGS = (("qwen2p5_3b", 4), ("nemotron_4_15b", 4),
-                 ("starcoder2_15b", 4), ("qwen2p5_32b", 4))
+# served at 2 layers each (the script's time limit; 8 before phase 24 was
+# added, 4 before phase 27)
+DENSE_CONFIGS = (("qwen2p5_3b", 2), ("nemotron_4_15b", 2),
+                 ("starcoder2_15b", 2), ("qwen2p5_32b", 2))
 
 
 def dense_config_phase(torch, arch: str, depth) -> dict:
@@ -5037,9 +5051,9 @@ WHISPER_TIER_ROWS = 1
 # (the depth fit's calibrated model): its assignments scale with the
 # groups, 21 of the full depth's 61 (the script's time limit)
 WHISPER_TIER_DEPTH = 2
-# LLaVA is served at 8 of its 60 layers (the script's limit: 34.4 B
-# parameters, 68.8 GB in bf16, at all 60)
-LLAVA_DEPTH = 8
+# LLaVA is served at 4 of its 60 layers (8 before phase 27; the script's
+# limit: 34.4 B parameters, 68.8 GB in bf16, at all 60)
+LLAVA_DEPTH = 4
 # one-shot: 4 requests of a 576-token image prefix (LLaVA's 24 x 24
 # patches) and 128 text tokens, 32 new tokens
 LLAVA_ONESHOT = dict(requests=4, prefix=576, prompt_len=128, new_tokens=32)
@@ -5458,9 +5472,10 @@ def encdec_vlm_phase(torch) -> dict:
 TRAIN_LOSS = dict(batch=8, seq_len=256, steps=30, lr=6e-4, warmup=5)
 TRAIN_DROP = 0.5
 # the checkpoint leg: the first 2 of llama3_1b's 16 layers at full width
-# (0.39 B parameters, 3.9 GB of checkpoint; 16 layers hold 12.4 GB), 20
-# steps checkpointed every 10, resumed to 30, against a straight 30; the
-# reference's own bound on the two (tests/test_train.py)
+# (0.39 B parameters, 3.9 GB of checkpoint; 16 layers hold 12.4 GB), 10
+# steps checkpointed, resumed at 10 to 20, against a straight 20; the
+# reference's own bound on the two (tests/test_train.py). (20 steps resumed
+# to 30 before phase 27 was added: a save and 20 steps went to pay for it)
 TRAIN_CKPT_DEPTH = 2
 TRAIN_RESUME_TOL = 2e-2
 # the loop leg: the trained model calibrated as phase 6 does, its TT plan at
@@ -5482,13 +5497,13 @@ def train_data(cfg):
 
 
 def train_trainer(model, ckpt_dir: Path, total: int, every: int,
-                  log_every: int = 1000):
+                  log_every: int = 1000, mesh=None):
     from repro_torch.train.optim import OptConfig, select_optimizer
     from repro_torch.train.trainer import Trainer, TrainerConfig
     opt = select_optimizer(model.n_params(), OptConfig(
         lr=TRAIN_LOSS["lr"], warmup_steps=TRAIN_LOSS["warmup"],
         total_steps=TRAIN_LOSS["steps"]))
-    return Trainer(model, opt, None, TrainerConfig(
+    return Trainer(model, opt, mesh, TrainerConfig(
         total_steps=total, ckpt_every=every, ckpt_dir=str(ckpt_dir),
         log_every=log_every, metrics_path=str(ckpt_dir / "metrics.jsonl")),
         device=DEVICE)
@@ -5501,16 +5516,16 @@ def timed_checkpoints(out: list):
     from repro_torch.checkpoint import manager as cm
     save, restore = cm.CheckpointManager.save, cm.CheckpointManager.restore
 
-    def timed_save(self, step, tree, extra=None):
+    def timed_save(self, step, tree, extra=None, **kw):
         t0 = time.perf_counter()
-        path = save(self, step, tree, extra)
+        path = save(self, step, tree, extra, **kw)
         n = os.path.getsize(os.path.join(path, "arrays.npz"))
         out.append(("save", step, n, time.perf_counter() - t0))
         return path
 
-    def timed_restore(self, step=None, device=None, only=None):
+    def timed_restore(self, step=None, device=None, only=None, **kw):
         t0 = time.perf_counter()
-        res = restore(self, step, device, only)
+        res = restore(self, step, device, only, **kw)
         torch_sync()
         n = sum(t.numel() * t.element_size()
                 for t in flat_tensors(res[1]))
@@ -5650,6 +5665,7 @@ def training_loss_leg(torch, workdir: Path) -> tuple:
                              f"is not {TRAIN_DROP} below the first "
                              f"{first:.4f}")
     rec = {"n_params": n_params, "losses": losses, "seconds": seconds,
+           "grad_norms": [h["grad_norm"] for h in hist],
            "step_wall_ms": wall_ms, "step_device_ms": dev_ms,
            "step_wall_ms_all": [h["dt"] * 1e3 for h in hist],
            "step_device_ms_all": [h["device_ms"] for h in hist],
@@ -5662,11 +5678,12 @@ def training_loss_leg(torch, workdir: Path) -> tuple:
 
 
 def training_ckpt_leg(torch, workdir: Path) -> dict:
-    """The checkpoint leg (module comment at ``TRAIN_CKPT_DEPTH``): 20
-    steps through ``Trainer.fit`` (checkpoints at 10 and 20), a new trainer
-    resuming at 20 and running to 30 (checkpoint 30), against the trainer's
-    step run 30 times straight; then the newest arrays.npz corrupted and the
-    run resumed from the one before."""
+    """The checkpoint leg (module comment at ``TRAIN_CKPT_DEPTH``): 10
+    steps through ``Trainer.fit`` (a checkpoint at 10), a new trainer
+    resuming at 10 and running to 20 (checkpoint 20), against the trainer's
+    step run 20 times straight (each step's loss and grad norm kept: phase
+    27 is held to them); then the newest arrays.npz corrupted and the run
+    resumed from the one before."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.models.registry import depth_overrides, get_model
     model = get_model("llama3_1b", **depth_overrides("llama3_1b",
@@ -5676,18 +5693,20 @@ def training_ckpt_leg(torch, workdir: Path) -> dict:
     ckpts: list = []
     t0 = time.perf_counter()
     with timed_checkpoints(ckpts):
-        train_trainer(model, a, 20, 10).fit(data, 0)
-        tr = train_trainer(model, a, 30, 10)
+        train_trainer(model, a, 10, 10).fit(data, 0)
+        tr = train_trainer(model, a, 20, 10)
         step, p, o = tr.init_or_resume(0)
-        if step != 20:
-            raise AssertionError(f"training: resumed at step {step}, not 20")
+        if step != 10:
+            raise AssertionError(f"training: resumed at step {step}, not 10")
         p2, o2, _ = tr.run(data, step, p, o)
-        # the straight run: the trainer's own step, 30 times, from the same
+        # the straight run: the trainer's own step, 20 times, from the same
         # init, without checkpoints
-        straight = train_trainer(model, b, 30, 30)
+        straight = train_trainer(model, b, 20, 20)
         _, p3, o3 = straight.init_or_resume(0)
-        for s in range(30):
-            p3, o3, _ = straight.train_step(p3, o3, data.batch_at(s))
+        history = []
+        for s in range(20):
+            p3, o3, m = straight.train_step(p3, o3, data.batch_at(s))
+            history.append((float(m["loss"]), float(m["grad_norm"])))
         diffs = {}
         for name, x, y in (("params", p2, p3), ("optimizer", o2, o3)):
             fx, fy = flat_tensors(x), flat_tensors(y)
@@ -5702,12 +5721,12 @@ def training_ckpt_leg(torch, workdir: Path) -> dict:
         with open(path, "r+b") as f:
             f.seek(200)
             f.write(b"\xde\xad\xbe\xef" * 8)
-        back, _, _ = train_trainer(model, a, 30, 10).init_or_resume(0)
+        back, _, _ = train_trainer(model, a, 20, 10).init_or_resume(0)
     seconds = time.perf_counter() - t0
     log(f"training checkpoint leg: {model.cfg.name} at {TRAIN_CKPT_DEPTH} "
         f"of 16 layers, full width ({model.n_params() / 1e9:.3f}B params): "
-        f"20 steps checkpointed every 10, resumed at 20 to 30, against a "
-        f"straight 30: {'bitwise equal' if bitwise else 'NOT bitwise'}; "
+        f"10 steps checkpointed, resumed at 10 to 20, against a straight "
+        f"20: {'bitwise equal' if bitwise else 'NOT bitwise'}; "
         f"largest difference params {diffs['params']:.3g}, optimizer state "
         f"{diffs['optimizer']:.3g} (bound {TRAIN_RESUME_TOL} on params, the "
         f"reference's); newest of steps {steps} corrupted: the trainer "
@@ -5715,11 +5734,12 @@ def training_ckpt_leg(torch, workdir: Path) -> dict:
     if diffs["params"] > TRAIN_RESUME_TOL:
         raise AssertionError(f"training: resumed params differ from the "
                              f"straight run by {diffs['params']:.3g}")
-    if steps != [10, 20, 30] or back != 20:
+    if steps != [10, 20] or back != 10:
         raise AssertionError(f"training: steps {steps}, after corrupting "
-                             f"the newest resumed at {back}; expected 20")
+                             f"the newest resumed at {back}; expected 10")
     return {"n_params": model.n_params(), "resume_bitwise": bitwise,
-            "resume_max_diff": diffs, "seconds": seconds,
+            "history": history, "resume_max_diff": diffs,
+            "seconds": seconds,
             "quarantine": {"steps": steps, "resumed_at": back},
             "checkpoints": ckpt_numbers(ckpts)}
 
@@ -5847,6 +5867,112 @@ def training_phase(torch) -> dict:
             "leg_seconds": legs}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: training over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# the loss leg's first steps through Trainer(mesh=) over a 1x1 mesh of one
+# NCCL rank; the checkpoint leg's first 10 steps on that mesh, resumed from
+# its checkpoint by the single-rank trainer to step 20. The budget is
+# printed, not enforced.
+TRAIN_MESH_STEPS = 5
+TRAIN_MESH_BUDGET_S = 30.0
+
+
+def bitwise_steps(name: str, want: list, got: list) -> None:
+    """Fail unless each step's (loss, grad norm) is ``want``'s bit for
+    bit."""
+    bad = [(i, w, g) for i, (w, g) in enumerate(zip(want, got))
+           if tuple(w) != tuple(g)]
+    if len(want) != len(got) or bad:
+        raise AssertionError(f"training over a mesh, {name}: steps differ "
+                             f"from phase 25's (step, phase 25, mesh): "
+                             f"{bad[:3]} ({len(got)} of {len(want)} steps)")
+
+
+def train_mesh_phase(torch, training: dict) -> dict:
+    """Phase 27 (after phase 25, whose ``training`` record it is held to):
+    llama3_1b at full width over a 1x1 (data, model) mesh of one NCCL rank.
+    The loss leg's first ``TRAIN_MESH_STEPS`` steps (full depth) through
+    ``Trainer(mesh=)``: each step's loss and grad norm equal to phase 25's
+    bit for bit (one rank's collectives are copies). At
+    ``TRAIN_CKPT_DEPTH`` layers, 10 steps on the mesh and its checkpoint,
+    then the single-rank trainer resumes from it: steps 11-20 equal to
+    phase 25's straight run bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import depth_overrides, get_model
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1, device=DEVICE)
+    out: dict = {}
+    try:
+        backend = dist.get_backend()
+        if DEVICE == "cuda" and backend != "nccl":
+            raise AssertionError(f"training mesh on {backend}, not NCCL")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            tmp = Path(tmp)
+            model = get_model("llama3_1b")
+            data = train_data(model.cfg)
+            tr = train_trainer(model, tmp / "loss", TRAIN_MESH_STEPS,
+                               TRAIN_MESH_STEPS, mesh=mesh)
+            _, p, o = tr.init_or_resume(0)
+            t1 = time.perf_counter()
+            got = []
+            for s in range(TRAIN_MESH_STEPS):
+                p, o, m = tr.train_step(p, o, data.batch_at(s))
+                got.append((float(m["loss"]), float(m["grad_norm"])))
+            torch_sync()
+            loss_s = time.perf_counter() - t1
+            loss = training["loss_leg"]
+            want = list(zip(loss["losses"], loss["grad_norms"]))[
+                :TRAIN_MESH_STEPS]
+            bitwise_steps("loss leg", want, got)
+            out["loss_leg"] = {"steps": got, "bitwise": True,
+                               "train_s": loss_s}
+            log(f"training over a 1x1 mesh ({backend}): {model.cfg.name} "
+                f"at full width and depth, steps 1-{TRAIN_MESH_STEPS} of "
+                f"phase 25's loss leg through Trainer(mesh=) in "
+                f"{loss_s:.2f} s: losses and grad norms bit-equal to phase "
+                f"25's ({got[0][0]:.4f} .. {got[-1][0]:.4f})")
+            del tr, p, o, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = get_model("llama3_1b", **depth_overrides(
+                "llama3_1b", TRAIN_CKPT_DEPTH))
+            d = tmp / "ckpt"
+            ckpts: list = []
+            with timed_checkpoints(ckpts):
+                train_trainer(model, d, 10, 10, mesh=mesh).fit(data, 0)
+                single = train_trainer(model, d, 20, 10 ** 6)
+                step, p, o = single.init_or_resume(0)
+                if step != 10:
+                    raise AssertionError(f"training over a mesh: the "
+                                         f"single-rank trainer resumed at "
+                                         f"{step}, not 10")
+                got = []
+                for s in range(10, 20):
+                    p, o, m = single.train_step(p, o, data.batch_at(s))
+                    got.append((float(m["loss"]), float(m["grad_norm"])))
+            bitwise_steps("checkpoint leg", [tuple(h) for h in training[
+                "checkpoint_leg"]["history"][10:20]], got)
+            out["checkpoint_leg"] = {"steps": got, "bitwise": True,
+                                     "checkpoints": ckpt_numbers(ckpts)}
+            log(f"training over a 1x1 mesh: {TRAIN_CKPT_DEPTH} of 16 layers, "
+                f"10 steps on the mesh and its checkpoint, resumed by the "
+                f"single-rank trainer: steps 11-20 bit-equal to phase 25's "
+                f"straight run")
+            del single, p, o, model
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 27 (training over a 1x1 mesh): {out['seconds']:.1f} s "
+        f"(budget {TRAIN_MESH_BUDGET_S:.0f} s)"
+        f"{'; ' + card_line() if DEVICE == 'cuda' else ''}")
+    return out
+
+
 def no_silent_faults(engine_cls) -> None:
     """Every drain of ``engine_cls`` in this run: one served without a
     fault injector must report no kernel fault and no degradation (a real
@@ -5972,6 +6098,8 @@ def main() -> int:
     gc.collect()                      # the model's decode graphs go with it
     torch.cuda.empty_cache()
     report["training"] = phase("training", training_phase, torch)
+    report["train_mesh"] = phase("training over a mesh", train_mesh_phase,
+                                 torch, report["training"])
     report["llama3_8b"] = phase("llama3_8b", llama8b_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6150,6 +6278,8 @@ def main() -> int:
     print(json.dumps({"mesh": report["mesh"], "card": card}), flush=True)
     print(json.dumps({"training": report["training"], "card": card}),
           flush=True)
+    print(json.dumps({"train_mesh": report["train_mesh"], "card": card}),
+          flush=True)
     print(json.dumps({"encdec_vlm": {
         WHISPER: {k: v for k, v in ev[WHISPER].items()},
         LLAVA: {k: v for k, v in ev[LLAVA].items() if k != "serving"},
@@ -6173,7 +6303,9 @@ def main() -> int:
     log(f"chip_smoke: {total_s:.1f} s in all, the kernels' build included "
         f"(budget {SCRIPT_BUDGET_S:.0f} s); phase 26: "
         f"{report['mesh']['seconds']:.1f} s (budget "
-        f"{MESH_PHASE_BUDGET_S:.0f} s)")
+        f"{MESH_PHASE_BUDGET_S:.0f} s); phase 27: "
+        f"{report['train_mesh']['seconds']:.1f} s (budget "
+        f"{TRAIN_MESH_BUDGET_S:.0f} s)")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,11 +18,13 @@ builds it. The phases run in the order given:
   allocated and the objects the garbage collector tracks; after them, the
   collections each generation ran during the drains.
 
-- ``ARCH@DEPTH``: ``llama3_8b`` (phase 13, ``llama8b_phase``) or one of
-  ``DENSE_CONFIGS``' archs (phase 18, ``dense_config_phase``) served at
-  ``DEPTH`` layers, the whole phase timed: two depths of one arch give
-  the seconds a depth cut saves. llama3_1b is built only for ``tier`` and
-  ``drains``;
+- ``ARCH@DEPTH``: ``llama3_8b`` (phase 13, ``llama8b_phase``), one of
+  ``DENSE_CONFIGS``' archs (phase 18, ``dense_config_phase``), Moonlight
+  (``moonshot_v1_16b_a3b``: phase 22's ``moe_config_phase``) or LLaVA
+  (``llava_next_34b``: phase 24's ``llava_phase``) served at ``DEPTH``
+  layers, the whole phase timed: two depths of one arch give
+  the seconds a depth cut saves. llama3_1b is built only for ``tier``,
+  ``drains``, ``mesh`` and ``ttft``;
 - ``whisper``: phase 24's Whisper (``whisper_phase``: calibration, the
   measured tier, Fig. 3b, serving) as that checkout has it;
 - ``training``: phase 25 (``training_phase``), where the checkout has it;
@@ -34,6 +36,11 @@ builds it. The phases run in the order given:
   without its fsync, ``np.load`` of every member, then the checkout's
   ``CheckpointManager.save``, ``restore`` (every digest checked) and
   ``restore(only="params")``;
+- ``ttft``: phase 20 (``ttft_phase``: phase 4's cell with the prefill
+  step eager and graphed) as that checkout has it;
+- ``train_mesh``: phase 25 (``training_phase``) and then phase 27
+  (``train_mesh_phase``: training over a 1x1 NCCL mesh, held to phase
+  25's steps bit for bit), where the checkout has it; each timed;
 - ``mesh``: phase 26 (``mesh_phase``: llama3_1b at phase 4's cell over a
   1x1 NCCL mesh, plain and under phase 5's plan), after the two drains
   without a mesh it is held to (fused, plain and under the plan);
@@ -250,7 +257,7 @@ def main() -> int:
     _build.build()
     cs.log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
     phases = args.phases.split(",")
-    if {"tier", "drains", "mesh"} & set(phases):
+    if {"tier", "drains", "mesh", "ttft"} & set(phases):
         model, params = make_model_and_params("llama3_1b", False, "cuda",
                                               seed=0)
     out: dict = {"root": str(root), "phases": {}, "drains": []}
@@ -262,6 +269,11 @@ def main() -> int:
             cs.llama8b_phase(torch)
         elif arch in dict(cs.DENSE_CONFIGS) and depth:
             cs.dense_config_phase(torch, arch, int(depth))
+        elif arch == cs.MOONLIGHT and depth:
+            cs.moe_config_phase(torch, arch, int(depth), None, {}, "gqa_mma")
+        elif arch == cs.LLAVA and depth:
+            cs.LLAVA_DEPTH = int(depth)
+            cs.llava_phase(torch)
         elif name == "tier":
             with tempfile.TemporaryDirectory(prefix="phase_probe_") as tmp:
                 bundle, _, _ = cs.calibration_phase(torch, model, params,
@@ -279,6 +291,14 @@ def main() -> int:
                 "step_wall_ms"], "checkpoints": [
                 c for leg in ("loss_leg", "checkpoint_leg")
                 for c in rec[leg]["checkpoints"]]}
+        elif name == "ttft":
+            out["ttft"] = cs.ttft_phase(torch, model, params)
+        elif name == "train_mesh" and hasattr(cs, "train_mesh_phase"):
+            t1 = time.perf_counter()
+            rec = cs.training_phase(torch)
+            t2 = time.perf_counter()
+            out["train_mesh"] = cs.train_mesh_phase(torch, rec)
+            out["train_mesh"]["training_phase_s"] = t2 - t1
         elif name == "mesh" and hasattr(cs, "mesh_phase"):
             out["mesh"] = mesh(torch, cs, model, params)
         elif name == "checkpoint_io":

@@ -39,6 +39,7 @@ import numpy.lib.format as npf
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.nn.spec import flatten_paths, tree_from_flat
 
 __all__ = ["CheckpointManager"]
@@ -134,11 +135,12 @@ def _to_numpy(t: torch.Tensor) -> tuple:
     return arr, str(arr.dtype)
 
 
-def _decode(arr: np.ndarray, dtype_str: str,
-            device: torch.device) -> torch.Tensor:
+def _decode(arr: np.ndarray, dtype_str: str, device: torch.device,
+            cut=None) -> torch.Tensor:
     """A stored array as a tensor of its own on ``device`` (the arrays of
     an npz are read-only buffers): void bytes viewed as the torch dtype the
-    manifest names."""
+    manifest names; ``cut`` (a function of the host tensor) takes a mesh
+    rank's block of it before the copy."""
     with warnings.catch_warnings():
         # read before the copy below, never written
         warnings.filterwarnings("ignore", "The given NumPy array is not "
@@ -149,6 +151,8 @@ def _decode(arr: np.ndarray, dtype_str: str,
                 arr.shape)
         else:
             t = torch.from_numpy(arr)
+        if cut is not None:
+            t = cut(t)
     return t.to(device, copy=True)
 
 
@@ -174,9 +178,17 @@ class CheckpointManager:
         return sorted(out)
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: dict, extra: Optional[dict] = None) -> str:
+    def save(self, step: int, tree: dict, extra: Optional[dict] = None,
+             mesh=None, pspecs: Optional[dict] = None) -> str:
         """Blocking save; atomic via tmp-dir + rename. The digests are
-        computed in threads while the arrays are written."""
+        computed in threads while the arrays are written. With ``mesh``
+        (a training mesh) ``tree`` holds this rank's blocks, each path's
+        placed by ``pspecs[path]`` (whole where absent): every rank gathers
+        each whole leaf, the mesh's origin rank writes them, and the mesh
+        waits for the write. The bytes are those a save of the whole tree
+        on one device writes."""
+        if mesh is not None:
+            return self._save_mesh(step, tree, extra, mesh, pspecs or {})
         final = self._step_dir(step)
         if os.path.exists(final) and self._validate(step):
             raise FileExistsError(f"{final} holds a valid checkpoint")
@@ -239,6 +251,33 @@ class CheckpointManager:
         self._gc()
         return final
 
+    def _save_mesh(self, step: int, tree: dict, extra, mesh,
+                   pspecs: dict) -> str:
+        layout = sharding.training_layout(mesh)
+        root = sharding.is_mesh_root(layout)
+        whole = {}
+        for path, t in flatten_paths(tree).items():
+            full = sharding.gather_leaf(t, pspecs.get(path, ()), layout)
+            if root:
+                whole[path] = full
+        final = self._step_dir(step)
+        err = None
+        if root:
+            try:
+                self.save(step, tree_from_flat(whole), extra)
+            except Exception as e:        # noqa: BLE001 (re-raised below)
+                err = e
+            del whole
+        dev = next(iter(flatten_paths(tree).values())).device
+        failed = sharding.mesh_max(torch.tensor([float(err is not None)],
+                                                device=dev), layout)
+        if err is not None:
+            raise err
+        if float(failed) > 0:
+            raise RuntimeError(f"the mesh's writer failed to save step "
+                               f"{step} in {self.dir}")
+        return final
+
     def _gc(self) -> None:
         steps = self.all_steps()
         for s in steps[:-self.keep_n] if self.keep_n else []:
@@ -289,15 +328,27 @@ class CheckpointManager:
         return None
 
     def restore(self, step: Optional[int] = None, device: DeviceLike = None,
-                only: Optional[str] = None) -> tuple:
-        """Returns (step, tree, extra), the tree's tensors on ``device``
-        (the port's counterpart of the reference's ``shardings``). ``step``
-        None takes the newest valid checkpoint, read once: each array is
-        checked against its digest as it is read (the reference validates,
-        then reads again). ``only`` (a top-level key, e.g. ``"params"``)
-        keeps that subtree alone; the other arrays are read and hashed when
-        ``step`` is None, else left on disk."""
+                only: Optional[str] = None, mesh=None,
+                pspecs: Optional[dict] = None) -> tuple:
+        """Returns (step, tree, extra), the tree's tensors on ``device``.
+        ``step`` None takes the newest valid checkpoint, read once: each
+        array is checked against its digest as it is read (the reference
+        validates, then reads again). ``only`` (a top-level key, e.g.
+        ``"params"``) keeps that subtree alone; the other arrays are read
+        and hashed when ``step`` is None, else left on disk. With ``mesh``
+        (the counterpart of the reference's ``shardings``) each rank reads
+        the whole arrays and keeps its block of each path that ``pspecs``
+        places (``sharding.local_shard``): a checkpoint saved on any mesh,
+        or on one device, restores onto any other."""
         device = resolve_device(device)
+        cut = None
+        if mesh is not None:
+            lay = sharding.training_layout(mesh)
+
+            def cut(path, t):
+                spec = (pspecs or {}).get(path)
+                return t if spec is None else sharding.local_shard(
+                    t, spec, lay.sizes, lay.coords)
         got = None
         if step is None:
             for s in reversed(self.all_steps()):
@@ -310,6 +361,8 @@ class CheckpointManager:
         else:
             got = self._read(step, check=False, only=only)
         manifest, arrays = got
-        flat = {path: _decode(arr, dtype, device)
+        flat = {path: _decode(arr, dtype, device,
+                              None if cut is None
+                              else (lambda t, p=path: cut(p, t)))
                 for path, (arr, dtype) in arrays.items()}
         return step, tree_from_flat(flat), manifest.get("extra", {})

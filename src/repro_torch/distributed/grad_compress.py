@@ -8,15 +8,19 @@ residual into the next step, keeping the accumulated bias negligible.
 * :func:`compress_decompress` — value-level compress (+ error feedback),
   for tests and for wrapping grads before the optimizer;
 * :func:`compress_tree` — the same over every leaf of a grad tree;
-* :func:`compressed_psum` — the collective form; it waits for the port's
-  mesh (ROADMAP item A9b) and raises until then.
+* :func:`compressed_psum` — the collective form, over an axis of the
+  current mesh layout: quantize with a scale shared over the axis, sum the
+  fp8 codes in f32, dequantize.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import current_serving_layout
 from repro_torch.nn.spec import sorted_leaves, tree_from_flat
 from repro_torch.quant import qtensor
+from repro_torch.quant.formats import cast_to, get_format, true_div
 
 __all__ = ["compress_decompress", "compressed_psum", "compress_tree"]
 
@@ -46,8 +50,27 @@ def compress_tree(grads: dict, err_tree: dict,
 
 def compressed_psum(x: torch.Tensor, axis_name: str,
                     fmt_name: str = "fp8_e4m3") -> torch.Tensor:
-    """All-reduce with an fp8 wire format: needs the port's mesh."""
-    raise NotImplementedError(
-        "compressed_psum is the sharded trainer's all-reduce, which lands "
-        "with the training half of ROADMAP item A9b; compress_decompress / "
-        "compress_tree work on one device")
+    """All-reduce with an fp8 wire format over ``axis_name`` (``data`` or
+    ``model``) of the current mesh layout (``sharding.serving_layout_scope``;
+    one rank without a layout), as the reference's inside ``shard_map``:
+    the amax maxed over the axis, every shard cast to the format with the
+    shared scale (``formats.cast_to``, not PyTorch's saturating cast), the
+    codes summed in f32 and divided by the scale (``true_div``). No trainer
+    calls it: the gradients' all-reduce is an f32 sum, as the reference
+    trainer's."""
+    fmt = get_format(fmt_name)
+    layout = current_serving_layout()
+    if layout is not None and axis_name not in layout.sizes:
+        raise ValueError(f"no mesh axis {axis_name!r} in the current layout "
+                         f"({sorted(layout.sizes)})")
+    group = None if layout is None else layout.group(axis_name)
+    xf = x.float()
+    amax = xf.abs().amax()
+    if group is not None:
+        amax = amax.clone()
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = true_div(fmt.max_value, torch.clamp_min(amax, 1e-12))
+    s = cast_to(xf * scale, fmt.dtype).float()
+    if group is not None:
+        dist.all_reduce(s, group=group)
+    return true_div(s, scale).to(x.dtype)

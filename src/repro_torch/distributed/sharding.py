@@ -19,12 +19,14 @@ per dim: an axis name, a tuple of names, or None; trailing Nones dropped,
 as ``PartitionSpec`` prints), and :func:`placements` gives the same
 assignment as DTensor placements.
 
-Serving does not run the model on DTensors: each rank holds its local
-shard of every leaf (:func:`local_shard`) and the layers call the explicit
-collectives at the bottom of this module (``tp_*`` over the ``model``
-axis, ``dp_gather`` over ``data``) through the layout that
-:func:`serving_layout_scope` makes current. With no layout current they are
-identities, so the single-rank path runs the code it ran before.
+Serving and training do not run the model on DTensors: each rank holds its
+local shard of every leaf (:func:`local_shard`) and the layers call the
+explicit collectives at the bottom of this module (``tp_*`` over the
+``model`` axis, ``dp_*`` over ``data``) through the layout that
+:func:`serving_layout_scope` makes current (:func:`training_layout` for a
+train step). The collectives are differentiable, with Megatron's backward.
+With no layout current they are identities, so the single-rank path runs
+the code it ran before.
 """
 from __future__ import annotations
 
@@ -40,10 +42,12 @@ from repro_torch.nn.spec import ParamSpec
 
 __all__ = ["DEFAULT_RULES", "FSDP_RULES", "partition_spec",
            "zero_partition_spec", "param_shardings", "placements",
-           "batch_pspec", "named", "shard_hint", "axis_sizes", "local_shard",
-           "ServingMeshLayout", "serving_layout_scope",
-           "current_serving_layout", "tp_sum", "tp_max",
-           "tp_gather", "tp_slice", "dp_gather"]
+           "batch_pspec", "named", "shard_hint", "axis_sizes", "local_shape",
+           "local_shard",
+           "ServingMeshLayout", "training_layout", "serving_layout_scope",
+           "current_serving_layout", "tp_sum", "tp_max", "tp_copy",
+           "tp_gather", "tp_slice", "dp_sum", "dp_gather", "dp_copy", "dp_share", "amax_over",
+           "gather_leaf", "mesh_max", "is_mesh_root"]
 
 # logical axis -> candidate mesh axes (tuple = shard jointly over all)
 DEFAULT_RULES = {
@@ -174,6 +178,15 @@ def named(mesh, pspec: tuple) -> tuple:
     return placements(pspec, mesh)
 
 
+def local_shape(shape: tuple, pspec: tuple, sizes: dict) -> tuple:
+    """The shape of a rank's block of a leaf of ``shape`` under ``pspec``."""
+    out = list(shape)
+    for d, p in enumerate(pspec):
+        axes = tuple(a for a in (p if isinstance(p, tuple) else (p,)) if a)
+        out[d] //= _mesh_size(sizes, axes)
+    return tuple(out)
+
+
 def local_shard(t: torch.Tensor, pspec: tuple, sizes: dict,
                 coords: dict) -> torch.Tensor:
     """Rank ``coords``'s block of ``t`` under ``pspec`` (contiguous, equal
@@ -234,6 +247,11 @@ class ServingMeshLayout:
         return dict(zip(names, self.mesh.get_coordinate()))
 
     @property
+    def sizes(self) -> dict:
+        """``{axis: size}`` of the mesh's two axes."""
+        return {"data": self.data, "model": self.model}
+
+    @property
     def data_index(self) -> int:
         return self.coords.get("data", 0)
 
@@ -254,6 +272,15 @@ class ServingMeshLayout:
             else 0
 
 
+def training_layout(mesh) -> ServingMeshLayout:
+    """The layout a training step runs under: the mesh's groups and this
+    rank's coordinates, no slots or pages (the batch's rows split over
+    ``data``, the weights over ``model`` by the rules)."""
+    sizes = axis_sizes(mesh)
+    return ServingMeshLayout(mesh=mesh, data=int(sizes.get("data", 1)),
+                             model=int(sizes.get("model", 1)), n_slots=0)
+
+
 _SERVING_LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
     "serving_mesh_layout", default=None)
 
@@ -272,46 +299,253 @@ def current_serving_layout() -> Optional[ServingMeshLayout]:
 
 
 # ---------------------------------------------------------------------------
-# Collectives of a serving step (identities without a current layout)
+# Collectives of a mesh step (identities without a current layout)
 # ---------------------------------------------------------------------------
 # Tensor parallelism here is the Megatron split the rules imply: a weight
 # sharded on its output features gives each rank a slice of the features
 # (gathered where the next op needs them whole), a weight sharded on its
 # input features gives partial sums (summed over ``model``). Quantization
 # scales are maxima over whole tensors or whole token rows, so they are
-# maxed over ``model`` (a no-op for a replicated operand). Every rank
-# issues the same collectives in the same order: the model code is the
+# maxed over ``model`` (a no-op for a replicated operand) and, for an
+# activation whose rows a training batch splits, over ``data`` too. Every
+# rank issues the same collectives in the same order: the model code is the
 # same on all of them.
+#
+# Each collective is differentiable (training runs the same layers), with
+# the Megatron backward: a sum's gradient is the identity, a gather's is
+# this rank's block, a slice's is the gather of the blocks' gradients, and
+# :func:`tp_copy` (the identity) sums its gradient over ``model``. The
+# backward reads the groups saved at the forward: it may run on another
+# thread, outside the layout's scope. Without gradients the collectives run
+# as plain calls on their operands.
 
-def _all_reduce(x: torch.Tensor, op, axis: str) -> torch.Tensor:
+
+def _dist():
     import torch.distributed as dist
+    return dist
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _gather_cat(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    _dist().all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _summed(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``group`` (a sum by default), laid
+    out in memory as ``x`` is (a later reduction of it, such as a gradient
+    norm's sum, then adds in the same order as on one device)."""
+    dist = _dist()
+    y = x.clone()
+    flat = y.permute(sorted(range(y.dim()), key=lambda d: -y.stride(d)))
+    if not flat.is_contiguous():
+        y = flat = x.contiguous().clone()
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM if op is None else op,
+                    group=group)
+    return y
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce sum; the gradient passes as it is (the sum is replicated,
+    so each rank's cotangent of it is already the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Copy(torch.autograd.Function):
+    """The identity; its gradient summed over the group (Megatron's "f":
+    a replicated tensor feeding a rank's block of the features)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of the ranks' blocks along ``dim``; the gradient is this
+    rank's block of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, index):
+        ctx.dim, ctx.index, ctx.size = dim, index, x.shape[dim]
+        return _gather_cat(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
+                .contiguous(), None, None, None, None)
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's block of a replicated tensor; the gradient is the
+    gather of every rank's block of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, dim, local, group, n, index):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return x.narrow(dim, index * local, local).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather_cat(g, ctx.dim, ctx.group, ctx.n), None, None, None,
+                None, None)
+
+
+def _amax(x: torch.Tensor, dims, groups) -> torch.Tensor:
+    """``x``'s max over ``dims`` (see :func:`amax_over`), then over the
+    ranks of each group."""
+    if dims is None:
+        m = x.amax()
+    elif dims:
+        m = x.amax(dim=dims, keepdim=True)
+    else:
+        m = x
+    for group in groups:
+        m = _summed(m, group, _dist().ReduceOp.MAX)
+    return m
+
+
+class _Amax(torch.autograd.Function):
+    """The max of ``x`` over ``dims`` (all when None; none when ``()``,
+    an elementwise max) and over the ranks of ``groups``. Its gradient goes
+    to every element that holds the maximum, split evenly among all of
+    them on all ranks (as ``torch.amax`` splits it among ties on one
+    device): ``(g_sum / count) * mask``, the cotangent and the count of
+    maxima summed over the groups. A replicated operand counts once per
+    rank and its summed cotangent is split as many times, so the formula
+    holds whether the ranks hold blocks of the operand or copies of it."""
+
+    @staticmethod
+    def forward(ctx, x, dims, groups):
+        m = _amax(x, dims, groups)
+        ctx.save_for_backward(x, m)
+        ctx.dims, ctx.groups = dims, groups
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        x, m = ctx.saved_tensors
+        mask = x == m
+        if ctx.dims is None:
+            count = mask.sum()
+        elif ctx.dims:
+            count = mask.sum(dim=ctx.dims, keepdim=True)
+        else:
+            count = mask.long()
+        for group in ctx.groups:
+            g, count = _summed(g, group), _summed(count, group)
+        return (g / count) * mask, None, None
+
+
+def _layout_axis(axis: str):
+    """(group, size, this rank's index) of ``axis`` in the current layout,
+    or None without one."""
     layout = _SERVING_LAYOUT.get()
     if layout is None:
+        return None
+    n = layout.data if axis == "data" else layout.model
+    idx = layout.data_index if axis == "data" else layout.model_index
+    return layout.group(axis), n, idx
+
+
+def _sum_over(x: torch.Tensor, axis: str) -> torch.Tensor:
+    got = _layout_axis(axis)
+    if got is None:
         return x
-    x = x.contiguous()
-    dist.all_reduce(x, op=op, group=layout.group(axis))
-    return x
+    group = got[0]
+    return _Sum.apply(x, group) if _grad(x) else _summed(x, group)
 
 
 def tp_sum(x: torch.Tensor) -> torch.Tensor:
     """Partial sums of a row-parallel product, summed over ``model``."""
-    import torch.distributed as dist
-    return _all_reduce(x, dist.ReduceOp.SUM, "model")
+    return _sum_over(x, "model")
+
+
+def dp_sum(x: torch.Tensor) -> torch.Tensor:
+    """A sum over this rank's rows of a batch that ``data`` splits, summed
+    over ``data`` (a training loss's numerator and denominator)."""
+    return _sum_over(x, "data")
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (whole on every rank) as the input of a weight that holds this
+    rank's block of its output features: the identity, whose gradient is
+    summed over ``model`` (each rank's is only its block's part)."""
+    got = _layout_axis("model")
+    if got is None or not _grad(x):
+        return x
+    return _Copy.apply(x, got[0])
+
+
+class _Scaled(torch.autograd.Function):
+    """The identity; its gradient multiplied by ``factor``."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
+def dp_copy(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every ``data`` rank) feeding this rank's rows: the
+    identity, whose gradient is summed over ``data`` (each rank's holds its
+    rows' part). Identity on a data axis of one rank."""
+    got = _layout_axis("data")
+    if got is None or got[1] == 1 or not _grad(x):
+        return x
+    return _Copy.apply(x, got[0])
+
+
+def dp_share(x: torch.Tensor) -> torch.Tensor:
+    """The identity, whose gradient is divided among the ``data`` ranks: a
+    gradient :func:`dp_copy` already summed, ahead of the step's sum of
+    every leaf's gradient over ``data``."""
+    got = _layout_axis("data")
+    if got is None or got[1] == 1 or not _grad(x):
+        return x
+    return _Scaled.apply(x, 1.0 / got[1])
+
+
+def amax_over(x: torch.Tensor, dims=None, over_data: bool = False
+              ) -> torch.Tensor:
+    """``x.amax`` over ``dims`` (all when None, keepdim otherwise; ``()``
+    keeps every element) and over ``model`` (and ``data`` with
+    ``over_data``) under a current layout; differentiable as ``amax`` on
+    one device (:class:`_Amax`)."""
+    layout = _SERVING_LAYOUT.get()
+    if layout is None:
+        return _amax(x, dims, ())
+    groups = (layout.group("model"),) + ((layout.group("data"),)
+                                         if over_data else ())
+    if _grad(x):
+        return _Amax.apply(x, dims, groups)
+    return _amax(x, dims, groups)
 
 
 def tp_max(x: torch.Tensor) -> torch.Tensor:
-    """An amax over ``model`` (quantization scales of sharded operands)."""
-    import torch.distributed as dist
-    return _all_reduce(x, dist.ReduceOp.MAX, "model")
-
-
-def _all_gather(x: torch.Tensor, dim: int, axis: str, n: int) -> torch.Tensor:
-    import torch.distributed as dist
-    layout = _SERVING_LAYOUT.get()
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=layout.group(axis))
-    return torch.cat(parts, dim=dim)
+    """An elementwise max over ``model`` (quantization scales of sharded
+    operands)."""
+    return amax_over(x, ())
 
 
 def tp_gather(x: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
@@ -320,11 +554,15 @@ def tp_gather(x: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
     is returned as it is."""
     if x.shape[dim] == full:
         return x
-    layout = _SERVING_LAYOUT.get()
-    if layout is None or x.shape[dim] * layout.model != full:
+    got = _layout_axis("model")
+    if got is None or x.shape[dim] * got[1] != full:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} is no model shard "
                          f"of {full}")
-    return _all_gather(x, dim, "model", layout.model)
+    group, n, idx = got
+    dim = dim % x.dim()
+    if _grad(x):
+        return _Gather.apply(x, dim, group, n, idx)
+    return _gather_cat(x, dim, group, n)
 
 
 def tp_slice(x: torch.Tensor, local: int, dim: int = -1) -> torch.Tensor:
@@ -333,17 +571,56 @@ def tp_slice(x: torch.Tensor, local: int, dim: int = -1) -> torch.Tensor:
     full = x.shape[dim]
     if local == full:
         return x
-    layout = _SERVING_LAYOUT.get()
-    if layout is None or local * layout.model != full:
+    got = _layout_axis("model")
+    if got is None or local * got[1] != full:
         raise ValueError(f"no model shard of {local} in dim {dim} of "
                          f"{tuple(x.shape)}")
-    return x.narrow(dim, layout.model_index * local, local)
+    group, n, idx = got
+    if _grad(x):
+        return _Slice.apply(x, dim % x.dim(), local, group, n, idx)
+    return x.narrow(dim, idx * local, local)
 
 
 def dp_gather(x: torch.Tensor) -> torch.Tensor:
     """Rows of every ``data`` shard, in slot order (a step's tokens,
     flags and logits read back on every rank)."""
-    layout = _SERVING_LAYOUT.get()
-    if layout is None:
+    got = _layout_axis("data")
+    if got is None:
         return x
-    return _all_gather(x, 0, "data", layout.data)
+    group, n, idx = got
+    if _grad(x):
+        return _Gather.apply(x, 0, group, n, idx)
+    return _gather_cat(x, 0, group, n)
+
+
+# ---------------------------------------------------------------------------
+# Whole leaves and host values over a mesh (checkpoints, the trainer)
+# ---------------------------------------------------------------------------
+
+
+def gather_leaf(t: torch.Tensor, pspec: tuple,
+                layout: ServingMeshLayout) -> torch.Tensor:
+    """The whole leaf of which ``t`` is this rank's block under ``pspec``
+    (:func:`local_shard`'s inverse), on every rank of the layout's mesh:
+    each split dim gathered over its axes, the last axis first."""
+    for d, p in enumerate(pspec):
+        for a in reversed(tuple(a for a in (p if isinstance(p, tuple)
+                                            else (p,)) if a)):
+            n = layout.data if a == "data" else layout.model
+            if n > 1:
+                t = _gather_cat(t, d, layout.group(a), n)
+    return t
+
+
+def mesh_max(x: torch.Tensor, layout: ServingMeshLayout) -> torch.Tensor:
+    """``x`` maxed over every rank of the layout's mesh (a barrier too)."""
+    dist = _dist()
+    for axis in ("model", "data"):
+        x = _summed(x, layout.group(axis), dist.ReduceOp.MAX)
+    return x
+
+
+def is_mesh_root(layout: Optional[ServingMeshLayout]) -> bool:
+    """True on the rank at the mesh's origin (every axis at 0), or with no
+    mesh: the rank that prints and writes for the mesh."""
+    return layout is None or not any(layout.coords.values())

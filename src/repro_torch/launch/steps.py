@@ -33,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.mpconfig import as_assignment
-from repro_torch.distributed.sharding import dp_gather, serving_layout_scope
+from repro_torch.distributed.sharding import (dp_gather, dp_sum,
+                                              serving_layout_scope)
 from repro_torch.models.encdec import EncDec
 from repro_torch.nn.spec import flatten_paths, tree_from_flat
 from repro_torch.quant.formats import true_div
@@ -68,28 +69,80 @@ def _mp_ctx(mp) -> QuantContext:
     return QuantContext(mode="mp", mp=mp) if mp else QuantContext()
 
 
+def refuse_mesh(model) -> None:
+    """The models a training mesh does not take, by the ROADMAP item that
+    would lift the refusal."""
+    if isinstance(model, EncDec):
+        raise NotImplementedError(
+            "an encoder-decoder model over a training mesh: its "
+            "cross-attention's collectives are not written (ROADMAP C10)")
+    if getattr(model.cfg, "moe_layers", ()):
+        raise NotImplementedError(
+            "expert (MoE) layers over a training mesh: a data shard's rows "
+            "change the capacity drops and expert parallelism is not "
+            "written (ROADMAP C10, as for mesh serving)")
+
+
+def _data_rows(batch: dict, layout) -> dict:
+    """This data rank's block of the rows of every leaf of ``batch``."""
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0] // layout.data
+        out[k] = v.narrow(0, layout.data_index * n, n)
+    return out
+
+
 def make_train_step(model, opt_cfg: optim.OptConfig,
-                    n_microbatches: int = 1, mp: Optional[dict] = None):
+                    n_microbatches: int = 1, mp: Optional[dict] = None,
+                    mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics), params
     and state updated in place; ``metrics`` holds 0-d tensors ``loss``,
     ``lr`` and ``grad_norm``. Gradients are taken with respect to detached
     leaves of ``params`` (whose weights the fp8 weight cache then leaves
-    alone: a weight that requires grad is quantized per call)."""
+    alone: a weight that requires grad is quantized per call).
+
+    Over a (data, model) ``mesh`` the trees hold this rank's blocks
+    (``optim.MeshShards``: params by the rules, AdamW's moments ZeRO-1) and
+    ``batch`` is the whole global batch: microbatch ``i`` is the reference's
+    (a contiguous reshape of the rows) and this rank computes its ``data``
+    block of its rows, under the mesh's layout (the layers' collectives,
+    the loss's sums over ``data``, scales maxed over the mesh). The
+    gradients are summed over ``data`` (in f32 when it has several ranks)
+    before the update."""
     ctx = _mp_ctx(mp)
+    layout = shards = None
+    if mesh is not None:
+        refuse_mesh(model)
+        shards = optim.MeshShards(model.param_specs(), opt_cfg, mesh)
+        layout = shards.layout
 
     def value_and_grad(params: dict, batch: dict) -> tuple:
         flat = {k: v.detach().requires_grad_(True)
                 for k, v in flatten_paths(params).items()}
-        loss = model.loss(tree_from_flat(flat), batch, ctx)
-        gs = torch.autograd.grad(loss, list(flat.values()),
-                                 allow_unused=True)
+        with serving_layout_scope(layout):
+            loss = model.loss(tree_from_flat(flat), batch, ctx)
+            gs = torch.autograd.grad(loss, list(flat.values()),
+                                     allow_unused=True)
         return loss.detach(), {k: torch.zeros_like(v) if g is None else g
                                for (k, v), g in zip(flat.items(), gs)}
 
+    def micro(batch: dict) -> list:
+        mbs = (_split_micro(batch, n_microbatches) if n_microbatches > 1
+               else [batch])
+        if layout is None:
+            return mbs
+        rows = next(iter(batch.values())).shape[0]
+        if rows % (n_microbatches * layout.data):
+            raise ValueError(f"a batch of {rows} rows in {n_microbatches} "
+                             f"microbatches does not split over data "
+                             f"{layout.data}")
+        return [_data_rows(mb, layout) for mb in mbs]
+
     def train_step(params, opt_state, batch):
+        mbs = micro(batch)
         if n_microbatches > 1:
             loss, grads = None, None
-            for mb in _split_micro(batch, n_microbatches):
+            for mb in mbs:
                 loss_i, g = value_and_grad(params, mb)
                 if grads is None:
                     loss = torch.zeros((), dtype=torch.float32,
@@ -105,12 +158,17 @@ def make_train_step(model, opt_cfg: optim.OptConfig,
             grads = {k: true_div(v, float(n_microbatches))
                      for k, v in grads.items()}
         else:
-            loss, grads = value_and_grad(params, batch)
+            loss, grads = value_and_grad(params, mbs[0])
+        if layout is not None:
+            with serving_layout_scope(layout), torch.no_grad():
+                grads = {k: dp_sum(v.float() if layout.data > 1 else v)
+                         for k, v in grads.items()}
         params, opt_state, metrics = optim.apply_updates(
-            params, tree_from_flat(grads), opt_state, opt_cfg)
+            params, tree_from_flat(grads), opt_state, opt_cfg, shards)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
+    train_step.shards = shards
     return train_step
 
 

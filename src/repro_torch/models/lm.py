@@ -40,6 +40,7 @@ import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import (current_serving_layout,
+                                              serving_layout_scope,
                                               tp_gather, tp_sum)
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba as M
@@ -184,7 +185,14 @@ def _remat(fn, on: bool, *args):
     recomputed in the backward pass instead of kept, as the reference's
     ``jax.checkpoint`` of a layer's body. The gradients are the same."""
     if on and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        # the recomputation runs in the backward pass, maybe on another
+        # thread: it runs under the mesh layout the forward saw
+        layout = current_serving_layout()
+
+        def body(*a):
+            with serving_layout_scope(layout):
+                return fn(*a)
+        return torch.utils.checkpoint.checkpoint(body, *args,
                                                  use_reentrant=False)
     return fn(*args)
 
@@ -486,7 +494,8 @@ class LM:
         gathered over ``model``)."""
         w = (params["embed"]["w"] if self.cfg.tie_embeddings
              else params["lm_head"]["w"])
-        return tp_gather(qops.linear(ctx, "lm_head", h, w),
+        return tp_gather(L.col_linear(ctx, "lm_head", h, w,
+                                      self.cfg.vocab_size),
                          self.cfg.vocab_size)
 
     def apply(self, params: dict, tokens: torch.Tensor, ctx: QuantContext,
@@ -540,7 +549,7 @@ class LM:
         """DeepSeek-V3 multi-token prediction: predict t+2 from (h_t,
         emb_{t+1}) through one more block of the last layer's kind."""
         cfg = self.cfg
-        emb_next = params["embed"]["w"][labels.long()].to(self.dtype)
+        emb_next = self._lookup(params, labels)
         hcat = torch.cat([h, emb_next], dim=-1)
         hm = qops.linear(ctx, "mtp/proj", hcat, params["mtp"]["proj"]["w"])
         hm = L.apply_norm(params["mtp"]["norm"], hm, cfg.norm)

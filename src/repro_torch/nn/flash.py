@@ -84,10 +84,10 @@ def flash_attention(ctx: QuantContext, scope: str, q: torch.Tensor,
     # reference path's qk operands get
     axes = (2, 3) if ctx.act_scale_token else act_quant_axes(ctx, 4)
     if qk_fmt is not None:
-        q = qtensor.fake_quant(q, qk_fmt, axis=axes)
-        k = qtensor.fake_quant(k, qk_fmt, axis=axes)
+        q = qtensor.fake_quant(q, qk_fmt, axis=axes, batch_rows=True)
+        k = qtensor.fake_quant(k, qk_fmt, axis=axes, batch_rows=True)
     if av_fmt is not None:
-        v = qtensor.fake_quant(v, av_fmt, axis=axes)
+        v = qtensor.fake_quant(v, av_fmt, axis=axes, batch_rows=True)
     p_axes = ((1, 2, 4) if ctx.act_scale_token
               else act_quant_axes(ctx, 5))
 
@@ -149,7 +149,8 @@ def flash_attention(ctx: QuantContext, scope: str, q: torch.Tensor,
             if av_fmt is not None:
                 # per-sequence / per-token scales here too, else co-batched
                 # rows couple through the block-probability amax
-                pq = qtensor.fake_quant(pq, av_fmt, axis=p_axes)
+                pq = qtensor.fake_quant(pq, av_fmt, axis=p_axes,
+                                        batch_rows=True)
             pv = einsum_f32acc("BKGTS,BSKD->BKGTD", pq, vv, torch.float32)
             acc = acc * corr[..., None] + pv
             m = m_new

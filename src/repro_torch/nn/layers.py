@@ -52,7 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (current_serving_layout,
-                                              tp_gather, tp_slice, tp_sum)
+                                              tp_copy, tp_gather, tp_slice,
+                                              tp_sum)
 from repro_torch.nn.spec import ParamSpec
 from repro_torch.quant import qops
 from repro_torch.quant.formats import cast_to, get_format, true_div
@@ -90,6 +91,18 @@ def row_linear(ctx: QuantContext, name: str, x: torch.Tensor,
         y = tp_sum(qops.linear(ctx, name, x, w,
                                out_dtype=torch.float32)).to(x.dtype)
     return y if b is None else y + b.to(y.dtype)
+
+
+def col_linear(ctx: QuantContext, name: str, x: torch.Tensor,
+               w: torch.Tensor, full_out: int,
+               b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``qops.linear`` for a weight whose output features (``full_out`` of
+    them) a mesh may split over ``model``, on an ``x`` that is whole on
+    every rank; the result is this rank's block of the features. A weight
+    that holds a block takes ``x`` (as quantized) through ``tp_copy``
+    (Megatron's "f"), so that the gradient of ``x`` sums every rank's
+    part."""
+    return qops.linear(ctx, name, x, w, b, copy_lhs=w.shape[0] != full_out)
 
 
 def _shard_like(t: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -255,16 +268,17 @@ def apply_mlp(p: dict, ctx: QuantContext, scope: str, x: torch.Tensor,
               activation: str, d_ff: Optional[int] = None) -> torch.Tensor:
     """``d_ff`` (the whole ffn width) is needed under a serving mesh, where
     the weights may hold this rank's block of it."""
-    if activation == "swiglu":
-        g = qops.linear(ctx, f"{scope}/gate_proj", x, p["gate_proj"]["w"])
-        u = qops.linear(ctx, f"{scope}/up_proj", x, p["up_proj"]["w"])
-        h = F.silu(g.float()).to(x.dtype) * u
-    else:
-        u = qops.linear(ctx, f"{scope}/up_proj", x, p["up_proj"]["w"],
-                        p["up_proj"].get("b"))
-        h = _act(activation, u.float()).to(x.dtype)
     if d_ff is None:
         d_ff = p["down_proj"]["w"].shape[-1]
+    if activation == "swiglu":
+        g = col_linear(ctx, f"{scope}/gate_proj", x, p["gate_proj"]["w"],
+                       d_ff)
+        u = col_linear(ctx, f"{scope}/up_proj", x, p["up_proj"]["w"], d_ff)
+        h = F.silu(g.float()).to(x.dtype) * u
+    else:
+        u = col_linear(ctx, f"{scope}/up_proj", x, p["up_proj"]["w"], d_ff,
+                       p["up_proj"].get("b"))
+        h = _act(activation, u.float()).to(x.dtype)
     return row_linear(ctx, f"{scope}/down_proj", h, p["down_proj"]["w"],
                       d_ff, p["down_proj"].get("b"))
 
@@ -642,15 +656,15 @@ def attention(p: dict, ctx: QuantContext, scope: str, cfg: AttnConfig,
     layout = current_serving_layout()
     if layout is not None and Hkv % layout.model == 0:
         H, Hkv = H // layout.model, Hkv // layout.model
-    q = _split_heads(tp_gather(qops.linear(
-        ctx, f"{scope}/q_proj", x, p["q_proj"]["w"], p["q_proj"].get("b")),
-        H * D), H, D)
-    k = _split_heads(tp_gather(qops.linear(
-        ctx, f"{scope}/k_proj", x, p["k_proj"]["w"], p["k_proj"].get("b")),
-        Hkv * D), Hkv, D)
-    v = _split_heads(tp_gather(qops.linear(
-        ctx, f"{scope}/v_proj", x, p["v_proj"]["w"], p["v_proj"].get("b")),
-        Hkv * D), Hkv, D)
+    q = _split_heads(tp_gather(col_linear(
+        ctx, f"{scope}/q_proj", x, p["q_proj"]["w"], cfg.n_heads * D,
+        p["q_proj"].get("b")), H * D), H, D)
+    k = _split_heads(tp_gather(col_linear(
+        ctx, f"{scope}/k_proj", x, p["k_proj"]["w"], cfg.n_kv_heads * D,
+        p["k_proj"].get("b")), Hkv * D), Hkv, D)
+    v = _split_heads(tp_gather(col_linear(
+        ctx, f"{scope}/v_proj", x, p["v_proj"]["w"], cfg.n_kv_heads * D,
+        p["v_proj"].get("b")), Hkv * D), Hkv, D)
     if cfg.rope_theta is not None:
         sin, cos = rope_table(positions, D, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
@@ -901,7 +915,8 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
 
     qa = qops.linear(ctx, f"{scope}/q_a_proj", x, p["q_a_proj"]["w"])
     qa = apply_norm(p["q_norm"], qa)
-    q = qops.linear(ctx, f"{scope}/q_b_proj", qa, p["q_b_proj"]["w"])
+    q = col_linear(ctx, f"{scope}/q_b_proj", qa, p["q_b_proj"]["w"],
+                   cfg.n_heads * (dn + dr))
     q = q.reshape(B, T, H, dn + dr)
     qn, qr = q[..., :dn], q[..., dn:]
 
@@ -965,8 +980,11 @@ def mla_attention(p: dict, ctx: QuantContext, scope: str, cfg: MLAConfig,
         kp = positions
 
     # expand the latents to per-head K (nope part) and V
-    kvb = qops.linear(ctx, f"{scope}/kv_b_proj", ckv, p["kv_b_proj"]["w"])
+    kvb = col_linear(ctx, f"{scope}/kv_b_proj", ckv, p["kv_b_proj"]["w"],
+                     cfg.n_heads * (dn + dv))
     S = ckv.shape[1]
+    if H != cfg.n_heads:
+        kr = tp_copy(kr)      # shared by every head: its gradient sums them
     kvb = kvb.reshape(B, S, H, dn + dv)
     kn, v = kvb[..., :dn], kvb[..., dn:]
     qf = torch.cat([qn, qr], dim=-1)

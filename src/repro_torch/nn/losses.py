@@ -7,6 +7,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import dp_sum
+
 __all__ = ["chunked_ce_loss"]
 
 
@@ -14,7 +16,8 @@ def chunked_ce_loss(head_fn: Callable, h: torch.Tensor, labels: torch.Tensor,
                     weights: Optional[torch.Tensor], chunk: int,
                     no_scan: bool = False) -> torch.Tensor:
     """head_fn(h_chunk) -> logits. h: (B, T, D); labels/weights: (B, T).
-    Returns the weighted mean negative log-likelihood (f32 scalar)."""
+    Returns the weighted mean negative log-likelihood (f32 scalar), over
+    the whole batch when a training mesh splits its rows."""
     B, T, _ = h.shape
     C = T if no_scan else min(chunk, T)
     if weights is None:
@@ -28,4 +31,7 @@ def chunked_ce_loss(head_fn: Callable, h: torch.Tensor, labels: torch.Tensor,
         w = weights[:, s:s + C].float()
         total = total + ((logz - gold) * w).sum()
         denom = denom + w.sum()
+    # a training mesh splits the rows over ``data``: both sums are the
+    # whole batch's (identities on one rank)
+    total, denom = dp_sum(total), dp_sum(denom)
     return total / torch.clamp_min(denom, 1.0)

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import tp_gather, tp_slice
-from repro_torch.nn.layers import apply_norm, row_linear, row_mean
+from repro_torch.nn.layers import apply_norm, col_linear, row_linear, row_mean
 from repro_torch.nn.spec import ParamSpec
 from repro_torch.quant import qops
 from repro_torch.quant.qops import QuantContext
@@ -96,9 +96,9 @@ def _in_proj(p: dict, ctx: QuantContext, scope: str, cfg: SSMConfig,
              x: torch.Tensor) -> torch.Tensor:
     """The whole packed projection (gathered over a mesh's model axis)."""
     di, G, N = cfg.d_inner, cfg.n_groups, cfg.d_state
-    return tp_gather(qops.linear(ctx, f"{scope}/in_proj", x,
-                                 p["in_proj"]["w"]),
-                     2 * di + 2 * G * N + cfg.n_heads)
+    full = 2 * di + 2 * G * N + cfg.n_heads
+    return tp_gather(col_linear(ctx, f"{scope}/in_proj", x,
+                                p["in_proj"]["w"], full), full)
 
 
 def _my_heads(p: dict, cfg: SSMConfig, dim: int, xs: torch.Tensor,

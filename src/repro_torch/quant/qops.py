@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import dp_copy, dp_share, tp_copy
 from repro_torch.quant import qtensor, weight_cache
 from repro_torch.quant.formats import get_format
 
@@ -121,15 +122,17 @@ def _maybe_register(ctx: QuantContext, name: str, kind: str, spec: str,
 
 
 def _quantize_operand(x: torch.Tensor, fmt_name: str, impl: str, scale,
-                      axis=None) -> torch.Tensor:
-    """The operand as the MP matmul consumes it."""
+                      axis=None, batch_rows: bool = False) -> torch.Tensor:
+    """The operand as the MP matmul consumes it (``batch_rows``: an
+    activation, whose dim 0 a training mesh splits over ``data``)."""
     fmt = get_format(fmt_name)
     if not fmt.is_quantized:
         return x
     if impl == "native" and fmt.dtype is not None:
-        return qtensor.quantize(x, fmt_name, axis=axis,
-                                scale=scale).dequantize(x.dtype)
-    return qtensor.fake_quant(x, fmt_name, axis=axis, scale=scale)
+        return qtensor.quantize(x, fmt_name, axis=axis, scale=scale,
+                                batch_rows=batch_rows).dequantize(x.dtype)
+    return qtensor.fake_quant(x, fmt_name, axis=axis, scale=scale,
+                              batch_rows=batch_rows)
 
 
 def _stored(q: qtensor.QTensor) -> tuple:
@@ -154,7 +157,12 @@ def _weight_operand(w: torch.Tensor, fmt_name: str, scale) -> torch.Tensor:
     if not get_format(fmt_name).is_quantized:
         return w
     if w.requires_grad:               # not a constant: quantized per call
-        return _quantize_operand(w, fmt_name, "simulate", scale)
+        # on a training mesh the ranks' rows' parts of the quantized
+        # weight's gradient are summed before the cast's backward rounds
+        # them, as on one device (and shared out again ahead of the step's
+        # sum over ``data``)
+        return dp_copy(_quantize_operand(dp_share(w), fmt_name, "simulate",
+                                         scale))
     q, s_inv = weight_cache.cached(
         w, ("fake", fmt_name),
         lambda: _stored(qtensor.quantize(w, fmt_name, scale=scale)),
@@ -226,9 +234,15 @@ def _kernel_linear(lhs: torch.Tensor, rhs: torch.Tensor, fmt_name: str,
 
 def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
             rhs: torch.Tensor, kind: str = KIND_LINEAR,
-            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            out_dtype: Optional[torch.dtype] = None,
+            copy_lhs: bool = False) -> torch.Tensor:
     """Quantizable einsum — the single entry point for L_lin and L_BGEMM.
-    The product is rounded once to ``out_dtype`` (default: ``lhs``'s)."""
+    The product is rounded once to ``out_dtype`` (default: ``lhs``'s).
+    ``copy_lhs``: ``lhs`` is whole on every rank of a mesh's ``model`` axis
+    and ``rhs`` holds this rank's block of the output features; the operand
+    as the product consumes it (quantized) passes through
+    ``sharding.tp_copy``, so the ranks' parts of its gradient are summed
+    before the quantization's backward sees them, as on one device."""
     out_dtype = out_dtype or lhs.dtype
     if ctx.mode == "probe":
         if ctx.probes is not None and name in ctx.probes:
@@ -249,7 +263,8 @@ def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
             if ctx.scales is not None and name in ctx.scales:
                 s_lhs, s_rhs = ctx.scales[name]
             if _kernel_route(ctx, kind, lhs, rhs):
-                return _kernel_linear(lhs, rhs, fmt_name, out_dtype)
+                return _kernel_linear(tp_copy(lhs) if copy_lhs else lhs, rhs,
+                                      fmt_name, out_dtype)
             if ctx.act_scale_token:
                 a_l, b_l = spec.split("->")[0].split(",")
                 lhs_axes = _token_scale_axes(a_l)
@@ -257,12 +272,15 @@ def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
             else:
                 lhs_axes = act_quant_axes(ctx, lhs.ndim)
                 rhs_axes = act_quant_axes(ctx, rhs.ndim)
-            lhs = _quantize_operand(lhs, fmt_name, ctx.impl, s_lhs, lhs_axes)
+            lhs = _quantize_operand(lhs, fmt_name, ctx.impl, s_lhs, lhs_axes,
+                                    batch_rows=True)
             rhs = (_weight_operand(rhs, fmt_name, s_rhs) if kind == KIND_LINEAR
                    else _quantize_operand(rhs, fmt_name, ctx.impl, s_rhs,
-                                          rhs_axes))
+                                          rhs_axes, batch_rows=True))
     elif ctx.mode != "plain":
         raise ValueError(f"unknown QuantContext mode {ctx.mode!r}")
+    if copy_lhs:
+        lhs = tp_copy(lhs)
     out = einsum_f32acc(spec, lhs, rhs, out_dtype)
     _maybe_register(ctx, name, kind, spec, lhs, rhs, out)
     return out
@@ -270,11 +288,13 @@ def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
 
 def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None,
-           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None,
+           copy_lhs: bool = False) -> torch.Tensor:
     """y = x @ w^T (+ b); w: (K, C) per eq. (8). ``x`` may have any leading
     dims; a 3-D ``w`` is an expert-grouped GEMM aligned with ``x``.
     ``out_dtype`` (default ``x``'s) is the product's one rounding (a
-    row-parallel shard's partial sums stay f32 until they are summed)."""
+    row-parallel shard's partial sums stay f32 until they are summed);
+    ``copy_lhs`` as in :func:`qeinsum`."""
     if w.dtype != x.dtype and w.element_size() == 1:
         w = w.to(x.dtype)            # fp8-stored weights: dequant at use
     if w.ndim == 2:
@@ -282,7 +302,7 @@ def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
         if xl is None:                # flatten exotic ranks
             lead = x.shape[:-1]
             y = linear(ctx, name, x.reshape(-1, x.shape[-1]), w, b,
-                       out_dtype)
+                       out_dtype, copy_lhs)
             return y.reshape(*lead, w.shape[0])
         spec = f"{xl},KC->{xl[:-1]}K"
     elif w.ndim == 3 and x.ndim == 3:
@@ -290,7 +310,8 @@ def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     else:
         raise ValueError(f"unsupported linear ranks x={tuple(x.shape)} "
                          f"w={tuple(w.shape)}")
-    y = qeinsum(ctx, name, spec, x, w, kind=KIND_LINEAR, out_dtype=out_dtype)
+    y = qeinsum(ctx, name, spec, x, w, kind=KIND_LINEAR, out_dtype=out_dtype,
+                copy_lhs=copy_lhs)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -12,8 +12,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from repro_torch.distributed.sharding import (current_serving_layout,
-                                              tp_max)
+from repro_torch.distributed.sharding import amax_over
 from repro_torch.quant.formats import Format, cast_to, get_format, true_div
 
 __all__ = ["QTensor", "compute_scale", "quantize", "dequantize", "fake_quant"]
@@ -47,39 +46,41 @@ def _norm_axes(axis: Axis, ndim: int) -> tuple:
 
 
 def compute_scale(x: torch.Tensor, fmt: Format, axis: Axis = None,
-                  margin: float = 1.0) -> torch.Tensor:
+                  margin: float = 1.0, batch_rows: bool = False
+                  ) -> torch.Tensor:
     """amax-based scale: ``scale = fmt.max_value / amax``. ``axis=None`` gives
     a per-tensor scalar; otherwise the reduced axes are kept with size 1. An
-    empty ``axis`` tuple gives one scale per element. Inside a serving mesh
-    step the amax is maxed over the ``model`` axis (see
-    ``distributed.sharding``)."""
+    empty ``axis`` tuple gives one scale per element. Inside a mesh step the
+    amax is maxed over the ``model`` axis, and over ``data`` too when the
+    amax reduces dim 0 of an operand whose rows are a batch split over
+    ``data`` (``batch_rows``: an activation of a training step); see
+    ``distributed.sharding``."""
     axes = _norm_axes(axis, x.ndim)
     if fmt.max_value is None:
         shape = () if axis is None else tuple(
             1 if a in axes else s for a, s in enumerate(x.shape))
         return torch.ones(shape, dtype=torch.float32, device=x.device)
     ax = x.float().abs()
-    if axis is None:
-        amax = ax.amax()
-    elif axes:
-        amax = ax.amax(dim=axes, keepdim=True)
-    else:
+    if axis is not None and not axes:
         amax = ax
-    if (axis is None or axes) and current_serving_layout() is not None:
-        # a serving mesh: x is this rank's block of an operand split over
-        # ``model`` along a reduced axis, or the whole operand; either way
-        # the max over ``model`` is the whole operand's
-        amax = tp_max(amax)
+    else:
+        # x is this rank's block of an operand split over ``model`` along a
+        # reduced axis, or the whole operand; either way the max over the
+        # mesh is the whole operand's
+        amax = amax_over(ax, None if axis is None else axes,
+                         over_data=batch_rows and (axis is None or 0 in axes))
     amax = torch.clamp_min(amax, 1e-12)
     return true_div(fmt.max_value * margin, amax)
 
 
 def quantize(x: torch.Tensor, fmt_name: str, axis: Axis = None,
-             scale: Optional[torch.Tensor] = None) -> QTensor:
-    """Cast ``x`` into the target format with amax scaling (real storage)."""
+             scale: Optional[torch.Tensor] = None,
+             batch_rows: bool = False) -> QTensor:
+    """Cast ``x`` into the target format with amax scaling (real storage;
+    ``batch_rows`` as in :func:`compute_scale`)."""
     fmt = get_format(fmt_name)
     if scale is None:
-        scale = compute_scale(x, fmt, axis)
+        scale = compute_scale(x, fmt, axis, batch_rows=batch_rows)
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
     xf = x.float() * scale
     if fmt.dtype is not None:
@@ -95,13 +96,15 @@ def dequantize(q: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def fake_quant(x: torch.Tensor, fmt_name: str, axis: Axis = None,
-               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               scale: Optional[torch.Tensor] = None,
+               batch_rows: bool = False) -> torch.Tensor:
     """Quantize-dequantize; output has the dtype of ``x`` (identity for
     ``bf16``)."""
     fmt = get_format(fmt_name)
     if fmt.name == "bf16":
         return x
-    return quantize(x, fmt_name, axis=axis, scale=scale).dequantize(x.dtype)
+    return quantize(x, fmt_name, axis=axis, scale=scale,
+                    batch_rows=batch_rows).dequantize(x.dtype)
 
 
 def _round_to_format(xf: torch.Tensor, fmt: Format) -> torch.Tensor:

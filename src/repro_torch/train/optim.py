@@ -33,12 +33,13 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.nn.spec import (ParamSpec, flatten_paths, sorted_leaves,
                                  tree_from_flat)
 from repro_torch.quant.formats import true_div
 
 __all__ = ["OptConfig", "select_optimizer", "init_state", "state_specs",
-           "apply_updates", "lr_at"]
+           "apply_updates", "lr_at", "MeshShards"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,12 +171,73 @@ def init_state(param_specs: dict, cfg: OptConfig,
 # ---------------------------------------------------------------------------
 
 
-def _global_norm(tree: dict) -> torch.Tensor:
-    """The leaves' f32 sums of squares added in the reference's leaf order."""
+def _global_norm(tree: dict, shards: Optional["MeshShards"] = None
+                 ) -> torch.Tensor:
+    """The leaves' f32 sums of squares added in the reference's leaf order.
+    On a mesh the leaves are this rank's blocks: the sums of the leaves
+    ``model`` splits are summed over it, every other leaf counts once."""
+    sums = [torch.sum(torch.square(x.float()))
+            for _, x in sorted_leaves(tree)]
+    if shards is not None and sums:
+        keep = torch.tensor([shards.model_split(path)
+                             or shards.layout.model_index == 0
+                             for path, _ in sorted_leaves(tree)],
+                            device=sums[0].device)
+        vec = torch.where(keep, torch.stack(sums), 0.0)
+        with sharding.serving_layout_scope(shards.layout):
+            vec = sharding.tp_sum(vec)
+        sums = list(vec.unbind())
     total = 0
-    for _, x in sorted_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for x in sums:
+        total = total + x
     return torch.sqrt(total)
+
+
+class MeshShards:
+    """Where params and optimizer state lie on a (data, model) mesh: each
+    param leaf is this rank's block under ``sharding.partition_spec``, each
+    state leaf its block under ``sharding.zero_partition_spec`` (ZeRO-1:
+    AdamW's moments also split over ``data`` along their largest free dim).
+    A data rank updates its block of the moments and of the param and then
+    gathers the param over ``data``. Adafactor's factored means and its
+    update's RMS span the whole leaf and are not reduced over the mesh: it
+    is refused on more than one rank."""
+
+    def __init__(self, param_specs: dict, cfg: OptConfig, mesh):
+        self.layout = sharding.training_layout(mesh)
+        if cfg.name != "adamw" and self.layout.data * self.layout.model > 1:
+            raise NotImplementedError(
+                f"{cfg.name} over a {self.layout.data}x{self.layout.model} "
+                f"mesh: its factored moments and update RMS span whole "
+                f"leaves (ROADMAP item A9d); AdamW shards")
+        self.params = {p: sharding.partition_spec(s, mesh)
+                       for p, s in param_specs.items()}
+        self.state = {p: sharding.zero_partition_spec(s, mesh)
+                      for p, s in state_specs(param_specs, cfg).items()}
+
+    @staticmethod
+    def _axes(pspec: tuple, d: int) -> tuple:
+        p = pspec[d] if d < len(pspec) else None
+        return tuple(a for a in (p if isinstance(p, tuple) else (p,)) if a)
+
+    def model_split(self, path: str) -> bool:
+        spec = self.params[path]
+        return any("model" in self._axes(spec, d) for d in range(len(spec)))
+
+    def zero_dim(self, path: str) -> Optional[int]:
+        """The dim of ``path``'s moments that ``data`` splits (None: the
+        moments are whole on every data rank)."""
+        spec = self.state.get(f"mu/{path}", ())
+        for d in range(len(spec)):
+            if "data" in self._axes(spec, d):
+                return d
+        return None
+
+    def local(self, pspecs: dict, flat: dict) -> dict:
+        """This rank's block of every leaf of ``flat`` (whole tensors)."""
+        lay = self.layout
+        return {p: sharding.local_shard(v, pspecs[p], lay.sizes, lay.coords)
+                for p, v in flat.items()}
 
 
 # leaves larger than this (of rank >= 3) are updated one slice of their
@@ -222,16 +284,33 @@ def _update_one(cfg: OptConfig, step: torch.Tensor, lr: torch.Tensor, scale,
     p.copy_((pf - lr * upd).to(p.dtype))
 
 
+def _update_leaf(cfg: OptConfig, step, lr, scale, p: torch.Tensor,
+                 g: torch.Tensor, st: dict) -> None:
+    # vr/vc state only counts as factored if the slice stays >= 2-D
+    chunk = (p.numel() * p.element_size() > _CHUNKED_UPDATE_BYTES
+             and p.dim() >= 3 and p.shape[0] > 1
+             and all(s.shape[:1] == p.shape[:1] for s in st.values()))
+    if chunk:
+        for i in range(p.shape[0]):
+            _update_one(cfg, step, lr, scale, p[i], g[i],
+                        {k: v[i] for k, v in st.items()})
+    else:
+        _update_one(cfg, step, lr, scale, p, g, st)
+
+
 @torch.no_grad()
 def apply_updates(params: dict, grads: dict, state: dict,
-                  cfg: OptConfig) -> tuple:
+                  cfg: OptConfig, shards: Optional[MeshShards] = None
+                  ) -> tuple:
     """One optimizer step, in place on ``params`` and ``state``. Returns
     ``(params, state, metrics)`` — the same trees, updated — with
     ``metrics`` ``{"lr", "grad_norm"}`` (0-d f32 tensors), as the
-    reference returns its new trees."""
+    reference returns its new trees. With ``shards`` the trees hold this
+    rank's blocks (:class:`MeshShards`) and ``grads`` the whole batch's
+    gradients of them."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, shards)
     scale = (torch.clamp_max(true_div(cfg.grad_clip,
                                       torch.clamp_min(gnorm, 1e-12)), 1.0)
              if cfg.grad_clip else 1.0)
@@ -241,15 +320,16 @@ def apply_updates(params: dict, grads: dict, state: dict,
         st = {pre: fs[f"{pre}/{path}"] for pre in ("mu", "nu", "vr", "vc",
                                                    "v")
               if f"{pre}/{path}" in fs}
-        # vr/vc state only counts as factored if the slice stays >= 2-D
-        chunk = (p.numel() * p.element_size() > _CHUNKED_UPDATE_BYTES
-                 and p.dim() >= 3 and p.shape[0] > 1
-                 and all(s.shape[:1] == p.shape[:1] for s in st.values()))
-        if chunk:
-            for i in range(p.shape[0]):
-                _update_one(cfg, step, lr, scale, p[i], fg[path][i],
-                            {k: v[i] for k, v in st.items()})
-        else:
-            _update_one(cfg, step, lr, scale, p, fg[path], st)
+        d = None if shards is None else shards.zero_dim(path)
+        if d is None:
+            _update_leaf(cfg, step, lr, scale, p, fg[path], st)
+            continue
+        lay = shards.layout
+        n = p.shape[d] // lay.data
+        blk = p.narrow(d, lay.data_index * n, n)
+        _update_leaf(cfg, step, lr, scale, blk, fg[path].narrow(
+            d, lay.data_index * n, n), st)
+        with sharding.serving_layout_scope(lay):
+            p.copy_(sharding.dp_gather(blk.movedim(d, 0)).movedim(0, d))
     state["step"].copy_(step)
     return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -279,12 +279,19 @@ def test_straggler_forces_a_checkpoint_and_exits_17(tmp_path):
 
 
 def test_mesh_waits_for_a9b(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9b"):
-        Trainer(get_model("llama3_1b", smoke=True), OptConfig(), object(),
-                TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ttrain.main(["--smoke", "--device", "cpu", "--mesh-data", "2",
-                     "--ckpt-dir", str(tmp_path)])
+    """What still waits after A9b's training half: ``Trainer(mesh=)`` and
+    ``launch.train --mesh-*`` refuse expert (MoE) layers and
+    encoder-decoder models, naming the ROADMAP item, before any process
+    group is touched (the mesh training itself is held in
+    ``test_torch_train_mesh.py``)."""
+    for arch, kw in (("moonshot_v1_16b_a3b", {}),
+                     ("whisper_base", {})):
+        with pytest.raises(NotImplementedError, match="ROADMAP C10"):
+            Trainer(get_model(arch, smoke=True, **kw), OptConfig(), object(),
+                    TrainerConfig(ckpt_dir=str(tmp_path)), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP C10"):
+            ttrain.main(["--smoke", "--device", "cpu", "--arch", arch,
+                         "--mesh-data", "2", "--ckpt-dir", str(tmp_path)])
 
 
 # ---------------------------------------------------------------------------

@@ -235,14 +235,22 @@ def test_oneshot_matches_reference_serve_engine(prompts):
         assert_agree(want[i], got.tokens[i], gaps[i])
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}])
+class _TwoDataRanks:
+    """A mesh's axis names and sizes, no process group."""
+    mesh_dim_names = ("data", "model")
+    shape = (2, 1)
+
+
+@pytest.mark.parametrize("kw", [{"mesh": _TwoDataRanks()}])
 def test_later_slices_refuse(model, kw):
-    """The engine serves over a mesh since A9b's serving half; the trainer
-    still refuses one, naming A9b's training half."""
+    """The engine and the trainer run over a mesh since A9b; what a later
+    slice still has to write is refused by name: Adafactor over more than
+    one rank (ROADMAP A9d), before any collective."""
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    with pytest.raises(NotImplementedError, match="training half of ROADMAP"):
-        Trainer(model, OptConfig(), kw["mesh"], TrainerConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP item A9d"):
+        Trainer(model, OptConfig(name="adafactor"), kw["mesh"],
+                TrainerConfig(), device="cpu")
 
 
 def test_pipelined_drain_refused(model, params):

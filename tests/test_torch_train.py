@@ -403,8 +403,13 @@ def test_compress_matches_reference_bitwise():
                                        jnp.asarray(e["a"]))
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(err.numpy(), np.asarray(jerr))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        tgc.compressed_psum(_t(g["a"]), "data")
+    # compressed_psum without a mesh layout: the reference's over an axis
+    # of one member (its four-rank form: test_torch_train_mesh.py)
+    for fmt in ("fp8_e4m3", "fp8_e5m2"):
+        got = tgc.compressed_psum(_t(g["a"]), "data", fmt)
+        want = jax.vmap(lambda v: jgc.compressed_psum(v, "data", fmt),
+                        axis_name="data")(jnp.asarray(g["a"])[None])[0]
+        np.testing.assert_array_equal(_np(got), _np(want))
 
 
 # ---------------------------------------------------------------------------
