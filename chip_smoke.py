@@ -111,10 +111,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     attention) against the same prompt at a threshold of 2^30 (reference
     attention): prefill logits, first tokens and TTFT;
 13. Llama-3.1-8B at its published widths (d_head 128, untied head),
-    served at 4 of its 32 layers (the cut is printed): phases 4 and 5 at
+    served at 2 of its 32 layers (the cut is printed): phases 4 and 5 at
     phase 4's cell (every fused launch through ``gqa_mma`` at D 128; the
-    fixed plan puts fp8 on the linear ops of layers 2-3 and the BGEMMs of
-    layer 3), phase 17's pipelined drain against the lockstep one, then
+    fixed plan puts fp8 on the linear ops and the BGEMMs of layer 1),
+    phase 17's pipelined drain against the lockstep one, then
     ``calibrate`` over phase 6's batches on all 32 layers' config at the
     largest depth whose probes and backward fit in 75% of the card
     (``fitted_calibration``: the depth, a cut, the predicted and measured
@@ -162,11 +162,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 18. the four other dense configs at their published widths, random weights
     (qwen2p5_3b: QKV bias, tied head, G 8; nemotron_4_15b: relu2 MLP,
     layernorm, 256000-entry head, G 6; starcoder2_15b: gelu MLP, layernorm,
-    G 12; qwen2p5_32b: G 5, QKV bias), each served at 2 layers
+    G 12; qwen2p5_32b: G 5, QKV bias), each served at 1 layer
     (``DENSE_CONFIGS``: the script's time limit): phases 4 and 5's
     checks at phase 4's cell (every fused launch through ``gqa_mma``; the
     gather drains without eager twins), the fixed plan on the later half
-    of the layers, peak device memory, and qwen2p5_3b calibrated at the
+    of the layers (at 1 layer that is layer 0 with its BGEMMs, which leaves
+    no layer to kernel 5: only the plan's gather drains run), peak device
+    memory, and qwen2p5_3b calibrated at the
     largest depth that fits, as in phase 13; each model is freed before
     the next;
 19. (run after phase 17, on its model) dense-ring serving: phase 4's
@@ -265,7 +267,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     4 requests of 1500 frames, a 4-token prompt and 64 new tokens through
     ``ServeEngine.generate``, graphed against eager bit for bit, plain (its
     logits also against full forwards) and under the ET plan, with TTFT
-    and decode tokens/s. LLaVA at 4 of its 60 layers (the cut printed):
+    and decode tokens/s. LLaVA at 2 of its 60 layers (the cut printed):
     phase 4's cell on text, fused (every launch through ``gqa_mma`` at G
     7) against its eager twin and its lockstep twin bit for bit and
     against gather and one-shot, plain and under the later-half plan; 4
@@ -310,7 +312,37 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     resumed by the single-rank trainer: steps 11-20 bit-equal to phase
     25's straight run. Its seconds are printed beside the card's name and
     power limit (budget 30 s);
-28. print the kernel table and the serving and calibration numbers as JSON
+28. ``scan_layers`` and the dry run. The scan leg (run after phase 27):
+    llama3_1b at full width and depth with its 16 layers stacked into one
+    segment (``scan_layers=True``, ``remat=True``, ``remat_group=4``: the
+    two-level remat), phase 25's initial weights stacked: the gradients at
+    them equal to the unrolled model's leaf for leaf (or the first
+    differing leaf and the largest difference printed), then phase 25's
+    first 3 steps of (8, 256), each loss and grad norm held to phase 25's
+    (bitwise, or the largest difference printed against the 2e-2 bound of
+    phase 25's checkpoint leg), the peak memory beside phase 25's; then
+    phase 4's cell served through a scan model holding phase 4's weights
+    stacked, plain: the step graphs captured (no weight quantized), every
+    fused launch through ``gqa_mma``, tokens bit-equal to phase 4's. The
+    dry-run leg (run after phase 24, the last model's, so that the host
+    trace has every phase since phase 7 to end in): ``python -m
+    repro_torch.launch.dryrun`` of starcoder2_15b x
+    train_4k and x decode_32k at pod16x16 (one rank of a fake 256-rank
+    group, a ``meta`` trace) runs on the host in a process of its own,
+    started after phase 7 with no card visible, at the lowest CPU
+    priority; its records
+    (trace seconds, argument bytes and peak estimate per rank, FLOPs,
+    collective bytes by kind, the roofline's three terms against
+    ``H100_SXM`` and the bottleneck) are printed here. Then the same
+    rank's shard runs for real on the card over a fake 256-rank CUDA group
+    (no collective moves data; no value is checked): decode_32k whole,
+    train_4k cut to 4 of its 40 layers and 2 of its 8 microbatches of 2
+    rows a rank (a global batch of 64) at full width (its whole shard took
+    107.6 s a step), which the host also traces: one warm-up, the median of 3 steps (CUDA events) against the
+    roofline terms, and ``torch.cuda.max_memory_allocated`` above what was
+    allocated before the cell against the meta peak estimate, within 20%.
+    Each leg's seconds and their sum are printed (budget 40 s);
+29. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
     phase's seconds are printed.
 
@@ -321,6 +353,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1490,26 +1523,31 @@ def serve_phase(torch, model, params, gather_eager=True) -> dict:
     agree_go = compare("gather vs one-shot", gather_tl, one_tl, **plain)
     agree_fo = compare("fused vs one-shot", fused_tl, one_tl, **plain)
 
-    # phase 5: a fixed MP plan
+    # phase 5: a fixed MP plan. At one layer its BGEMMs are layer 0's, so
+    # no layer is left to the kernel: the MP fused drains would repeat the
+    # MP gather drains, and are not run
     plan = fixed_plan(model)
     first = n_layers // 2
-    mp_out, n_mp, mp_tl = run_continuous(torch, model, params, reqs, mp=plan,
-                                         paged_attn="fused", route="gqa_mma")
-    log(f"MP plan ({plan.n_quantized} fp8 ops, layers {first}-"
-        f"{n_layers - 1}): {mp_out.n_steps} decode steps, {n_mp} kernel "
-        f"launches")
-    if n_mp != mp_out.n_steps * (n_layers - 1):
-        raise AssertionError(f"MP launches {n_mp} != {mp_out.n_steps} steps "
-                             f"x {n_layers - 1} fused layers")
-    from repro_torch.quant import weight_cache
-    kept, of = weight_cache.nbytes(torch.device(DEVICE))
-    log(f"weight cache after the MP drains: {kept / 1e9:.3f} GB of fp8 "
-        f"codes and scales for {of / 1e9:.3f} GB of bf16 weights "
-        f"({kept / max(of, 1):.3f}x)")
-    mp_eager, _, mp_eager_tl = run_continuous(
-        torch, model, params, reqs, mp=plan, paged_attn="fused", eager=True)
-    graphs["mp_fused"] = graph_vs_eager("MP fused", mp_tl, mp_eager_tl,
-                                        failures)
+    mp_fused = n_layers > 1
+    if mp_fused:
+        mp_out, n_mp, mp_tl = run_continuous(torch, model, params, reqs,
+                                             mp=plan, paged_attn="fused",
+                                             route="gqa_mma")
+        log(f"MP plan ({plan.n_quantized} fp8 ops, layers {first}-"
+            f"{n_layers - 1}): {mp_out.n_steps} decode steps, {n_mp} kernel "
+            f"launches")
+        if n_mp == 0 or n_mp != mp_out.n_steps * (n_layers - 1):
+            raise AssertionError(f"MP launches {n_mp} != {mp_out.n_steps} "
+                                 f"steps x {n_layers - 1} fused layers")
+        mp_eager, _, mp_eager_tl = run_continuous(
+            torch, model, params, reqs, mp=plan, paged_attn="fused",
+            eager=True)
+        graphs["mp_fused"] = graph_vs_eager("MP fused", mp_tl, mp_eager_tl,
+                                            failures)
+    else:
+        log(f"MP plan ({plan.n_quantized} fp8 ops, layer 0 with its "
+            f"BGEMMs): no layer is left to the kernel, so the MP fused "
+            f"drains are not run")
     # the plan's serving path against the one-shot engine, both on the
     # reference attention; then the kernel against it under the plan
     mp_gather, n_mp_gather, mp_gather_tl = run_continuous(
@@ -1517,6 +1555,11 @@ def serve_phase(torch, model, params, gather_eager=True) -> dict:
     if n_mp_gather != 0:
         raise AssertionError(f"MP gather path launched the kernel "
                              f"{n_mp_gather} times")
+    from repro_torch.quant import weight_cache
+    kept, of = weight_cache.nbytes(torch.device(DEVICE))
+    log(f"weight cache after the MP drains: {kept / 1e9:.3f} GB of fp8 "
+        f"codes and scales for {of / 1e9:.3f} GB of bf16 weights "
+        f"({kept / max(of, 1):.3f}x)")
     if gather_eager:
         _, _, mp_gather_eager_tl = run_continuous(
             torch, model, params, reqs, mp=plan, paged_attn="gather",
@@ -1524,43 +1567,46 @@ def serve_phase(torch, model, params, gather_eager=True) -> dict:
         graphs["mp_gather"] = graph_vs_eager("MP gather", mp_gather_tl,
                                              mp_gather_eager_tl, failures)
     _, mp_one_tl = run_oneshot(model, params, reqs, mp=plan)
-    agree_mp_go = compare("MP gather vs MP one-shot", mp_gather_tl,
-                          mp_one_tl, **plain)
-    agree_mp_fg = compare("MP fused vs MP gather", mp_tl, mp_gather_tl,
-                          tol=LOGIT_TOL_MP, bound=MARGIN_BOUND_MP,
-                          failures=failures)
+    agree = {"fused_vs_gather": agree_fg, "gather_vs_oneshot": agree_go,
+             "fused_vs_oneshot": agree_fo,
+             "mp_gather_vs_mp_oneshot": compare(
+                 "MP gather vs MP one-shot", mp_gather_tl, mp_one_tl,
+                 **plain)}
+    serving = {"fused": serving_numbers(fused),
+               "fused_eager": serving_numbers(eager),
+               "gather": serving_numbers(gather),
+               "oneshot": {"tokens_per_s": oneshot.tokens_per_s,
+                           "ttft_ms": oneshot.ttft_s * 1e3},
+               "mp_gather": serving_numbers(mp_gather)}
+    if mp_fused:
+        agree["mp_fused_vs_mp_gather"] = compare(
+            "MP fused vs MP gather", mp_tl, mp_gather_tl, tol=LOGIT_TOL_MP,
+            bound=MARGIN_BOUND_MP, failures=failures)
+        serving.update(mp_fused=serving_numbers(mp_out),
+                       mp_fused_eager=serving_numbers(mp_eager))
     if failures:
         raise AssertionError("; ".join(failures))
     SERVED_TOKENS[model.cfg.name] = {
         "plain": ({rid: tl[0] for rid, tl in fused_tl.items()}, n_fused,
-                  fused.tokens_per_s),
-        "mp": ({rid: tl[0] for rid, tl in mp_tl.items()}, n_mp,
-               mp_out.tokens_per_s)}
-    log(f"{model.cfg.name} tokens/s graphed / eager: fused "
-        f"{fused.tokens_per_s:.1f} / {eager.tokens_per_s:.1f}, MP fused "
-        f"{mp_out.tokens_per_s:.1f} / {mp_eager.tokens_per_s:.1f}")
+                  fused.tokens_per_s)}
+    if mp_fused:
+        SERVED_TOKENS[model.cfg.name]["mp"] = (
+            {rid: tl[0] for rid, tl in mp_tl.items()}, n_mp,
+            mp_out.tokens_per_s)
+        log(f"{model.cfg.name} tokens/s graphed / eager: fused "
+            f"{fused.tokens_per_s:.1f} / {eager.tokens_per_s:.1f}, MP fused "
+            f"{mp_out.tokens_per_s:.1f} / {mp_eager.tokens_per_s:.1f}")
+    else:
+        log(f"{model.cfg.name} tokens/s graphed / eager: fused "
+            f"{fused.tokens_per_s:.1f} / {eager.tokens_per_s:.1f}")
     return {
         "kernel_launches_main_path": n_fused,
         "weight_cache_gb": kept / 1e9, "weight_cache_of_bf16_gb": of / 1e9,
         "graph_vs_eager": graphs,
         "mp_plan": {"fp8_ops": plan.n_quantized, "layers": [first,
-                                                             n_layers - 1]},
-        "agreement": {"fused_vs_gather": agree_fg,
-                      "gather_vs_oneshot": agree_go,
-                      "fused_vs_oneshot": agree_fo,
-                      "mp_gather_vs_mp_oneshot": agree_mp_go,
-                      "mp_fused_vs_mp_gather": agree_mp_fg},
-        "serving": {
-            "fused": serving_numbers(fused),
-            "fused_eager": serving_numbers(eager),
-            "gather": serving_numbers(gather),
-            "oneshot": {"tokens_per_s": oneshot.tokens_per_s,
-                        "ttft_ms": oneshot.ttft_s * 1e3},
-            "mp_fused": serving_numbers(mp_out),
-            "mp_fused_eager": serving_numbers(mp_eager),
-            "mp_gather": serving_numbers(mp_gather),
-        },
-    }
+                                                             n_layers - 1],
+                    "fused_layers": n_layers - 1},
+        "agreement": agree, "serving": serving}
 
 
 # ---------------------------------------------------------------------------
@@ -2244,9 +2290,9 @@ def fig3a_phase(torch, model, params, batches, plans) -> dict:
 # ---------------------------------------------------------------------------
 
 LLAMA8B = "llama3_8b"
-# phase 13 serves llama3_8b at 4 of its 32 layers (the script's time
-# limit; 16 before phase 24 was added, 8 before phase 27)
-LLAMA8B_DEPTH = 4
+# phase 13 serves llama3_8b at 2 of its 32 layers (the script's time
+# limit; 16 before phase 24 was added, 8 before phase 27, 4 before 28)
+LLAMA8B_DEPTH = 2
 # of the card's memory a calibration may take: a linear fit of the peak
 # over depths 1 and 3 underestimates deeper ones (depth 22 needed more than
 # 81.8 GB where 1 -> 2 layers predicted 71.3 GB, on an H100)
@@ -3007,6 +3053,10 @@ def long_prompt(torch, flash_model, ref_model, params, T: int,
                      "logits": logits[0, -1].float(),
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         del eng, events
+    # a model's memoized steps close over it, so the reference model,
+    # dropped when this phase returns, is freed only by the cyclic
+    # collector: its graph goes now, not inside a later phase's capture
+    release_steps(ref_model)
     err = float((out["flash"]["logits"] - out["reference"]["logits"]).abs()
                 .max())
     gap = float(top2_gaps(out["reference"]["logits"][None])[0])
@@ -4585,10 +4635,10 @@ def moe_phase(torch) -> dict:
     return out
 
 
-# served at 2 layers each (the script's time limit; 8 before phase 24 was
-# added, 4 before phase 27)
-DENSE_CONFIGS = (("qwen2p5_3b", 2), ("nemotron_4_15b", 2),
-                 ("starcoder2_15b", 2), ("qwen2p5_32b", 2))
+# served at 1 layer each (the script's time limit; 8 before phase 24 was
+# added, 4 before phase 27, 2 before phase 28)
+DENSE_CONFIGS = (("qwen2p5_3b", 1), ("nemotron_4_15b", 1),
+                 ("starcoder2_15b", 1), ("qwen2p5_32b", 1))
 
 
 def dense_config_phase(torch, arch: str, depth) -> dict:
@@ -5051,9 +5101,10 @@ WHISPER_TIER_ROWS = 1
 # (the depth fit's calibrated model): its assignments scale with the
 # groups, 21 of the full depth's 61 (the script's time limit)
 WHISPER_TIER_DEPTH = 2
-# LLaVA is served at 4 of its 60 layers (8 before phase 27; the script's
-# limit: 34.4 B parameters, 68.8 GB in bf16, at all 60)
-LLAVA_DEPTH = 4
+# LLaVA is served at 2 of its 60 layers (8 before phase 27, 4 before
+# phase 28; the script's limit: 34.4 B parameters, 68.8 GB in bf16, at all
+# 60)
+LLAVA_DEPTH = 2
 # one-shot: 4 requests of a 576-token image prefix (LLaVA's 24 x 24
 # patches) and 128 text tokens, 32 new tokens
 LLAVA_ONESHOT = dict(requests=4, prefix=576, prompt_len=128, new_tokens=32)
@@ -5973,6 +6024,354 @@ def train_mesh_phase(torch, training: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: scan_layers and the dry run
+# ---------------------------------------------------------------------------
+
+# the scan leg: llama3_1b's 16 layers in one segment, remat in groups of 4
+# (two-level: 4 groups of 4, no tail), phase 25's first SCAN_STEPS steps
+SCAN_REMAT_GROUP = 4
+SCAN_STEPS = 3
+# the dry run's cells (pod16x16): name -> (arch, shape, overrides, global
+# batch: None for the shape's), each traced on the host by a process of its
+# own (DRYRUN_PROC, started after the measured tier); DRYRUN_ON_CARD also
+# run on the card. train_4k's whole shard took 107.6 s a step on an H100
+# (PR 29), so the card runs its cut: 4 of 40 layers (two-level remat in
+# groups of 2) and 2 of 8 microbatches of the same 2 rows a rank (a global
+# batch of 64, not 256), at full width, held to its own trace
+DRYRUN_CELLS = {
+    "train_4k": ("starcoder2_15b", "train_4k", {}, None),
+    "decode_32k": ("starcoder2_15b", "decode_32k", {}, None),
+    "train_4k_cut": ("starcoder2_15b", "train_4k",
+                     dict(n_layers=4, remat_group=2, n_microbatches=2), 64),
+}
+DRYRUN_ON_CARD = ("train_4k_cut", "decode_32k")
+# the card's peak allocation against the meta trace's live-storage peak
+DRYRUN_PEAK_TOL = 0.20
+# seconds the host trace may still take when phase 28 asks for it
+DRYRUN_WAIT_S = 600.0
+SCAN_DRYRUN_BUDGET_S = 40.0
+DRYRUN_PROC: dict = {}
+
+
+def start_host_dryrun() -> None:
+    """Start the host's meta dry run of ``DRYRUN_CELLS`` in a process of its
+    own, with no card visible and at the lowest CPU priority
+    (``dryrun.run_cell`` one cell after the other, a JSON record each in a
+    temporary directory), so it overlaps the card's phases;
+    :func:`host_dryrun_records` collects it, and the process is killed at
+    exit if it still runs."""
+    import atexit
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    code = ("import dataclasses, json, os, sys\n"
+            "os.nice(19)\n"
+            "from repro_torch.configs.shapes import SHAPES\n"
+            "from repro_torch.launch.dryrun import run_cell\n"
+            "for name, (arch, shape, ov, batch) in %r.items():\n"
+            "    cell = batch and dataclasses.replace(SHAPES[shape],"
+            " global_batch=batch)\n"
+            "    rec = run_cell(arch, shape, False, overrides=ov, cell=cell)\n"
+            "    with open(f'{sys.argv[1]}/{name}.json', 'w') as f:\n"
+            "        json.dump(rec, f)\n"
+            "    print(name, rec['status'], rec.get('trace_s'), flush=True)\n"
+            % (DRYRUN_CELLS,))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log_path = out / "dryrun.log"
+    fh = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(out)], env=env,
+                            stdout=fh, stderr=subprocess.STDOUT,
+                            cwd=str(ROOT))
+    DRYRUN_PROC.update(proc=proc, out=out, log=log_path, fh=fh,
+                       t0=time.perf_counter())
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fh.close()
+        shutil.rmtree(out, ignore_errors=True)
+    atexit.register(stop)
+
+
+def host_dryrun_records() -> tuple:
+    """(records by cell, seconds waited): the host process's records,
+    after waiting for it to end (at most ``DRYRUN_WAIT_S``); it failing
+    fails the phase."""
+    if not DRYRUN_PROC:
+        start_host_dryrun()
+    proc = DRYRUN_PROC["proc"]
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed"
+    waited = time.perf_counter() - t0
+    text = DRYRUN_PROC["log"].read_text()
+    if rc != 0:
+        raise AssertionError(f"the host dry run ended with {rc}: "
+                             f"{text[-2000:]}")
+    recs = {name: json.loads((DRYRUN_PROC["out"] / f"{name}.json")
+                             .read_text()) for name in DRYRUN_CELLS}
+    return recs, waited
+
+
+def scan_grads(torch, model, flat: dict, batch: dict) -> tuple:
+    """(loss, {path: gradient}) of ``model``'s plain loss at ``flat``."""
+    from repro_torch.nn.spec import tree_from_flat
+    from repro_torch.quant.qops import QuantContext
+    leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+    loss = model.loss(tree_from_flat(leaves), batch, QuantContext())
+    gs = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(leaves[k]) if g is None
+                           else g for k, g in zip(leaves, gs)}
+
+
+def scan_train_leg(torch, training: dict) -> dict:
+    """The scan leg's training half (module docstring, phase 28)."""
+    from repro_torch.bridge import stack_layers
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.spec import flatten_paths, tree_from_flat
+    from repro_torch.train import optim
+    from repro_torch.nn.spec import default_generator
+    unrolled = get_model("llama3_1b")
+    scan = get_model("llama3_1b", scan_layers=True, remat=True,
+                     remat_group=SCAN_REMAT_GROUP)
+    data = train_data(unrolled.cfg)
+    # phase 25's initial weights (Trainer.init_or_resume's seed 0)
+    fu = flatten_paths(unrolled.init(default_generator(0, DEVICE), DEVICE))
+    fs = stack_layers(fu, scan.cfg)
+    batch = data.batch_at(0)
+    lu, gu = scan_grads(torch, unrolled, fu, batch)
+    del fu
+    gu = stack_layers(gu, scan.cfg)
+    ls, gs = scan_grads(torch, scan, fs, batch)
+    first, worst = None, 0.0
+    for k in gs:
+        if not torch.equal(gu[k], gs[k]):
+            d = float((gu[k].float() - gs[k].float()).abs().max())
+            first = first or (k, d)
+            worst = max(worst, d)
+    del gu, gs
+    grads = {"loss_equal": bool(torch.equal(lu, ls)),
+             "leaves_equal": first is None, "first_differing_leaf": first,
+             "max_abs_diff": worst}
+    log(f"scan leg: gradients at phase 25's initial weights, 16 layers "
+        f"stacked (remat in groups of {SCAN_REMAT_GROUP}) against the "
+        f"unrolled model (no remat): loss "
+        f"{'equal' if grads['loss_equal'] else 'DIFFERS'}, "
+        + ("every leaf bit-equal" if first is None else
+           f"first differing leaf {first[0]} by {first[1]:.3e}, the largest "
+           f"difference {worst:.3e}"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_") as tmp:
+        tr = train_trainer(scan, Path(tmp), SCAN_STEPS, 10 ** 6)
+        p = tree_from_flat(fs)
+        del fs
+        o = optim.init_state(scan.param_specs(), tr.opt_cfg, DEVICE)
+        torch_sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = []
+        for s in range(SCAN_STEPS):
+            p, o, m = tr.train_step(p, o, data.batch_at(s))
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        torch_sync()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del p, o, tr
+    loss = training["loss_leg"]
+    want = list(zip(loss["losses"], loss["grad_norms"]))[:SCAN_STEPS]
+    rel = max(abs(g - w) / max(abs(w), 1e-12)
+              for gw, ww in zip(got, want) for g, w in zip(gw, ww))
+    bitwise = got == want
+    first_step = next((i for i, (g, w) in enumerate(zip(got, want))
+                       if g != w), None)
+    log(f"scan leg: phase 25's first {SCAN_STEPS} steps in {secs:.2f} s: "
+        + ("losses and grad norms bit-equal to phase 25's" if bitwise else
+           f"first differing step {first_step + 1} (scan {got[first_step]},"
+           f" phase 25 {want[first_step]}), the largest relative "
+           f"difference {rel:.3e} (bound {TRAIN_RESUME_TOL})")
+        + f"; peak memory {peak / 1e9:.2f} GB against phase 25's "
+        f"{loss['peak_gb']:.2f} GB (which also held a serving engine)")
+    if len(got) != len(want) or not rel <= TRAIN_RESUME_TOL or \
+            not all(math.isfinite(x) for g in got for x in g):
+        raise AssertionError(f"scan leg: steps {got} against phase 25's "
+                             f"{want}: {rel:.3e} beyond {TRAIN_RESUME_TOL}")
+    return {"gradients": grads, "steps": got, "phase25_steps": want,
+            "bitwise": bitwise, "max_rel_diff": rel, "train_s": secs,
+            "peak_gb": peak / 1e9, "phase25_peak_gb": loss["peak_gb"]}
+
+
+def scan_serve_leg(torch) -> dict:
+    """The scan leg's serving half: phase 4's cell through a scan model
+    holding phase 4's weights stacked, plain."""
+    from repro_torch.bridge import stack_layers
+    from repro_torch.launch.serve import make_model_and_params, make_requests
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.spec import flatten_paths, tree_from_flat
+    from repro_torch.quant import weight_cache
+    model, params = make_model_and_params("llama3_1b", False, DEVICE, seed=0)
+    scan = get_model("llama3_1b", scan_layers=True)
+    ps = tree_from_flat(stack_layers(flatten_paths(params), scan.cfg))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = make_requests(scan.cfg.vocab_size, SERVE["requests"],
+                         SERVE["prompt_len"], SERVE["new_tokens"],
+                         SERVE["arrival_every"])
+    want_tokens, want_launches, want_tps = SERVED_TOKENS[model.cfg.name][
+        "plain"]
+    q0 = weight_cache.quantizations
+    res, launches, tl = run_continuous(torch, scan, ps, reqs,
+                                       paged_attn="fused", route="gqa_mma",
+                                       name="scan")
+    quantized = weight_cache.quantizations - q0
+    differ = [rid for rid in want_tokens
+              if not np.array_equal(tl[rid][0], want_tokens[rid])]
+    release_steps(scan)
+    if differ or launches != want_launches or quantized:
+        raise AssertionError(f"scan serving: tokens of requests {differ} "
+                             f"differ from phase 4's, {launches} launches "
+                             f"against {want_launches}, {quantized} weight "
+                             f"quantizations")
+    c = res.counters
+    log(f"scan serving: phase 4's cell through one stacked 16-layer "
+        f"segment, plain: tokens of all {len(want_tokens)} requests equal "
+        f"to phase 4's, {launches} kernel launches (phase 4: "
+        f"{want_launches}), captures in the warm-ups "
+        f"{kinds(c['warm_graph_captures_by_kind'])}, no weight quantized; "
+        f"{res.tokens_per_s:.1f} tokens/s against phase 4's {want_tps:.1f}")
+    return {"tokens_equal_phase4": True, "kernel_launches": launches,
+            "weight_quantizations": quantized,
+            "warm_graph_captures_by_kind": c["warm_graph_captures_by_kind"],
+            "graph_replays": c["graph_replays"],
+            "tokens_per_s": res.tokens_per_s, "tokens_per_s_phase4": want_tps}
+
+
+def dryrun_card_leg(torch, host: dict) -> dict:
+    """One rank's shard of each of ``DRYRUN_ON_CARD`` on the card (a fake
+    256-rank CUDA group, made and destroyed by ``run_cell``), its peak above
+    what was allocated before it held to the host trace's peak estimate."""
+    from repro_torch.launch.dryrun import run_cell
+    out = {}
+    bad = []
+    from repro_torch.configs.shapes import SHAPES
+    for name in DRYRUN_ON_CARD:
+        arch, shape, ov, batch = DRYRUN_CELLS[name]
+        h = host[name]
+        t0 = time.perf_counter()
+        rec = run_cell(arch, shape, False, overrides=ov, device=DEVICE,
+                       cell=batch and dataclasses.replace(
+                           SHAPES[shape], global_batch=batch))
+        secs = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        card = rec["card"]
+        est = h["memory_analysis"]["peak_estimate_bytes"]
+        ratio = est / card["peak_above_baseline"]
+        r = h["roofline"]
+        step_s = card["median_ms"] / 1e3
+        terms = {k: r[f"t_{k}"] for k in ("compute", "memory", "collective")}
+        log(f"dry run on the card, {arch} x {name} {ov or ''}"
+            f"{f' global batch {batch}' if batch else ''} (one rank of "
+            f"pod16x16, a fake 256-rank CUDA group): step median "
+            f"{card['median_ms']:.2f} ms of "
+            f"{[round(x, 2) for x in card['step_ms']]} against the roofline's"
+            f" compute {terms['compute'] * 1e3:.2f}, memory "
+            f"{terms['memory'] * 1e3:.2f}, collective "
+            f"{terms['collective'] * 1e3:.2f} ms "
+            f"({step_s / max(terms['compute'], terms['memory']):.2f}x the "
+            f"larger on-card term; the collectives moved nothing); peak "
+            f"{card['peak_above_baseline'] / 1e9:.3f} GB allocated above the "
+            f"{card['baseline_allocated'] / 1e9:.3f} GB held before the cell "
+            f"against the meta estimate {est / 1e9:.3f} GB (ratio "
+            f"{ratio:.3f}, bound {1 - DRYRUN_PEAK_TOL:.2f}-"
+            f"{1 + DRYRUN_PEAK_TOL:.2f}); {secs:.1f} s")
+        if not abs(ratio - 1.0) <= DRYRUN_PEAK_TOL:
+            bad.append(f"{name}: meta peak {est} against the card's "
+                       f"{card['peak_above_baseline']}")
+        out[name] = {**card, "peak_estimate_bytes": est, "ratio": ratio,
+                     "seconds": secs, "roofline_terms_s": terms,
+                     "overrides": ov}
+    if bad:
+        raise AssertionError("dry run: " + "; ".join(bad))
+    return out
+
+
+def scan_phase(torch, training: dict) -> dict:
+    """Phase 28's scan leg (after phase 27; module docstring)."""
+    t0 = time.perf_counter()
+    out = {"scan_train": scan_train_leg(torch, training)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["scan_serve"] = scan_serve_leg(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 28's scan leg: {out['seconds']:.1f} s")
+    return out
+
+
+def dryrun_phase(torch) -> dict:
+    """Phase 28's dry-run leg (module docstring), run after the last
+    model's phase, so that the host trace, started after phase 7, has every
+    later phase's time to end in."""
+    t0 = time.perf_counter()
+    host, waited = host_dryrun_records()
+    out = {"host_wait_s": waited}
+    out["host"] = {}
+    for name, rec in host.items():
+        arch, shape, ov, batch = DRYRUN_CELLS[name]
+        r = rec["roofline"]
+        coll = r["meta"]["collectives"]
+        mem = rec["memory_analysis"]
+        log(f"dry run on the host, {arch} x {name} {ov or ''}"
+            f"{f' global batch {batch}' if batch else ''} (pod16x16, "
+            f"rank 0 of a fake 256-rank group, meta): traced in "
+            f"{rec['trace_s']} s; per "
+            f"rank {mem['argument_size_in_bytes'] / 1e9:.3f} GB of arguments,"
+            f" peak estimate {mem['peak_estimate_bytes'] / 1e9:.3f} GB; "
+            f"{rec['cost_analysis']['flops']:.4e} FLOPs; collectives "
+            + ", ".join(f"{k} {coll[k] / 1e9:.3f} GB ({coll['counts'][k]})"
+                        for k in coll["counts"] if coll["counts"][k])
+            + f" (in the layers {coll['inloop'] / 1e9:.3f} GB); roofline "
+            f"against H100_SXM: compute {r['t_compute']:.4e} s, memory "
+            f"{r['t_memory']:.4e} s, collective {r['t_collective']:.4e} s, "
+            f"bottleneck {r['bottleneck']}"
+            + (f", optimizer {rec['optimizer']}, "
+               f"{rec['n_microbatches']} microbatches"
+               if "optimizer" in rec else ""))
+        out["host"][name] = {
+            k: rec[k] for k in ("trace_s", "memory_analysis",
+                                "cost_analysis", "collective_split")} | {
+            "collectives": coll, "t_compute": r["t_compute"],
+            "t_memory": r["t_memory"], "t_collective": r["t_collective"],
+            "bottleneck": r["bottleneck"]}
+    log(f"the host dry run took {time.perf_counter() - DRYRUN_PROC['t0']:.1f}"
+        f" s beside the card's phases; phase 28 waited {waited:.1f} s for it")
+    out["card"] = dryrun_card_leg(torch, host)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 28's dry-run leg: {out['seconds']:.1f} s")
+    return out
+
+
+def phase28_record(scan: dict, dryrun: dict) -> dict:
+    """Phase 28's two legs and their seconds, printed against its budget."""
+    out = {"scan": scan, "dryrun": dryrun,
+           "seconds": scan["seconds"] + dryrun["seconds"]}
+    log(f"phase 28 (scan_layers and the dry run): {out['seconds']:.1f} s "
+        f"(scan leg {scan['seconds']:.1f} s, dry-run leg "
+        f"{dryrun['seconds']:.1f} s, of which {dryrun['host_wait_s']:.1f} s "
+        f"waiting for the host trace; budget {SCAN_DRYRUN_BUDGET_S:.0f} s)"
+        f"{'; ' + card_line() if DEVICE == 'cuda' else ''}")
+    return out
+
+
 def no_silent_faults(engine_cls) -> None:
     """Every drain of ``engine_cls`` in this run: one served without a
     fault injector must report no kernel fault and no degradation (a real
@@ -6062,6 +6461,9 @@ def main() -> int:
             Path(tmp))
         report["measured_tier"] = phase("measured tier", measured_phase,
                                         torch, model, params, bundle)
+        # phase 28's host leg runs beside the later phases: after the tier,
+        # whose host-clock timings it would perturb
+        start_host_dryrun()
         plans, report["plan_serving"] = phase(
             "solve and serve", solve_and_serve_phase, torch, model, params,
             bundle, Path(tmp), failures)
@@ -6100,6 +6502,7 @@ def main() -> int:
     report["training"] = phase("training", training_phase, torch)
     report["train_mesh"] = phase("training over a mesh", train_mesh_phase,
                                  torch, report["training"])
+    scan = phase("scan layers", scan_phase, torch, report["training"])
     report["llama3_8b"] = phase("llama3_8b", llama8b_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6133,6 +6536,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["encdec_vlm"] = phase("Whisper and LLaVA", encdec_vlm_phase,
                                  torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["scan_dryrun"] = phase28_record(
+        scan, phase("the dry run", dryrun_phase, torch))
     ev = report["encdec_vlm"]
 
     t = report["fp8_times"]
@@ -6280,6 +6687,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"train_mesh": report["train_mesh"], "card": card}),
           flush=True)
+    print(json.dumps({"scan_dryrun": report["scan_dryrun"], "card": card}),
+          flush=True)
     print(json.dumps({"encdec_vlm": {
         WHISPER: {k: v for k, v in ev[WHISPER].items()},
         LLAVA: {k: v for k, v in ev[LLAVA].items() if k != "serving"},
@@ -6305,7 +6714,9 @@ def main() -> int:
         f"{report['mesh']['seconds']:.1f} s (budget "
         f"{MESH_PHASE_BUDGET_S:.0f} s); phase 27: "
         f"{report['train_mesh']['seconds']:.1f} s (budget "
-        f"{TRAIN_MESH_BUDGET_S:.0f} s)")
+        f"{TRAIN_MESH_BUDGET_S:.0f} s); phase 28: "
+        f"{report['scan_dryrun']['seconds']:.1f} s (budget "
+        f"{SCAN_DRYRUN_BUDGET_S:.0f} s)")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,10 @@ builds it. The phases run in the order given:
   ``drains``, ``mesh`` and ``ttft``;
 - ``whisper``: phase 24's Whisper (``whisper_phase``: calibration, the
   measured tier, Fig. 3b, serving) as that checkout has it;
+- ``scan_dryrun``: phase 28 (``scan_phase``, then ``dryrun_phase``: the
+  scan leg and the dry run, its host trace started before the kernels'
+  build here), held to phase 25's first steps run here through the
+  single-rank trainer and to phase 4's plain fused drain, run here first;
 - ``training``: phase 25 (``training_phase``), where the checkout has it;
 - ``checkpoint_io``: where a checkpoint's seconds go, on one tree of
   ``--gb`` gigabytes on the card (bf16 and f32 leaves of 2^26 elements, as
@@ -103,6 +107,44 @@ def drains(torch, cs, model, params, reps: int) -> list:
     if failures:
         raise AssertionError("; ".join(failures))
     return out
+
+
+def scan_dryrun(torch, cs, model, params) -> dict:
+    """Phase 28 after what it is held to: phase 4's plain fused drain
+    (``SERVED_TOKENS``) and phase 25's first steps through the single-rank
+    trainer at phase 25's seed and batches (its peak memory then is the
+    trainer's alone)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_model
+    reqs = make_requests(model.cfg.vocab_size, cs.SERVE["requests"],
+                         cs.SERVE["prompt_len"], cs.SERVE["new_tokens"],
+                         cs.SERVE["arrival_every"])
+    res, launches, tl = cs.run_continuous(torch, model, params, reqs,
+                                          paged_attn="fused",
+                                          route="gqa_mma")
+    cs.SERVED_TOKENS[model.cfg.name] = {"plain": (
+        {rid: t[0] for rid, t in tl.items()}, launches, res.tokens_per_s)}
+    unrolled = get_model("llama3_1b")
+    with tempfile.TemporaryDirectory(prefix="phase_probe_scan_") as tmp:
+        tr = cs.train_trainer(unrolled, Path(tmp), cs.SCAN_STEPS, 10 ** 6)
+        _, p, o = tr.init_or_resume(0)
+        data = cs.train_data(unrolled.cfg)
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for s in range(cs.SCAN_STEPS):
+            p, o, m = tr.train_step(p, o, data.batch_at(s))
+            steps.append((float(m["loss"]), float(m["grad_norm"])))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del tr, p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = {"loss_leg": {"losses": [x[0] for x in steps],
+                             "grad_norms": [x[1] for x in steps],
+                             "peak_gb": peak}}
+    scan = cs.scan_phase(torch, training)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cs.phase28_record(scan, cs.dryrun_phase(torch))
 
 
 def checkpoint_io(torch, cs, gb: float) -> dict:
@@ -253,11 +295,13 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import make_model_and_params
     resolve_device("cuda")
+    phases = args.phases.split(",")
+    if "scan_dryrun" in phases:
+        cs.start_host_dryrun()            # beside the build
     t0 = time.perf_counter()
     _build.build()
     cs.log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
-    phases = args.phases.split(",")
-    if {"tier", "drains", "mesh", "ttft"} & set(phases):
+    if {"tier", "drains", "mesh", "ttft", "scan_dryrun"} & set(phases):
         model, params = make_model_and_params("llama3_1b", False, "cuda",
                                               seed=0)
     out: dict = {"root": str(root), "phases": {}, "drains": []}
@@ -285,6 +329,8 @@ def main() -> int:
         elif name == "whisper":
             out["whisper"] = cs.whisper_phase(torch)["measured_tier"][
                 "seconds"]
+        elif name == "scan_dryrun":
+            out["scan_dryrun"] = scan_dryrun(torch, cs, model, params)
         elif name == "training" and hasattr(cs, "training_phase"):
             rec = cs.training_phase(torch)
             out["training"] = {"step_wall_ms": rec["loss_leg"][

@@ -4,7 +4,9 @@
 both packages share (``embed/w``, ``layers/3/attn/q_proj/w``, ...) and
 returns the nested tensor tree the port's ``LM`` (or, for an
 ``EncDecConfig``, ``EncDec``: ``embed/w``, ``enc/*``, ``dec/*`` and the two
-``*_final_norm`` paths) consumes. It raises on any
+``*_final_norm`` paths) consumes; for a ``scan_layers`` config the paths are
+the stacked ``segments/s/...`` ones, which :func:`stack_layers` makes from
+an unrolled model's. It raises on any
 missing or extra path and on any shape mismatch, so weights meant for another
 configuration never load silently.
 
@@ -25,7 +27,7 @@ from repro_torch.models.encdec import EncDec, EncDecConfig
 from repro_torch.models.lm import LM, LMConfig
 from repro_torch.nn.spec import tree_from_flat
 
-__all__ = ["params_from_flat"]
+__all__ = ["params_from_flat", "stack_layers"]
 
 _NATIVE = (np.float32, np.float64, np.float16, np.int32, np.int64, np.bool_)
 
@@ -61,3 +63,24 @@ def params_from_flat(flat: dict, cfg: Union[LMConfig, EncDecConfig],
                              f"{tuple(spec.shape)}")
         out[path] = t
     return tree_from_flat(out)
+
+
+def stack_layers(flat: dict, cfg: LMConfig) -> dict:
+    """An unrolled model's flat params (``layers/i/...``) as the flat
+    params of ``cfg``, a ``scan_layers`` config of the same model: each
+    segment's leaves stacked over its layers (``segments/s/...``, numpy
+    arrays or tensors as given), every other path (embedding, head, MTP
+    block) as it is."""
+    model = LM(cfg)
+    segs = cfg.segments()
+    out = {}
+    for path in model.param_specs():
+        if not path.startswith("segments/"):
+            out[path] = flat[path]
+            continue
+        _, s, sub = path.split("/", 2)
+        leaves = [flat[f"layers/{i}/{sub}"] for i in segs[int(s)][1]]
+        out[path] = (torch.stack(leaves) if isinstance(leaves[0],
+                                                       torch.Tensor)
+                     else np.stack(leaves))
+    return out

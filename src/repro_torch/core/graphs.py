@@ -177,16 +177,11 @@ def _moe_subgraph(g: GraphSpec, s: str, entry: str, activation: str,
 
 def build_lm_graph(cfg: LMConfig) -> GraphSpec:
     """The DAG of a decoder of attention, MLA, mamba and hybrid blocks, each
-    with a dense MLP, an MoE layer or neither (no weights needed)."""
-    if cfg.scan_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the graph with scan_layers=True lands with the "
-            f"port slice that ports it (scan_layers: A9c in ROADMAP.md)")
+    with a dense MLP, an MoE layer or neither (no weights needed): one scope
+    per layer, or per segment under ``scan_layers``."""
     g = GraphSpec()
     prev = g.add("embed")
-    for i in range(cfg.n_layers):
-        s = f"layers/{i}"
-        block, is_moe = cfg.layer_signature(i)
+    for s, (block, is_moe) in cfg.scopes():
         block_in = prev
         mix_out = _MIXERS[block](g, s, prev)
         add1 = g.add(f"{s}/residual_1")

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import current_serving_layout
+from repro_torch.distributed.sharding import (current_serving_layout,
+                                              record_collective)
 from repro_torch.nn.spec import sorted_leaves, tree_from_flat
 from repro_torch.quant import qtensor
 from repro_torch.quant.formats import cast_to, get_format, true_div
@@ -69,8 +70,10 @@ def compressed_psum(x: torch.Tensor, axis_name: str,
     if group is not None:
         amax = amax.clone()
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        record_collective("all-reduce", amax)
     scale = true_div(fmt.max_value, torch.clamp_min(amax, 1e-12))
     s = cast_to(xf * scale, fmt.dtype).float()
     if group is not None:
         dist.all_reduce(s, group=group)
+        record_collective("all-reduce", s)
     return true_div(s, scale).to(x.dtype)

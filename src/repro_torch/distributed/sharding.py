@@ -47,7 +47,8 @@ __all__ = ["DEFAULT_RULES", "FSDP_RULES", "partition_spec",
            "ServingMeshLayout", "training_layout", "serving_layout_scope",
            "current_serving_layout", "tp_sum", "tp_max", "tp_copy",
            "tp_gather", "tp_slice", "dp_sum", "dp_gather", "dp_copy", "dp_share", "amax_over",
-           "gather_leaf", "mesh_max", "is_mesh_root"]
+           "gather_leaf", "mesh_max", "is_mesh_root", "CollectiveLog",
+           "counting_collectives", "record_collective", "layer_stack_scope"]
 
 # logical axis -> candidate mesh axes (tuple = shard jointly over all)
 DEFAULT_RULES = {
@@ -325,6 +326,82 @@ def _dist():
     return dist
 
 
+# ---------------------------------------------------------------------------
+# Collective accounting
+# ---------------------------------------------------------------------------
+# The reference reads a step's collectives out of its compiled HLO. The
+# port issues them itself, each at one of a few call sites, so it counts
+# them there: while a :class:`CollectiveLog` is on (:func:`counting_
+# collectives`), every collective adds its result's bytes under its kind,
+# split by whether it ran inside the model's layer stack (its forward, the
+# recomputation of a checkpointed layer, or the backward of a collective
+# issued there) or outside it (embedding, head, loss, optimizer). A step
+# runs every layer and every microbatch, so these are totals, where XLA's
+# HLO counts a loop body once.
+
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+_IN_STACK: contextvars.ContextVar = contextvars.ContextVar(
+    "in_layer_stack", default=False)
+_LOG: list = []                 # the CollectiveLog on, if any
+
+
+class CollectiveLog:
+    """Bytes and counts of the collectives issued while it is on."""
+
+    def __init__(self):
+        self.bytes = {k: 0.0 for k in _COLLECTIVES}
+        self.counts = {k: 0 for k in _COLLECTIVES}
+        self.toplevel = 0.0
+        self.inloop = 0.0
+
+    def add(self, kind: str, nbytes: float, in_stack: bool) -> None:
+        self.bytes[kind] += nbytes
+        self.counts[kind] += 1
+        if in_stack:
+            self.inloop += nbytes
+        else:
+            self.toplevel += nbytes
+
+    def summary(self) -> dict:
+        """The keys of the reference's ``parse_collective_bytes``: bytes
+        by kind, ``total``, ``toplevel``, ``inloop`` and ``counts``."""
+        return {**self.bytes, "total": sum(self.bytes.values()),
+                "toplevel": self.toplevel, "inloop": self.inloop,
+                "counts": dict(self.counts)}
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Count every collective issued inside the block into the yielded
+    :class:`CollectiveLog`."""
+    log = CollectiveLog()
+    _LOG.append(log)
+    try:
+        yield log
+    finally:
+        _LOG.remove(log)
+
+
+def record_collective(kind: str, t: torch.Tensor) -> None:
+    """Count ``t`` (a collective's result) into the logs that are on."""
+    if _LOG:
+        nbytes = float(t.numel() * t.element_size())
+        for log in _LOG:
+            log.add(kind, nbytes, _IN_STACK.get())
+
+
+@contextlib.contextmanager
+def layer_stack_scope(on: bool = True):
+    """Mark the collectives issued inside the block as the layer stack's
+    (the model runs each layer's body under it)."""
+    token = _IN_STACK.set(on)
+    try:
+        yield
+    finally:
+        _IN_STACK.reset(token)
+
+
 def _grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -333,7 +410,9 @@ def _gather_cat(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
     _dist().all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    record_collective("all-gather", out)
+    return out
 
 
 def _summed(x: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -347,6 +426,7 @@ def _summed(x: torch.Tensor, group, op=None) -> torch.Tensor:
         y = flat = x.contiguous().clone()
     dist.all_reduce(flat, op=dist.ReduceOp.SUM if op is None else op,
                     group=group)
+    record_collective("all-reduce", y)
     return y
 
 
@@ -369,12 +449,13 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
+        ctx.group, ctx.in_stack = group, _IN_STACK.get()
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _summed(g, ctx.group), None
+        with layer_stack_scope(ctx.in_stack):
+            return _summed(g, ctx.group), None
 
 
 class _Gather(torch.autograd.Function):
@@ -399,12 +480,14 @@ class _Slice(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, local, group, n, index):
         ctx.dim, ctx.group, ctx.n = dim, group, n
+        ctx.in_stack = _IN_STACK.get()
         return x.narrow(dim, index * local, local).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return (_gather_cat(g, ctx.dim, ctx.group, ctx.n), None, None, None,
-                None, None)
+        with layer_stack_scope(ctx.in_stack):
+            return (_gather_cat(g, ctx.dim, ctx.group, ctx.n), None, None,
+                    None, None, None)
 
 
 def _amax(x: torch.Tensor, dims, groups) -> torch.Tensor:
@@ -436,6 +519,7 @@ class _Amax(torch.autograd.Function):
         m = _amax(x, dims, groups)
         ctx.save_for_backward(x, m)
         ctx.dims, ctx.groups = dims, groups
+        ctx.in_stack = _IN_STACK.get()
         return m
 
     @staticmethod
@@ -448,8 +532,9 @@ class _Amax(torch.autograd.Function):
             count = mask.sum(dim=ctx.dims, keepdim=True)
         else:
             count = mask.long()
-        for group in ctx.groups:
-            g, count = _summed(g, group), _summed(count, group)
+        with layer_stack_scope(ctx.in_stack):
+            for group in ctx.groups:
+                g, count = _summed(g, group), _summed(count, group)
         return (g / count) * mask, None, None
 
 

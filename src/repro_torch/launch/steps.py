@@ -25,6 +25,7 @@ captures every step as a CUDA graph once per input shape and replays it
 """
 from __future__ import annotations
 
+import gc
 import importlib
 import threading
 from collections import Counter
@@ -510,10 +511,23 @@ class GraphedStep:
         # thread-local: the pipelined drain's consumer thread waits on
         # events and reads pinned memory while this thread captures; in the
         # global mode those calls from any thread invalidate the capture.
-        # This thread's own unsafe calls still fail it
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            s_logits, _, s_next = self.fn(params, caches, *static)
+        # This thread's own unsafe calls still fail it. A model's memoized
+        # steps close over the model, so a model dropped with captured steps
+        # is freed only by the cyclic garbage collector; a collection during
+        # a capture would destroy its graphs, which CUDA refuses while a
+        # stream captures (the capture is then invalidated and the next
+        # launch fails with cudaErrorStreamCaptureInvalidated). Callers
+        # release such steps (``GraphedStep.release``); the collector is
+        # off during the capture all the same
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                s_logits, _, s_next = self.fn(params, caches, *static)
+        finally:
+            if enabled:
+                gc.enable()
         return graph, s_logits, s_next
 
     def _capture(self, params, caches, key, inputs):
@@ -571,19 +585,29 @@ def _mp_cache_key(mp):
 def mesh_step(fn, layout):
     """A slot-major serving step run over a serving mesh: inside the
     layout's scope (the layers' collectives and block-id translation see
-    it), on this rank's rows of every input (slot ``s`` lives on data
-    shard ``s // slots_per_shard``), with the logits and greedy tokens of
-    every shard gathered back in slot order, so every rank reads the same
-    tokens and schedules the same next step."""
+    it), on this rank's rows of every input with a row per slot (slot
+    ``s`` lives on data shard ``s // slots_per_shard``), with the logits
+    and greedy tokens of every shard gathered back in slot order, so every
+    rank reads the same tokens and schedules the same next step. Slots
+    that ``data`` does not divide (one long row over 16 data shards, as
+    the reference replicates it) are replicated: every rank runs them
+    all, and nothing is gathered."""
+    rows = layout.n_slots
+    split = rows % layout.data == 0
+
     def step(params, caches, *inputs):
         with serving_layout_scope(layout):
-            n = layout.slots_per_shard
-            start = layout.data_index * n
-            local = tuple(t.narrow(0, start, n) for t in inputs)
-            logits, caches, nxt = fn(params, caches, *local)
-            logits = dp_gather(logits)
-            if nxt is not None:
-                nxt = dp_gather(nxt)
+            if split:
+                n = layout.slots_per_shard
+                start = layout.data_index * n
+                inputs = tuple(t.narrow(0, start, n)
+                               if t.dim() and t.shape[0] == rows else t
+                               for t in inputs)
+            logits, caches, nxt = fn(params, caches, *inputs)
+            if split:
+                logits = dp_gather(logits)
+                if nxt is not None:
+                    nxt = dp_gather(nxt)
         return logits, caches, nxt
     return step
 

@@ -12,14 +12,24 @@ reads; ``prefix_embed`` (LLaVA) prepends a batch's ``prefix_embeds``
 (precomputed patch embeddings) to the text tokens' embeddings in
 ``apply``, ``loss`` (whose cross-entropy covers the text positions only) and
 ``prefill``. ``LMConfig`` keeps every field of the reference so that every
-configuration loads; ``scan_layers``, which the port does not have yet,
-raises ``NotImplementedError`` when the model is built. Layers run unrolled
-in a Python loop, each with its own params and op names
-(``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged. With
-``remat`` each layer's body (and the MTP loss) runs under
-``torch.utils.checkpoint`` whenever gradients are taken without caches, as
-the reference's unscanned path wraps it in ``jax.checkpoint``;
-``remat_group`` belongs to the scanned path.
+configuration loads. Two execution modes, as in the reference:
+
+* unrolled (the default): every layer has its own params and op names
+  (``layers/3/attn/q_proj``), so per-layer MP plans apply unchanged; with
+  ``remat`` each layer's body (and the MTP loss) runs under
+  ``torch.utils.checkpoint`` whenever gradients are taken without caches,
+  as the reference wraps it in ``jax.checkpoint``;
+* ``scan_layers=True``: consecutive layers of one signature
+  (:meth:`LMConfig.segments`) are stacked into segments, their params
+  ``segments/{s}/...`` with a leading ``layers`` dim, walked slice by slice
+  in a Python loop (the reference's ``jax.lax.scan``). Op names are per
+  call site (``segments/1/attn/q_proj``), so an MP assignment keyed by a
+  segment's name applies to every layer of it, each layer's slice
+  quantized with its own scale. ``remat`` checkpoints each layer; with no
+  caches and at least ``2 * remat_group`` layers in a segment, groups of
+  ``remat_group`` layers are checkpointed as units too (the reference's
+  two-level scheme), the remainder running as a plain tail. The MTP block
+  keeps its own unstacked params.
 
 Params are the nested dict of tensors that :meth:`LM.init` returns (or
 ``repro_torch.bridge.params_from_flat`` builds from reference weights).
@@ -27,7 +37,9 @@ Caches are nested dicts keyed by layer, as the reference assembles them:
 ``{"k", "v"[, "pos"]}`` for attention layers, ``{"ckv", "kr"[, "pos"]}``
 for MLA layers, ``{"conv", "state"}`` (slot-major) for mamba layers and
 ``{"attn": {...}, "mamba": {...}}`` for hybrid layers. The flat spec keys
-are ``layers/i@<attn|mamba>/<leaf>``; :func:`cache_leaf` reads one.
+are ``layers/i@<attn|mamba>/<leaf>`` (``segments/s@...`` under
+``scan_layers``, each leaf stacked over the segment's layers, which the
+steps write slice by slice in place); :func:`cache_leaf` reads one.
 """
 from __future__ import annotations
 
@@ -40,6 +52,7 @@ import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import (current_serving_layout,
+                                              layer_stack_scope,
                                               serving_layout_scope,
                                               tp_gather, tp_sum)
 from repro_torch.nn import layers as L
@@ -121,6 +134,11 @@ class LMConfig:
                     raise ValueError(
                         f"per-layer kv_dequant_scales has {len(sc)} entries "
                         f"for {self.n_layers} layers")
+                if self.scan_layers and len(set(sc)) > 1:
+                    raise ValueError(
+                        "scan_layers stacks layers into shared-trace "
+                        "segments, so per-layer kv_dequant_scales must be "
+                        "uniform — pass one global pair-tuple instead")
             else:
                 sc = tuple((str(n), float(s)) for n, s in sc)
             object.__setattr__(self, "kv_dequant_scales", sc)
@@ -133,11 +151,17 @@ class LMConfig:
         return not (len(first) == 2 and isinstance(first[0], str))
 
     def kv_scales_for(self, i: Optional[int]) -> Optional[tuple]:
+        """Dequant-scale pairs for layer ``i`` (None = unit scales).
+        ``i=None`` (scan segments, the MTP block) gives the global pairs,
+        or under a per-layer table its (uniform) first entry with
+        ``scan_layers`` and None without."""
         sc = self.kv_dequant_scales
         if sc is None:
             return None
         if self._scales_are_per_layer(sc):
-            return None if i is None else sc[i]
+            if i is None:
+                return sc[0] if self.scan_layers and sc else None
+            return sc[i]
         return sc
 
     @property
@@ -174,9 +198,27 @@ class LMConfig:
             return None
         return self.sliding_window
 
+    def segments(self) -> list:
+        """Consecutive layers grouped by signature: [(sig, [idx...]),
+        ...]."""
+        segs: list = []
+        for i in range(self.n_layers):
+            sig = self.layer_signature(i)
+            if segs and segs[-1][0] == sig:
+                segs[-1][1].append(i)
+            else:
+                segs.append((sig, [i]))
+        return segs
 
-# the ROADMAP.md item that ports each family of layers or option
-_ITEMS = {"scan_layers": "A9c"}
+    def scopes(self) -> list:
+        """(scope, signature) of every call site of a block: one per layer
+        (``layers/i``), or one per segment (``segments/s``) with
+        ``scan_layers``."""
+        if self.scan_layers:
+            return [(f"segments/{s}", sig)
+                    for s, (sig, _) in enumerate(self.segments())]
+        return [(f"layers/{i}", self.layer_signature(i))
+                for i in range(self.n_layers)]
 
 
 def _remat(fn, on: bool, *args):
@@ -200,15 +242,23 @@ def _remat(fn, on: bool, *args):
 _BLOCKS = ("attn", "mla", "mamba", "hybrid")
 
 
-def _unsupported(cfg: LMConfig) -> list:
-    out = []
-    other = sorted(set(cfg.block_types) - set(_BLOCKS))
-    if other:
-        raise ValueError(f"{cfg.name}: unknown block types {other}")
-    for flag in _ITEMS:
-        if getattr(cfg, flag):
-            out.append(f"{flag} (ROADMAP item {_ITEMS[flag]})")
-    return out
+def _slice(tree: dict, j: int) -> dict:
+    """Layer ``j``'s views of a tree of stacked leaves (writes into a view
+    land in the stack)."""
+    return {k: _slice(v, j) if isinstance(v, dict) else v[j]
+            for k, v in tree.items()}
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """The ``n`` layers' trees of views of a tree of stacked params, one
+    ``unbind`` per leaf: its backward stacks the layers' gradients in one
+    op, where ``n`` separate slices would each add a zero-filled stack."""
+    per = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for j in range(n):
+            per[j][k] = parts[j]
+    return per
 
 
 def cache_leaf(caches: dict, key: str) -> Optional[torch.Tensor]:
@@ -238,12 +288,16 @@ def ssm_tensors(caches: dict) -> list:
     """The slot-major SSM leaves (``conv``, ``state``) of a cache tree, in
     layer order: what a step that must not advance some rows' state (a
     shadow step, a dense row between two prompt chunks) saves and puts
-    back."""
+    back. A segment's stacked leaves (``scan_layers``) come as one view
+    per layer, so that every tensor is slot-major."""
     out = []
-    for node in caches.values():
+    for key, node in caches.items():
         node = node.get("mamba", node)
         if "state" in node:
-            out += [node["conv"], node["state"]]
+            pair = [node["conv"], node["state"]]
+            if key.startswith("segments/"):
+                pair = [t[j] for j in range(pair[0].shape[0]) for t in pair]
+            out += pair
     return out
 
 
@@ -253,11 +307,9 @@ class LM:
     supports_prefill_chunk = True
 
     def __init__(self, cfg: LMConfig):
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} land with the port slice "
-                f"of the ROADMAP.md item named")
+        other = sorted(set(cfg.block_types) - set(_BLOCKS))
+        if other:
+            raise ValueError(f"{cfg.name}: unknown block types {other}")
         self.cfg = cfg
         self.dtype = _DTYPES[cfg.dtype]
 
@@ -311,9 +363,17 @@ class LM:
             specs["lm_head/w"] = ParamSpec((cfg.vocab_size, cfg.d_model),
                                            ("vocab", "embed"),
                                            init="scaled_normal")
-        for i in range(cfg.n_layers):
-            specs.update(self._layer_specs(cfg.layer_signature(i),
-                                           f"layers/{i}"))
+        if cfg.scan_layers:
+            for s, (sig, idxs) in enumerate(cfg.segments()):
+                layer = self._layer_specs(sig, f"segments/{s}")
+                for path, ps in layer.items():
+                    specs[path] = ParamSpec((len(idxs),) + ps.shape,
+                                            ("layers",) + ps.logical_axes,
+                                            ps.dtype, ps.init, ps.init_scale)
+        else:
+            for i in range(cfg.n_layers):
+                specs.update(self._layer_specs(cfg.layer_signature(i),
+                                               f"layers/{i}"))
         if cfg.mtp_depth > 0:
             specs["mtp/proj/w"] = ParamSpec((cfg.d_model, 2 * cfg.d_model),
                                             ("embed", None),
@@ -347,17 +407,16 @@ class LM:
                      "bx_matmul", "c_state_matmul")
         moe = ("router", "experts/gate_proj", "experts/up_proj",
                "experts/down_proj")
-        for i in range(self.cfg.n_layers):
-            block = self.cfg.block_types[i]
-            ops.update(f"layers/{i}/attn/{n}" for n in attn_ops.get(block, ()))
+        for scope, (block, is_moe) in self.cfg.scopes():
+            ops.update(f"{scope}/attn/{n}" for n in attn_ops.get(block, ()))
             if block in ("mamba", "hybrid"):
-                ops.update(f"layers/{i}/mamba/{n}" for n in mamba_ops)
-            if i in self.cfg.moe_layers:
-                ops.update(f"layers/{i}/moe/{n}" for n in moe)
+                ops.update(f"{scope}/mamba/{n}" for n in mamba_ops)
+            if is_moe:
+                ops.update(f"{scope}/moe/{n}" for n in moe)
                 if self.cfg.moe.n_shared_experts:
-                    ops.update(f"layers/{i}/moe/shared/{n}" for n in mlp)
+                    ops.update(f"{scope}/moe/shared/{n}" for n in mlp)
             elif self.cfg.d_ff > 0:
-                ops.update(f"layers/{i}/mlp/{n}" for n in mlp)
+                ops.update(f"{scope}/mlp/{n}" for n in mlp)
         return ops
 
     # ------------------------------------------------------------------
@@ -439,26 +498,67 @@ class LM:
                   cache_pos=None, block_tables=None, chunk_valid=None,
                   chunk_start=None, chunk_ring: bool = False,
                   decode: bool = False, paged_attn: str = "fused"):
-        """Run every layer in a Python loop; caches are updated in place.
-        Returns (final-normed h, the layers' summed MoE aux loss: 0.0
-        without MoE layers)."""
+        """Run every layer in a Python loop (a segment's layers slice by
+        slice under ``scan_layers``); caches are updated in place. Returns
+        (final-normed h, the layers' summed MoE aux loss: 0.0 without MoE
+        layers)."""
         cfg = self.cfg
+        kw = dict(cache_pos=cache_pos, block_tables=block_tables,
+                  chunk_valid=chunk_valid, chunk_start=chunk_start,
+                  chunk_ring=chunk_ring, decode=decode,
+                  paged_attn=paged_attn)
+        remat = cfg.remat and caches is None
         aux_total = 0.0
-        for i in range(cfg.n_layers):
-            cache_i = None if caches is None else caches[f"layers/{i}"]
+        if not cfg.scan_layers:
+            for i in range(cfg.n_layers):
+                cache_i = None if caches is None else caches[f"layers/{i}"]
 
-            def body(p_i, h_, i=i, cache_i=cache_i):
-                return self._block(
-                    p_i, ctx, f"layers/{i}", cfg.layer_signature(i), h_,
-                    positions, window=cfg.window_for(i), cache=cache_i,
-                    cache_pos=cache_pos, block_tables=block_tables,
-                    chunk_valid=chunk_valid, chunk_start=chunk_start,
-                    chunk_ring=chunk_ring, decode=decode, layer_idx=i,
-                    paged_attn=paged_attn)
+                def body(p_i, h_, i=i, cache_i=cache_i):
+                    with layer_stack_scope():
+                        return self._block(
+                            p_i, ctx, f"layers/{i}", cfg.layer_signature(i),
+                            h_, positions, window=cfg.window_for(i),
+                            cache=cache_i, layer_idx=i, **kw)
 
-            h, _, aux_i = _remat(body, cfg.remat and caches is None,
-                                 params["layers"][str(i)], h)
-            aux_total = aux_total + aux_i
+                h, _, aux_i = _remat(body, remat, params["layers"][str(i)], h)
+                aux_total = aux_total + aux_i
+            return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
+        for s, (sig, idxs) in enumerate(cfg.segments()):
+            scope = f"segments/{s}"
+            n = len(idxs)
+            p_layers = _unstack(params["segments"][str(s)], n)
+            seg_cache = None if caches is None else caches[scope]
+
+            def body(p_j, h_, j, scope=scope, sig=sig, idxs=idxs,
+                     seg_cache=seg_cache):
+                with layer_stack_scope():
+                    return self._block(
+                        p_j, ctx, scope, sig, h_, positions,
+                        window=cfg.window_for(idxs[j]),
+                        cache=(None if seg_cache is None
+                               else _slice(seg_cache, j)), **kw)
+
+            def run(lo, hi, h_, aux_, body=body, p_layers=p_layers):
+                for j in range(lo, hi):
+                    h_, _, aux_j = _remat(body, remat, p_layers[j], h_, j)
+                    aux_ = aux_ + aux_j
+                return h_, aux_
+
+            G = cfg.remat_group
+            main = (n // G) * G if G > 1 else 0
+            if remat and main >= 2 * G:
+                # two-level remat: each group of G layers is checkpointed as
+                # a unit (its layers' inputs are recomputed from the group's
+                # input in the backward pass), each layer inside it too; the
+                # remainder runs as a tail of singly checkpointed layers
+                for g0 in range(0, main, G):
+                    h, aux_total = _remat(
+                        lambda h_, a_, g0=g0, run=run: run(g0, g0 + G, h_,
+                                                           a_),
+                        True, h, aux_total)
+                h, aux_total = run(main, n, h, aux_total)
+            else:
+                h, aux_total = run(0, n, h, aux_total)
         return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
 
     def _embed(self, params: dict, tokens: torch.Tensor,
@@ -574,8 +674,18 @@ class LM:
 
     def _assemble(self, one) -> dict:
         """Flat ``layers/i@<sub>/<leaf>`` specs from ``one(block) -> {sub:
-        {leaf: spec}}``."""
+        {leaf: spec}}``; under ``scan_layers`` ``segments/s@<sub>/<leaf>``,
+        each stacked over the segment's layers (a leading ``layers``
+        dim)."""
         specs = {}
+        if self.cfg.scan_layers:
+            for s, ((block, _), idxs) in enumerate(self.cfg.segments()):
+                for sub, leaves in one(block).items():
+                    for leaf, ps in leaves.items():
+                        specs[f"segments/{s}@{sub}/{leaf}"] = ParamSpec(
+                            (len(idxs),) + ps.shape,
+                            ("layers",) + ps.logical_axes, ps.dtype, "zeros")
+            return specs
         for i, block in enumerate(self.cfg.block_types):
             for sub, leaves in one(block).items():
                 for leaf, ps in leaves.items():

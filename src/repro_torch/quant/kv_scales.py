@@ -59,6 +59,10 @@ def calibrate_kv_scales(model, params, batches: Iterable, *,
     Entries that never exceed zero get unit scales.
     """
     cfg = model.cfg
+    if cfg.scan_layers:
+        raise ValueError(
+            "calibrate_kv_scales needs per-layer cache leaves; scan_layers "
+            "stacks them — calibrate on the unrolled twin instead")
     bf16 = type(model)(dataclasses.replace(cfg, kv_cache_dtype="bfloat16",
                                            kv_dequant_scales=None))
     device = params_device(params)

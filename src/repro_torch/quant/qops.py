@@ -206,10 +206,12 @@ def einsum_f32acc(spec: str, lhs: torch.Tensor, rhs: torch.Tensor,
     f32 GEMM then sums in another order than XLA's CPU dot, and the f32
     sums round to different bf16 values in about one output of a thousand
     (a decode step's ``down_proj`` at M = 2); the bf16 GEMM agrees with the
-    reference there. Otherwise the operands are widened to f32 first."""
+    reference there. Otherwise the operands are widened to f32 first. A
+    ``meta`` trace (the dry run's) takes the card's route."""
     if out_dtype == lhs.dtype and (
-            lhs.is_cuda or (lhs.dtype in (torch.bfloat16, torch.float16)
-                            and rhs.dtype == lhs.dtype)):
+            lhs.device.type in ("cuda", "meta")
+            or (lhs.dtype in (torch.bfloat16, torch.float16)
+                and rhs.dtype == lhs.dtype)):
         return torch.einsum(spec, lhs, rhs.to(lhs.dtype))
     return torch.einsum(spec, lhs.float(), rhs.float()).to(out_dtype)
 

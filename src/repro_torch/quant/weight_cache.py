@@ -16,7 +16,13 @@ stores fp8 weights (the paper's setting) would. Two forms:
 An entry is weak on the weight (it goes when the weight goes) and is served
 only while the weight's in-place version counter (``Tensor._version``),
 data pointer, shape and dtype, and the calibrated scale it was quantized
-with, are what they were; otherwise the weight is quantized again. A weight
+with, are what they were; otherwise the weight is quantized again. A view
+(one layer's slice of a ``scan_layers`` stack, made anew at every forward)
+is kept under the tensor it views and its place there (storage offset,
+shape, strides), so every forward's slice of one layer finds the entry the
+first one made, each layer quantized on its own; views share their base's
+version counter, so an in-place update of the stack invalidates every
+layer's entry. A weight
 that requires grad is not constant and is quantized per call. Activations
 and BGEMM operands never come here: only ``qeinsum``'s ``rhs`` of a
 ``linear`` op and ``fp8_linear``'s ``w`` do.
@@ -42,7 +48,8 @@ __all__ = ["cached", "quantizations", "quantize_count", "holding", "nbytes",
 quantizations = 0               # weight quantizations done in this process
 
 _LOCK = threading.Lock()
-_ENTRIES: WeakIdKeyDictionary = WeakIdKeyDictionary()  # weight -> {key: _Entry}
+# weight (or the tensor a view views) -> {(view place, key): _Entry}
+_ENTRIES: WeakIdKeyDictionary = WeakIdKeyDictionary()
 _HOLDERS: list = []             # lists collecting the values served
 
 
@@ -53,10 +60,18 @@ class _Entry:
     scale_version: int
     value: object
     count: int                  # quantizations of this weight under this key
+    w_bytes: int                # the weight's own bytes
 
 
 def _stamp(w: torch.Tensor) -> tuple:
     return (w._version, w.data_ptr(), tuple(w.shape), w.dtype)
+
+
+def _owner(w: torch.Tensor, key: Hashable) -> tuple:
+    """(the tensor an entry is kept under, its key there)."""
+    if w._base is None:
+        return w, (None, key)
+    return w._base, ((w.storage_offset(), tuple(w.shape), w.stride()), key)
 
 
 def _scale_version(scale) -> int:
@@ -80,9 +95,10 @@ def cached(w: torch.Tensor, key: Hashable, build: Callable[[], object],
     global quantizations
     if w.requires_grad:
         return build()
+    owner, okey = _owner(w, key)
     with _LOCK:
-        per_weight = _ENTRIES.get(w)
-        entry = None if per_weight is None else per_weight.get(key)
+        per_weight = _ENTRIES.get(owner)
+        entry = None if per_weight is None else per_weight.get(okey)
         if (entry is not None and entry.stamp == _stamp(w)
                 and _same_scale(entry, scale)):
             for holder in _HOLDERS:
@@ -94,10 +110,11 @@ def cached(w: torch.Tensor, key: Hashable, build: Callable[[], object],
             f"CUDA graph capture; run the step once before capturing it")
     value = build()
     with _LOCK:
-        per_weight = _ENTRIES.setdefault(w, {})
-        old = per_weight.get(key)
-        per_weight[key] = _Entry(_stamp(w), scale, _scale_version(scale),
-                                 value, 1 if old is None else old.count + 1)
+        per_weight = _ENTRIES.setdefault(owner, {})
+        old = per_weight.get(okey)
+        per_weight[okey] = _Entry(_stamp(w), scale, _scale_version(scale),
+                                  value, 1 if old is None else old.count + 1,
+                                  w.numel() * w.element_size())
         quantizations += 1
         for holder in _HOLDERS:
             holder.append((w, value))
@@ -107,12 +124,14 @@ def cached(w: torch.Tensor, key: Hashable, build: Callable[[], object],
 def quantize_count(w: torch.Tensor, key: Optional[Hashable] = None) -> int:
     """How many times ``w`` was quantized under ``key`` (all keys if
     None)."""
+    owner, okey = _owner(w, key)
     with _LOCK:
-        per_weight = _ENTRIES.get(w) or {}
+        per_weight = _ENTRIES.get(owner) or {}
         if key is not None:
-            entry = per_weight.get(key)
+            entry = per_weight.get(okey)
             return 0 if entry is None else entry.count
-        return sum(e.count for e in per_weight.values())
+        return sum(e.count for (place, _), e in per_weight.items()
+                   if place == okey[0])
 
 
 @contextlib.contextmanager
@@ -146,12 +165,12 @@ def nbytes(device: Optional[torch.device] = None) -> tuple:
     """``(bytes kept, bytes of the weights they stand for)`` over every
     live entry (on ``device``'s type, if given)."""
     with _LOCK:
-        items = [(w, e.value) for w, per in _ENTRIES.items()
+        items = [(w, e) for w, per in _ENTRIES.items()
                  for e in per.values()]
-    items = [(w, v) for w, v in items
+    items = [(w, e) for w, e in items
              if device is None or w.device.type == device.type]
-    return (sum(_bytes(v) for _, v in items),
-            sum(w.numel() * w.element_size() for w, _ in items))
+    return (sum(_bytes(e.value) for _, e in items),
+            sum(e.w_bytes for _, e in items))
 
 
 def clear() -> None:

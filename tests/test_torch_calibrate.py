@@ -125,8 +125,10 @@ def test_groups_match_reference(arch_cfg):
 
 def test_build_graph_refuses_unported_families():
     from repro_torch.configs import llama3_1b as tc
-    with pytest.raises(NotImplementedError, match="scan_layers: A9"):
-        tgraphs.build_lm_graph(tc.smoke_config(scan_layers=True))
+    # scan_layers is ported (ROADMAP A9c): one scope per segment
+    g = tgraphs.build_lm_graph(tc.smoke_config(scan_layers=True))
+    assert "segments/0/attn/q_proj" in g.quantizable_nodes()
+    assert not any(n.startswith("layers/") for n in g.nodes)
     # the encoder-decoder has its graph (ROADMAP A8); other objects are
     # refused as the reference refuses them
     from repro_torch.models.registry import get_model

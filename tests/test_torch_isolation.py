@@ -22,6 +22,9 @@ _TRAINING = ("repro_torch.train.optim", "repro_torch.train.trainer",
 # the mesh serving slice's modules, likewise
 _MESH = ("repro_torch.distributed.sharding", "repro_torch.launch.mesh",
          "repro_torch.serve.parallel")
+# the dry run's modules, likewise
+_DRYRUN = ("repro_torch.launch.dryrun", "repro_torch.analysis.roofline",
+           "repro_torch.analysis.report")
 
 
 def _port_modules() -> list:
@@ -40,6 +43,7 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.serve.engine" in mods and len(mods) >= 20
     assert set(_TRAINING) <= set(mods)
     assert set(_MESH) <= set(mods)
+    assert set(_DRYRUN) <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

@@ -425,9 +425,9 @@ def test_calibrate_groups_match_reference():
 
 def test_unmodified_configs_raise_naming_moe_and_mtp():
     """MoE layers and MTP are ported (ROADMAP A6): the unmodified DeepSeek
-    configurations build, with their graph; what still raises names its
-    ROADMAP item (scan_layers: A9); mamba blocks build beside MLA ones
-    since A8's SSM half, and prefix embeddings since A8's rest."""
+    configurations build, with their graph, and with scan_layers since
+    A9c; mamba blocks build beside MLA ones since A8's SSM half, and prefix
+    embeddings since A8's rest."""
     full = tget("deepseek_v3_671b")
     assert full.cfg.moe_layers == tuple(range(3, 61))
     assert full.cfg.mtp_depth == 1
@@ -442,9 +442,11 @@ def test_unmodified_configs_raise_naming_moe_and_mtp():
     assert "layers/1/mamba/in_proj/w" in mixed.param_specs()
     assert tget("deepseek_v3_671b", smoke=True, prefix_embed=True,
                 **DENSE).cfg.prefix_embed
-    with pytest.raises(NotImplementedError, match="scan_layers.*ROADMAP "
-                                                  "item A9"):
-        tget("deepseek_v3_671b", smoke=True, scan_layers=True, **DENSE)
-    with pytest.raises(NotImplementedError, match="scan_layers: A9"):
-        tgraphs.build_lm_graph(tget.__globals__["get_smoke_config"](
-            "deepseek_v3_671b", scan_layers=True))
+    # scan_layers is ported (ROADMAP A9c): the MoE layers stack into a
+    # segment of their own, the MTP block keeps its unstacked params
+    scan = tget("deepseek_v3_671b", smoke=True, scan_layers=True)
+    assert "segments/1/moe/router/w" in scan.param_specs()
+    assert "mtp/block/moe/router/w" in scan.param_specs()
+    assert "segments/1/moe/combine" in tgraphs.build_lm_graph(
+        tget.__globals__["get_smoke_config"]("deepseek_v3_671b",
+                                             scan_layers=True)).nodes

@@ -48,6 +48,18 @@ Tolerances, stated per test:
   survives the flush in one package and not the other moves the norm by a
   whole element; one op at a time the gradients agree to 1e-6 of the
   largest (``test_fake_quant_gradient_matches_reference``);
+* DeepSeek's MoE layer routes each token to its top-k experts. In bf16
+  a one-ulp difference of the router's input moves its probabilities by
+  up to ~0.5%, so where the k-th and (k+1)-th probabilities nearly tie the
+  two packages may pick different experts, and the loss then parts by more
+  than any summation order. The repo's MoE near-tie rule (ROADMAP C4)
+  holds such a step: every token whose expert set differs from the
+  reference's must sit at a near-tie of the reference's probabilities
+  (k-th minus (k+1)-th below 2^-8) or downstream of an earlier such flip
+  (a later position of the same sequence, in a later MoE layer), and the
+  port's step run on the reference's expert choices (its own router
+  probabilities, gathered at the reference's indices) is held to the
+  tolerances above;
 * ``n_microbatches=2`` against one batch: the first moment within 1e-2 of
   each leaf's norm (read: 2.5e-3; a step that keeps one microbatch of the
   two reads 0.69 or more);
@@ -76,6 +88,7 @@ from repro_torch.bridge import params_from_flat  # noqa: E402
 from repro_torch.distributed import grad_compress as tgc  # noqa: E402
 from repro_torch.launch.steps import make_eval_step  # noqa: E402
 from repro_torch.launch.steps import make_train_step as tstep  # noqa: E402
+from repro_torch.nn import moe as tmoe  # noqa: E402
 from repro_torch.models.registry import depth_overrides  # noqa: E402
 from repro_torch.models.registry import get_model as tget  # noqa: E402
 from repro_torch.nn.spec import ParamSpec as TSpec  # noqa: E402
@@ -262,9 +275,61 @@ def _pair(arch: str, **ov) -> tuple:
     return jm, tm, _numpy_params(tm)
 
 
+# a flip of a token's top-k expert set is a near-tie below this gap (the
+# k-th minus the (k+1)-th router probability; ROADMAP C4)
+ROUTE_FLIP_GAP = 2.0 ** -8
+
+
+def _recording_top_k(monkeypatch, routes: list) -> None:
+    """The reference's ``jax.lax.top_k`` recording each call's
+    probabilities in call order (MoE chunks, layer by layer), inside
+    ``jit`` too."""
+    orig = jax.lax.top_k
+
+    def top_k(probs, k):
+        jax.debug.callback(lambda x: routes.append(np.asarray(x)), probs,
+                           ordered=True)
+        return orig(probs, k)
+    monkeypatch.setattr(jax.lax, "top_k", top_k)
+
+
+def _flips_at_near_ties(ref: list, got: list, k: int, seq_len: int,
+                        n_tokens: int) -> int:
+    """Assert the MoE near-tie rule (module docstring) over both packages'
+    router probabilities, call by call (each MoE layer one call per chunk
+    of its ``n_tokens`` tokens, layer by layer); returns the flips."""
+    assert len(ref) == len(got), (len(ref), len(got))
+    tainted: dict = {}     # sequence -> first flipped position, earlier layers
+    layer: dict = {}       # the same, this layer
+    n_flips = 0
+    for i, (a, b) in enumerate(zip(ref, got)):
+        rows = a.shape[0]
+        per_layer = n_tokens // rows
+        if i % per_layer == 0:
+            for seq, pos in layer.items():
+                tainted[seq] = min(tainted.get(seq, seq_len), pos)
+            layer = {}
+        start = (i % per_layer) * rows
+        top_a = np.argsort(-a, axis=-1, kind="stable")[:, :k]
+        top_b = np.argsort(-b, axis=-1, kind="stable")[:, :k]
+        srt = -np.sort(-a, axis=-1)
+        gaps = srt[:, k - 1] - srt[:, k]
+        for r in range(rows):
+            if set(top_a[r]) == set(top_b[r]):
+                continue
+            n_flips += 1
+            seq, pos = divmod(start + r, seq_len)
+            ok = gaps[r] < ROUTE_FLIP_GAP or tainted.get(seq, seq_len) <= pos
+            assert ok, (f"MoE call {i}: token {start + r} routed to "
+                        f"{sorted(top_b[r])}, the reference's "
+                        f"{sorted(top_a[r])} at a gap of {gaps[r]:.3e}")
+            layer[seq] = min(layer.get(seq, seq_len), pos)
+    return n_flips
+
+
 @pytest.mark.parametrize("mode", ["plain", "mp"])
 @pytest.mark.parametrize("arch", STEP_ARCHS)
-def test_train_step_matches_reference(arch, mode):
+def test_train_step_matches_reference(arch, mode, monkeypatch):
     ov = {} if mode == "plain" else {"dtype": "float32"}
     jm, tm, flat = _pair(arch, **ov)
     last = tm.cfg.n_layers - 1
@@ -277,11 +342,39 @@ def test_train_step_matches_reference(arch, mode):
     args = (jtree({k: jnp.asarray(v) for k, v in flat.items()}),
             jo.init_state(jm.param_specs(), jc),
             {k: jnp.asarray(v) for k, v in b.items()})
+    moe = bool(tm.cfg.moe_layers)
+    ref_routes: list = []
+    if moe:
+        _recording_top_k(monkeypatch, ref_routes)
     jp, js, jmet = jax.jit(jstep(jm, jc, mp=mp))(*args)
-    tp, ts, tmet = tstep(tm, tc, mp=mp)(
-        params_from_flat(flat, tm.cfg, "cpu"),
-        to.init_state(tm.param_specs(), tc, "cpu"),
-        {k: torch.from_numpy(v) for k, v in b.items()})
+
+    def port_step():
+        return tstep(tm, tc, mp=mp)(
+            params_from_flat(flat, tm.cfg, "cpu"),
+            to.init_state(tm.param_specs(), tc, "cpu"),
+            {k: torch.from_numpy(v) for k, v in b.items()})
+
+    if moe:
+        jax.effects_barrier()
+        own: list = []
+        route = tmoe.route_top_k
+
+        def recording(probs, k):
+            own.append(probs.detach().float().numpy().copy())
+            return route(probs, k)
+        monkeypatch.setattr(tmoe, "route_top_k", recording)
+        port_step()
+        _flips_at_near_ties(ref_routes, own, tm.cfg.moe.top_k,
+                            b["tokens"].shape[1], b["tokens"].size)
+        # the step on the reference's expert choices
+        calls = iter(ref_routes)
+
+        def forced(probs, k):
+            idx = torch.from_numpy(np.argsort(
+                -next(calls), axis=-1, kind="stable")[:, :k].copy())
+            return probs.gather(-1, idx), idx
+        monkeypatch.setattr(tmoe, "route_top_k", forced)
+    tp, ts, tmet = port_step()
     tol = STEP_TOL[mode]
     jl, tl = float(jmet["loss"]), tmet["loss"].item()
     assert abs(jl - tl) <= tol["loss"] * abs(jl), (jl, tl)
