@@ -336,11 +336,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
     ``H100_SXM`` and the bottleneck) are printed here. Then the same
     rank's shard runs for real on the card over a fake 256-rank CUDA group
     (no collective moves data; no value is checked): decode_32k whole,
-    train_4k cut to 4 of its 40 layers and 2 of its 8 microbatches of 2
+    train_4k cut to 2 of its 40 layers and 2 of its 8 microbatches of 2
     rows a rank (a global batch of 64) at full width (its whole shard took
-    107.6 s a step), which the host also traces: one warm-up, the median of 3 steps (CUDA events) against the
-    roofline terms, and ``torch.cuda.max_memory_allocated`` above what was
-    allocated before the cell against the meta peak estimate, within 20%.
+    107.6 s a step), which the host also traces; and two FSDP shards of
+    qwen2p5_32b (every weight's ``embed`` dim split over ``data`` too,
+    gathered at use, gradients reduce-scattered): decode_32k whole (the
+    reference's rule takes FSDP and an fp8 KV cache; 8 rows a rank) and
+    train_4k cut to 4 layers (two remat groups of 2) and 2 microbatches,
+    under ``FSDP_RULES``. Each: one warm-up and one step timed (CUDA
+    events) against the roofline terms, and
+    ``torch.cuda.max_memory_allocated`` above what was
+    allocated before the cell against the meta peak estimate, within 20%
+    (the fake group's gathers move nothing, so they cost the card no time).
     Each leg's seconds and their sum are printed (budget 40 s);
 29. print the kernel table and the serving and calibration numbers as JSON
     lines, then ``{"ok": true, "device": {...}}`` as the last line. Every
@@ -6035,17 +6042,28 @@ SCAN_STEPS = 3
 # the dry run's cells (pod16x16): name -> (arch, shape, overrides, global
 # batch: None for the shape's), each traced on the host by a process of its
 # own (DRYRUN_PROC, started after the measured tier); DRYRUN_ON_CARD also
-# run on the card. train_4k's whole shard took 107.6 s a step on an H100
-# (PR 29), so the card runs its cut: 4 of 40 layers (two-level remat in
-# groups of 2) and 2 of 8 microbatches of the same 2 rows a rank (a global
-# batch of 64, not 256), at full width, held to its own trace
+# run on the card. train_4k's whole shard took 107.6 s a step on an H100,
+# so the card runs its cut: 2 of 40 layers (two-level remat, one group of
+# 2) and 2 of 8 microbatches of the same 2 rows a rank (a global batch of
+# 64, not 256), at full width, held to its own trace. qwen2p5_32b's cells
+# run FSDP: its decode_32k by the reference's rule, its train_4k cut to 4
+# layers (two remat groups of 2) and 2 microbatches under FSDP_RULES
+# ("rules": "fsdp"; so cut, the rule would keep the default rules). The
+# card times one step of each after its warm-up (dryrun.TIMED_STEPS): a
+# sample, not a median (on an H100, three steps of a train cut spread by
+# under 0.5%, of a decode by up to 25%)
 DRYRUN_CELLS = {
     "train_4k": ("starcoder2_15b", "train_4k", {}, None),
     "decode_32k": ("starcoder2_15b", "decode_32k", {}, None),
     "train_4k_cut": ("starcoder2_15b", "train_4k",
-                     dict(n_layers=4, remat_group=2, n_microbatches=2), 64),
+                     dict(n_layers=2, remat_group=2, n_microbatches=2), 64),
+    "fsdp_decode_32k": ("qwen2p5_32b", "decode_32k", {}, None),
+    "fsdp_train_4k_cut": ("qwen2p5_32b", "train_4k",
+                          dict(n_layers=4, remat_group=2, n_microbatches=2,
+                               rules="fsdp"), 64),
 }
-DRYRUN_ON_CARD = ("train_4k_cut", "decode_32k")
+DRYRUN_ON_CARD = ("train_4k_cut", "decode_32k", "fsdp_train_4k_cut",
+                  "fsdp_decode_32k")
 # the card's peak allocation against the meta trace's live-storage peak
 DRYRUN_PEAK_TOL = 0.20
 # seconds the host trace may still take when phase 28 asks for it
@@ -6066,10 +6084,13 @@ def start_host_dryrun() -> None:
     code = ("import dataclasses, json, os, sys\n"
             "os.nice(19)\n"
             "from repro_torch.configs.shapes import SHAPES\n"
+            "from repro_torch.distributed.sharding import FSDP_RULES\n"
             "from repro_torch.launch.dryrun import run_cell\n"
             "for name, (arch, shape, ov, batch) in %r.items():\n"
             "    cell = batch and dataclasses.replace(SHAPES[shape],"
             " global_batch=batch)\n"
+            "    if ov.get('rules') == 'fsdp':\n"
+            "        ov = dict(ov, rules=FSDP_RULES)\n"
             "    rec = run_cell(arch, shape, False, overrides=ov, cell=cell)\n"
             "    with open(f'{sys.argv[1]}/{name}.json', 'w') as f:\n"
             "        json.dump(rec, f)\n"
@@ -6257,15 +6278,18 @@ def dryrun_card_leg(torch, host: dict) -> dict:
     """One rank's shard of each of ``DRYRUN_ON_CARD`` on the card (a fake
     256-rank CUDA group, made and destroyed by ``run_cell``), its peak above
     what was allocated before it held to the host trace's peak estimate."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.distributed.sharding import FSDP_RULES
     from repro_torch.launch.dryrun import run_cell
     out = {}
     bad = []
-    from repro_torch.configs.shapes import SHAPES
     for name in DRYRUN_ON_CARD:
         arch, shape, ov, batch = DRYRUN_CELLS[name]
         h = host[name]
         t0 = time.perf_counter()
-        rec = run_cell(arch, shape, False, overrides=ov, device=DEVICE,
+        rec = run_cell(arch, shape, False,
+                       overrides=dict(ov, rules=FSDP_RULES)
+                       if ov.get("rules") == "fsdp" else ov, device=DEVICE,
                        cell=batch and dataclasses.replace(
                            SHAPES[shape], global_batch=batch))
         secs = time.perf_counter() - t0
@@ -6278,7 +6302,9 @@ def dryrun_card_leg(torch, host: dict) -> dict:
         step_s = card["median_ms"] / 1e3
         terms = {k: r[f"t_{k}"] for k in ("compute", "memory", "collective")}
         log(f"dry run on the card, {arch} x {name} {ov or ''}"
-            f"{f' global batch {batch}' if batch else ''} (one rank of "
+            f"{f' global batch {batch}' if batch else ''}"
+            f"{' FSDP' if h.get('fsdp') else ''}"
+            f"{' fp8 KV' if h.get('kv_cache_dtype') else ''} (one rank of "
             f"pod16x16, a fake 256-rank CUDA group): step median "
             f"{card['median_ms']:.2f} ms of "
             f"{[round(x, 2) for x in card['step_ms']]} against the roofline's"
@@ -6286,7 +6312,8 @@ def dryrun_card_leg(torch, host: dict) -> dict:
             f"{terms['memory'] * 1e3:.2f}, collective "
             f"{terms['collective'] * 1e3:.2f} ms "
             f"({step_s / max(terms['compute'], terms['memory']):.2f}x the "
-            f"larger on-card term; the collectives moved nothing); peak "
+            f"larger on-card term; the collectives, FSDP's gathers and "
+            f"reduce-scatters too, moved nothing); peak "
             f"{card['peak_above_baseline'] / 1e9:.3f} GB allocated above the "
             f"{card['baseline_allocated'] / 1e9:.3f} GB held before the cell "
             f"against the meta estimate {est / 1e9:.3f} GB (ratio "
@@ -6331,7 +6358,9 @@ def dryrun_phase(torch) -> dict:
         coll = r["meta"]["collectives"]
         mem = rec["memory_analysis"]
         log(f"dry run on the host, {arch} x {name} {ov or ''}"
-            f"{f' global batch {batch}' if batch else ''} (pod16x16, "
+            f"{f' global batch {batch}' if batch else ''}"
+            f"{' FSDP' if rec.get('fsdp') else ''}"
+            f"{' fp8 KV' if rec.get('kv_cache_dtype') else ''} (pod16x16, "
             f"rank 0 of a fake 256-rank group, meta): traced in "
             f"{rec['trace_s']} s; per "
             f"rank {mem['argument_size_in_bytes'] / 1e9:.3f} GB of arguments,"

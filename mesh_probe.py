@@ -33,6 +33,19 @@ with a short timeout, and the results are printed before the teardown.
 
     timeout 210 torchrun --nproc-per-node 4 mesh_probe.py --train \
         [--steps 10] [--out mesh_train.json]
+
+``--train --fsdp`` runs FSDP (ZeRO-3) instead, through
+``make_train_step(mesh=, rules=)`` (the trainer takes no rules, as the
+reference's does not): llama3_1b at full width, ``--steps`` steps on one
+rank, then over each mesh of ``--meshes`` (default ``4x1,2x2``) under the
+default rules and under ``FSDP_RULES``. Rank 0 prints, for each mesh, the
+first step's loss and grad norm under FSDP against the default rules'
+and against one rank's (held to ``STEP1_TOL``), each run's step wall
+median, and every rank's ``max_memory_allocated`` over the steps (the
+params, moments and inputs included).
+
+    timeout 300 torchrun --nproc-per-node 4 mesh_probe.py --train --fsdp \
+        [--steps 10] [--out mesh_fsdp.json]
 """
 from __future__ import annotations
 
@@ -58,6 +71,9 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="training over the meshes instead of serving")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --train: FSDP_RULES against the default "
+                         "rules on each mesh (default meshes 4x1,2x2)")
     args = ap.parse_args()
     import torch
     import torch.distributed as dist
@@ -78,6 +94,8 @@ def main() -> int:
     if rank != 0:                            # rank 0 prints
         sys.stdout = open(os.devnull, "w")
     cs.DEVICE = dev.type
+    if args.train and args.fsdp:
+        return fsdp_main(args, torch, cs, dev)
     if args.train:
         return train_main(args, torch, cs, dev)
     if dev.type == "cuda":
@@ -289,6 +307,138 @@ def train_main(args, torch, cs, dev) -> int:
         if dev.type == "cuda":
             print(cs.card_line(), flush=True)
         shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        print("; ".join(failures), file=sys.stderr, flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    cs.log("teardown done")
+    return 1 if failures else 0
+
+
+def _direct_steps(torch, model, opt, mesh, rules, data, steps: int,
+                  dev) -> dict:
+    """``steps`` steps of ``make_train_step(mesh=, rules=)`` from seed 0's
+    params: each (loss, grad norm), each step's wall seconds, and this
+    rank's ``max_memory_allocated`` over the steps (what it held before
+    them included) and its params' bytes."""
+    import gc
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.spec import (default_generator, flatten_paths,
+                                     tree_from_flat)
+    from repro_torch.train import optim
+    step = make_train_step(model, opt, mesh=mesh, rules=rules)
+    sh = step.shards
+    p = flatten_paths(model.init(default_generator(0, dev), dev))
+    specs = optim.state_specs(model.param_specs(), opt)
+    if sh is None:
+        o = {k: torch.zeros(s.shape, dtype=s.dtype, device=dev)
+             for k, s in specs.items()}
+    else:
+        p = sh.local(sh.params, p)
+        o = {k: torch.zeros(sharding.local_shape(s.shape, sh.state[k],
+                                                 sh.layout.sizes),
+                            dtype=s.dtype, device=dev)
+             for k, s in specs.items()}
+    p, o = tree_from_flat(p), tree_from_flat(o)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    rows, walls = [], []
+    for s in range(steps):
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, data.batch_at(s))
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in flatten_paths(p).values())
+    return {"steps": rows, "walls": walls, "peak": peak,
+            "param_bytes": nbytes}
+
+
+def fsdp_main(args, torch, cs, dev) -> int:
+    """``--train --fsdp`` (module docstring)."""
+    import statistics
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import FSDP_RULES
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optim import OptConfig, select_optimizer
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if dev.type != "cuda":
+        torch.set_num_threads(1)
+    model = get_model(args.arch, smoke=args.smoke)
+    data = cs.train_data(model.cfg)
+    opt = select_optimizer(model.n_params(), OptConfig(
+        lr=cs.TRAIN_LOSS["lr"], warmup_steps=cs.TRAIN_LOSS["warmup"],
+        total_steps=cs.TRAIN_LOSS["steps"]))
+    meshes = "4x1,2x2" if args.meshes == "2x2,1x4,4x1" else args.meshes
+    out = {"arch": model.cfg.name, "world": world, "steps": args.steps,
+           "meshes": {}}
+    failures = []
+    t0 = time.perf_counter()
+
+    def median_ms(run):
+        return statistics.median(run["walls"][1:] or run["walls"]) * 1e3
+
+    def peaks(run) -> list:
+        got = [None] * world
+        dist.all_gather_object(got, run["peak"])
+        return got
+
+    one = _direct_steps(torch, model, opt, None, None, data, args.steps, dev)
+    out["single_rank"] = {"steps": one["steps"], "step_ms": median_ms(one),
+                          "peak": one["peak"]}
+    cs.log(f"one rank: step 1 loss {one['steps'][0][0]:.6f}, grad norm "
+           f"{one['steps'][0][1]:.4f}; step {median_ms(one):.2f} ms; peak "
+           f"{one['peak'] / 1e9:.3f} GB")
+    del one
+    for spec in meshes.split(","):
+        d, m = (int(v) for v in spec.split("x"))
+        if d * m != world:
+            raise SystemExit(f"mesh {spec} needs {d * m} ranks, have {world}")
+        mesh = make_local_mesh(d, m, dev)
+        rec = {}
+        for name, rules in (("default", None), ("fsdp", FSDP_RULES)):
+            run = _direct_steps(torch, model, opt, mesh, rules, data,
+                                args.steps, dev)
+            rec[name] = {"steps": run["steps"], "step_ms": median_ms(run),
+                         "peaks": peaks(run),
+                         "param_bytes": run["param_bytes"]}
+            del run
+        ref = out["single_rank"]["steps"][0]
+        f1, d1 = rec["fsdp"]["steps"][0], rec["default"]["steps"][0]
+        rel = [abs(f1[i] - ref[i]) / abs(ref[i]) for i in (0, 1)]
+        rel_default = [abs(f1[i] - d1[i]) / abs(d1[i]) for i in (0, 1)]
+        rec["step1_rel_one_rank"] = rel
+        rec["step1_rel_default"] = rel_default
+        out["meshes"][spec] = rec
+        gb = [max(rec[k]["peaks"]) / 1e9 for k in ("default", "fsdp")]
+        cs.log(f"mesh {spec}: step 1 under FSDP loss {f1[0]:.6f}, grad norm "
+               f"{f1[1]:.4f}: from the default rules' {rel_default[0]:.3g} "
+               f"(loss), {rel_default[1]:.3g} (grad norm); from one rank's "
+               f"{rel[0]:.3g}, {rel[1]:.3g}; step "
+               f"{rec['fsdp']['step_ms']:.2f} ms against the default rules' "
+               f"{rec['default']['step_ms']:.2f}; peak a rank "
+               f"{gb[1]:.3f} GB against {gb[0]:.3f} ({gb[0] - gb[1]:.3f} GB "
+               f"less); params a rank {rec['fsdp']['param_bytes'] / 1e9:.3f}"
+               f" GB against {rec['default']['param_bytes'] / 1e9:.3f}")
+        if rel[0] > STEP1_TOL["loss"] or rel[1] > STEP1_TOL["grad_norm"]:
+            failures.append(f"mesh {spec} under FSDP: step 1 {rel[0]:.3g} "
+                            f"(loss), {rel[1]:.3g} (grad norm) from one "
+                            f"rank's")
+    out["seconds"] = time.perf_counter() - t0
+    out["failures"] = failures
+    if rank == 0:
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, indent=2))
+        print(json.dumps(out), flush=True)
+        if dev.type == "cuda":
+            print(cs.card_line(), flush=True)
     if failures:
         print("; ".join(failures), file=sys.stderr, flush=True)
     dist.barrier()

@@ -31,6 +31,13 @@ builds it. The phases run in the order given:
   scan leg and the dry run, its host trace started before the kernels'
   build here), held to phase 25's first steps run here through the
   single-rank trainer and to phase 4's plain fused drain, run here first;
+- ``fsdp_dryrun``: phase 28's dry-run leg for its FSDP cells alone
+  (qwen2p5_32b's decode_32k and train_4k cut, ``DRYRUN_CELLS``' ``fsdp_``
+  entries): their host trace, started first, then each shard on the card
+  held to its trace's peak; no kernel is built for it;
+- ``dryrun_card``: the same for every cell phase 28 runs on the card
+  (``DRYRUN_ON_CARD``), as that checkout has them: the dry-run leg's
+  seconds without the host-only cells' trace;
 - ``training``: phase 25 (``training_phase``), where the checkout has it;
 - ``checkpoint_io``: where a checkpoint's seconds go, on one tree of
   ``--gb`` gigabytes on the card (bf16 and f32 leaves of 2^26 elements, as
@@ -52,7 +59,9 @@ builds it. The phases run in the order given:
   width and depth, AdamW, ``TRAIN_LOSS``' batch): ``--reps`` steps timed
   on the host clock, then the same number under ``torch.profiler``; the
   device's busy share is the device time of the profiled steps' kernels
-  and copies over the unprofiled steps' wall time.
+  and copies over the unprofiled steps' wall time; the peak allocated
+  over the timed steps (``torch.cuda.max_memory_allocated``). No kernel
+  is built for it, nor for the two dry-run phases.
 
 Prints ``chip_smoke.py``'s lines for each phase, one JSON line with every
 drain's numbers, and last the card's name and power limit; ``--out`` gets
@@ -248,12 +257,14 @@ def train_step(torch, cs, reps: int) -> dict:
     for i in range(2):                                   # warm-up
         step(params, state, data.batch_at(i))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     walls = []
     for i in range(reps):
         t0 = time.perf_counter()
         step(params, state, data.batch_at(2 + i))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -267,12 +278,13 @@ def train_step(torch, cs, reps: int) -> dict:
     rec = {"steps": reps, "step_wall_ms": [w * 1e3 for w in walls],
            "device_busy_ms_per_step": busy / reps * 1e3,
            "profiled_step_ms": profiled / reps * 1e3,
-           "busy_share": busy / wall}
+           "busy_share": busy / wall, "peak_allocated_bytes": peak}
     cs.log(f"train_step: {reps} eager steps, wall "
            f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms; under the "
            f"profiler {rec['profiled_step_ms']:.2f} ms a step, device busy "
            f"{rec['device_busy_ms_per_step']:.2f} ms a step: "
-           f"{100 * rec['busy_share']:.1f}% of the unprofiled wall")
+           f"{100 * rec['busy_share']:.1f}% of the unprofiled wall; peak "
+           f"{peak / 1e9:.3f} GB allocated over the timed steps")
     return rec
 
 
@@ -296,11 +308,18 @@ def main() -> int:
     from repro_torch.launch.serve import make_model_and_params
     resolve_device("cuda")
     phases = args.phases.split(",")
-    if "scan_dryrun" in phases:
+    card_only = {"fsdp_dryrun", "dryrun_card"} & set(phases)
+    if card_only:
+        keep = tuple(k for k in cs.DRYRUN_ON_CARD
+                     if "dryrun_card" in card_only or k.startswith("fsdp_"))
+        cs.DRYRUN_CELLS = {k: cs.DRYRUN_CELLS[k] for k in keep}
+        cs.DRYRUN_ON_CARD = keep
+    if card_only or "scan_dryrun" in phases:
         cs.start_host_dryrun()            # beside the build
-    t0 = time.perf_counter()
-    _build.build()
-    cs.log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
+    if not set(phases) <= {"fsdp_dryrun", "dryrun_card", "train_step"}:
+        t0 = time.perf_counter()
+        _build.build()
+        cs.log(f"{root}: kernels built in {time.perf_counter() - t0:.1f} s")
     if {"tier", "drains", "mesh", "ttft", "scan_dryrun"} & set(phases):
         model, params = make_model_and_params("llama3_1b", False, "cuda",
                                               seed=0)
@@ -331,6 +350,8 @@ def main() -> int:
                 "seconds"]
         elif name == "scan_dryrun":
             out["scan_dryrun"] = scan_dryrun(torch, cs, model, params)
+        elif name in ("fsdp_dryrun", "dryrun_card"):
+            out[name] = cs.dryrun_phase(torch)
         elif name == "training" and hasattr(cs, "training_phase"):
             rec = cs.training_phase(torch)
             out["training"] = {"step_wall_ms": rec["loss_leg"][

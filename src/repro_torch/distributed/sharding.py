@@ -27,6 +27,13 @@ explicit collectives at the bottom of this module (``tp_*`` over the
 train step). The collectives are differentiable, with Megatron's backward.
 With no layout current they are identities, so the single-rank path runs
 the code it ran before.
+
+FSDP (``FSDP_RULES``, ZeRO-3): a layout carries the rules its leaves were
+placed by, and :func:`data_split_dims` tells which dim of each leaf ``data``
+splits. The model gathers such a leaf where it uses it
+(:func:`dp_gather_param`, an all-gather over ``data`` whose backward
+reduce-scatters the whole gradient into this rank's block), so every rank
+holds only its block of the params, their gradients and their moments.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from repro_torch.nn.spec import ParamSpec
 __all__ = ["DEFAULT_RULES", "FSDP_RULES", "partition_spec",
            "zero_partition_spec", "param_shardings", "placements",
            "batch_pspec", "named", "shard_hint", "axis_sizes", "local_shape",
-           "local_shard",
+           "local_shard", "data_split_dims", "dp_gather_param",
            "ServingMeshLayout", "training_layout", "serving_layout_scope",
            "current_serving_layout", "tp_sum", "tp_max", "tp_copy",
            "tp_gather", "tp_slice", "dp_sum", "dp_gather", "dp_copy", "dp_share", "amax_over",
@@ -75,7 +82,10 @@ FSDP_RULES = dict(DEFAULT_RULES, embed=("data", "pod"))
 
 
 def axis_sizes(mesh) -> dict:
-    """``{axis name: size}`` of a fake mesh or a ``DeviceMesh``."""
+    """``{axis name: size}`` of a fake mesh, a ``DeviceMesh`` or such a
+    mapping itself."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:
         return dict(zip(names, tuple(mesh.shape)))
@@ -227,7 +237,9 @@ class ServingMeshLayout:
     is checked when the layout is planned). ``mesh`` is a ``DeviceMesh``
     for a layout that serves, or any object :func:`axis_sizes` reads for a
     host-side plan; only the former has this rank's coordinates and the
-    process groups the collectives run over."""
+    process groups the collectives run over. ``rules`` are the rules the
+    params were placed by (None: ``DEFAULT_RULES``), kept as a tuple of
+    their items so that the layout hashes; a dict is converted."""
     mesh: object
     data: int
     model: int
@@ -236,6 +248,16 @@ class ServingMeshLayout:
     n_blocks: int = 0
     shard_pages: bool = False
     blocks_per_shard: int = 0
+    rules: Optional[tuple] = None
+
+    def __post_init__(self):
+        if isinstance(self.rules, dict):
+            object.__setattr__(self, "rules", tuple(self.rules.items()))
+
+    @property
+    def rule_map(self) -> dict:
+        """The rules the params were placed by, as a dict."""
+        return DEFAULT_RULES if self.rules is None else dict(self.rules)
 
     def fused_ok(self, batch: int, n_kv_heads: int) -> bool:
         """Can the fused paged kernel run per shard?"""
@@ -273,13 +295,30 @@ class ServingMeshLayout:
             else 0
 
 
-def training_layout(mesh) -> ServingMeshLayout:
+def training_layout(mesh, rules: Optional[dict] = None
+                    ) -> ServingMeshLayout:
     """The layout a training step runs under: the mesh's groups and this
     rank's coordinates, no slots or pages (the batch's rows split over
-    ``data``, the weights over ``model`` by the rules)."""
+    ``data``, the weights by ``rules``)."""
     sizes = axis_sizes(mesh)
     return ServingMeshLayout(mesh=mesh, data=int(sizes.get("data", 1)),
-                             model=int(sizes.get("model", 1)), n_slots=0)
+                             model=int(sizes.get("model", 1)), n_slots=0,
+                             rules=rules)
+
+
+def data_split_dims(specs: dict, layout: ServingMeshLayout) -> dict:
+    """``{path: the dim of the leaf that data splits}`` under the layout's
+    rules, None for a leaf that is whole on every data rank (every leaf
+    under ``DEFAULT_RULES``; under ``FSDP_RULES`` a leaf whose ``embed``
+    ``data`` does not divide, as :func:`partition_spec` decides). A stacked
+    leaf's leading ``layers`` dim is never split."""
+    out = {}
+    for path, spec in specs.items():
+        pspec = partition_spec(spec, layout.sizes, layout.rule_map)
+        out[path] = next((d for d, p in enumerate(pspec)
+                          if "data" in (p if isinstance(p, tuple) else (p,))),
+                         None)
+    return out
 
 
 _SERVING_LAYOUT: contextvars.ContextVar = contextvars.ContextVar(
@@ -406,13 +445,45 @@ def _grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def _gather_cat(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    _dist().all_gather(parts, x, group=group)
-    out = torch.cat(parts, dim=dim)
+def _collective(name: str, old: str):
+    """``torch.distributed``'s collective ``name``, else ``old``: torch
+    2.13 renames ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
+    to ``all_gather_single`` and ``reduce_scatter_single`` and deprecates
+    the old names, which older releases alone have."""
+    dist = _dist()
+    return getattr(dist, name, None) or getattr(dist, old)
+
+
+def _gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` joined along ``dim``, contiguous: one
+    ``all_gather_into_tensor`` into the blocks joined along dim 0 (the
+    form gloo takes too), moved to ``dim``. One-byte values travel as
+    ``uint8`` (gloo has no fp8 types)."""
+    dim = dim % x.dim()
+    byte = x.element_size() == 1 and x.dtype != torch.uint8
+    y = x.contiguous()
+    y = y.view(torch.uint8) if byte else y
+    out = y.new_empty((n * y.shape[0],) + tuple(y.shape[1:]))
+    _collective("all_gather_single", "all_gather_into_tensor")(
+        out, y, group=group)
+    out = out.view((n,) + tuple(y.shape)).movedim(0, dim).flatten(dim,
+                                                                  dim + 1)
+    out = out.view(x.dtype) if byte else out
     record_collective("all-gather", out)
     return out
+
+
+def _scatter_sum(g: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``g`` summed over the ranks of
+    ``group``: one ``reduce_scatter_tensor`` in f32, rounded once to
+    ``g``'s dtype (a bf16 leaf's summed gradient is then bf16, where the
+    step's ``dp_sum`` of a whole leaf's gradient stays f32)."""
+    y = g.float().unflatten(dim, (n, -1)).movedim(dim, 0).contiguous()
+    out = y.new_empty(y.shape[1:])
+    _collective("reduce_scatter_single", "reduce_scatter_tensor")(
+        out, y.flatten(0, 1), group=group)
+    record_collective("reduce-scatter", out)
+    return out.to(g.dtype)
 
 
 def _summed(x: torch.Tensor, group, op=None) -> torch.Tensor:
@@ -465,12 +536,30 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, n, index):
         ctx.dim, ctx.index, ctx.size = dim, index, x.shape[dim]
-        return _gather_cat(x, dim, group, n)
+        return _gather(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
         return (g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size)
                 .contiguous(), None, None, None, None)
+
+
+class _GatherParam(torch.autograd.Function):
+    """All-gather of the ``data`` ranks' blocks of a weight along ``dim``;
+    the backward reduce-scatters the whole gradient (every rank's rows'
+    part of it) into this rank's block, summed over ``data``."""
+
+    @staticmethod
+    def forward(ctx, w, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        ctx.in_stack = _IN_STACK.get()
+        return _gather(w, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        with layer_stack_scope(ctx.in_stack):
+            return (_scatter_sum(g, ctx.dim, ctx.group, ctx.n), None,
+                    None, None)
 
 
 class _Slice(torch.autograd.Function):
@@ -486,7 +575,7 @@ class _Slice(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with layer_stack_scope(ctx.in_stack):
-            return (_gather_cat(g, ctx.dim, ctx.group, ctx.n), None, None,
+            return (_gather(g, ctx.dim, ctx.group, ctx.n), None, None,
                     None, None, None)
 
 
@@ -647,7 +736,7 @@ def tp_gather(x: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
     dim = dim % x.dim()
     if _grad(x):
         return _Gather.apply(x, dim, group, n, idx)
-    return _gather_cat(x, dim, group, n)
+    return _gather(x, dim, group, n)
 
 
 def tp_slice(x: torch.Tensor, local: int, dim: int = -1) -> torch.Tensor:
@@ -675,7 +764,23 @@ def dp_gather(x: torch.Tensor) -> torch.Tensor:
     group, n, idx = got
     if _grad(x):
         return _Gather.apply(x, 0, group, n, idx)
-    return _gather_cat(x, 0, group, n)
+    return _gather(x, 0, group, n)
+
+
+def dp_gather_param(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of a weight of which ``w`` is this rank's block along
+    ``dim`` over ``data`` (FSDP), contiguous in the leaf's own layout. Its
+    gradient is the whole gradient reduce-scattered over ``data``: this
+    rank's block, already summed over the data ranks. The identity without
+    a layout or on a data axis of one rank."""
+    got = _layout_axis("data")
+    if got is None or got[1] == 1:
+        return w
+    group, n, _ = got
+    dim = dim % w.dim()
+    if _grad(w):
+        return _GatherParam.apply(w, dim, group, n)
+    return _gather(w, dim, group, n)
 
 
 # ---------------------------------------------------------------------------
@@ -693,7 +798,7 @@ def gather_leaf(t: torch.Tensor, pspec: tuple,
                                             else (p,)) if a)):
             n = layout.data if a == "data" else layout.model
             if n > 1:
-                t = _gather_cat(t, d, layout.group(a), n)
+                t = _gather(t, d, layout.group(a), n)
     return t
 
 

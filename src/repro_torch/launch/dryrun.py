@@ -42,7 +42,10 @@ an fp8 KV cache for a decode cell whose bf16 cache exceeds
 ``KV_FP8_THRESHOLD_BYTES``, ``optim.select_optimizer``, ``DRYRUN_MICRO``
 microbatches and ``cell_supported``'s skips. A cell the port does not run
 over a mesh raises its refusal, which names its ROADMAP item: expert (MoE)
-layers and encoder-decoders (C10), Adafactor (A9d), FSDP execution (A9e).
+layers and encoder-decoders (C10), Adafactor (A9d). An FSDP cell places
+params and moments by ``FSDP_RULES`` and runs its step under them: the
+layers gather their ``data``-split weights at use, and a train step
+reduce-scatters their gradients (``sharding.dp_gather_param``).
 
 ``run_cell(..., device="cuda")`` runs the same rank's shard for real on one
 card over a fake CUDA group (no collective moves anything, so no value
@@ -52,6 +55,9 @@ CLI (the reference's): ``python -m repro_torch.launch.dryrun [--arch A]
 [--shape S] [--mesh single|multi|both] [--out DIR] [--all]``; one JSON
 record per cell in ``DIR`` (``experiments/dryrun``), cells with an ok or
 skip record kept; the exit code is nonzero when a cell failed.
+``--rules default`` traces every cell under the default rules instead of
+the reference's choice (FSDP's counterfactual; records named
+``...__default_rules.json``).
 """
 from __future__ import annotations
 
@@ -100,8 +106,10 @@ FSDP_THRESHOLD_BYTES = 3e9
 # decode cells whose bf16 KV cache would crowd a rank take an fp8 cache
 KV_FP8_THRESHOLD_BYTES = 4e9
 
-# timed steps after the warm-up of a cell run on the card
-TIMED_STEPS = 3
+# timed steps after the warm-up of a cell run on the card: the warm-up holds
+# the peak, and a shard's eager step is a sample of seconds (chip_smoke.py
+# phase 28 runs four in its budget)
+TIMED_STEPS = 1
 
 # multi_pod -> (mesh name, {axis: size})
 MESHES = {False: ("pod16x16", {"data": 16, "model": 16}),
@@ -147,9 +155,10 @@ def plan_cell(arch: str, shape_name: str, multi_pod: bool,
               mesh_axes=None) -> dict:
     """The reference's decisions for a cell, made without tracing:
     ``status``/``reason`` (a skip), and for a supported cell the ``model``,
-    ``rules``, ``param_bytes`` (per rank, under the rules chosen;
-    ``default_param_bytes`` under the default rules, which decide FSDP),
-    ``fsdp``, ``kv_cache_dtype``, ``optimizer`` (an ``OptConfig``) and
+    ``rules`` (``overrides["rules"]``, else FSDP's when the default rules
+    leave more than ``FSDP_THRESHOLD_BYTES`` of params on a rank),
+    ``param_bytes`` (per rank, under those rules), ``fsdp`` (the rules are
+    ``FSDP_RULES``), ``kv_cache_dtype``, ``optimizer`` (an ``OptConfig``) and
     ``n_microbatches`` (the last two of a train cell only). ``smoke``,
     ``cell`` (a ``ShapeCell``) and ``mesh_axes`` (``{axis: size}``) stand
     in for the arch's config, the shape's cell and the mesh, to plan small
@@ -166,8 +175,8 @@ def plan_cell(arch: str, shape_name: str, multi_pod: bool,
                    smoke)
     specs = model.param_specs()
     rules = rules_override or shd.DEFAULT_RULES
-    param_bytes = default_bytes = estimate_shard_bytes(specs, mesh, rules)
-    fsdp = False
+    param_bytes = estimate_shard_bytes(specs, mesh, rules)
+    fsdp = rules == shd.FSDP_RULES
     if rules_override is None and param_bytes > FSDP_THRESHOLD_BYTES:
         rules = shd.FSDP_RULES
         param_bytes = estimate_shard_bytes(specs, mesh, rules)
@@ -183,8 +192,7 @@ def plan_cell(arch: str, shape_name: str, multi_pod: bool,
                                 kv_cache_dtype="fp8_e4m3"), smoke)
             kv = "fp8_e4m3"
     out = {"status": "ok", "reason": "", "model": model, "rules": rules,
-           "param_bytes": param_bytes, "default_param_bytes": default_bytes,
-           "fsdp": fsdp, "kv_cache_dtype": kv}
+           "param_bytes": param_bytes, "fsdp": fsdp, "kv_cache_dtype": kv}
     if cell.kind == "train":
         out["optimizer"] = optim.select_optimizer(
             model_stats.param_stats(model)["total"])
@@ -192,7 +200,7 @@ def plan_cell(arch: str, shape_name: str, multi_pod: bool,
     return out
 
 
-def _refuse(model, kind: str, plan: dict) -> None:
+def _refuse(model, kind: str) -> None:
     """The port's refusals of a cell over a mesh, by the item that lifts
     each (the train step's own, expert layers and encoder-decoders, comes
     from ``steps.refuse_mesh``; Adafactor's from ``optim.MeshShards``)."""
@@ -207,14 +215,6 @@ def _refuse(model, kind: str, plan: dict) -> None:
             "expert (MoE) layers over a serving mesh: a data shard's rows "
             "change the capacity drops and expert parallelism is not "
             "written (ROADMAP C10)")
-    if plan["fsdp"]:
-        raise NotImplementedError(
-            f"FSDP execution over a mesh: "
-            f"{plan['default_param_bytes'] / 1e9:.2f} GB of params a rank "
-            f"under the default rules exceed "
-            f"{FSDP_THRESHOLD_BYTES / 1e9:g} GB, and the layers have no "
-            f"gather of embed-sharded weights over data nor the trainer a "
-            f"reduce-scatter of their gradients (ROADMAP A9e)")
 
 
 @contextlib.contextmanager
@@ -325,8 +325,9 @@ def _prepare(model, cell, plan: dict, mesh, device: str, mp_assignment):
     """(step, args, argument bytes) of this rank's step of ``cell``."""
     sizes = shd.axis_sizes(mesh)
     data = sizes["data"]
+    rules = plan["rules"]
     specs = model.param_specs()
-    params = tree_from_flat(_local_tree(specs, mesh, None, device))
+    params = tree_from_flat(_local_tree(specs, mesh, rules, device))
     ins = input_specs(model, cell)
     if device != "meta":
         ins = {k: torch.full(v.shape, cell.seq_len - 1 if k == "pos" else 0,
@@ -339,9 +340,9 @@ def _prepare(model, cell, plan: dict, mesh, device: str, mp_assignment):
         opt_cfg = plan["optimizer"]
         step = steps.make_train_step(model, opt_cfg,
                                      n_microbatches=plan["n_microbatches"],
-                                     mp=mp_assignment, mesh=mesh)
+                                     mp=mp_assignment, mesh=mesh, rules=rules)
         opt_state = tree_from_flat(_local_tree(
-            optim.state_specs(specs, opt_cfg), mesh, None, device,
+            optim.state_specs(specs, opt_cfg), mesh, rules, device,
             zero=True))
         arg_bytes += _nbytes(opt_state)
         return (lambda: step(params, opt_state, ins)), \
@@ -350,7 +351,8 @@ def _prepare(model, cell, plan: dict, mesh, device: str, mp_assignment):
         model.cache_specs(rows, cell.seq_len), mesh, CACHE_RULES, device))
     arg_bytes += _nbytes(caches)
     layout = shd.ServingMeshLayout(mesh=mesh, data=data,
-                                   model=sizes["model"], n_slots=rows)
+                                   model=sizes["model"], n_slots=rows,
+                                   rules=rules)
     if cell.kind == "prefill":
         fn = steps.mesh_step(steps.make_prefill_step(model, mp=mp_assignment),
                              layout)
@@ -444,7 +446,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, overrides=None,
         rec["n_microbatches"] = plan["n_microbatches"]
         rec["optimizer"] = plan["optimizer"].name
     rec["param_bytes_per_rank"] = plan["param_bytes"]
-    _refuse(model, cell.kind, plan)
+    _refuse(model, cell.kind)
     with fake_group(multi_pod, device, mesh_axes) as (prod, mesh):
         chips = prod.size()
         baseline = (torch.cuda.memory_allocated() if device == "cuda"
@@ -483,7 +485,13 @@ def main(argv=None) -> None:
                     choices=("single", "multi", "both"))
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--rules", default="auto", choices=("auto", "default"),
+                    help="auto: the reference's choice (FSDP above "
+                         "FSDP_THRESHOLD_BYTES); default: DEFAULT_RULES")
     args = ap.parse_args(argv)
+    overrides = {"rules": shd.DEFAULT_RULES} if args.rules == "default" \
+        else None
+    suffix = "__default_rules" if overrides else ""
 
     archs = ASSIGNED if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) else [args.shape]
@@ -496,8 +504,8 @@ def main(argv=None) -> None:
         for shape in shapes:
             for mp in meshes:
                 mesh_name = MESHES[mp][0]
-                path = os.path.join(args.out,
-                                    f"{arch}__{shape}__{mesh_name}.json")
+                path = os.path.join(
+                    args.out, f"{arch}__{shape}__{mesh_name}{suffix}.json")
                 if os.path.exists(path):
                     with open(path) as f:
                         if json.load(f).get("status") in ("ok", "skip"):
@@ -506,7 +514,7 @@ def main(argv=None) -> None:
                 print(f"[dryrun] {arch} x {shape} x {mesh_name} ...",
                       flush=True)
                 try:
-                    rec = run_cell(arch, shape, mp)
+                    rec = run_cell(arch, shape, mp, overrides)
                 except Exception as e:  # record, keep sweeping
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "error",

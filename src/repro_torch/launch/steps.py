@@ -95,7 +95,7 @@ def _data_rows(batch: dict, layout) -> dict:
 
 def make_train_step(model, opt_cfg: optim.OptConfig,
                     n_microbatches: int = 1, mp: Optional[dict] = None,
-                    mesh=None):
+                    mesh=None, rules: Optional[dict] = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics), params
     and state updated in place; ``metrics`` holds 0-d tensors ``loss``,
     ``lr`` and ``grad_norm``. Gradients are taken with respect to detached
@@ -109,12 +109,23 @@ def make_train_step(model, opt_cfg: optim.OptConfig,
     block of its rows, under the mesh's layout (the layers' collectives,
     the loss's sums over ``data``, scales maxed over the mesh). The
     gradients are summed over ``data`` (in f32 when it has several ranks)
-    before the update."""
+    before the update.
+
+    ``rules`` place the params, as the reference's jitted step takes its
+    ``in_shardings`` (the default rules when None). Under ``FSDP_RULES``
+    a leaf whose ``embed`` dim ``data`` splits is gathered where the model
+    uses it, and its gradient comes back reduce-scattered: this rank's
+    block, already summed over ``data``, so the step's sum skips it (a
+    quantized weight's cotangent, summed over ``data`` before the fp8
+    cast's backward and shared out by ``1/data``, is then summed once by
+    the reduce-scatter, as by that sum on the default rules)."""
     ctx = _mp_ctx(mp)
     layout = shards = None
+    if mesh is None and rules is not None:
+        raise ValueError("rules place params over a mesh: pass mesh= too")
     if mesh is not None:
         refuse_mesh(model)
-        shards = optim.MeshShards(model.param_specs(), opt_cfg, mesh)
+        shards = optim.MeshShards(model.param_specs(), opt_cfg, mesh, rules)
         layout = shards.layout
 
     def value_and_grad(params: dict, batch: dict) -> tuple:
@@ -162,7 +173,9 @@ def make_train_step(model, opt_cfg: optim.OptConfig,
             loss, grads = value_and_grad(params, mbs[0])
         if layout is not None:
             with serving_layout_scope(layout), torch.no_grad():
-                grads = {k: dp_sum(v.float() if layout.data > 1 else v)
+                f32 = layout.data > 1
+                grads = {k: v.float() if f32 and shards.data_split(k)
+                         else dp_sum(v.float() if f32 else v)
                          for k, v in grads.items()}
         params, opt_state, metrics = optim.apply_updates(
             params, tree_from_flat(grads), opt_state, opt_cfg, shards)

@@ -33,6 +33,13 @@ configuration loads. Two execution modes, as in the reference:
 
 Params are the nested dict of tensors that :meth:`LM.init` returns (or
 ``repro_torch.bridge.params_from_flat`` builds from reference weights).
+Under a mesh layout whose rules split leaves over ``data`` (FSDP) each rank
+holds its blocks of them, and the model gathers a leaf where it uses it
+(:meth:`LM._gathered`): a layer's split leaves at the top of its body
+(inside its checkpoint, so they live for one layer and the recomputation
+gathers them again), the embedding table before the lookup, the head and
+the final norm before theirs. Each rank computes its own rows with the
+whole weights; nothing gathers an output.
 Caches are nested dicts keyed by layer, as the reference assembles them:
 ``{"k", "v"[, "pos"]}`` for attention layers, ``{"ckv", "kr"[, "pos"]}``
 for MLA layers, ``{"conv", "state"}`` (slot-major) for mamba layers and
@@ -52,6 +59,8 @@ import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import (current_serving_layout,
+                                              data_split_dims,
+                                              dp_gather_param,
                                               layer_stack_scope,
                                               serving_layout_scope,
                                               tp_gather, tp_sum)
@@ -420,6 +429,80 @@ class LM:
         return ops
 
     # ------------------------------------------------------------------
+    # FSDP: leaves split over data, gathered at use
+    # ------------------------------------------------------------------
+    def _fsdp_dims(self) -> dict:
+        """``{param path: the dim data splits}`` of the leaves the current
+        layout's rules split over ``data`` (empty without a layout, on a
+        data axis of one rank, or under the default rules)."""
+        layout = current_serving_layout()
+        if layout is None or layout.data == 1 or layout.rules is None:
+            return {}
+        key = (layout.rules, layout.data, layout.model)
+        memo = self.__dict__.setdefault("_fsdp_memo", {})
+        if key not in memo:
+            memo[key] = {p: d for p, d in data_split_dims(
+                self.param_specs(), layout).items() if d is not None}
+        return memo[key]
+
+    def _gathered(self, tree: dict, prefix: str, ctx: QuantContext,
+                  stacked: bool = False) -> tuple:
+        """``tree`` (the params under ``prefix``) with every leaf that the
+        layout splits over ``data`` gathered whole, and the context to run
+        them under: a weight goes through ``qops.gathered_weight`` under
+        its linear op's name (which may gather its codes and name the op
+        in the context it returns), any other leaf through
+        ``sharding.dp_gather_param``. ``stacked``: ``tree`` is one layer's
+        slice of a segment's stacked leaves."""
+        dims = self._fsdp_dims()
+        if not dims:
+            return tree, ctx
+
+        def walk(node: dict, path: str) -> dict:
+            nonlocal ctx
+            out = {}
+            for k, v in node.items():
+                p = f"{path}/{k}"
+                if isinstance(v, dict):
+                    out[k] = walk(v, p)
+                elif p not in dims:
+                    out[k] = v
+                elif k == "w":
+                    out[k], ctx = qops.gathered_weight(ctx, path, v,
+                                                       dims[p] - stacked)
+                else:
+                    out[k] = dp_gather_param(v, dims[p] - stacked)
+            return out
+        return walk(tree, prefix), ctx
+
+    def _table(self, params: dict) -> torch.Tensor:
+        """The embedding table, gathered whole under FSDP."""
+        w = params["embed"]["w"]
+        d = self._fsdp_dims().get("embed/w")
+        return w if d is None else dp_gather_param(w, d)
+
+    def _head_weight(self, params: dict, ctx: QuantContext,
+                     table: Optional[torch.Tensor] = None) -> tuple:
+        """The head's weight (the embedding table when tied), gathered
+        whole under FSDP, and the context the head runs under
+        (:meth:`_gathered`). A tied head takes ``table`` (the lookup's table)
+        as it is when gradients flow through it: the lookup's and the
+        head's parts of its gradient are then added on each rank before
+        the one reduce-scatter, as the default rules add them before the
+        step's one sum over ``data``."""
+        if self.cfg.tie_embeddings:
+            if table is not None and torch.is_grad_enabled() \
+                    and table.requires_grad:
+                return table, ctx
+            path, w = "embed/w", params["embed"]["w"]
+        else:
+            path, w = "lm_head/w", params["lm_head"]["w"]
+        d = self._fsdp_dims().get(path)
+        if d is None:
+            return w, ctx
+        return qops.gathered_weight(ctx, "lm_head", w, d)
+
+    # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
     def _block(self, p: dict, ctx: QuantContext, scope: str, sig: tuple,
@@ -515,14 +598,15 @@ class LM:
 
                 def body(p_i, h_, i=i, cache_i=cache_i):
                     with layer_stack_scope():
+                        p_i, ctx_i = self._gathered(p_i, f"layers/{i}", ctx)
                         return self._block(
-                            p_i, ctx, f"layers/{i}", cfg.layer_signature(i),
+                            p_i, ctx_i, f"layers/{i}", cfg.layer_signature(i),
                             h_, positions, window=cfg.window_for(i),
                             cache=cache_i, layer_idx=i, **kw)
 
                 h, _, aux_i = _remat(body, remat, params["layers"][str(i)], h)
                 aux_total = aux_total + aux_i
-            return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
+            return self._final_norm(params, ctx, h), aux_total
         for s, (sig, idxs) in enumerate(cfg.segments()):
             scope = f"segments/{s}"
             n = len(idxs)
@@ -532,8 +616,10 @@ class LM:
             def body(p_j, h_, j, scope=scope, sig=sig, idxs=idxs,
                      seg_cache=seg_cache):
                 with layer_stack_scope():
+                    p_j, ctx_j = self._gathered(p_j, scope, ctx,
+                                                stacked=True)
                     return self._block(
-                        p_j, ctx, scope, sig, h_, positions,
+                        p_j, ctx_j, scope, sig, h_, positions,
                         window=cfg.window_for(idxs[j]),
                         cache=(None if seg_cache is None
                                else _slice(seg_cache, j)), **kw)
@@ -559,13 +645,19 @@ class LM:
                 h, aux_total = run(main, n, h, aux_total)
             else:
                 h, aux_total = run(0, n, h, aux_total)
-        return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
+        return self._final_norm(params, ctx, h), aux_total
+
+    def _final_norm(self, params: dict, ctx: QuantContext,
+                    h: torch.Tensor) -> torch.Tensor:
+        return L.apply_norm(self._gathered(params["final_norm"], "final_norm",
+                                           ctx)[0], h, self.cfg.norm)
 
     def _embed(self, params: dict, tokens: torch.Tensor,
-               prefix_embeds: Optional[torch.Tensor] = None) -> tuple:
+               prefix_embeds: Optional[torch.Tensor] = None,
+               table: Optional[torch.Tensor] = None) -> tuple:
         """Token embeddings (B, T, d) with ``prefix_embeds`` (B, P, d)
         prepended, and their positions 0 .. P + T - 1."""
-        emb = self._lookup(params, tokens)
+        emb = self._lookup(params, tokens, table)
         if prefix_embeds is not None:
             emb = torch.cat([prefix_embeds.to(self.dtype), emb], dim=1)
         B, T = emb.shape[0], emb.shape[1]
@@ -573,11 +665,13 @@ class LM:
                                  device=emb.device)[None].expand(B, T)
         return emb, positions
 
-    def _lookup(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """Token embeddings. Under a serving mesh whose model axis splits
+    def _lookup(self, params: dict, tokens: torch.Tensor,
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings (from ``table``, the gathered table, when the
+        caller holds it). Under a serving mesh whose model axis splits
         the vocabulary, each rank looks up the ids of its block (zeros for
         the others) and the blocks are summed: one nonzero term, exact."""
-        w = params["embed"]["w"]
+        w = self._table(params) if table is None else table
         V = self.cfg.vocab_size
         layout = current_serving_layout()
         if layout is None or w.shape[0] * layout.model != V:
@@ -588,12 +682,14 @@ class LM:
         emb = torch.where(mine[..., None], emb, torch.zeros_like(emb))
         return tp_sum(emb)
 
-    def _head(self, params: dict, ctx: QuantContext,
-              h: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: dict, ctx: QuantContext, h: torch.Tensor,
+              w: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits over the whole vocabulary (a mesh's blocks of it
-        gathered over ``model``)."""
-        w = (params["embed"]["w"] if self.cfg.tie_embeddings
-             else params["lm_head"]["w"])
+        gathered over ``model``); ``w`` the head's weight when the caller
+        holds it gathered already, ``ctx`` then the context
+        :meth:`_head_weight` returned with it."""
+        if w is None:
+            w, ctx = self._head_weight(params, ctx)
         return tp_gather(L.col_linear(ctx, "lm_head", h, w,
                                       self.cfg.vocab_size),
                          self.cfg.vocab_size)
@@ -607,14 +703,16 @@ class LM:
         return self._head(params, ctx, h)
 
     def _ce(self, params: dict, ctx: QuantContext, h: torch.Tensor,
-            labels: torch.Tensor, weights) -> torch.Tensor:
+            labels: torch.Tensor, weights,
+            table: Optional[torch.Tensor] = None) -> torch.Tensor:
         from repro_torch.nn.losses import chunked_ce_loss
         # probe mode runs the head once over the whole sequence, so each op
         # is captured and probed once (as in the reference); so does an op
         # inventory trace, so its head operands have the probes' shapes (the
         # reference records one chunk there, and its calibration then fails
         # on a sequence longer than loss_chunk)
-        return chunked_ce_loss(lambda hi: self._head(params, ctx, hi), h,
+        w, hctx = self._head_weight(params, ctx, table)  # once for all chunks
+        return chunked_ce_loss(lambda hi: self._head(params, hctx, hi, w), h,
                                labels, weights, self.cfg.loss_chunk,
                                no_scan=(ctx.mode == "probe"
                                         or ctx.registry is not None))
@@ -629,40 +727,43 @@ class LM:
         tokens, labels = batch["tokens"], batch["labels"]
         weights = batch.get("weights")
         prefix = batch.get("prefix_embeds")
-        h, positions = self._embed(params, tokens, prefix)
+        table = self._table(params)
+        h, positions = self._embed(params, tokens, prefix, table)
         h, aux = self._backbone(params, ctx, h, positions)
         if prefix is not None:
             h = h[:, -tokens.shape[1]:]
-        loss = self._ce(params, ctx, h, labels, weights)
+        loss = self._ce(params, ctx, h, labels, weights, table)
         if cfg.mtp_depth > 0:
             if weights is None:
                 weights = torch.ones(tokens.shape, dtype=torch.float32,
                                      device=h.device)
             loss = loss + cfg.mtp_weight * _remat(
                 lambda h_: self._mtp_loss(params, ctx, h_, tokens, labels,
-                                          weights), cfg.remat, h)
+                                          weights, table), cfg.remat, h)
         return loss + aux
 
     def _mtp_loss(self, params: dict, ctx: QuantContext, h: torch.Tensor,
                   tokens: torch.Tensor, labels: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor,
+                  table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """DeepSeek-V3 multi-token prediction: predict t+2 from (h_t,
         emb_{t+1}) through one more block of the last layer's kind."""
         cfg = self.cfg
-        emb_next = self._lookup(params, labels)
+        mtp, ctx = self._gathered(params["mtp"], "mtp", ctx)
+        emb_next = self._lookup(params, labels, table)
         hcat = torch.cat([h, emb_next], dim=-1)
-        hm = qops.linear(ctx, "mtp/proj", hcat, params["mtp"]["proj"]["w"])
-        hm = L.apply_norm(params["mtp"]["norm"], hm, cfg.norm)
+        hm = qops.linear(ctx, "mtp/proj", hcat, mtp["proj"]["w"])
+        hm = L.apply_norm(mtp["norm"], hm, cfg.norm)
         B, T = tokens.shape
         positions = torch.arange(T, dtype=torch.int32,
                                  device=hm.device)[None].expand(B, T)
-        hm, _, _ = self._block(params["mtp"]["block"], ctx, "mtp/block",
+        hm, _, _ = self._block(mtp["block"], ctx, "mtp/block",
                                cfg.layer_signature(cfg.n_layers - 1), hm,
                                positions)
         # targets: labels shifted by one more step
         tgt = F.pad(labels[:, 1:], (0, 1))
         w = F.pad(weights[:, 1:], (0, 1))
-        return self._ce(params, ctx, hm, tgt, w)
+        return self._ce(params, ctx, hm, tgt, w, table)
 
     # ------------------------------------------------------------------
     # serving

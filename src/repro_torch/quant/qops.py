@@ -34,7 +34,10 @@ A linear op's weight (``rhs``) is quantized once per format and kept
 (:mod:`repro_torch.quant.weight_cache`) on both branches: as fp8 codes plus
 a scale, dequantized at use, for fake quant; as the kernels' ``(wq,
 sw_inv)`` inside ``fp8_linear``. The result is bit-equal to quantizing per
-call. Activations and BGEMM operands are quantized per call.
+call. Activations and BGEMM operands are quantized per call. Under FSDP a
+weight whose ``data`` ranks each hold a block is quantized on the block,
+with the whole weight's scale, and its one-byte codes are gathered
+(:func:`gathered_weight`).
 
 When ``ctx.registry`` is a list, every op records an :class:`OpInfo`.
 """
@@ -46,12 +49,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.sharding import dp_copy, dp_share, tp_copy
+from repro_torch.distributed.sharding import (dp_copy, dp_gather_param,
+                                              dp_share, tp_copy)
 from repro_torch.quant import qtensor, weight_cache
 from repro_torch.quant.formats import get_format
 
 __all__ = ["QuantContext", "OpInfo", "qeinsum", "linear", "bgemm",
-           "einsum_f32acc"]
+           "einsum_f32acc", "gathered_weight"]
 
 KIND_LINEAR = "linear"   # rhs is a weight tensor (persistent)
 KIND_BGEMM = "bgemm"     # both operands are activations
@@ -93,6 +97,9 @@ class QuantContext:
     default_format: str = "bf16"
     act_scale_axis: Optional[int] = None
     act_scale_token: bool = False
+    # linear ops whose weight operand the caller passes quantized already
+    # (FSDP's gathered codes: :func:`gathered_weight`)
+    gathered: frozenset = frozenset()
 
     def format_for(self, name: str) -> str:
         if self.mp is None:
@@ -146,6 +153,48 @@ def _stored(q: qtensor.QTensor) -> tuple:
     return q, float(q.scale_inv)
 
 
+def _dequantized(codes: torch.Tensor, s_inv: float, q: qtensor.QTensor,
+                 dtype) -> torch.Tensor:
+    """Kept codes as the matmul consumes them (``_weight_operand``)."""
+    if codes.element_size() == 1 or dtype == torch.float32:
+        return codes.to(dtype).mul_(s_inv)
+    return qtensor.QTensor(codes, q.scale_inv, q.fmt_name).dequantize(dtype)
+
+
+def gathered_weight(ctx: "QuantContext", name: str, w: torch.Tensor,
+                    dim: int) -> tuple:
+    """(the whole of linear op ``name``'s weight, of which ``w`` is this
+    rank's block along ``dim`` over ``data`` (FSDP), the context the op
+    runs under). A weight that takes gradients, or that the op runs
+    unquantized, is gathered as it is (``sharding.dp_gather_param``) and
+    ``ctx`` returned unchanged. A constant weight the op quantizes (fake
+    quant) is quantized on the block instead, with the whole weight's
+    per-tensor scale (its amax maxed over ``data`` and ``model``), kept in
+    the weight cache on the block, and only its one-byte codes are
+    gathered: the codes of the whole weight bit for bit (the scale is per
+    tensor), dequantized as :func:`_weight_operand` would; the context
+    returned names the op in ``gathered``, so that the op takes them as
+    they are."""
+    fmt_name = ctx.format_for(name) if ctx.mode == "mp" else None
+    if fmt_name is None or not get_format(fmt_name).is_quantized \
+            or (torch.is_grad_enabled() and w.requires_grad) \
+            or w.element_size() == 1:
+        return dp_gather_param(w, dim), ctx
+    if ctx.impl == "kernel":
+        raise NotImplementedError(
+            f"{name}: the fp8 kernels' padded weight form under FSDP (the "
+            f"fake-quant forms gather a block's codes)")
+    scale = None
+    if ctx.scales is not None and name in ctx.scales:
+        scale = ctx.scales[name][1]
+    q, s_inv = weight_cache.cached(
+        w, ("fsdp", fmt_name),
+        lambda: _stored(qtensor.quantize(w, fmt_name, scale=scale,
+                                         batch_rows=True)), scale=scale)
+    whole = _dequantized(dp_gather_param(q.data, dim), s_inv, q, w.dtype)
+    return whole, dataclasses.replace(ctx, gathered=ctx.gathered | {name})
+
+
 def _weight_operand(w: torch.Tensor, fmt_name: str, scale) -> torch.Tensor:
     """A linear op's weight as the MP matmul consumes it: quantized once
     per format (per-tensor scale), dequantized at each use — the bits of
@@ -167,9 +216,7 @@ def _weight_operand(w: torch.Tensor, fmt_name: str, scale) -> torch.Tensor:
         w, ("fake", fmt_name),
         lambda: _stored(qtensor.quantize(w, fmt_name, scale=scale)),
         scale=scale)
-    if q.data.element_size() == 1 or w.dtype == torch.float32:
-        return q.data.to(w.dtype).mul_(s_inv)
-    return q.dequantize(w.dtype)
+    return _dequantized(q.data, s_inv, q, w.dtype)
 
 
 # Einsum labels that index batch or token positions in the op specs: B/T/S
@@ -276,9 +323,11 @@ def qeinsum(ctx: QuantContext, name: str, spec: str, lhs: torch.Tensor,
                 rhs_axes = act_quant_axes(ctx, rhs.ndim)
             lhs = _quantize_operand(lhs, fmt_name, ctx.impl, s_lhs, lhs_axes,
                                     batch_rows=True)
-            rhs = (_weight_operand(rhs, fmt_name, s_rhs) if kind == KIND_LINEAR
-                   else _quantize_operand(rhs, fmt_name, ctx.impl, s_rhs,
-                                          rhs_axes, batch_rows=True))
+            if kind != KIND_LINEAR:
+                rhs = _quantize_operand(rhs, fmt_name, ctx.impl, s_rhs,
+                                        rhs_axes, batch_rows=True)
+            elif name not in ctx.gathered:   # (else FSDP's gathered codes)
+                rhs = _weight_operand(rhs, fmt_name, s_rhs)
     elif ctx.mode != "plain":
         raise ValueError(f"unknown QuantContext mode {ctx.mode!r}")
     if copy_lhs:

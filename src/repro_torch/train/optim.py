@@ -19,7 +19,8 @@ corrections ``b1 ** t`` / ``b2 ** t`` and Adafactor's ``step ** -0.8`` are
 f32 tensors, divisions by host scalars go through
 :func:`repro_torch.quant.formats.true_div` (one rounding, as the reference
 divides), the global gradient norm adds the leaves' sums in the
-reference's leaf order (dict keys sorted at every level), and the cosine of
+reference's leaf order (dict keys sorted at every level; over several
+ranks each leaf's sum accumulated in f64 and rounded once), and the cosine of
 the schedule is :func:`_cosf`, the CPU's libm ``cosf`` that the reference's
 schedule calls op by op, evaluated in float64 tensor arithmetic (on the CPU
 the schedule is then the reference's bit for bit).
@@ -173,46 +174,65 @@ def init_state(param_specs: dict, cfg: OptConfig,
 
 def _global_norm(tree: dict, shards: Optional["MeshShards"] = None
                  ) -> torch.Tensor:
-    """The leaves' f32 sums of squares added in the reference's leaf order.
-    On a mesh the leaves are this rank's blocks: the sums of the leaves
-    ``model`` splits are summed over it, every other leaf counts once."""
-    sums = [torch.sum(torch.square(x.float()))
+    """The leaves' sums of squares added in f32 in the reference's leaf
+    order, each leaf's f32 squares summed in f32 as the reference sums them.
+    Over a mesh of several ranks they are summed in f64 and rounded once to
+    f32 instead, so that a leaf's sum does not depend on how the mesh
+    splits it (f32 partial sums would add in another order on every
+    layout); one rank splits nothing, and its step keeps the f32 sums (an
+    f64 sum cost llama3_1b's step 7.8 ms of device time on an H100). On a
+    mesh the leaves are this rank's blocks: the sums of the leaves
+    ``model`` splits are summed over it, and of the leaves ``data`` splits
+    (FSDP) over ``data``; every other leaf counts once."""
+    wide = shards is not None and shards.layout.data * shards.layout.model > 1
+    sums = [torch.sum(torch.square(x.float()),
+                      dtype=torch.float64 if wide else None)
             for _, x in sorted_leaves(tree)]
     if shards is not None and sums:
-        keep = torch.tensor([shards.model_split(path)
-                             or shards.layout.model_index == 0
-                             for path, _ in sorted_leaves(tree)],
-                            device=sums[0].device)
+        lay = shards.layout
+        paths = [path for path, _ in sorted_leaves(tree)]
+        over_data = any(shards.data_split(p) for p in paths)
+        keep = torch.tensor([
+            (shards.model_split(p) or lay.model_index == 0)
+            and (not over_data or shards.data_split(p)
+                 or lay.data_index == 0) for p in paths],
+            device=sums[0].device)
         vec = torch.where(keep, torch.stack(sums), 0.0)
-        with sharding.serving_layout_scope(shards.layout):
+        with sharding.serving_layout_scope(lay):
             vec = sharding.tp_sum(vec)
+            if over_data:
+                vec = sharding.dp_sum(vec)
         sums = list(vec.unbind())
     total = 0
     for x in sums:
-        total = total + x
+        total = total + x.float()
     return torch.sqrt(total)
 
 
 class MeshShards:
     """Where params and optimizer state lie on a (data, model) mesh: each
-    param leaf is this rank's block under ``sharding.partition_spec``, each
-    state leaf its block under ``sharding.zero_partition_spec`` (ZeRO-1:
-    AdamW's moments also split over ``data`` along their largest free dim).
-    A data rank updates its block of the moments and of the param and then
-    gathers the param over ``data``. Adafactor's factored means and its
-    update's RMS span the whole leaf and are not reduced over the mesh: it
-    is refused on more than one rank."""
+    param leaf is this rank's block under ``sharding.partition_spec`` of
+    ``rules`` (the default rules when None), each state leaf its block
+    under ``sharding.zero_partition_spec`` (ZeRO-1: AdamW's moments also
+    split over ``data`` along their largest free dim). A data rank updates
+    its block of the moments and of the param and then gathers the param
+    over ``data``. A leaf the rules already split over ``data``
+    (``FSDP_RULES``, ZeRO-3) keeps the param's blocks for its moments and
+    is updated in place, block for block. Adafactor's factored means and
+    its update's RMS span the whole leaf and are not reduced over the mesh:
+    it is refused on more than one rank."""
 
-    def __init__(self, param_specs: dict, cfg: OptConfig, mesh):
-        self.layout = sharding.training_layout(mesh)
+    def __init__(self, param_specs: dict, cfg: OptConfig, mesh,
+                 rules: Optional[dict] = None):
+        self.layout = sharding.training_layout(mesh, rules)
         if cfg.name != "adamw" and self.layout.data * self.layout.model > 1:
             raise NotImplementedError(
                 f"{cfg.name} over a {self.layout.data}x{self.layout.model} "
                 f"mesh: its factored moments and update RMS span whole "
                 f"leaves (ROADMAP item A9d); AdamW shards")
-        self.params = {p: sharding.partition_spec(s, mesh)
+        self.params = {p: sharding.partition_spec(s, mesh, rules)
                        for p, s in param_specs.items()}
-        self.state = {p: sharding.zero_partition_spec(s, mesh)
+        self.state = {p: sharding.zero_partition_spec(s, mesh, rules)
                       for p, s in state_specs(param_specs, cfg).items()}
 
     @staticmethod
@@ -223,6 +243,12 @@ class MeshShards:
     def model_split(self, path: str) -> bool:
         spec = self.params[path]
         return any("model" in self._axes(spec, d) for d in range(len(spec)))
+
+    def data_split(self, path: str) -> bool:
+        """Whether the rules split the param itself over ``data`` (FSDP):
+        its gradient then arrives as this rank's block, summed."""
+        spec = self.params[path]
+        return any("data" in self._axes(spec, d) for d in range(len(spec)))
 
     def zero_dim(self, path: str) -> Optional[int]:
         """The dim of ``path``'s moments that ``data`` splits (None: the
@@ -307,7 +333,7 @@ def apply_updates(params: dict, grads: dict, state: dict,
     ``metrics`` ``{"lr", "grad_norm"}`` (0-d f32 tensors), as the
     reference returns its new trees. With ``shards`` the trees hold this
     rank's blocks (:class:`MeshShards`) and ``grads`` the whole batch's
-    gradients of them."""
+    gradients of them (a leaf split over ``data``: its block's)."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = _global_norm(grads, shards)
@@ -320,7 +346,8 @@ def apply_updates(params: dict, grads: dict, state: dict,
         st = {pre: fs[f"{pre}/{path}"] for pre in ("mu", "nu", "vr", "vc",
                                                    "v")
               if f"{pre}/{path}" in fs}
-        d = None if shards is None else shards.zero_dim(path)
+        d = None if shards is None or shards.data_split(path) \
+            else shards.zero_dim(path)
         if d is None:
             _update_leaf(cfg, step, lr, scale, p, fg[path], st)
             continue
